@@ -1,0 +1,180 @@
+"""Kernel-against-plain checks and timings on the card.
+
+Shared by `chip_smoke.py` and the CUDA-only tests: random inputs made from
+a numpy seed go through a CUDA kernel and through its plain PyTorch
+version on the same device; the result is the max-abs deviation and both
+times from CUDA events.  Tolerances are the JAX package's own for the
+same layers (`tests/test_patch_pallas.py:114, :400, :439`):
+
+  K1 stream-collide: float32 < 1e-5; bf16 g-storage < 2e-3 (decoded f)
+  K2 Bouzidi:        float32 < 1e-6; bf16 g-storage < 2e-3 (decoded f)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from open_ludwig_tpu.cases import make_case_sphere
+from open_ludwig_tpu.config import CaseConfig, load_case_config
+from open_ludwig_tpu.core.patch import (
+    BC_INLET,
+    BC_INTERFACE,
+    BC_MIRROR_Y,
+    BC_MIRROR_Z,
+    BC_OUTLET,
+    PatchLevel,
+)
+from open_ludwig_tpu.geometry import load_mesh
+from open_ludwig_tpu.scaling import DomainParams, compute_domain_params
+
+from . import lattice as lat
+from .core.patch import build_patches
+from .ops import storage
+from .ops.cuda_step import bouzidi, stream_collide
+from .ops.dense_step import apply_bouzidi_dense, dense_stream_collide
+
+K1_TOL = {False: 1e-5, True: 2e-3}  # keyed by store_bf16
+K2_TOL = {False: 1e-6, True: 2e-3}
+
+
+def bench_case(case_dir: str, **over) -> Tuple[CaseConfig, object, DomainParams,
+                                               List[PatchLevel]]:
+    """The bench case of bench.py:67-104 (sphere at Re~1M, N=25, 3 levels +
+    wake, wall model, Bouzidi on the finest level, bf16 g-storage), with
+    the TPU-only flat coarse layout off.  `over` overrides case options."""
+    opts = dict(steps=400, ramp_steps=200, output_freq=100000, diag_freq=100,
+                wake_enabled=True, precision="bfloat16")
+    opts.update(over)
+    make_case_sphere(case_dir, "1M", **opts)
+    cfg = dataclasses.replace(load_case_config(case_dir), flat_coarse="off")
+    mesh = load_mesh(cfg.stl_path, scale=cfg.stl_scale)
+    params = compute_domain_params(cfg, mesh.min_bounds, mesh.max_bounds)
+    return cfg, mesh, params, build_patches(cfg, mesh, params)
+
+
+def time_cuda(fn: Callable[[], object], reps: int, warmup: int = 1) -> float:
+    """Milliseconds per call over `reps` calls, between CUDA events."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def random_level_inputs(patch: PatchLevel, store_bf16: bool, seed: int,
+                        device) -> Dict:
+    """f (storage dtype), vel and float32 f-space ghost planes for every
+    interface face of `patch`, perturbed around rest."""
+    rng = np.random.default_rng(seed)
+    sh = tuple(patch.interior)
+    f = (lat.W[:, None, None, None] * (1 + 0.05 * rng.standard_normal((27,) + sh))
+         ).astype(np.float32)
+    f = torch.as_tensor(f, device=device)
+    if store_bf16:
+        f = storage.encode_f(f, storage.STORE_BF16)
+    vel = torch.as_tensor((0.02 * rng.standard_normal((3,) + sh)).astype(np.float32),
+                          device=device)
+    planes = {}
+    for fc in range(6):
+        if patch.face_bc[fc] != BC_INTERFACE:
+            continue
+        t = [a for a in range(3) if a != fc // 2]
+        shp = (27, sh[t[0]] + 2, sh[t[1]] + 2)
+        planes[fc] = torch.as_tensor(
+            (lat.W[:, None, None] * (1 + 0.03 * rng.standard_normal(shp))
+             ).astype(np.float32), device=device)
+    return {"f": f, "vel": vel, "iface": planes}
+
+
+def bench_k1_cases(levels: List[PatchLevel], statics: List[Dict]
+                   ) -> List[Tuple[str, PatchLevel, Dict]]:
+    """K1 check configurations on the bench levels: level 1 as built (inlet,
+    outlet, mirrors), level 2's box with two face mixes that put the inlet
+    and the outlet beside interface and mirror faces, and level 3 as built
+    (six interface faces, the sphere's wall-model cells)."""
+    mix_a = (BC_INLET, BC_INTERFACE, BC_MIRROR_Y, BC_INTERFACE, BC_MIRROR_Z,
+             BC_INTERFACE)
+    mix_b = (BC_INTERFACE, BC_OUTLET, BC_INTERFACE, BC_MIRROR_Y, BC_INTERFACE,
+             BC_MIRROR_Z)
+    return [
+        ("L1", levels[0], statics[0]),
+        ("L2-inlet-mix", dataclasses.replace(levels[1], face_bc=mix_a),
+         with_sponge_ramp(statics[1])),
+        ("L2-outlet-mix", dataclasses.replace(levels[1], face_bc=mix_b),
+         with_sponge_ramp(statics[1])),
+        ("L3", levels[2], with_sponge_ramp(statics[2])),
+    ]
+
+
+def with_sponge_ramp(static: Dict) -> Dict:
+    """The level's statics with a sponge ramp over its last three x-planes
+    (so the sponge blend runs even on levels inside the sponge-free core)."""
+    sponge = static["sponge"].clone()
+    ramp = torch.linspace(0.1, 0.6, 3, device=sponge.device)[:, None, None]
+    sponge[-3:] = torch.maximum(sponge[-3:], ramp)
+    return {**static, "sponge": sponge}
+
+
+def check_stream_collide(patch: PatchLevel, static: Dict, store_bf16: bool,
+                         seed: int, kw: Dict, device, reps: int = 20,
+                         plain_reps: int = 3) -> Dict:
+    """K1 against dense_stream_collide on the card.  Returns max-abs errors
+    of f (decoded), rho and vel, and ms per call of both."""
+    inp = random_level_inputs(patch, store_bf16, seed, device)
+    u, s = 0.04, 9
+
+    def kernel():
+        return stream_collide(inp["f"], inp["vel"], u, s, static, patch,
+                              iface=inp["iface"], **kw)
+
+    def plain():
+        fo, ro, vo = dense_stream_collide(
+            storage.decode_f(inp["f"]), inp["vel"], u, s, static, patch,
+            iface=inp["iface"], **kw)
+        if store_bf16:
+            fo = storage.encode_f(fo, storage.STORE_BF16)
+        return fo, ro, vo
+
+    fk, rk, vk = kernel()
+    fp, rp, vp = plain()
+    torch.cuda.synchronize()
+    err = {
+        "f": float((storage.decode_f(fk) - storage.decode_f(fp)).abs().max()),
+        "rho": float((rk - rp).abs().max()),
+        "vel": float((vk - vp).abs().max()),
+    }
+    finite = bool(torch.isfinite(storage.decode_f(fk)).all())
+    out = {"err": err, "max_abs_err": max(err.values()), "finite": finite,
+           "tol": K1_TOL[store_bf16]}
+    del fk, rk, vk, fp, rp, vp
+    out["ms"] = time_cuda(kernel, reps)
+    out["plain_ms"] = time_cuda(plain, plain_reps)
+    return out
+
+
+def check_bouzidi(patch: PatchLevel, plan: Dict, store_bf16: bool, seed: int,
+                  device, reps: int = 50, plain_reps: int = 10) -> Dict:
+    """K2 (snapshot + kernel, in place) against apply_bouzidi_dense on the
+    card.  Returns the max-abs error of decoded f and ms per call of both."""
+    f0 = random_level_inputs(patch, store_bf16, seed, device)["f"]
+    fk = bouzidi(f0.clone(), plan)
+    fp = apply_bouzidi_dense(f0, plan)
+    torch.cuda.synchronize()
+    err = float((storage.decode_f(fk) - storage.decode_f(fp)).abs().max())
+    changed = int((fk != f0).sum())
+    del fk, fp
+    work = f0.clone()
+    out = {"max_abs_err": err, "changed": changed, "tol": K2_TOL[store_bf16]}
+    out["ms"] = time_cuda(lambda: bouzidi(work, plan), reps)
+    out["plain_ms"] = time_cuda(lambda: apply_bouzidi_dense(f0, plan), plain_reps)
+    return out
+

@@ -1,0 +1,188 @@
+"""Wrappers of the hand-written CUDA kernels K1 (stream-collide) and K2
+(Bouzidi), with their launch counters.
+
+Each wrapper checks device, dtype, shape and contiguity, then:
+  - for CPU tensors runs the kernel's plain PyTorch version
+    (ops/dense_step.py) — the path the CPU tests hold against the JAX
+    package;
+  - for CUDA tensors launches the kernel on torch.cuda.current_stream() and
+    raises if the launch fails.  There is no fallback: a build or launch
+    failure is an error.
+`LAUNCHES` counts kernel launches only (never the plain path), so a run
+can show that its main path went through the kernels.
+
+K1 `stream_collide` (csrc/stream_collide.cu) replaces the Pallas kernel
+make_pallas_step (open_ludwig_tpu/ops/pallas_step.py:247).  Bound on the
+card by device-memory bytes (~145 B per cell per bf16 sub-step); the design
+answers with one thread per cell, z-fastest coalesced rows read through
+the read-only cache, A->B buffers (no in-place hazard between concurrent
+CTAs), and g-space math on bf16 storage so decode/encode are bare casts.
+
+K2 `bouzidi` (csrc/bouzidi.cu) replaces make_bouzidi_pallas
+(pallas_step.py:62).  Bound by launch latency on the bench box (a few MB);
+one thread per box cell reads an uncorrected snapshot and writes only the
+linked slots in place.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import torch
+
+from open_ludwig_tpu.core.patch import BC_INTERFACE, PatchLevel
+
+from . import build, storage
+from .dense_step import apply_bouzidi_dense, dense_stream_collide
+
+LAUNCHES: Dict[str, int] = {"stream_collide": 0, "bouzidi": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_D = ctypes.c_double
+_SC_ARGTYPES = (
+    [_I] + [_P] * 14 + [_I] * 5 + [_I] * 6 + [_F, _I] + [_D] * 4
+    + [_I, _I, _P]
+)
+_BZ_ARGTYPES = [_I, _P, _P, _P] + [_I] * 9 + [_P]
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _lib(name: str, fn: str, argtypes) -> ctypes._CFuncPtr:
+    f = getattr(build.load(name).lib, fn)
+    f.argtypes = argtypes
+    f.restype = ctypes.c_int
+    return f
+
+
+def _raise_on(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(
+            f"{what} launch failed: CUDA error {rc} "
+            f"({torch.cuda.get_device_name()})"
+        )
+
+
+def _check(t: torch.Tensor, name: str, shape, dtypes, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, expected {device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name} dtype {t.dtype}, expected one of {dtypes}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def stream_collide(
+    f: torch.Tensor,  # (27, X, Y, Z) float32 f or bf16 g = f - w
+    vel: torch.Tensor,  # (3, X, Y, Z) float32
+    u_inlet: float,
+    t_seed: int,
+    static: Dict,  # obstacle (bool), sponge, wall_dist: (X, Y, Z)
+    patch: PatchLevel,
+    *,
+    c_wale: float,
+    nu_sgs_background: float,
+    inlet_turbulence: float,
+    wall_model: bool,
+    sponge_blend: bool,
+    iface: Optional[Dict[int, torch.Tensor]] = None,  # face -> f32 (27, A+2, B+2)
+):
+    """K1: one stream-collide sub-step.  Returns new (f, rho, vel) in the
+    storage dtype of `f` (A -> B buffers; the inputs are not modified)."""
+    X, Y, Z = patch.interior
+    dev = f.device
+    _check(f, "f", (27, X, Y, Z), (torch.float32, torch.bfloat16), dev)
+    _check(vel, "vel", (3, X, Y, Z), (torch.float32,), dev)
+    _check(static["obstacle"], "obstacle", (X, Y, Z), (torch.bool,), dev)
+    _check(static["sponge"], "sponge", (X, Y, Z), (torch.float32,), dev)
+    _check(static["wall_dist"], "wall_dist", (X, Y, Z), (torch.float32,), dev)
+    iface = iface or {}
+    planes = []
+    for face in range(6):
+        if patch.face_bc[face] != BC_INTERFACE:
+            planes.append(None)
+            continue
+        if face not in iface:
+            raise ValueError(f"interface face {face} has no ghost plane")
+        t = [a for a in range(3) if a != face // 2]
+        shape = (27, patch.interior[t[0]] + 2, patch.interior[t[1]] + 2)
+        _check(iface[face], f"iface[{face}]", shape, (torch.float32,), dev)
+        planes.append(iface[face])
+    kw = dict(
+        c_wale=c_wale, nu_sgs_background=nu_sgs_background,
+        inlet_turbulence=inlet_turbulence, wall_model=wall_model,
+        sponge_blend=sponge_blend,
+    )
+    if dev.type == "cpu":
+        fo, rho, vo = dense_stream_collide(
+            storage.decode_f(f), vel, u_inlet, t_seed, static, patch,
+            iface=iface, **kw,
+        )
+        if f.dtype == torch.bfloat16:
+            fo = storage.encode_f(fo, storage.STORE_BF16)
+        return fo, rho, vo
+    if dev.type != "cuda":
+        raise ValueError(f"stream_collide: unsupported device {dev}")
+
+    fn = _lib("stream_collide", "ol_stream_collide", _SC_ARGTYPES)
+    f_out = torch.empty_like(f)
+    rho = torch.empty((X, Y, Z), dtype=torch.float32, device=dev)
+    vel_out = torch.empty_like(vel)
+    rc = fn(
+        int(f.dtype == torch.bfloat16),
+        f.data_ptr(), vel.data_ptr(), f_out.data_ptr(), rho.data_ptr(),
+        vel_out.data_ptr(),
+        static["obstacle"].data_ptr(), static["sponge"].data_ptr(),
+        static["wall_dist"].data_ptr(),
+        *[(p.data_ptr() if p is not None else None) for p in planes],
+        X, Y, Z, int(patch.lo[1]), int(patch.lo[2]),
+        *[int(b) for b in patch.face_bc],
+        float(u_inlet), int(t_seed),
+        float(patch.tau), float(c_wale), float(nu_sgs_background),
+        float(inlet_turbulence),
+        int(bool(wall_model)), int(bool(sponge_blend)),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(rc, "stream_collide")
+    LAUNCHES["stream_collide"] += 1
+    return f_out, rho, vel_out
+
+
+def bouzidi(f: torch.Tensor, plan: Dict) -> torch.Tensor:
+    """K2: Bouzidi correction of (27, X, Y, Z) f (float32 f or bf16 g).
+    plan["S"] is a float32 (27, bx, by, bz) tensor on f's device.  On CUDA
+    the correction is written into `f` in place and `f` is returned; on
+    the CPU the plain version returns a new tensor."""
+    dev = f.device
+    if f.dim() != 4 or f.shape[0] != 27:
+        raise ValueError(f"f shape {tuple(f.shape)}, expected (27, X, Y, Z)")
+    _check(f, "f", f.shape, (torch.float32, torch.bfloat16), dev)
+    _check(plan["S"], "S", (27,) + tuple(plan["dim"]), (torch.float32,), dev)
+    lx, ly, lz = plan["lo"]
+    bx, by, bz = plan["dim"]
+    X, Y, Z = f.shape[1:]
+    if lx < 0 or ly < 0 or lz < 0 or lx + bx > X or ly + by > Y or lz + bz > Z:
+        raise ValueError(f"Bouzidi box {plan['lo']}+{plan['dim']} outside {X, Y, Z}")
+    if dev.type == "cpu":
+        return apply_bouzidi_dense(f, plan)
+    if dev.type != "cuda":
+        raise ValueError(f"bouzidi: unsupported device {dev}")
+    fn = _lib("bouzidi", "ol_bouzidi", _BZ_ARGTYPES)
+    # uncorrected post-collision snapshot of the box (see csrc/bouzidi.cu)
+    snap = f[:, lx:lx + bx, ly:ly + by, lz:lz + bz].contiguous()
+    rc = fn(
+        int(f.dtype == torch.bfloat16), snap.data_ptr(), plan["S"].data_ptr(),
+        f.data_ptr(), bx, by, bz, lx, ly, lz, X, Y, Z,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(rc, "bouzidi")
+    LAUNCHES["bouzidi"] += 1
+    return f

@@ -1,0 +1,403 @@
+"""Dense-patch stream + BC + collide, ghost planes and Bouzidi: plain PyTorch.
+
+Port of the XLA path of `open_ludwig_tpu/ops/dense_step.py`.  These are the
+plain versions of the two CUDA kernels and the torch glue between them:
+
+  - `dense_stream_collide`: one sub-step of one level (K1's plain version).
+    Streaming is a 3-axis roll per direction; every boundary condition is a
+    masked select on the destination face row, in the reference precedence
+    inlet > outlet > y-mirror > z-mirror, with interface faces read from
+    per-face ghost planes (reference: src/physics_kernels.jl:99-120);
+  - `interface_endpoints[_pair]` / `interface_from_endpoints`: the ghost
+    planes, trilinearly and temporally interpolated from the parent with
+    the reference's parity-biased corner rule and f_neq rescaling
+    (reference: src/physics_interpolation.jl:16-138);
+  - `build_bouzidi_dense_plan` / `apply_bouzidi_dense`: the Bouzidi
+    sub-box correction (K2's plain version; reference:
+    src/bouzidi_kernel.jl:38-88).
+
+Arrays are unpadded: every level's state is (27, X, Y, Z) over its
+interior (the port drops the TPU's y->8 / z->128 tile padding).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from open_ludwig_tpu.core.patch import (
+    BC_INLET,
+    BC_INTERFACE,
+    BC_MIRROR_Y,
+    BC_MIRROR_Z,
+    BC_OUTLET,
+    PatchLevel,
+)
+
+from .. import lattice as lat
+from .collide_math import _CT, _contract, collide, hash_noise, inlet_equilibrium
+from .storage import decode_f
+
+
+def _upsample_axis(slab: torch.Tensor, axis: int, g_start: int, length: int):
+    """2x refinement along `axis` with the reference's parity-biased corner
+    rule: fine cell g interpolates parent cells (g//2 - 1, g//2) with weight
+    0.25 (g even) / 0.75 (g odd) on the upper corner.  `slab` covers parent
+    cells starting at j0 = g_start//2 - 1; returns `length` fine samples
+    starting at global fine coordinate g_start."""
+    n = slab.shape[axis]
+    a = slab.narrow(axis, 0, n - 1)
+    b = slab.narrow(axis, 1, n - 1)
+    even = 0.75 * a + 0.25 * b
+    odd = 0.25 * a + 0.75 * b
+    inter = torch.stack([even, odd], dim=axis + 1)
+    shape = list(even.shape)
+    shape[axis] = 2 * even.shape[axis]
+    inter = inter.reshape(shape)
+    # first fine sample of `inter` is g = 2*(j0+1) = 2*(g_start//2)
+    off = g_start - 2 * (g_start // 2)
+    return inter.narrow(axis, off, length)
+
+
+def _face_geom(face: int, patch: PatchLevel):
+    axis = face // 2
+    t_axes = [ax for ax in range(3) if ax != axis]
+    g_face = (
+        patch.lo[axis] - 1 if face % 2 == 0
+        else patch.lo[axis] + patch.interior[axis]
+    )
+    return axis, t_axes, g_face
+
+
+def interface_endpoints(
+    patch: PatchLevel,
+    parent: PatchLevel,
+    p_state: Optional[Dict],
+    _states: Optional[List[Dict]] = None,
+) -> Dict[int, Dict]:
+    """Per interface face: trilinearly upsampled (f, rho, u) ghost planes of
+    ONE parent state, f decoded to float32 f-space.  The temporal blend is
+    linear and commutes with the slab/upsample pipeline, so the scheduler
+    computes endpoints once per parent step for (old, new) and each fine
+    sub-step only lerps and applies the nonlinear feq/rescale
+    (interface_from_endpoints).  With `_states`, a batch of parent states
+    shares one op sequence on a leading axis.
+
+    Slabs are gathered with clamped indices, which is the reference's
+    slice-then-edge-pad (the clamp only engages where a child face touches
+    the parent's edge)."""
+    states = _states if _states is not None else [p_state]
+    batched = _states is not None
+    extra = 1 if batched else 0
+    out = {}
+    for face in range(6):
+        if patch.face_bc[face] != BC_INTERFACE:
+            continue
+        axis, t_axes, g_face = _face_geom(face, patch)
+        A = patch.interior[t_axes[0]]
+        B = patch.interior[t_axes[1]]
+        p0 = g_face // 2 - 1
+        w_face = 0.25 + 0.5 * (g_face % 2)
+        gA0 = patch.lo[t_axes[0]] - 1
+        gB0 = patch.lo[t_axes[1]] - 1
+
+        def slab(arr, lead, _axis=axis, _t=t_axes, _p0=p0, _A=A, _B=B,
+                 _gA0=gA0, _gB0=gB0, _face=face):
+            for ax in range(3):
+                if ax == _axis:
+                    lo_l = _p0 - parent.lo[ax]
+                    want = (lo_l, lo_l + 2)
+                else:
+                    g0 = _gA0 if ax == _t[0] else _gB0
+                    ln = _A + 2 if ax == _t[0] else _B + 2
+                    j0 = g0 // 2 - 1
+                    j1 = (g0 + ln - 1) // 2
+                    want = (j0 - parent.lo[ax], j1 - parent.lo[ax] + 1)
+                cap = arr.shape[lead + ax]
+                if min(want[1], cap) <= max(want[0], 0):
+                    raise ValueError(
+                        f"interface slab empty: face {_face} axis {ax} wants "
+                        f"{want}, parent extent {cap}"
+                    )
+                idx = torch.arange(want[0], want[1], device=arr.device)
+                arr = arr.index_select(lead + ax, idx.clamp(0, cap - 1))
+            perm = list(range(lead)) + [lead + _axis] + [lead + a for a in _t]
+            return arr.permute(perm)
+
+        def interp(key, lead, _w=w_face, _gA0=gA0, _gB0=gB0, _A=A, _B=B):
+            if batched:
+                sl = torch.stack([slab(st[key], lead) for st in states])
+            else:
+                sl = slab(p_state[key], lead)
+            lead = lead + extra
+            if key == "f":
+                sl = decode_f(sl, k_axis=extra)  # bf16 g -> f32 f
+            s0 = sl.select(lead, 0)
+            s1 = sl.select(lead, 1)
+            v = (1.0 - _w) * s0 + _w * s1
+            v = _upsample_axis(v, lead, _gA0, _A + 2)
+            v = _upsample_axis(v, lead + 1, _gB0, _B + 2)
+            return v
+
+        out[face] = {
+            "f": interp("f", 1),  # ([extra,] 27, A+2, B+2)
+            "rho": interp("rho", 0),  # ([extra,] A+2, B+2)
+            "vel": interp("vel", 1),  # ([extra,] 3, A+2, B+2)
+        }
+    return out
+
+
+def interface_endpoints_pair(
+    patch: PatchLevel, parent: PatchLevel, p_old: Dict, p_new: Dict,
+) -> Tuple[Dict[int, Dict], Dict[int, Dict]]:
+    """(old, new) endpoint planes in ONE slab/upsample pass."""
+    both = interface_endpoints(patch, parent, None, _states=[p_old, p_new])
+    old = {f: {k: v[0] for k, v in d.items()} for f, d in both.items()}
+    new = {f: {k: v[1] for k, v in d.items()} for f, d in both.items()}
+    return old, new
+
+
+def interface_from_endpoints(
+    ep_new: Dict[int, Dict],
+    ep_old: Optional[Dict[int, Dict]],
+    patch: PatchLevel,
+    parent: PatchLevel,
+    temporal_weight: float,
+    use_temporal: bool,
+) -> Dict[int, torch.Tensor]:
+    """Temporal lerp of endpoint planes + equilibrium split + f_neq rescale
+    clamped to [0.01, 100] (reference: src/physics_interpolation.jl:69-138).
+    Returns face -> float32 f-space plane (27, A+2, B+2)."""
+    tau_c = parent.tau - 0.5
+    tau_f = patch.tau - 0.5
+    scale = float(np.clip(tau_f / tau_c, 0.01, 100.0)) if tau_c > 1e-6 else 1.0
+    blend = use_temporal and ep_old is not None and temporal_weight < 0.99
+    out = {}
+    for face, new in ep_new.items():
+        if blend and temporal_weight == 0.0:
+            old = ep_old[face]
+            f_int, rho_int, u_int = old["f"], old["rho"], old["vel"]
+        elif blend:
+            old = ep_old[face]
+            tw = temporal_weight
+            f_int = old["f"] * (1.0 - tw) + new["f"] * tw
+            rho_int = old["rho"] * (1.0 - tw) + new["rho"] * tw
+            u_int = old["vel"] * (1.0 - tw) + new["vel"] * tw
+        else:
+            f_int, rho_int, u_int = new["f"], new["rho"], new["vel"]
+        W = lat.tables(str(f_int.device))["W"]
+        cu = _contract(_CT, u_int)
+        usq = (u_int * u_int).sum(dim=0)
+        feq = rho_int[None] * W[:, None, None] * (
+            1.0 + 3.0 * cu + 4.5 * cu * cu - 1.5 * usq
+        )
+        out[face] = feq + (f_int - feq) * scale
+    return out
+
+
+def _u32(u_inlet, device) -> torch.Tensor:
+    return torch.as_tensor(u_inlet, dtype=torch.float32, device=device)
+
+
+def dense_stream_collide(
+    f: torch.Tensor,  # (27, X, Y, Z) float32 f-space
+    vel: torch.Tensor,  # (3, X, Y, Z)
+    u_inlet,
+    t_seed: int,
+    static: Dict,  # obstacle (bool) / sponge / wall_dist, each (X, Y, Z)
+    patch: PatchLevel,
+    *,
+    c_wale: float,
+    nu_sgs_background: float,
+    inlet_turbulence: float,
+    wall_model: bool,
+    sponge_blend: bool,
+    iface: Optional[Dict[int, torch.Tensor]] = None,  # face -> (27, A+2, B+2)
+):
+    """One stream-collide sub-step; returns (f, rho, vel) of the level."""
+    X, Y, Z = patch.interior
+    N = X * Y * Z
+    fb = patch.face_bc
+    dev = f.device
+    u_in = _u32(u_inlet, dev)
+    W = lat.tables(str(dev))["W"]
+
+    ix = torch.arange(X, device=dev).view(X, 1, 1)
+    iy = torch.arange(Y, device=dev).view(1, Y, 1)
+    iz = torch.arange(Z, device=dev).view(1, 1, Z)
+
+    # shared inlet factor plane over (Y, Z): cu = +u_inst for all cx=+1
+    inlet_factor = None
+    if fb[0] == BC_INLET:
+        gy1 = torch.arange(Y, device=dev).view(Y, 1) + (patch.lo[1] + 1)
+        gz1 = torch.arange(Z, device=dev).view(1, Z) + (patch.lo[2] + 1)
+        if inlet_turbulence > 0.0:
+            noise = hash_noise(gy1.expand(Y, Z), gz1.expand(Y, Z), t_seed)
+            u_inst = u_in + noise * inlet_turbulence * u_in
+        else:
+            u_inst = u_in.expand(Y, Z)
+        inlet_factor = (
+            1.0 + 3.0 * u_inst + 4.5 * u_inst * u_inst - 1.5 * u_inst * u_inst
+        )
+    outlet_vals = inlet_equilibrium(lat.tables(str(dev))["CX"], W, u_in)
+
+    def face_value(k, face):
+        cx, cy, cz = int(lat.C_X[k]), int(lat.C_Y[k]), int(lat.C_Z[k])
+        bc = fb[face]
+        if bc == BC_INTERFACE:
+            pl = iface[face][k]  # (A+2, B+2)
+            ax = face // 2
+            t_axes = [a for a in range(3) if a != ax]
+            c = (cx, cy, cz)
+            s0, s1 = 1 - c[t_axes[0]], 1 - c[t_axes[1]]
+            d0, d1 = patch.interior[t_axes[0]], patch.interior[t_axes[1]]
+            v = pl[s0:s0 + d0, s1:s1 + d1]
+            return v.unsqueeze(ax)
+        if bc == BC_INLET:
+            return (W[k] * inlet_factor)[None, :, :]
+        if bc == BC_OUTLET:
+            return outlet_vals[k]
+        if bc == BC_MIRROR_Y:
+            return f[int(lat.MIRROR_Y[k])]
+        if bc == BC_MIRROR_Z:
+            return f[int(lat.MIRROR_Z[k])]
+        raise ValueError(f"unknown face bc {bc}")
+
+    streamed = []
+    for k in range(27):
+        cx, cy, cz = int(lat.C_X[k]), int(lat.C_Y[k]), int(lat.C_Z[k])
+        val = f[k]
+        if (cx, cy, cz) != (0, 0, 0):
+            val = torch.roll(val, (cx, cy, cz), dims=(0, 1, 2))
+        # masked overrides in reverse precedence (inlet strongest, applied
+        # last; reference precedence inlet > outlet > y-mirror > z-mirror)
+        if cz > 0:
+            val = torch.where(iz == 0, face_value(k, 4), val)
+        elif cz < 0:
+            val = torch.where(iz == Z - 1, face_value(k, 5), val)
+        if cy > 0:
+            val = torch.where(iy == 0, face_value(k, 2), val)
+        elif cy < 0:
+            val = torch.where(iy == Y - 1, face_value(k, 3), val)
+        if cx < 0:
+            val = torch.where(ix == X - 1, face_value(k, 1), val)
+        elif cx > 0:
+            val = torch.where(ix == 0, face_value(k, 0), val)
+        streamed.append(val.reshape(N))
+    f_str = torch.stack(streamed)
+
+    # velocity face neighbours with self-fallback at every patch face
+    # (reference: src/physics_utils.jl:45-70)
+    def vel_nbr(dx, dy, dz):
+        r = torch.roll(vel, (-dx, -dy, -dz), dims=(1, 2, 3))
+        for d, idx, n in ((dx, ix, X), (dy, iy, Y), (dz, iz, Z)):
+            if d > 0:
+                r = torch.where(idx == n - 1, vel, r)
+            elif d < 0:
+                r = torch.where(idx == 0, vel, r)
+        return r.reshape(3, N)
+
+    nbrs = (
+        vel_nbr(1, 0, 0), vel_nbr(-1, 0, 0),
+        vel_nbr(0, 1, 0), vel_nbr(0, -1, 0),
+        vel_nbr(0, 0, 1), vel_nbr(0, 0, -1),
+    )
+    f_out, rho_out, vel_out = collide(
+        f_str,
+        nbrs,
+        static["obstacle"].reshape(N),
+        static["sponge"].reshape(N),
+        static["wall_dist"].reshape(N),
+        u_in,
+        tau=patch.tau,
+        c_wale=c_wale,
+        nu_sgs_background=nu_sgs_background,
+        wall_model=wall_model,
+        sponge_blend=sponge_blend,
+    )
+    return (
+        f_out.reshape(27, X, Y, Z),
+        rho_out.reshape(X, Y, Z),
+        vel_out.reshape(3, X, Y, Z),
+    )
+
+
+def build_bouzidi_dense_plan(patch: PatchLevel, q_min: float) -> Optional[Dict]:
+    """Dense sub-box Bouzidi plan (numpy): the bounding box of the boundary
+    cells plus a one-cell halo, clipped to the level, and one signed
+    coefficient array S (27, bx, by, bz):
+
+      val = |S| f*[k](cell) + (1-|S|) (f*[opp k](cell) if S < 0
+                                       else f*[k](cell + c_opp))
+
+    written into slot opp(k); S's sign encodes the q >= 0.5 branch and S = 0
+    means no link (reference: src/bouzidi_kernel.jl:38-88).  The JAX
+    package additionally aligns the box to the TPU's (8, 128) tile; the
+    port keeps the tight box.  Returns None without boundary cells."""
+    bz = patch.bouzidi
+    if bz is None or bz.n_boundary_cells == 0:
+        return None
+    X, Y, Z = patch.interior
+    lo = np.array([bz.cell_gx.min(), bz.cell_gy.min(), bz.cell_gz.min()]) - 1
+    hi = np.array([bz.cell_gx.max(), bz.cell_gy.max(), bz.cell_gz.max()]) + 2
+    lo = np.maximum(lo, 0)
+    hi = np.minimum(hi, [X, Y, Z])
+    bdim = tuple(int(v) for v in (hi - lo))
+
+    q = bz.q_map.astype(np.float32)  # (nc, 27)
+    cx = bz.cell_gx - lo[0]
+    cy = bz.cell_gy - lo[1]
+    cz = bz.cell_gz - lo[2]
+    S = np.zeros((27,) + bdim, np.float32)
+    for k in range(27):
+        if k == 13:
+            continue
+        qv = q[:, k]
+        act = (qv > q_min) & (qv <= 1.0)
+        if not act.any():
+            continue
+        sel = np.nonzero(act)[0]
+        qs = qv[sel]
+        lo_case = qs < 0.5
+        # x_ff = cell + c_opp; fall back to f[k] at the cell when outside
+        o = int(lat.OPP[k])
+        gx = bz.cell_gx[sel] + lat.C_X[o]
+        gy = bz.cell_gy[sel] + lat.C_Y[o]
+        gz = bz.cell_gz[sel] + lat.C_Z[o]
+        inside = (
+            (gx >= 0) & (gx < X) & (gy >= 0) & (gy < Y) & (gz >= 0) & (gz < Z)
+        )
+        a = np.where(lo_case, np.where(inside, 2.0 * qs, 1.0), 1.0 / (2.0 * qs))
+        S[k, cx[sel], cy[sel], cz[sel]] = np.where(lo_case, a, -a)
+    return {"lo": tuple(int(v) for v in lo), "dim": bdim, "S": S}
+
+
+def apply_bouzidi_dense(f_out: torch.Tensor, plan: Dict) -> torch.Tensor:
+    """Bouzidi correction of (27, X, Y, Z), returned as a new tensor.
+
+    Works unchanged on bf16 g-storage: the link coefficients sum to 1 and
+    w[opp k] = w[k], so the correction is form-invariant under the f - w
+    shift; compute is float32, store is the array's dtype.  plan["S"] is a
+    float32 tensor on f's device."""
+    lx, ly, lz = plan["lo"]
+    bx, by, bz_ = plan["dim"]
+    box = f_out[:, lx:lx + bx, ly:ly + by, lz:lz + bz_]
+    rows = []
+    for j in range(27):
+        if j == 13:
+            rows.append(box[13])
+            continue
+        k = int(lat.OPP[j])  # the link direction writing into slot j
+        ck = (int(lat.C_X[k]), int(lat.C_Y[k]), int(lat.C_Z[k]))
+        # f[k] at cell + c_opp = roll by +c (roll(a, s)[i] = a[i - s])
+        ff = torch.roll(box[k], ck, dims=(0, 1, 2))
+        s = plan["S"][k]
+        a = s.abs()
+        other = torch.where(s < 0, box[j].float(), ff.float())
+        val = (a * box[k].float() + (1.0 - a) * other).to(box.dtype)
+        rows.append(torch.where(s != 0, val, box[j]))
+    out = f_out.clone()
+    out[:, lx:lx + bx, ly:ly + by, lz:lz + bz_] = torch.stack(rows)
+    return out

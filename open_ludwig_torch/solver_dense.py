@@ -1,0 +1,196 @@
+"""Multi-level scheduler for the dense-patch layout.
+
+Port of the unfused, single-device schedule of
+`open_ludwig_tpu/solver_dense.py:make_coarse_step_dense` (the "real"
+interface path, :426-571): level l advances 2^(l-1) sub-steps per coarse
+step (reference: src/solver_control.jl:21-143).  After each parent step
+the (old, new) parent states give endpoint ghost planes for the child's
+two sub-steps at temporal weights 0.0 and 0.5; the finest level applies
+Bouzidi after each of its sub-steps.
+
+Every sub-step is one K1 launch (`ops.cuda_step.stream_collide`) and every
+finest-level correction one K2 launch (`ops.cuda_step.bouzidi`); ghost
+planes are plain torch.  States are {f: (27, X, Y, Z), rho, vel} in the
+storage dtype (float32 f or bf16 g = f - w); each sub-step writes fresh
+buffers (A -> B), and a parent's pre-step state lives until its child's
+ghost planes are built.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import torch
+
+from open_ludwig_tpu.config import CaseConfig
+from open_ludwig_tpu.core.patch import BC_INTERFACE, PatchLevel
+from open_ludwig_tpu.scaling import DomainParams
+
+from . import lattice as lat
+from .ops import storage
+from .ops.cuda_step import bouzidi, stream_collide
+from .ops.dense_step import (
+    build_bouzidi_dense_plan,
+    interface_endpoints,
+    interface_endpoints_pair,
+    interface_from_endpoints,
+)
+from .solver import ramp_velocity
+
+def init_patch_state(patch: PatchLevel, precision: str = "float32",
+                     device="cpu") -> Dict:
+    """Rest state: f = w (float32) or g = 0 (bf16), rho = 1, vel = 0."""
+    sh = tuple(patch.interior)
+    if storage.f_dtype(precision) == torch.bfloat16:
+        f = torch.zeros((27,) + sh, dtype=torch.bfloat16, device=device)
+    else:
+        W = torch.as_tensor(lat.W, device=device)
+        f = W.reshape(27, 1, 1, 1).expand((27,) + sh).contiguous()
+    return {
+        "f": f,
+        "rho": torch.ones(sh, dtype=torch.float32, device=device),
+        "vel": torch.zeros((3,) + sh, dtype=torch.float32, device=device),
+    }
+
+
+def build_patch_statics(cfg: CaseConfig, patches: List[PatchLevel],
+                        device="cpu") -> List[Dict]:
+    """Per level: obstacle (bool), sponge, wall_dist as (X, Y, Z) device
+    tensors, and the Bouzidi plan (S as a float32 device tensor) or None."""
+    statics = []
+    for p in patches:
+        plan = build_bouzidi_dense_plan(p, cfg.q_min_threshold)
+        if plan is not None:
+            plan = {**plan, "S": torch.as_tensor(plan["S"], device=device)}
+        statics.append({
+            "obstacle": torch.as_tensor(p.obstacle, dtype=torch.bool, device=device),
+            "sponge": torch.as_tensor(p.sponge, dtype=torch.float32, device=device),
+            "wall_dist": torch.as_tensor(p.wall_dist, dtype=torch.float32,
+                                         device=device),
+            "bouzidi": plan,
+        })
+    return statics
+
+
+def kernel_log_lines(patches: List[PatchLevel], statics: List[Dict],
+                     precision: str, device) -> List[str]:
+    """One line per level naming the kernels its sub-steps run."""
+    dev = torch.device(device)
+    route = "CUDA" if dev.type == "cuda" else "plain torch (CPU)"
+    store = ("bf16 g-native" if storage.f_dtype(precision) == torch.bfloat16
+             else "float32")
+    lines = []
+    for p, st in zip(patches, statics):
+        n_if = sum(bc == BC_INTERFACE for bc in p.face_bc)
+        bz = st["bouzidi"]
+        lines.append(
+            f"  [engine] level {p.level_id}: {'x'.join(map(str, p.interior))} "
+            f"cells, {2 ** (p.level_id - 1)} sub-step(s)/coarse step | "
+            f"K1 stream_collide {route}, {store}, {n_if} interface face(s)"
+            + (f" | K2 bouzidi {route}, box {tuple(bz['dim'])} at {bz['lo']}"
+               if bz is not None else "")
+        )
+    return lines
+
+
+def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
+                           patches: List[PatchLevel], statics: List[Dict]):
+    """coarse_step(states, t) -> states advancing every level by one coarse
+    step; launches 2^L - 1 K1 sub-steps and 2^(L-1) K2 corrections (on a
+    Bouzidi finest level) without any host synchronisation."""
+    n_levels = len(patches)
+    use_temporal = cfg.temporal_interpolation
+    kw = dict(
+        c_wale=cfg.c_wale,
+        nu_sgs_background=cfg.nu_sgs_background,
+        inlet_turbulence=cfg.inlet_turbulence_intensity,
+        wall_model=cfg.wall_model_enabled,
+        sponge_blend=cfg.sponge_blend_distributions,
+    )
+
+    def coarse_step(states: List[Dict], t: int) -> List[Dict]:
+        states = list(states)
+        u_curr = ramp_velocity(t, cfg.u_lattice, cfg.ramp_steps)
+
+        def visit(lvl: int, t_sub: int, iface):
+            patch = patches[lvl]
+            st = states[lvl]
+            f_new, rho_new, vel_new = stream_collide(
+                st["f"], st["vel"], u_curr, t_sub % 1000000, statics[lvl],
+                patch, iface=iface, **kw,
+            )
+            plan = statics[lvl]["bouzidi"]
+            if plan is not None:
+                f_new = bouzidi(f_new, plan)
+            states[lvl] = {"f": f_new, "rho": rho_new, "vel": vel_new}
+            if lvl + 1 < n_levels:
+                child = patches[lvl + 1]
+                if use_temporal:
+                    ep_old, ep_new = interface_endpoints_pair(
+                        child, patch, st, states[lvl]
+                    )
+                else:
+                    ep_old = None
+                    ep_new = interface_endpoints(child, patch, states[lvl])
+                del st  # the parent's pre-step state is no longer needed
+                if_a = interface_from_endpoints(
+                    ep_new, ep_old, child, patch, 0.0, use_temporal
+                )
+                if_b = interface_from_endpoints(
+                    ep_new, ep_old, child, patch, 0.5, use_temporal
+                )
+                visit(lvl + 1, 2 * t_sub, if_a)
+                visit(lvl + 1, 2 * t_sub + 1, if_b)
+
+        visit(0, int(t), None)
+        return states
+
+    return coarse_step
+
+
+def make_batch_runner_dense(cfg: CaseConfig, params: DomainParams,
+                            patches: List[PatchLevel], statics: List[Dict]):
+    """run(states, t0, n) -> states after coarse steps t0 .. t0+n-1: a plain
+    loop that only enqueues work (no host sync inside a batch)."""
+    coarse_step = make_coarse_step_dense(cfg, params, patches, statics)
+
+    def run(states: List[Dict], t0: int, n: int) -> List[Dict]:
+        for t in range(int(t0), int(t0) + int(n)):
+            states = coarse_step(states, t)
+        return states
+
+    return run
+
+
+def hbm_report_patches(patches: List[PatchLevel], statics: List[Dict],
+                       precision: str = "float32", device="cpu") -> str:
+    """Per-level device-memory accounting: resident state (f + rho + vel)
+    and statics, plus the step's transient — every sub-step writes a second
+    f/rho/vel (A -> B) while the first is alive, for the largest level."""
+    f_bytes = 2 if storage.f_dtype(precision) == torch.bfloat16 else 4
+    lines = [f"Device memory (dense patches, {precision} f-storage):"]
+    total = 0
+    for p, st in zip(patches, statics):
+        n = p.n_cells
+        state_b = n * (27 * f_bytes + 4 * (1 + 3))
+        field_b = n * (1 + 4 + 4)
+        bz = st["bouzidi"]
+        bz_b = 2 * bz["S"].numel() * 4 if bz is not None else 0  # S + snapshot
+        total += state_b + field_b + bz_b
+        lines.append(
+            f"  level {p.level_id}: {n/1e6:7.2f}M cells | state "
+            f"{state_b/1e6:8.1f} MB | fields {field_b/1e6:6.1f} MB | bouzidi "
+            f"{bz_b/1e6:5.1f} MB"
+        )
+    trans = max(p.n_cells for p in patches) * (27 * f_bytes + 16)
+    total += trans
+    lines.append(f"  estimated total: {total/1e9:.3f} GB (incl. "
+                 f"{trans/1e6:.0f} MB A->B transient of the largest level)")
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        live = torch.cuda.memory_allocated(dev)
+        cap = torch.cuda.get_device_properties(dev).total_memory
+        lines.append(f"  device live: {live/1e9:.3f} GB allocated of "
+                     f"{cap/1e9:.1f} GB (estimate/live = "
+                     f"{total/max(live, 1):.2f})")
+    return "\n".join(lines)

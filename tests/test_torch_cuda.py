@@ -1,0 +1,66 @@
+"""The CUDA kernels K1 (stream-collide) and K2 (Bouzidi) against their plain
+PyTorch versions on the card, at the shapes of chip_smoke.py phases 3 and
+4: the bench case's levels (sphere Re~1M, N=25, 3 levels) with every face
+type, the 10.8M-cell single-level sweep shape, and the bench Bouzidi box.
+
+Every test here needs an NVIDIA GPU and nvcc, and skips without them.  On
+the card:  python -m pytest tests/test_torch_*.py -q
+"""
+
+import pytest
+import torch
+
+from open_ludwig_torch import checks
+from open_ludwig_torch.solver_dense import build_patch_statics
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernels are built with nvcc for "
+                    "sm_90a and have no interpret mode")
+    return torch.device("cuda", 0)
+
+
+@pytest.fixture(scope="module")
+def bench(cuda_device, tmp_path_factory):
+    cfg, _, _, levels = checks.bench_case(str(tmp_path_factory.mktemp("bench")))
+    statics = build_patch_statics(cfg, levels, cuda_device)
+    kw = dict(c_wale=cfg.c_wale, nu_sgs_background=cfg.nu_sgs_background,
+              inlet_turbulence=0.02, wall_model=True, sponge_blend=True)
+    return cfg, levels, statics, kw
+
+
+@pytest.mark.parametrize("store_bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["L1", "L2-inlet-mix", "L2-outlet-mix", "L3"])
+def test_stream_collide_kernel_matches_plain(bench, cuda_device, case, store_bf16):
+    cfg, levels, statics, kw = bench
+    cases = {label: (p, st) for label, p, st in checks.bench_k1_cases(levels, statics)}
+    patch, static = cases[case]
+    r = checks.check_stream_collide(patch, static, store_bf16, 17, kw, cuda_device,
+                                    reps=1, plain_reps=1)
+    assert r["finite"]
+    assert r["max_abs_err"] < r["tol"], r["err"]
+
+
+@pytest.mark.parametrize("store_bf16", [False, True], ids=["f32", "bf16"])
+def test_stream_collide_kernel_sweep_shape(bench, cuda_device, tmp_path, store_bf16):
+    cfg, _, _, kw = bench
+    _, _, _, sweep = checks.bench_case(str(tmp_path), surface_resolution=25,
+                                       num_levels=1, precision="float32")
+    static = build_patch_statics(cfg, sweep, cuda_device)[0]
+    r = checks.check_stream_collide(sweep[0], static, store_bf16, 18, kw,
+                                    cuda_device, reps=1, plain_reps=1)
+    assert r["finite"]
+    assert r["max_abs_err"] < r["tol"], r["err"]
+
+
+@pytest.mark.parametrize("store_bf16", [False, True], ids=["f32", "bf16"])
+def test_bouzidi_kernel_matches_plain(bench, cuda_device, store_bf16):
+    _, levels, statics, _ = bench
+    r = checks.check_bouzidi(levels[2], statics[2]["bouzidi"], store_bf16, 19,
+                             cuda_device, reps=1, plain_reps=1)
+    assert r["changed"] > 0
+    assert r["max_abs_err"] < r["tol"], r

@@ -1,0 +1,121 @@
+"""Storage codec and patch layout of the PyTorch port against the JAX
+package, and the port's independence from jax.
+
+- the bf16 g = f - w codec is bit-equal to `open_ludwig_tpu.ops.storage`;
+- the port's unpadded patches equal the reference's interior fields, and
+  its tight Bouzidi plan equals the reference's aligned one after
+  embedding, for a 3-level sphere (surface_resolution 16, the smallest
+  that keeps three levels);
+- importing the port, building a case and stepping it on the CPU never
+  imports jax (checked in a fresh interpreter).
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from open_ludwig_tpu import lattice as lat
+from open_ludwig_tpu.cases import make_case_sphere
+from open_ludwig_tpu.config import load_case_config
+from open_ludwig_tpu.core.patch import build_patches as build_patches_jax
+from open_ludwig_tpu.geometry import load_mesh
+from open_ludwig_tpu.ops import dense_step as ds_jax
+from open_ludwig_tpu.ops import storage as storage_jax
+from open_ludwig_tpu.scaling import compute_domain_params
+
+from open_ludwig_torch import convert
+from open_ludwig_torch.core.patch import build_patches
+from open_ludwig_torch.ops import dense_step as ds
+from open_ludwig_torch.ops import storage
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_codec_bit_equal():
+    """The inputs of test_precision.py::test_codec_roundtrip."""
+    rng = np.random.default_rng(3)
+    f = (lat.W[:, None, None, None] * (1 + 0.1 * rng.standard_normal(
+        (27, 4, 8, 128)))).astype(np.float32)
+    g_jax = np.asarray(storage_jax.encode_f(jnp.asarray(f), "bfloat16"))
+    g = storage.encode_f(torch.as_tensor(f), "bfloat16")
+    assert g.dtype == torch.bfloat16
+    assert np.array_equal(g.view(torch.int16).numpy(), g_jax.view(np.int16))
+    back_jax = np.asarray(storage_jax.decode_f(jnp.asarray(g_jax)))
+    back = storage.decode_f(g)
+    assert back.dtype == torch.float32
+    assert np.array_equal(back.numpy(), back_jax)
+    # float32 passes through untouched; the rest state encodes to zeros
+    assert storage.encode_f(torch.as_tensor(f), "float32").dtype == torch.float32
+    w = torch.as_tensor(lat.W).reshape(27, 1, 1, 1).expand(27, 2, 8, 4)
+    assert not storage.encode_f(w, "bf16").float().any()
+    with pytest.raises(ValueError):
+        storage.normalize_precision("fp8")
+
+
+@pytest.fixture(scope="module")
+def sphere3(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("sphere3"))
+    make_case_sphere(d, "1M", surface_resolution=16, num_levels=3, steps=4,
+                     ramp_steps=2, output_freq=100, diag_freq=100)
+    cfg = load_case_config(d)
+    mesh = load_mesh(cfg.stl_path, scale=cfg.stl_scale)
+    params = compute_domain_params(cfg, mesh.min_bounds, mesh.max_bounds)
+    return cfg, mesh, params
+
+
+def test_patches_equal_reference_interior(sphere3):
+    cfg, mesh, params = sphere3
+    ref = build_patches_jax(cfg, mesh, params)
+    port = build_patches(cfg, mesh, params)
+    assert len(port) == len(ref) == 3
+    for p, r in zip(port, ref):
+        assert p.padded == p.interior == r.interior
+        assert (p.lo, p.face_bc, p.tau, p.dx) == (r.lo, r.face_bc, r.tau, r.dx)
+        assert not p.flat_yz
+        for key in ("obstacle", "sponge", "wall_dist"):
+            got = getattr(p, key)
+            assert got.shape == tuple(p.interior)
+            assert np.array_equal(got, convert.trim(getattr(r, key), r.interior)), key
+        assert (p.bouzidi is None) == (r.bouzidi is None)
+    # Bouzidi on the finest level: same links, the port's box unaligned
+    plan_ref = ds_jax.build_bouzidi_dense_plan(ref[-1], cfg.q_min_threshold)
+    plan = ds.build_bouzidi_dense_plan(port[-1], cfg.q_min_threshold)
+    full_ref = convert.trim(convert.embed_S(
+        {**plan_ref, "S": np.asarray(plan_ref["S"])}, ref[-1].padded),
+        ref[-1].interior)
+    assert np.array_equal(convert.embed_S(plan, port[-1].interior), full_ref)
+    assert np.count_nonzero(plan["S"]) > 0
+
+
+def test_port_never_imports_jax(tmp_path):
+    """A fresh interpreter builds a 2-level case and runs one coarse step of
+    the port on the CPU; jax must never enter sys.modules."""
+    script = textwrap.dedent(f"""
+        import sys, torch
+        torch.set_num_threads(1)
+        from open_ludwig_torch.runner import solve_case
+        from open_ludwig_tpu.cases import make_case_sphere
+        from open_ludwig_tpu.config import load_case_config
+        make_case_sphere({str(tmp_path)!r}, "1M", surface_resolution=8,
+                         num_levels=2, steps=1, ramp_steps=1, output_freq=10,
+                         diag_freq=1, precision="bfloat16",
+                         inlet_turbulence=0.02)
+        res = solve_case(load_case_config({str(tmp_path)!r}), device="cpu")
+        assert res.final_stats.rho_min > 0.5, res.final_stats
+        bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+        assert not bad, bad
+        print("NO_JAX_OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    assert "NO_JAX_OK" in proc.stdout
