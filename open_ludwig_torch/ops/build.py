@@ -7,24 +7,26 @@ plain C interface:
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/lib<name>_<hash>.so
          open_ludwig_torch/csrc/<name>.cu
 
-The library name carries a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one loads the library already built.  The
-build directory is `build/kernels/` beside the package (git-ignored).
-Nothing here runs at import; the first kernel launch builds.  There is no
-fast-math flag: the wall model's pow/log and the WALE square roots must
-match the plain version to 1e-5.
+The library name carries a hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source rebuilds and an unchanged
+one loads the library already built.  The build directory is
+`build/kernels/` beside the package (git-ignored).  Nothing here runs at
+import; the first kernel launch builds.  `load_all` starts one nvcc per
+source at once.  There is no fast-math flag: the wall model's pow/log and
+the WALE square roots must match the plain version to 1e-5.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import time
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Iterable, List, Optional, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -60,35 +62,75 @@ def nvcc_path() -> str:
     )
 
 
-def load(name: str) -> Built:
-    """Build (if needed) and load csrc/<name>.cu; raises on any failure."""
+def _paths(name: str) -> Tuple[str, str, str]:
+    """(source, library, ptxas log) of csrc/<name>.cu."""
+    src = os.path.join(CSRC, name + ".cu")
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as fh:
+            digest.update(fh.read())
+    lib_path = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
+    return src, lib_path, lib_path[:-3] + ".log"
+
+
+def _start(name: str) -> Optional[Tuple[subprocess.Popen, str, float]]:
+    """Start nvcc for csrc/<name>.cu unless its library is built."""
+    if name in _LOADED:
+        return None
+    src, lib_path, _ = _paths(name)
+    if os.path.isfile(lib_path):
+        return None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    proc = subprocess.Popen(
+        [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    return proc, tmp, time.perf_counter()
+
+
+def _finish(name: str, started) -> Built:
+    """Wait for the build started by _start (if any) and load the library;
+    raises on any failure."""
     if name in _LOADED:
         return _LOADED[name]
-    src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    lib_path = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
-    log_path = lib_path[:-3] + ".log"
+    src, lib_path, log_path = _paths(name)
     seconds = 0.0
-    if not os.path.isfile(lib_path):
-        tmp = f"{lib_path}.{os.getpid()}.tmp"
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
-            capture_output=True, text=True,
-        )
+    if started is not None:
+        proc, tmp, t0 = started
+        out, err = proc.communicate()
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed on {src} (rc {proc.returncode}):\n"
-                f"{proc.stdout}\n{proc.stderr}"
+                f"nvcc failed on {src} (rc {proc.returncode}):\n{out}\n{err}"
             )
         with open(log_path, "w") as fh:
-            fh.write(proc.stdout + proc.stderr)
+            fh.write(out + err)
         os.replace(tmp, lib_path)
     with open(log_path) as fh:
         ptxas_log = fh.read()
     built = Built(ctypes.CDLL(lib_path), lib_path, seconds, ptxas_log)
     _LOADED[name] = built
     return built
+
+
+def load(name: str) -> Built:
+    """Build (if needed) and load csrc/<name>.cu; raises on any failure.
+    Every launch calls this: a library already loaded returns at once."""
+    built = _LOADED.get(name)
+    return built if built is not None else _finish(name, _start(name))
+
+
+def load_all(names: Iterable[str]) -> List[Built]:
+    """load() for several sources, their nvcc processes running at once."""
+    names = list(names)
+    started = []
+    try:
+        for n in names:
+            started.append(_start(n))
+        return [_finish(n, s) for n, s in zip(names, started)]
+    finally:  # a failed build leaves no nvcc running
+        for s in started:
+            if s is not None and s[0].poll() is None:
+                s[0].kill()
+                s[0].wait()

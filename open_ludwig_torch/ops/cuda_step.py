@@ -1,5 +1,5 @@
-"""Wrappers of the hand-written CUDA kernels K1 (stream-collide) and K2
-(Bouzidi), with their launch counters.
+"""Wrappers of the hand-written CUDA kernels K1 (stream-collide), K2
+(Bouzidi) and K3 (fused pair), with their launch counters.
 
 Each wrapper checks device, dtype, shape and contiguity, then:
   - for CPU tensors runs the kernel's plain PyTorch version
@@ -22,21 +22,31 @@ K2 `bouzidi` (csrc/bouzidi.cu) replaces make_bouzidi_pallas
 (pallas_step.py:62).  Bound by launch latency on the bench box (a few MB);
 one thread per box cell reads an uncorrected snapshot and writes only the
 linked slots in place.
+
+K3 `fused_pair` (csrc/fused_pair.cu) replaces make_pallas_step_fused2
+(pallas_step.py:961): two sub-steps of a childless level in one pass, step
+A's Bouzidi correction between them, step B's output uncorrected (the
+caller runs K2 after it).  It reads f once and writes it once per pair,
+~154 B per cell in bf16 against ~290 for K1 -> K2 -> K1, and keeps step A
+in shared memory; what bounds it instead is the arithmetic of step A on
+the tile halo (~2.5 cell updates per pair) at the occupancy its
+shared-memory ring allows.  The per-cell physics is K1's own
+(csrc/lbm_cell.cuh).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from open_ludwig_tpu.core.patch import BC_INTERFACE, PatchLevel
 
 from . import build, storage
-from .dense_step import apply_bouzidi_dense, dense_stream_collide
+from .dense_step import apply_bouzidi_dense, dense_stream_collide, fused_pair_plain
 
-LAUNCHES: Dict[str, int] = {"stream_collide": 0, "bouzidi": 0}
+LAUNCHES: Dict[str, int] = {"stream_collide": 0, "bouzidi": 0, "fused_pair": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +57,10 @@ _SC_ARGTYPES = (
     + [_I, _I, _P]
 )
 _BZ_ARGTYPES = [_I, _P, _P, _P] + [_I] * 9 + [_P]
+_FP_ARGTYPES = (
+    [_I] + [_P] * 21 + [_I] * 5 + [_I] * 6 + [_F, _F, _I, _I] + [_D] * 4
+    + [_I, _I] + [_I] * 6 + [_P]
+)
 
 
 def reset_launches() -> None:
@@ -80,6 +94,48 @@ def _check(t: torch.Tensor, name: str, shape, dtypes, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_level(f, vel, static: Dict, patch: PatchLevel) -> None:
+    X, Y, Z = patch.interior
+    dev = f.device
+    _check(f, "f", (27, X, Y, Z), (torch.float32, torch.bfloat16), dev)
+    _check(vel, "vel", (3, X, Y, Z), (torch.float32,), dev)
+    _check(static["obstacle"], "obstacle", (X, Y, Z), (torch.bool,), dev)
+    _check(static["sponge"], "sponge", (X, Y, Z), (torch.float32,), dev)
+    _check(static["wall_dist"], "wall_dist", (X, Y, Z), (torch.float32,), dev)
+
+
+def _iface_planes(patch: PatchLevel, iface: Optional[Dict], device,
+                  name: str = "iface") -> List[Optional[torch.Tensor]]:
+    """The ghost plane of each face (None where the face is no interface),
+    checked against the level."""
+    iface = iface or {}
+    planes = []
+    for face in range(6):
+        if patch.face_bc[face] != BC_INTERFACE:
+            planes.append(None)
+            continue
+        if face not in iface:
+            raise ValueError(f"interface face {face} has no ghost plane in {name}")
+        t = [a for a in range(3) if a != face // 2]
+        shape = (27, patch.interior[t[0]] + 2, patch.interior[t[1]] + 2)
+        _check(iface[face], f"{name}[{face}]", shape, (torch.float32,), device)
+        planes.append(iface[face])
+    return planes
+
+
+def _check_plan(plan: Dict, level_shape, device) -> None:
+    _check(plan["S"], "S", (27,) + tuple(plan["dim"]), (torch.float32,), device)
+    lx, ly, lz = plan["lo"]
+    bx, by, bz = plan["dim"]
+    X, Y, Z = level_shape
+    if lx < 0 or ly < 0 or lz < 0 or lx + bx > X or ly + by > Y or lz + bz > Z:
+        raise ValueError(f"Bouzidi box {plan['lo']}+{plan['dim']} outside {X, Y, Z}")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return t.data_ptr() if t is not None else None
+
+
 def stream_collide(
     f: torch.Tensor,  # (27, X, Y, Z) float32 f or bf16 g = f - w
     vel: torch.Tensor,  # (3, X, Y, Z) float32
@@ -99,23 +155,8 @@ def stream_collide(
     storage dtype of `f` (A -> B buffers; the inputs are not modified)."""
     X, Y, Z = patch.interior
     dev = f.device
-    _check(f, "f", (27, X, Y, Z), (torch.float32, torch.bfloat16), dev)
-    _check(vel, "vel", (3, X, Y, Z), (torch.float32,), dev)
-    _check(static["obstacle"], "obstacle", (X, Y, Z), (torch.bool,), dev)
-    _check(static["sponge"], "sponge", (X, Y, Z), (torch.float32,), dev)
-    _check(static["wall_dist"], "wall_dist", (X, Y, Z), (torch.float32,), dev)
-    iface = iface or {}
-    planes = []
-    for face in range(6):
-        if patch.face_bc[face] != BC_INTERFACE:
-            planes.append(None)
-            continue
-        if face not in iface:
-            raise ValueError(f"interface face {face} has no ghost plane")
-        t = [a for a in range(3) if a != face // 2]
-        shape = (27, patch.interior[t[0]] + 2, patch.interior[t[1]] + 2)
-        _check(iface[face], f"iface[{face}]", shape, (torch.float32,), dev)
-        planes.append(iface[face])
+    _check_level(f, vel, static, patch)
+    planes = _iface_planes(patch, iface, dev)
     kw = dict(
         c_wale=c_wale, nu_sgs_background=nu_sgs_background,
         inlet_turbulence=inlet_turbulence, wall_model=wall_model,
@@ -142,7 +183,7 @@ def stream_collide(
         vel_out.data_ptr(),
         static["obstacle"].data_ptr(), static["sponge"].data_ptr(),
         static["wall_dist"].data_ptr(),
-        *[(p.data_ptr() if p is not None else None) for p in planes],
+        *[_ptr(p) for p in planes],
         X, Y, Z, int(patch.lo[1]), int(patch.lo[2]),
         *[int(b) for b in patch.face_bc],
         float(u_inlet), int(t_seed),
@@ -165,12 +206,10 @@ def bouzidi(f: torch.Tensor, plan: Dict) -> torch.Tensor:
     if f.dim() != 4 or f.shape[0] != 27:
         raise ValueError(f"f shape {tuple(f.shape)}, expected (27, X, Y, Z)")
     _check(f, "f", f.shape, (torch.float32, torch.bfloat16), dev)
-    _check(plan["S"], "S", (27,) + tuple(plan["dim"]), (torch.float32,), dev)
+    _check_plan(plan, f.shape[1:], dev)
     lx, ly, lz = plan["lo"]
     bx, by, bz = plan["dim"]
     X, Y, Z = f.shape[1:]
-    if lx < 0 or ly < 0 or lz < 0 or lx + bx > X or ly + by > Y or lz + bz > Z:
-        raise ValueError(f"Bouzidi box {plan['lo']}+{plan['dim']} outside {X, Y, Z}")
     if dev.type == "cpu":
         return apply_bouzidi_dense(f, plan)
     if dev.type != "cuda":
@@ -186,3 +225,84 @@ def bouzidi(f: torch.Tensor, plan: Dict) -> torch.Tensor:
     _raise_on(rc, "bouzidi")
     LAUNCHES["bouzidi"] += 1
     return f
+
+
+def fused_pair(
+    f: torch.Tensor,  # (27, X, Y, Z) float32 f or bf16 g = f - w
+    vel: torch.Tensor,  # (3, X, Y, Z) float32
+    u: Tuple[float, float],  # (u_a, u_b) inlet velocity of steps A and B
+    seed: Tuple[int, int],  # (seed_a, seed_b) inlet-noise seeds
+    static: Dict,  # obstacle (bool), sponge, wall_dist: (X, Y, Z)
+    patch: PatchLevel,
+    plan: Optional[Dict],  # Bouzidi plan of the level (S on f's device), or None
+    *,
+    c_wale: float,
+    nu_sgs_background: float,
+    inlet_turbulence: float,
+    wall_model: bool,
+    sponge_blend: bool,
+    iface_a: Optional[Dict[int, torch.Tensor]] = None,  # step A's ghost planes
+    iface_b: Optional[Dict[int, torch.Tensor]] = None,  # step B's ghost planes
+):
+    """K3: two sub-steps of a childless level with step A's Bouzidi
+    correction between them.  Returns step B's new (f, rho, vel) in the
+    storage dtype of `f`, B's f uncorrected (A -> B buffers; the inputs are
+    not modified)."""
+    X, Y, Z = patch.interior
+    dev = f.device
+    _check_level(f, vel, static, patch)
+    planes_a = _iface_planes(patch, iface_a, dev, "iface_a")
+    planes_b = _iface_planes(patch, iface_b, dev, "iface_b")
+    if plan is not None:
+        _check_plan(plan, (X, Y, Z), dev)
+    (u_a, u_b), (seed_a, seed_b) = u, seed
+    kw = dict(
+        c_wale=c_wale, nu_sgs_background=nu_sgs_background,
+        inlet_turbulence=inlet_turbulence, wall_model=wall_model,
+        sponge_blend=sponge_blend,
+    )
+    if dev.type == "cpu":
+        return fused_pair_plain(f, vel, (u_a, u_b), (seed_a, seed_b), static,
+                                patch, plan, iface_a=iface_a, iface_b=iface_b,
+                                **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_pair: unsupported device {dev}")
+
+    fn = _lib("fused_pair", "ol_fused_pair", _FP_ARGTYPES)
+    f_out = torch.empty_like(f)
+    rho = torch.empty((X, Y, Z), dtype=torch.float32, device=dev)
+    vel_out = torch.empty_like(vel)
+    box = (tuple(plan["lo"]) + tuple(plan["dim"])) if plan is not None \
+        else (0,) * 6
+    rc = fn(
+        int(f.dtype == torch.bfloat16),
+        f.data_ptr(), vel.data_ptr(), f_out.data_ptr(), rho.data_ptr(),
+        vel_out.data_ptr(),
+        static["obstacle"].data_ptr(), static["sponge"].data_ptr(),
+        static["wall_dist"].data_ptr(),
+        *[_ptr(p) for p in planes_a], *[_ptr(p) for p in planes_b],
+        _ptr(plan["S"]) if plan is not None else None,
+        X, Y, Z, int(patch.lo[1]), int(patch.lo[2]),
+        *[int(b) for b in patch.face_bc],
+        float(u_a), float(u_b), int(seed_a), int(seed_b),
+        float(patch.tau), float(c_wale), float(nu_sgs_background),
+        float(inlet_turbulence),
+        int(bool(wall_model)), int(bool(sponge_blend)),
+        *[int(v) for v in box],
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(rc, "fused_pair")
+    LAUNCHES["fused_pair"] += 1
+    return f_out, rho, vel_out
+
+
+def fused_pair_attrs(store_bf16: bool) -> Dict[str, int]:
+    """K3's registers and local memory per thread, dynamic shared memory
+    per block and resident blocks per SM on the current card."""
+    fn = _lib("fused_pair", "ol_fused_pair_attrs",
+              [_I] + [ctypes.POINTER(ctypes.c_int)] * 4)
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    rc = fn(int(store_bf16), *[ctypes.byref(v) for v in vals])
+    _raise_on(rc, "fused_pair attribute query")
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"),
+                    (v.value for v in vals)))

@@ -14,7 +14,9 @@ plain versions of the two CUDA kernels and the torch glue between them:
     (reference: src/physics_interpolation.jl:16-138);
   - `build_bouzidi_dense_plan` / `apply_bouzidi_dense`: the Bouzidi
     sub-box correction (K2's plain version; reference:
-    src/bouzidi_kernel.jl:38-88).
+    src/bouzidi_kernel.jl:38-88);
+  - `fused_pair_plain`: two sub-steps with the correction of the first
+    between them (K3's plain version).
 
 Arrays are unpadded: every level's state is (27, X, Y, Z) over its
 interior (the port drops the TPU's y->8 / z->128 tile padding).
@@ -38,7 +40,7 @@ from open_ludwig_tpu.core.patch import (
 
 from .. import lattice as lat
 from .collide_math import _CT, _contract, collide, hash_noise, inlet_equilibrium
-from .storage import decode_f
+from .storage import STORE_BF16, decode_f, encode_f
 
 
 def _upsample_axis(slab: torch.Tensor, axis: int, g_start: int, length: int):
@@ -401,3 +403,40 @@ def apply_bouzidi_dense(f_out: torch.Tensor, plan: Dict) -> torch.Tensor:
     out = f_out.clone()
     out[:, lx:lx + bx, ly:ly + by, lz:lz + bz_] = torch.stack(rows)
     return out
+
+
+def fused_pair_plain(
+    f: torch.Tensor,  # (27, X, Y, Z) float32 f or bf16 g = f - w
+    vel: torch.Tensor,  # (3, X, Y, Z)
+    u: Tuple[float, float],  # (u_a, u_b)
+    seed: Tuple[int, int],  # (seed_a, seed_b)
+    static: Dict,
+    patch: PatchLevel,
+    plan: Optional[Dict],
+    *,
+    c_wale: float,
+    nu_sgs_background: float,
+    inlet_turbulence: float,
+    wall_model: bool,
+    sponge_blend: bool,
+    iface_a: Optional[Dict[int, torch.Tensor]] = None,
+    iface_b: Optional[Dict[int, torch.Tensor]] = None,
+):
+    """Step A -> storage dtype -> Bouzidi (if `plan`) -> step B, returning
+    step B's (f, rho, vel) with f in the storage dtype and uncorrected, as
+    the fused kernel leaves it (reference: pallas_step.py:1001-1007)."""
+    kw = dict(c_wale=c_wale, nu_sgs_background=nu_sgs_background,
+              inlet_turbulence=inlet_turbulence, wall_model=wall_model,
+              sponge_blend=sponge_blend)
+    bf16 = f.dtype == torch.bfloat16
+    fa, _, va = dense_stream_collide(decode_f(f), vel, u[0], seed[0], static,
+                                     patch, iface=iface_a, **kw)
+    if bf16:
+        fa = encode_f(fa, STORE_BF16)
+    if plan is not None:
+        fa = apply_bouzidi_dense(fa, plan)
+    fb, rb, vb = dense_stream_collide(decode_f(fa), va, u[1], seed[1], static,
+                                      patch, iface=iface_b, **kw)
+    if bf16:
+        fb = encode_f(fb, STORE_BF16)
+    return fb, rb, vb

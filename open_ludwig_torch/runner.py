@@ -4,7 +4,9 @@
 
 Port of `open_ludwig_tpu/runner.py:solve_case` for `layout: patch` on one
 device: build the nested patches and statics, step the multi-level
-schedule between diagnostics boundaries with no host sync, and at each
+schedule between diagnostics boundaries with no host sync (temporal
+blocking on, as in the JAX runner: the finest level's sub-step pairs, or a
+single-level case's coarse-step pairs, run as one fused kernel), and at each
 boundary log flow statistics, MLUPS-ref and Cd/Cl, append
 convergence.csv / forces.csv (the JAX runner's schemas) and check
 stability.  The default device is `cuda`, which raises when CUDA is

@@ -1,19 +1,24 @@
 """Multi-level scheduler for the dense-patch layout.
 
-Port of the unfused, single-device schedule of
+Port of the single-device schedule of
 `open_ludwig_tpu/solver_dense.py:make_coarse_step_dense` (the "real"
-interface path, :426-571): level l advances 2^(l-1) sub-steps per coarse
-step (reference: src/solver_control.jl:21-143).  After each parent step
-the (old, new) parent states give endpoint ghost planes for the child's
-two sub-steps at temporal weights 0.0 and 0.5; the finest level applies
-Bouzidi after each of its sub-steps.
+interface path, :426-631) and of its batch runner (:660-704): level l
+advances 2^(l-1) sub-steps per coarse step (reference:
+src/solver_control.jl:21-143).  After each parent step the (old, new)
+parent states give endpoint ghost planes for the child's two sub-steps at
+temporal weights 0.0 and 0.5.
 
-Every sub-step is one K1 launch (`ops.cuda_step.stream_collide`) and every
-finest-level correction one K2 launch (`ops.cuda_step.bouzidi`); ghost
-planes are plain torch.  States are {f: (27, X, Y, Z), rho, vel} in the
-storage dtype (float32 f or bf16 g = f - w); each sub-step writes fresh
-buffers (A -> B), and a parent's pre-step state lives until its child's
-ghost planes are built.
+Temporal blocking (`fuse2=True`, the default, as in the JAX package): the
+childless finest level runs each pair of sub-steps as one K3 launch
+(`ops.cuda_step.fused_pair`: step A, A's Bouzidi correction, step B) and
+one K2 launch after it; a single-level case runs pairs of coarse steps so
+(`coarse_step.pair_step`), an odd batch taking one plain step first.
+Every other sub-step is one K1 launch (`ops.cuda_step.stream_collide`),
+followed on the finest level by one K2 launch (`ops.cuda_step.bouzidi`).
+`fuse2=False` keeps the unfused schedule.  Ghost planes are plain torch.
+States are {f: (27, X, Y, Z), rho, vel} in the storage dtype (float32 f or
+bf16 g = f - w); each launch writes fresh buffers (A -> B), and a parent's
+pre-step state lives until its child's ghost planes are built.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ from open_ludwig_tpu.scaling import DomainParams
 
 from . import lattice as lat
 from .ops import storage
-from .ops.cuda_step import bouzidi, stream_collide
+from .ops.cuda_step import bouzidi, fused_pair, stream_collide
 from .ops.dense_step import (
     build_bouzidi_dense_plan,
     interface_endpoints,
@@ -74,31 +79,48 @@ def build_patch_statics(cfg: CaseConfig, patches: List[PatchLevel],
 
 def kernel_log_lines(patches: List[PatchLevel], statics: List[Dict],
                      precision: str, device) -> List[str]:
-    """One line per level naming the kernels its sub-steps run."""
+    """Per level: the kernels its sub-steps run under the default (fused)
+    schedule, and whether its sub-step pairs take K3 (and why not)."""
     dev = torch.device(device)
     route = "CUDA" if dev.type == "cuda" else "plain torch (CPU)"
     store = ("bf16 g-native" if storage.f_dtype(precision) == torch.bfloat16
              else "float32")
+    last = len(patches) - 1
     lines = []
-    for p, st in zip(patches, statics):
+    for li, (p, st) in enumerate(zip(patches, statics)):
         n_if = sum(bc == BC_INTERFACE for bc in p.face_bc)
         bz = st["bouzidi"]
+        if li < last:
+            k3 = (f"K3 no: parent of level {patches[li + 1].level_id} (its "
+                  "state after each sub-step feeds the child's ghost planes)")
+        elif last == 0:
+            k3 = (f"K3 fused_pair {route} on pairs of coarse steps (an odd "
+                  "batch takes one K1 step first), K2 after each pair")
+        else:
+            k3 = (f"K3 fused_pair {route} on its {2 ** (p.level_id - 2)} "
+                  "sub-step pair(s), K2 after each pair")
         lines.append(
             f"  [engine] level {p.level_id}: {'x'.join(map(str, p.interior))} "
             f"cells, {2 ** (p.level_id - 1)} sub-step(s)/coarse step | "
             f"K1 stream_collide {route}, {store}, {n_if} interface face(s)"
             + (f" | K2 bouzidi {route}, box {tuple(bz['dim'])} at {bz['lo']}"
                if bz is not None else "")
+            + f" | {k3}"
         )
     return lines
 
 
 def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
-                           patches: List[PatchLevel], statics: List[Dict]):
+                           patches: List[PatchLevel], statics: List[Dict],
+                           fuse2: bool = True):
     """coarse_step(states, t) -> states advancing every level by one coarse
-    step; launches 2^L - 1 K1 sub-steps and 2^(L-1) K2 corrections (on a
-    Bouzidi finest level) without any host synchronisation."""
+    step without any host synchronisation.  With `fuse2` the finest
+    level's sub-step pairs are K3 launches, each followed by K2; every
+    other sub-step is a K1 launch (followed by K2 on the finest level).
+    `coarse_step.pair_step(states, t)` runs coarse steps t and t + 1 of a
+    single-level case as one K3 + K2 (None otherwise)."""
     n_levels = len(patches)
+    last = n_levels - 1
     use_temporal = cfg.temporal_interpolation
     kw = dict(
         c_wale=cfg.c_wale,
@@ -107,6 +129,18 @@ def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
         wall_model=cfg.wall_model_enabled,
         sponge_blend=cfg.sponge_blend_distributions,
     )
+
+    def fused(states: List[Dict], lvl: int, u, seeds, if_a, if_b) -> None:
+        """Sub-steps A and B of level `lvl` as one K3, then B's K2."""
+        st = states[lvl]
+        plan = statics[lvl]["bouzidi"]
+        f_new, rho_new, vel_new = fused_pair(
+            st["f"], st["vel"], u, seeds, statics[lvl], patches[lvl], plan,
+            iface_a=if_a, iface_b=if_b, **kw,
+        )
+        if plan is not None:
+            f_new = bouzidi(f_new, plan)
+        states[lvl] = {"f": f_new, "rho": rho_new, "vel": vel_new}
 
     def coarse_step(states: List[Dict], t: int) -> List[Dict]:
         states = list(states)
@@ -139,34 +173,71 @@ def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
                 if_b = interface_from_endpoints(
                     ep_new, ep_old, child, patch, 0.5, use_temporal
                 )
+                if fuse2 and lvl + 1 == last:
+                    ts = 2 * t_sub
+                    fused(states, last, (u_curr, u_curr),
+                          (ts % 1000000, (ts + 1) % 1000000), if_a, if_b)
+                    return
                 visit(lvl + 1, 2 * t_sub, if_a)
                 visit(lvl + 1, 2 * t_sub + 1, if_b)
 
         visit(0, int(t), None)
         return states
 
+    pair_step = None
+    if fuse2 and n_levels == 1:
+        def pair_step(states: List[Dict], t: int) -> List[Dict]:
+            """Coarse steps t and t + 1 of a single-level case as one K3
+            (inlet velocity and noise seed of each step its own) + K2."""
+            states = list(states)
+            t = int(t)
+            fused(states, 0,
+                  (ramp_velocity(t, cfg.u_lattice, cfg.ramp_steps),
+                   ramp_velocity(t + 1, cfg.u_lattice, cfg.ramp_steps)),
+                  (t % 1000000, (t + 1) % 1000000), None, None)
+            return states
+
+    coarse_step.pair_step = pair_step
+    coarse_step.fused2 = bool(fuse2)
     return coarse_step
 
 
 def make_batch_runner_dense(cfg: CaseConfig, params: DomainParams,
-                            patches: List[PatchLevel], statics: List[Dict]):
+                            patches: List[PatchLevel], statics: List[Dict],
+                            fuse2: bool = True):
     """run(states, t0, n) -> states after coarse steps t0 .. t0+n-1: a plain
-    loop that only enqueues work (no host sync inside a batch)."""
-    coarse_step = make_coarse_step_dense(cfg, params, patches, statics)
+    loop that only enqueues work (no host sync inside a batch).  A
+    single-level case with `fuse2` runs pairs of coarse steps; an odd batch
+    of n >= 3 takes one plain step first (the JAX runner's rule,
+    open_ludwig_tpu/solver_dense.py:690-700)."""
+    coarse_step = make_coarse_step_dense(cfg, params, patches, statics,
+                                         fuse2=fuse2)
+    pair = coarse_step.pair_step
 
     def run(states: List[Dict], t0: int, n: int) -> List[Dict]:
-        for t in range(int(t0), int(t0) + int(n)):
+        t0, n = int(t0), int(n)
+        if pair is not None and n >= 2:
+            if n % 2:
+                states = coarse_step(states, t0)
+                t0, n = t0 + 1, n - 1
+            for i in range(n // 2):
+                states = pair(states, t0 + 2 * i)
+            return states
+        for t in range(t0, t0 + n):
             states = coarse_step(states, t)
         return states
 
+    run.fused2 = coarse_step.fused2
     return run
 
 
 def hbm_report_patches(patches: List[PatchLevel], statics: List[Dict],
                        precision: str = "float32", device="cpu") -> str:
     """Per-level device-memory accounting: resident state (f + rho + vel)
-    and statics, plus the step's transient — every sub-step writes a second
-    f/rho/vel (A -> B) while the first is alive, for the largest level."""
+    and statics, plus the step's transient: every K1 sub-step, and every
+    K3 pair on the finest level, writes a second f/rho/vel (A -> B) while
+    the first is alive; K3's step A stays in shared memory and takes no
+    device buffer.  The transient counted is the largest level's."""
     f_bytes = 2 if storage.f_dtype(precision) == torch.bfloat16 else 4
     lines = [f"Device memory (dense patches, {precision} f-storage):"]
     total = 0
@@ -175,14 +246,20 @@ def hbm_report_patches(patches: List[PatchLevel], statics: List[Dict],
         state_b = n * (27 * f_bytes + 4 * (1 + 3))
         field_b = n * (1 + 4 + 4)
         bz = st["bouzidi"]
-        bz_b = 2 * bz["S"].numel() * 4 if bz is not None else 0  # S + snapshot
+        # S (float32) + K2's snapshot of the box (storage dtype)
+        bz_b = bz["S"].numel() * (4 + f_bytes) if bz is not None else 0
         total += state_b + field_b + bz_b
         lines.append(
             f"  level {p.level_id}: {n/1e6:7.2f}M cells | state "
             f"{state_b/1e6:8.1f} MB | fields {field_b/1e6:6.1f} MB | bouzidi "
             f"{bz_b/1e6:5.1f} MB"
         )
-    trans = max(p.n_cells for p in patches) * (27 * f_bytes + 16)
+    ab = [p.n_cells * (27 * f_bytes + 16) for p in patches]
+    lines.append(
+        f"  level {patches[-1].level_id}: K3 A->B output f/rho/vel "
+        f"{ab[-1]/1e6:.1f} MB per pair; step A in shared memory (no device "
+        "buffer)")
+    trans = max(ab)
     total += trans
     lines.append(f"  estimated total: {total/1e9:.3f} GB (incl. "
                  f"{trans/1e6:.0f} MB A->B transient of the largest level)")

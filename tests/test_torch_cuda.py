@@ -1,7 +1,9 @@
-"""The CUDA kernels K1 (stream-collide) and K2 (Bouzidi) against their plain
-PyTorch versions on the card, at the shapes of chip_smoke.py phases 3 and
-4: the bench case's levels (sphere Re~1M, N=25, 3 levels) with every face
-type, the 10.8M-cell single-level sweep shape, and the bench Bouzidi box.
+"""The CUDA kernels K1 (stream-collide), K2 (Bouzidi) and K3 (fused pair)
+against their plain PyTorch versions on the card, at the shapes of
+chip_smoke.py: the bench case's levels (sphere Re~1M, N=25, 3 levels) with
+every face type, the 10.8M-cell single-level sweep shape, and the bench
+Bouzidi box; K3 + K2 on the bench's finest level and on the single-level
+shape, also against K1 -> K2 -> K1 -> K2.
 
 Every test here needs an NVIDIA GPU and nvcc, and skips without them.  On
 the card:  python -m pytest tests/test_torch_*.py -q
@@ -64,3 +66,32 @@ def test_bouzidi_kernel_matches_plain(bench, cuda_device, store_bf16):
                              cuda_device, reps=1, plain_reps=1)
     assert r["changed"] > 0
     assert r["max_abs_err"] < r["tol"], r
+
+
+@pytest.fixture(scope="module")
+def sweep(bench, cuda_device, tmp_path_factory):
+    cfg = bench[0]
+    _, _, _, levels = checks.bench_case(str(tmp_path_factory.mktemp("sweep")),
+                                        surface_resolution=25, num_levels=1,
+                                        precision="float32")
+    return levels[0], build_patch_statics(cfg, levels, cuda_device)[0]
+
+
+@pytest.mark.parametrize("store_bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["L3", "sweep"])
+def test_fused_pair_kernel_matches_plain(bench, sweep, cuda_device, case,
+                                         store_bf16):
+    """K3 + K2 against the plain pair + plain correction: on the bench's
+    finest level (six interface faces, distinct ghost planes per sub-step,
+    its own Bouzidi box) and on the 10.8M-cell single level (inlet, outlet
+    and mirror faces, inlet noise, wall model, a sponge ramp, the sphere's
+    Bouzidi box)."""
+    _, levels, statics, kw = bench
+    if case == "L3":
+        patch, static = levels[2], checks.with_sponge_ramp(statics[2])
+    else:
+        patch, static = sweep[0], checks.with_sponge_ramp(sweep[1])
+    r = checks.check_fused_pair(patch, static, static["bouzidi"], store_bf16,
+                                23, kw, cuda_device, reps=1, plain_reps=1)
+    assert r["finite"] and r["max_abs_err"] < r["tol"], r
+    assert checks.within_k3_tol(r["unfused"], store_bf16), r["unfused"]
