@@ -8,6 +8,13 @@ same layers (`tests/test_patch_pallas.py:114, :400, :439`):
 
   K1 stream-collide: float32 < 1e-5; bf16 g-storage < 2e-3 (decoded f)
   K2 Bouzidi:        float32 < 1e-6; bf16 g-storage < 2e-3 (decoded f)
+  K4 flat step, K5 in-place step: float32 < 1e-5; bf16 g-storage < 2e-3
+                     (decoded f), against their plain versions (the
+                     reference's flat and 2-D kernels are held to the XLA
+                     path at these bounds, tests/test_patch_pallas.py:157);
+                     against K1, which runs the same per-cell code, the
+                     share of stored f entries that differ is reported
+                     (expected 0)
   K3 fused pair (+ K2 after it): against the plain pair, float32 < 1e-5,
                      bf16 g-storage < 2e-3 (decoded f); against the unfused
                      kernels K1 -> K2 -> K1 (+ K2), the same and, in bf16,
@@ -25,7 +32,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, List, Tuple
 
-import numpy as np
 import torch
 
 from open_ludwig_tpu.cases import make_case_sphere
@@ -44,8 +50,20 @@ from open_ludwig_tpu.scaling import DomainParams, compute_domain_params
 from . import lattice as lat
 from .core.patch import build_patches
 from .ops import storage
-from .ops.cuda_step import bouzidi, fused_pair, stream_collide
-from .ops.dense_step import apply_bouzidi_dense, dense_stream_collide, fused_pair_plain
+from .ops.cuda_step import (
+    bouzidi,
+    fused_pair,
+    stream_collide,
+    stream_collide_flat,
+    stream_collide_inplace,
+)
+from .ops.dense_step import (
+    apply_bouzidi_dense,
+    dense_stream_collide,
+    fused_pair_plain,
+    stream_collide_flat_plain,
+    stream_collide_inplace_plain,
+)
 
 K1_TOL = {False: 1e-5, True: 2e-3}  # keyed by store_bf16
 K2_TOL = {False: 1e-6, True: 2e-3}
@@ -53,19 +71,31 @@ K3_TOL = {False: 1e-5, True: 2e-3}
 K3_MAX_DIFF_FRAC = 0.01  # bf16: share of stored f entries that may differ
 
 
-def bench_case(case_dir: str, **over) -> Tuple[CaseConfig, object, DomainParams,
-                                               List[PatchLevel]]:
+def bench_config(case_dir: str, **over) -> CaseConfig:
     """The bench case of bench.py:67-104 (sphere at Re~1M, N=25, 3 levels +
-    wake, wall model, Bouzidi on the finest level, bf16 g-storage), with
-    the TPU-only flat coarse layout off.  `over` overrides case options."""
+    wake, wall model, Bouzidi on the finest level, bf16 g-storage) written
+    to `case_dir` and loaded as its YAML says: level 1 runs K4 under
+    `flat_coarse: auto`.  `over` overrides case options."""
     opts = dict(steps=400, ramp_steps=200, output_freq=100000, diag_freq=100,
                 wake_enabled=True, precision="bfloat16")
     opts.update(over)
     make_case_sphere(case_dir, "1M", **opts)
-    cfg = dataclasses.replace(load_case_config(case_dir), flat_coarse="off")
+    return load_case_config(case_dir)
+
+
+def case_levels(cfg: CaseConfig) -> Tuple[object, DomainParams, List[PatchLevel]]:
+    """The case's mesh, domain parameters and the port's levels, built as
+    solve_case builds them."""
     mesh = load_mesh(cfg.stl_path, scale=cfg.stl_scale)
     params = compute_domain_params(cfg, mesh.min_bounds, mesh.max_bounds)
-    return cfg, mesh, params, build_patches(cfg, mesh, params)
+    return mesh, params, build_patches(cfg, mesh, params)
+
+
+def bench_case(case_dir: str, **over) -> Tuple[CaseConfig, object, DomainParams,
+                                               List[PatchLevel]]:
+    """bench_config, its mesh, domain parameters and the port's levels."""
+    cfg = bench_config(case_dir, **over)
+    return (cfg,) + case_levels(cfg)
 
 
 def time_cuda(fn: Callable[[], object], reps: int, warmup: int = 1) -> float:
@@ -85,25 +115,26 @@ def time_cuda(fn: Callable[[], object], reps: int, warmup: int = 1) -> float:
 def random_level_inputs(patch: PatchLevel, store_bf16: bool, seed: int,
                         device) -> Dict:
     """f (storage dtype), vel and float32 f-space ghost planes for every
-    interface face of `patch`, perturbed around rest."""
-    rng = np.random.default_rng(seed)
+    interface face of `patch`, perturbed around rest; drawn on `device` from
+    `seed` (a 63.7M-cell level takes no host round trip)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
     sh = tuple(patch.interior)
-    f = (lat.W[:, None, None, None] * (1 + 0.05 * rng.standard_normal((27,) + sh))
-         ).astype(np.float32)
-    f = torch.as_tensor(f, device=device)
+    w = torch.as_tensor(lat.W, dtype=torch.float32, device=device)
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    f = w.view(27, 1, 1, 1) * (1 + 0.05 * randn((27,) + sh))
     if store_bf16:
         f = storage.encode_f(f, storage.STORE_BF16)
-    vel = torch.as_tensor((0.02 * rng.standard_normal((3,) + sh)).astype(np.float32),
-                          device=device)
+    vel = 0.02 * randn((3,) + sh)
     planes = {}
     for fc in range(6):
         if patch.face_bc[fc] != BC_INTERFACE:
             continue
         t = [a for a in range(3) if a != fc // 2]
         shp = (27, sh[t[0]] + 2, sh[t[1]] + 2)
-        planes[fc] = torch.as_tensor(
-            (lat.W[:, None, None] * (1 + 0.03 * rng.standard_normal(shp))
-             ).astype(np.float32), device=device)
+        planes[fc] = w.view(27, 1, 1) * (1 + 0.03 * randn(shp))
     return {"f": f, "vel": vel, "iface": planes}
 
 
@@ -178,6 +209,95 @@ def check_stream_collide(patch: PatchLevel, static: Dict, store_bf16: bool,
     out["ms"] = time_cuda(kernel, reps)
     out["plain_ms"] = time_cuda(plain, plain_reps)
     return out
+
+
+def check_flat(patch: PatchLevel, static: Dict, store_bf16: bool, seed: int,
+               kw: Dict, device, reps: int = 20, plain_reps: int = 3) -> Dict:
+    """K4 against stream_collide_flat_plain and against K1 on the card, from
+    one input (A -> B: nothing is modified).  Returns max-abs errors against
+    the plain version, the comparison with K1 ("k1": errors and the share
+    of stored f entries that differ), and ms per call of K4, K1 and plain."""
+    inp = random_level_inputs(patch, store_bf16, seed, device)
+    u, s = 0.04, 9
+    f, vel = inp["f"], inp["vel"]
+
+    def k4():
+        return stream_collide_flat(f, vel, u, s, static, patch, **kw)
+
+    def k1():
+        return stream_collide(f, vel, u, s, static, patch, **kw)
+
+    def plain():
+        fo, ro, vo = stream_collide_flat_plain(storage.decode_f(f), vel, u, s,
+                                               static, patch, **kw)
+        if store_bf16:
+            fo = storage.encode_f(fo, storage.STORE_BF16)
+        return fo, ro, vo
+
+    a, b, c = k4(), k1(), plain()
+    torch.cuda.synchronize()
+    out = {**state_diff(*a, *c), "tol": K1_TOL[store_bf16],
+           "k1": state_diff(*a, *b)}
+    del a, b, c
+    out["ms"] = time_cuda(k4, reps)
+    out["k1_ms"] = time_cuda(k1, reps)
+    out["plain_ms"] = time_cuda(plain, plain_reps)
+    return out
+
+
+def check_inplace(patch: PatchLevel, static: Dict, store_bf16: bool, seed: int,
+                  kw: Dict, device, reps: int = 20, plain_reps: int = 3) -> Dict:
+    """K5 against stream_collide_inplace_plain and against K1 on the card.
+    K5 and its plain version overwrite their f, so each runs on its own
+    clone of the input.  Returns what check_flat returns, with "same_ptr":
+    whether K5 returned the storage it was given, and "plain_peak_bytes":
+    the peak allocation of the plain step above its inputs."""
+    inp = random_level_inputs(patch, store_bf16, seed, device)
+    u, s = 0.04, 9
+    f0, vel = inp["f"], inp["vel"]
+
+    vel_in = vel.clone()
+    # the plain step first, while little else is allocated
+    torch.cuda.synchronize(device)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    c = stream_collide_inplace_plain(f0.clone(), vel, u, s, static, patch, **kw)
+    torch.cuda.synchronize(device)
+    plain_peak = torch.cuda.max_memory_allocated(device) - base
+    fk = f0.clone()
+    ptr = fk.data_ptr()
+    a = stream_collide_inplace(fk, vel, u, s, static, patch, **kw)
+    out = {**state_diff(*a, *c), "tol": K1_TOL[store_bf16],
+           "same_ptr": a[0].data_ptr() == ptr and bool(torch.equal(a[0], fk)),
+           "plain_peak_bytes": int(plain_peak)}
+    del c
+    out["k1"] = state_diff(*a, *stream_collide(f0, vel, u, s, static, patch, **kw))
+    out["vel_kept"] = bool(torch.equal(vel, vel_in))
+    del a, fk, vel_in
+    # timed on one working copy each, which every call steps further on
+    work = f0.clone()
+    out["ms"] = time_cuda(
+        lambda: stream_collide_inplace(work, vel, u, s, static, patch, **kw), reps)
+    out["k1_ms"] = time_cuda(
+        lambda: stream_collide(f0, vel, u, s, static, patch, **kw), reps)
+    work_p = f0.clone()
+    out["plain_ms"] = time_cuda(
+        lambda: stream_collide_inplace_plain(work_p, vel, u, s, static, patch, **kw),
+        plain_reps)
+    return out
+
+
+def step_peak_bytes(fn: Callable[[], object], device) -> int:
+    """Bytes allocated at the peak of one call of `fn` above what was live
+    before it (its outputs included)."""
+    torch.cuda.synchronize(device)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    out = fn()
+    torch.cuda.synchronize(device)
+    peak = torch.cuda.max_memory_allocated(device) - base
+    del out
+    return int(peak)
 
 
 def check_bouzidi(patch: PatchLevel, plan: Dict, store_bf16: bool, seed: int,

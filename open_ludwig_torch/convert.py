@@ -2,8 +2,10 @@
 
 Inputs are numpy arrays as the JAX package hands them over
 (`np.asarray(jax_array)`); outputs are the port's tensors, and back.  The
-JAX package stores every level padded to its TPU tile (`patch.padded`)
-with flat (N,) statics; the port stores the interior only.  bf16 g-storage
+JAX package stores every level padded to its TPU tile (`patch.padded`),
+or on a flat-(y,z) level (`patch.flat_yz`) as (..., XS, M) with
+n = y * Z + z and a pad tail up to M = ceil(Y * Z, 128), with flat (N,)
+statics; the port stores the interior (..., X, Y, Z) only.  bf16 g-storage
 crosses bit-exactly through a 16-bit integer view.  Nothing here imports
 jax.
 """
@@ -15,6 +17,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from open_ludwig_tpu import lattice as lat
 from open_ludwig_tpu.core.patch import PatchLevel
 
 
@@ -33,10 +36,38 @@ def pad(arr: np.ndarray, padded: Sequence[int], fill=0) -> np.ndarray:
     return out
 
 
+def from_jax_layout(arr: np.ndarray, patch: PatchLevel) -> np.ndarray:
+    """A JAX level array, (..., XS, YS, ZS) or flat (..., XS, M), -> the
+    interior (..., X, Y, Z)."""
+    return trim(patch.unflatten_host(np.asarray(arr)), patch.interior)
+
+
+def to_jax_layout(arr: np.ndarray, patch: PatchLevel, fill=0) -> np.ndarray:
+    """(..., X, Y, Z) -> the JAX level's layout, (..., XS, M) on a flat
+    level, else (..., XS, YS, ZS); pad cells and slots take `fill`, a
+    scalar or an array broadcast over the leading axes (for f: w or 0, the
+    JAX rest state)."""
+    arr = np.asarray(arr)
+    lead = arr.shape[:-3]
+    X, Y, Z = arr.shape[-3:]
+    tail = (patch.padded[0], patch.flat_m) if patch.flat_yz else tuple(patch.padded)
+    out = np.empty(lead + tail, arr.dtype)
+    fill = np.asarray(fill, arr.dtype)
+    out[...] = fill.reshape(fill.shape + (1,) * (out.ndim - fill.ndim))
+    if patch.flat_yz:
+        out[..., :X, :Y * Z] = arr.reshape(lead + (X, Y * Z))
+    else:
+        out[..., :X, :Y, :Z] = arr
+    return out
+
+
 def to_tensor(arr: np.ndarray, device="cpu") -> torch.Tensor:
     """numpy -> tensor; a bfloat16 numpy array (ml_dtypes, as jax returns)
-    is carried over bit-exactly as torch.bfloat16."""
+    is carried over bit-exactly as torch.bfloat16.  A read-only array (a
+    view of a jax buffer) is copied: the port's in-place step writes its f."""
     arr = np.ascontiguousarray(arr)
+    if not arr.flags.writeable:
+        arr = arr.copy()
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
     return torch.from_numpy(arr).to(device)
@@ -50,15 +81,31 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def state_from_jax(state: Dict, patch: PatchLevel, device="cpu") -> Dict:
-    """A JAX level state {f, rho, vel} (padded, f32 or bf16 g) -> port."""
+    """A JAX level state {f, rho, vel} (padded or flat, f32 or bf16 g) ->
+    port."""
     return {
-        key: to_tensor(trim(state[key], patch.interior), device)
+        key: to_tensor(from_jax_layout(state[key], patch), device)
         for key in ("f", "rho", "vel")
     }
 
 
 def state_to_numpy(state: Dict) -> Dict[str, np.ndarray]:
     return {key: to_numpy(state[key]) for key in ("f", "rho", "vel")}
+
+
+def state_to_jax(state: Dict, patch: PatchLevel) -> Dict[str, np.ndarray]:
+    """A port level state -> numpy arrays in the JAX level's layout, pads at
+    the JAX rest state (f = w, or g = 0 on bf16; rho = 1; vel = 0).  bf16 g
+    comes back as the float32 values it holds, which cast back to bfloat16
+    exactly."""
+    bf16 = state["f"].dtype == torch.bfloat16
+    w = np.zeros(27, np.float32) if bf16 else lat.W.astype(np.float32)
+    arrs = state_to_numpy(state)
+    return {
+        "f": to_jax_layout(arrs["f"], patch, w),
+        "rho": to_jax_layout(arrs["rho"], patch, 1.0),
+        "vel": to_jax_layout(arrs["vel"], patch, 0.0),
+    }
 
 
 def bouzidi_S_from_jax(plan_jax: Dict, patch: PatchLevel,
@@ -92,8 +139,8 @@ def statics_from_jax(static: Dict, patch: PatchLevel, port_plan: Optional[Dict],
     plan) -> port statics for the same level."""
     out = {}
     for key in ("obstacle", "sponge", "wall_dist"):
-        arr = np.asarray(static[key]).reshape(patch.padded)
-        out[key] = to_tensor(trim(arr, patch.interior), device)
+        arr = np.asarray(static[key]).reshape(patch.state_shape)
+        out[key] = to_tensor(from_jax_layout(arr, patch), device)
     bz = None
     if static.get("bouzidi") is not None and port_plan is not None:
         S = bouzidi_S_from_jax(static["bouzidi"], patch,

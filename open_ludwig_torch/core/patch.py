@@ -6,14 +6,17 @@ and the wake, with the fine boxes grown toward the TPU tile (z to 128,
 y to 8 cells) inside their parent-containment bounds.  That growth decides
 which cells get refined, which is physics, so the port keeps it and both
 packages solve the same boxes.  What the port drops is the storage pad
-(y -> 8, z -> 128 of `padded`) and the flat-(y,z) layout: here
-`padded == interior` on every level and each static field is cut to the
-interior.
+(y -> 8, z -> 128 of `padded`): here `padded == interior` on every level
+and each static field is cut to the interior.  Every level's state is
+(27, X, Y, Z); on a level the reference stores flat-(y, z) (`flat_yz`),
+that is already the flat (27, X, Y * Z) layout without its 128-lane pad,
+so K4 reads it as flat (`ops/engine.py` makes that choice per level, from
+the user's `flat_coarse`) and `PatchLevel.flat_yz` stays False here.
 
-The reference `build_patches` is called with `flat_coarse="off"` and `devices=1`,
-which returns before its only jax import (the flat-layout availability
-check); `tests/test_torch_storage_patch.py` asserts in a subprocess that
-building and stepping the port never imports jax.
+The reference `build_patches` is called with `flat_coarse="off"` and
+`devices=1`, which returns before its only jax import (the flat-layout
+availability check); `tests/test_torch_storage_patch.py` asserts in a
+subprocess that building and stepping the port never imports jax.
 """
 
 from __future__ import annotations

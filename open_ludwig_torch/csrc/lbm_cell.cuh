@@ -1,15 +1,15 @@
 // Per-cell physics of one stream-collide sub-step, shared by K1
-// (stream_collide.cu) and K3 (fused_pair.cu) so that both compile the same
-// device code:
+// (stream_collide.cu), K3 (fused_pair.cu), K4 (stream_collide_flat.cu) and
+// K5 (stream_collide_inplace.cu) so that all compile the same device code:
 //   stream_pull: pull streaming of the 27 populations with the boundary
-//     conditions of the level's six faces, in the precedence of the plain
-//     version (ops/dense_step.py): x faces over y faces over z faces, i.e.
-//     inlet > outlet > y-mirror > z-mirror.  Mirror faces read the
-//     destination cell's own mirrored row (unshifted); interface faces read
-//     the raw per-face ghost plane (27, A+2, B+2) at transverse offset
+//     conditions of the level's six faces (face_value), in the precedence
+//     of the plain version (ops/dense_step.py): x faces over y faces over z
+//     faces, i.e. inlet > outlet > y-mirror > z-mirror.  Mirror faces read
+//     the destination cell's own mirrored row (unshifted); interface faces
+//     read the raw per-face ghost plane (27, A+2, B+2) at transverse offset
 //     1 - c_t, float32 in f-space.  Where the source is a cell of the level
-//     the caller's accessor supplies it, so K1 reads device memory and K3's
-//     second sub-step reads shared memory;
+//     the caller's accessor supplies it, so K1 reads device memory, K3's
+//     second sub-step shared memory and K5 whichever holds the old value;
 //   collide: the per-cell factorized form of the JAX package's
 //     collide_unrolled_v2 (ops/collide_math.py:404): column partial sums
 //     give all ten moments, sponge blend, log-law wall-model force, WALE
@@ -90,14 +90,22 @@ static inline bool make_step(Step& s, const void* const planes[6],
   return true;
 }
 
-// Every input of a kernel is read-only while it runs (A -> B buffers), so
-// device-memory loads go through the read-only data cache (__ldg); measured
+// Every input of K1-K4 is read-only while it runs (A -> B buffers), so
+// device-memory loads go through the read-only data cache (__ldg); K5
+// reads its f, which it writes in place, with ld_cg instead.  Measured
 // on the 10.8M-cell level, this took K1 f32 from 1.30 to 1.08 ms and bf16
 // from 2.24 to 1.55 ms per call.  bf16 -> f32 is exact as a 16-bit shift.
 __device__ __forceinline__ float ld(const float* p, long long i) { return __ldg(p + i); }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p, long long i) {
   return __uint_as_float(
       (unsigned)__ldg(reinterpret_cast<const unsigned short*>(p) + i) << 16);
+}
+// Loads of an array that the running kernel also writes (K5's f): global
+// loads cached in L2 only, never through the read-only path.
+__device__ __forceinline__ float ld_cg(const float* p, long long i) { return __ldcg(p + i); }
+__device__ __forceinline__ float ld_cg(const __nv_bfloat16* p, long long i) {
+  return __uint_as_float(
+      (unsigned)__ldcg(reinterpret_cast<const unsigned short*>(p) + i) << 16);
 }
 __device__ __forceinline__ void st(float* p, long long i, float v) { p[i] = v; }
 __device__ __forceinline__ void st(__nv_bfloat16* p, long long i, float v) {
@@ -133,6 +141,56 @@ __device__ __forceinline__ float hash_noise(int gy, int gz, int seed) {
   return (float)(int)(h & 0xFFFFu) / 32768.0f - 1.0f;
 }
 
+// The inlet factor of cell (x, y, z): 1 (f) or 0 (g) + the inlet
+// equilibrium's velocity terms on the cells of an inlet x-min face, with
+// the hash noise of the cell's global (y, z); 0 elsewhere.
+template <bool G>
+__device__ __forceinline__ float inlet_factor(const Step& p, int x, int y,
+                                              int z) {
+  if (p.bc[0] != BC_INLET || x != 0) return 0.0f;
+  const float u_in = p.u_inlet;
+  float u_inst = u_in;
+  if (p.inlet_turb > 0.0f) {
+    const float noise = hash_noise(y + p.lo_y + 1, z + p.lo_z + 1, p.seed);
+    u_inst = u_in + noise * p.inlet_turb * u_in;
+  }
+  return (G ? 0.0f : 1.0f) + 3.0f * u_inst + 4.5f * u_inst * u_inst -
+         1.5f * u_inst * u_inst;
+}
+
+// Population k of cell (x, y, z) where its pull source lies beyond `face`:
+// the face's boundary condition.  `mirror(km)` returns population km of
+// the cell itself.
+template <bool G, class Mirror>
+__device__ __forceinline__ float face_value(const Step& p, int k, int face,
+                                            int x, int y, int z,
+                                            float inlet_fac, Mirror mirror) {
+  const int cx = k % 3 - 1, cy = (k / 3) % 3 - 1, cz = k / 9 - 1;
+  const int bc = p.bc[face];
+  if (bc == BC_INLET) return weight(k) * inlet_fac;
+  if (bc == BC_OUTLET) {
+    const float u_in = p.u_inlet;
+    const float cu = (float)cx * u_in;
+    return weight(k) *
+           ((G ? 0.0f : 1.0f) + 3.0f * cu + 4.5f * cu * cu - 1.5f * u_in * u_in);
+  }
+  if (bc == BC_MIRROR_Y) return mirror((cx + 1) + 3 * (1 - cy) + 9 * (cz + 1));
+  if (bc == BC_MIRROR_Z) return mirror((cx + 1) + 3 * (cy + 1) + 9 * (1 - cz));
+  // BC_INTERFACE
+  const int ax = face >> 1;
+  const int a = ax == 0 ? y : x;
+  const int b = ax == 2 ? y : z;
+  const int ca = ax == 0 ? cy : cx;
+  const int cb = ax == 2 ? cy : cz;
+  const int A = ax == 0 ? p.Y : p.X;
+  const int B = ax == 2 ? p.Y : p.Z;
+  const long long i =
+      ((long long)k * (A + 2) + (a + 1 - ca)) * (B + 2) + (b + 1 - cb);
+  float v = __ldg(p.plane[face] + i);
+  if (G) v -= weight(k);
+  return v;
+}
+
 // Pull streaming into f[27] for cell (x, y, z).  `interior(k, cx, cy, cz)`
 // returns population k of the level cell (x - cx, y - cy, z - cz);
 // `mirror(km)` returns population km of the cell itself.
@@ -141,20 +199,7 @@ __device__ __forceinline__ void stream_pull(const Step& p, int x, int y, int z,
                                             Interior interior, Mirror mirror,
                                             float f[27]) {
   const int X = p.X, Y = p.Y, Z = p.Z;
-  const float u_in = p.u_inlet;
-  const float base1 = G ? 0.0f : 1.0f;
-
-  float inlet_fac = 0.0f;
-  if (p.bc[0] == BC_INLET && x == 0) {
-    float u_inst = u_in;
-    if (p.inlet_turb > 0.0f) {
-      const float noise = hash_noise(y + p.lo_y + 1, z + p.lo_z + 1, p.seed);
-      u_inst = u_in + noise * p.inlet_turb * u_in;
-    }
-    inlet_fac = base1 + 3.0f * u_inst + 4.5f * u_inst * u_inst -
-                1.5f * u_inst * u_inst;
-  }
-
+  const float inlet_fac = inlet_factor<G>(p, x, y, z);
 #pragma unroll
   for (int k = 0; k < 27; ++k) {
     const int cx = k % 3 - 1, cy = (k / 3) % 3 - 1, cz = k / 9 - 1;
@@ -165,35 +210,8 @@ __device__ __forceinline__ void stream_pull(const Step& p, int x, int y, int z,
     else if (cy < 0 && y == Y - 1) face = 3;
     else if (cz > 0 && z == 0) face = 4;
     else if (cz < 0 && z == Z - 1) face = 5;
-    float v;
-    if (face < 0) {
-      v = interior(k, cx, cy, cz);
-    } else {
-      const int bc = p.bc[face];
-      if (bc == BC_INLET) {
-        v = weight(k) * inlet_fac;
-      } else if (bc == BC_OUTLET) {
-        const float cu = (float)cx * u_in;
-        v = weight(k) * (base1 + 3.0f * cu + 4.5f * cu * cu - 1.5f * u_in * u_in);
-      } else if (bc == BC_MIRROR_Y) {
-        v = mirror((cx + 1) + 3 * (1 - cy) + 9 * (cz + 1));
-      } else if (bc == BC_MIRROR_Z) {
-        v = mirror((cx + 1) + 3 * (cy + 1) + 9 * (1 - cz));
-      } else {  // BC_INTERFACE
-        const int ax = face >> 1;
-        const int a = ax == 0 ? y : x;
-        const int b = ax == 2 ? y : z;
-        const int ca = ax == 0 ? cy : cx;
-        const int cb = ax == 2 ? cy : cz;
-        const int A = ax == 0 ? Y : X;
-        const int B = ax == 2 ? Y : Z;
-        const long long i =
-            ((long long)k * (A + 2) + (a + 1 - ca)) * (B + 2) + (b + 1 - cb);
-        v = __ldg(p.plane[face] + i);
-        if (G) v -= weight(k);
-      }
-    }
-    f[k] = v;
+    f[k] = face < 0 ? interior(k, cx, cy, cz)
+                    : face_value<G>(p, k, face, x, y, z, inlet_fac, mirror);
   }
 }
 
@@ -395,6 +413,28 @@ __device__ __forceinline__ void collide(const Step& p, const Fields& fld,
   u_out[2] = uz;
 }
 
+// Central differences of the previous sub-step's velocity at cell
+// (x, y, z) of a (3, X, Y, Z) device array, the cell itself standing in for
+// a neighbour beyond any face of the level.
+__device__ __forceinline__ void vel_grad_global(const Step& p,
+                                                const float* vel_in, int x,
+                                                int y, int z, long long cell,
+                                                float g[3][3]) {
+  const int X = p.X, Y = p.Y, Z = p.Z;
+  const long long N = (long long)X * Y * Z;
+  const long long sx = (long long)Y * Z, sy = Z;
+  const long long oE = x + 1 < X ? sx : 0, oW = x > 0 ? -sx : 0;
+  const long long oN = y + 1 < Y ? sy : 0, oS = y > 0 ? -sy : 0;
+  const long long oT = z + 1 < Z ? 1 : 0, oB = z > 0 ? -1 : 0;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float* Vc = vel_in + c * N + cell;
+    g[c][0] = 0.5f * (__ldg(Vc + oE) - __ldg(Vc + oW));
+    g[c][1] = 0.5f * (__ldg(Vc + oN) - __ldg(Vc + oS));
+    g[c][2] = 0.5f * (__ldg(Vc + oT) - __ldg(Vc + oB));
+  }
+}
+
 // One whole sub-step of cell (x, y, z) whose inputs, f (storage type T) and
 // vel (f32), are (27|3, X, Y, Z) arrays in device memory: K1's cell, and
 // K3's first sub-step.
@@ -415,19 +455,7 @@ __device__ __forceinline__ void update_from_global(
       [&](int km) { return ld(fin, (long long)km * N + cell); }, f);
   collide<G>(
       p, fld, cell,
-      [&](float g[3][3]) {
-        const long long sx = (long long)Y * Z, sy = Z;
-        const long long oE = x + 1 < X ? sx : 0, oW = x > 0 ? -sx : 0;
-        const long long oN = y + 1 < Y ? sy : 0, oS = y > 0 ? -sy : 0;
-        const long long oT = z + 1 < Z ? 1 : 0, oB = z > 0 ? -1 : 0;
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          const float* Vc = vel_in + c * N + cell;
-          g[c][0] = 0.5f * (__ldg(Vc + oE) - __ldg(Vc + oW));
-          g[c][1] = 0.5f * (__ldg(Vc + oN) - __ldg(Vc + oS));
-          g[c][2] = 0.5f * (__ldg(Vc + oT) - __ldg(Vc + oB));
-        }
-      },
+      [&](float g[3][3]) { vel_grad_global(p, vel_in, x, y, z, cell, g); },
       f, rho, u);
 }
 

@@ -1,5 +1,6 @@
 """Wrappers of the hand-written CUDA kernels K1 (stream-collide), K2
-(Bouzidi) and K3 (fused pair), with their launch counters.
+(Bouzidi), K3 (fused pair), K4 (flat stream-collide) and K5 (in-place
+stream-collide), with their launch counters.
 
 Each wrapper checks device, dtype, shape and contiguity, then:
   - for CPU tensors runs the kernel's plain PyTorch version
@@ -32,6 +33,20 @@ in shared memory; what bounds it instead is the arithmetic of step A on
 the tile halo (~2.5 cell updates per pair) at the occupancy its
 shared-memory ring allows.  The per-cell physics is K1's own
 (csrc/lbm_cell.cuh).
+
+K4 `stream_collide_flat` (csrc/stream_collide_flat.cu) replaces
+make_pallas_step_flat (pallas_step.py:2100) on interface-free levels the
+reference stores flat (level 1 of a multi-level case): K1's cell update
+with the flat-(y, z) shifts, branch-free loads overwritten by the face
+masks.  Bound by launch latency at the bench case's level 1 (0.2M cells).
+
+K5 `stream_collide_inplace` (csrc/stream_collide_inplace.cu) replaces the
+in-place make_pallas_step_2d (pallas_step.py:1575) on interface-free levels
+whose plane exceeds the reference's 1-D window: f is updated in its own
+buffer, rho and vel are fresh.  An edge copy of the cells that neighbouring
+blocks read comes first (~11% of f at 63.7M cells), then each block marches
+its (y, z) tile along x.  Bound by device-memory bytes like K1; it saves
+the second f copy (3.4 GB at 63.7M cells in bf16).
 """
 
 from __future__ import annotations
@@ -44,9 +59,16 @@ import torch
 from open_ludwig_tpu.core.patch import BC_INTERFACE, PatchLevel
 
 from . import build, storage
-from .dense_step import apply_bouzidi_dense, dense_stream_collide, fused_pair_plain
+from .dense_step import (
+    apply_bouzidi_dense,
+    dense_stream_collide,
+    fused_pair_plain,
+    stream_collide_flat_plain,
+    stream_collide_inplace_plain,
+)
 
-LAUNCHES: Dict[str, int] = {"stream_collide": 0, "bouzidi": 0, "fused_pair": 0}
+LAUNCHES: Dict[str, int] = {"stream_collide": 0, "bouzidi": 0, "fused_pair": 0,
+                            "stream_collide_flat": 0, "stream_collide_inplace": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -57,6 +79,10 @@ _SC_ARGTYPES = (
     + [_I, _I, _P]
 )
 _BZ_ARGTYPES = [_I, _P, _P, _P] + [_I] * 9 + [_P]
+_FLAT_ARGTYPES = [_I] + [_P] * 8 + [_I] * 5 + [_I] * 6 + [_F, _I] + [_D] * 4 + [_I, _I, _P]
+_IP_ARGTYPES = (
+    [_I] + [_P] * 8 + [_I] * 5 + [_I] * 6 + [_F, _I] + [_D] * 4 + [_I, _I, _I, _P]
+)
 _FP_ARGTYPES = (
     [_I] + [_P] * 21 + [_I] * 5 + [_I] * 6 + [_F, _F, _I, _I] + [_D] * 4
     + [_I, _I] + [_I] * 6 + [_P]
@@ -304,5 +330,162 @@ def fused_pair_attrs(store_bf16: bool) -> Dict[str, int]:
     vals = [ctypes.c_int(0) for _ in range(4)]
     rc = fn(int(store_bf16), *[ctypes.byref(v) for v in vals])
     _raise_on(rc, "fused_pair attribute query")
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"),
+                    (v.value for v in vals)))
+
+
+def _check_interface_free(patch: PatchLevel, what: str) -> None:
+    if BC_INTERFACE in patch.face_bc:
+        raise ValueError(f"{what} needs a level without interface faces, got "
+                         f"face_bc {tuple(patch.face_bc)}")
+
+
+def _step_scalars(patch: PatchLevel, u_inlet, t_seed, c_wale, nu_sgs_background,
+                  inlet_turbulence, wall_model, sponge_blend) -> list:
+    """The (X, Y, Z, lo_y, lo_z, bc0..5, u, seed, tau, c_wale, nu_sgs,
+    inlet_turb, wall_model, sponge_blend) arguments of K4 and K5."""
+    X, Y, Z = patch.interior
+    return [
+        X, Y, Z, int(patch.lo[1]), int(patch.lo[2]),
+        *[int(b) for b in patch.face_bc],
+        float(u_inlet), int(t_seed),
+        float(patch.tau), float(c_wale), float(nu_sgs_background),
+        float(inlet_turbulence), int(bool(wall_model)), int(bool(sponge_blend)),
+    ]
+
+
+def stream_collide_flat(
+    f: torch.Tensor,  # (27, X, Y, Z) float32 f or bf16 g = f - w
+    vel: torch.Tensor,  # (3, X, Y, Z) float32
+    u_inlet: float,
+    t_seed: int,
+    static: Dict,  # obstacle (bool), sponge, wall_dist: (X, Y, Z)
+    patch: PatchLevel,  # no interface faces
+    *,
+    c_wale: float,
+    nu_sgs_background: float,
+    inlet_turbulence: float,
+    wall_model: bool,
+    sponge_blend: bool,
+):
+    """K4: one sub-step of an interface-free level with the flat-(y, z)
+    shifts.  Returns new (f, rho, vel) in the storage dtype of `f` (A -> B
+    buffers; the inputs are not modified)."""
+    X, Y, Z = patch.interior
+    dev = f.device
+    _check_interface_free(patch, "stream_collide_flat")
+    _check_level(f, vel, static, patch)
+    kw = dict(
+        c_wale=c_wale, nu_sgs_background=nu_sgs_background,
+        inlet_turbulence=inlet_turbulence, wall_model=wall_model,
+        sponge_blend=sponge_blend,
+    )
+    if dev.type == "cpu":
+        fo, rho, vo = stream_collide_flat_plain(
+            storage.decode_f(f), vel, u_inlet, t_seed, static, patch, **kw)
+        if f.dtype == torch.bfloat16:
+            fo = storage.encode_f(fo, storage.STORE_BF16)
+        return fo, rho, vo
+    if dev.type != "cuda":
+        raise ValueError(f"stream_collide_flat: unsupported device {dev}")
+
+    fn = _lib("stream_collide_flat", "ol_stream_collide_flat", _FLAT_ARGTYPES)
+    f_out = torch.empty_like(f)
+    rho = torch.empty((X, Y, Z), dtype=torch.float32, device=dev)
+    vel_out = torch.empty_like(vel)
+    rc = fn(
+        int(f.dtype == torch.bfloat16),
+        f.data_ptr(), vel.data_ptr(), f_out.data_ptr(), rho.data_ptr(),
+        vel_out.data_ptr(),
+        static["obstacle"].data_ptr(), static["sponge"].data_ptr(),
+        static["wall_dist"].data_ptr(),
+        *_step_scalars(patch, u_inlet, t_seed, **kw),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(rc, "stream_collide_flat")
+    LAUNCHES["stream_collide_flat"] += 1
+    return f_out, rho, vel_out
+
+
+_INPLACE_LAYOUT: Dict[Tuple[int, int, int, int], Tuple[int, int]] = {}
+
+
+def inplace_layout(X: int, Y: int, Z: int, device) -> Tuple[int, int]:
+    """(planes per x-run, edge-buffer elements) of K5 for an (X, Y, Z) level
+    on the card of `device`."""
+    dev = torch.device(device)
+    key = (X, Y, Z, dev.index if dev.index is not None else torch.cuda.current_device())
+    if key not in _INPLACE_LAYOUT:
+        fn = _lib("stream_collide_inplace", "ol_inplace_layout",
+                  [_I, _I, _I, ctypes.POINTER(ctypes.c_int),
+                   ctypes.POINTER(ctypes.c_longlong)])
+        xr, n = ctypes.c_int(0), ctypes.c_longlong(0)
+        with torch.cuda.device(dev):
+            _raise_on(fn(X, Y, Z, ctypes.byref(xr), ctypes.byref(n)),
+                      "stream_collide_inplace layout")
+        _INPLACE_LAYOUT[key] = (xr.value, n.value)
+    return _INPLACE_LAYOUT[key]
+
+
+def stream_collide_inplace(
+    f: torch.Tensor,  # (27, X, Y, Z) float32 f or bf16 g = f - w; updated
+    vel: torch.Tensor,  # (3, X, Y, Z) float32
+    u_inlet: float,
+    t_seed: int,
+    static: Dict,  # obstacle (bool), sponge, wall_dist: (X, Y, Z)
+    patch: PatchLevel,  # no interface faces
+    *,
+    c_wale: float,
+    nu_sgs_background: float,
+    inlet_turbulence: float,
+    wall_model: bool,
+    sponge_blend: bool,
+):
+    """K5: one sub-step of an interface-free level written into `f` itself.
+    Returns (f, rho, vel): `f` updated in place, rho and vel fresh (the
+    input vel is not modified)."""
+    X, Y, Z = patch.interior
+    dev = f.device
+    _check_interface_free(patch, "stream_collide_inplace")
+    _check_level(f, vel, static, patch)
+    kw = dict(
+        c_wale=c_wale, nu_sgs_background=nu_sgs_background,
+        inlet_turbulence=inlet_turbulence, wall_model=wall_model,
+        sponge_blend=sponge_blend,
+    )
+    if dev.type == "cpu":
+        return stream_collide_inplace_plain(f, vel, u_inlet, t_seed, static,
+                                            patch, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"stream_collide_inplace: unsupported device {dev}")
+
+    fn = _lib("stream_collide_inplace", "ol_stream_collide_inplace",
+              _IP_ARGTYPES)
+    xr, n_edge = inplace_layout(X, Y, Z, dev)
+    edge = torch.empty((max(n_edge, 1),), dtype=f.dtype, device=dev)
+    rho = torch.empty((X, Y, Z), dtype=torch.float32, device=dev)
+    vel_out = torch.empty_like(vel)
+    rc = fn(
+        int(f.dtype == torch.bfloat16),
+        f.data_ptr(), vel.data_ptr(), rho.data_ptr(), vel_out.data_ptr(),
+        edge.data_ptr(),
+        static["obstacle"].data_ptr(), static["sponge"].data_ptr(),
+        static["wall_dist"].data_ptr(),
+        *_step_scalars(patch, u_inlet, t_seed, **kw),
+        xr, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(rc, "stream_collide_inplace")
+    LAUNCHES["stream_collide_inplace"] += 1
+    return f, rho, vel_out
+
+
+def inplace_attrs(store_bf16: bool) -> Dict[str, int]:
+    """K5's registers and local memory per thread, static shared memory per
+    block and resident blocks per SM on the current card."""
+    fn = _lib("stream_collide_inplace", "ol_stream_collide_inplace_attrs",
+              [_I] + [ctypes.POINTER(ctypes.c_int)] * 4)
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    rc = fn(int(store_bf16), *[ctypes.byref(v) for v in vals])
+    _raise_on(rc, "stream_collide_inplace attribute query")
     return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"),
                     (v.value for v in vals)))

@@ -16,7 +16,11 @@ plain versions of the two CUDA kernels and the torch glue between them:
     sub-box correction (K2's plain version; reference:
     src/bouzidi_kernel.jl:38-88);
   - `fused_pair_plain`: two sub-steps with the correction of the first
-    between them (K3's plain version).
+    between them (K3's plain version);
+  - `stream_collide_flat_plain`: the sub-step of an interface-free level
+    with the flat-(y,z) shifts (K4's plain version), and
+    `stream_collide_inplace_plain`: the sub-step written back into its
+    input f (K5's plain version).
 
 Arrays are unpadded: every level's state is (27, X, Y, Z) over its
 interior (the port drops the TPU's y->8 / z->128 tile padding).
@@ -203,6 +207,33 @@ def _u32(u_inlet, device) -> torch.Tensor:
     return torch.as_tensor(u_inlet, dtype=torch.float32, device=device)
 
 
+_COLLIDE_CHUNK = 1 << 21  # cells per collide call of the plain step
+
+
+def _roll3(a: torch.Tensor, cx: int, cy: int, cz: int) -> torch.Tensor:
+    """out[..., x, y, z] = a[..., x - cx, y - cy, z - cz], periodic."""
+    if (cx, cy, cz) == (0, 0, 0):
+        return a
+    return torch.roll(a, (cx, cy, cz), dims=(-3, -2, -1))
+
+
+def _roll_flat(a: torch.Tensor, cx: int, cy: int, cz: int) -> torch.Tensor:
+    """The same shift with (y, z) as one flat axis n = y * Z + z: an x roll
+    by cx and one roll by cy * Z + cz over n.  Cells whose source wraps
+    (across an x end, a z row or the y ends) lie on the face rows of the
+    shift's direction, which the boundary masks overwrite
+    (ops/pallas_step.py:2266-2311)."""
+    X, Y, Z = a.shape[-3:]
+    if cx:
+        a = torch.roll(a, cx, dims=-3)
+    s = cy * Z + cz
+    if s:
+        lead = a.shape[:-2]
+        a = torch.roll(a.reshape(lead + (Y * Z,)), s, dims=-1).reshape(
+            lead + (Y, Z))
+    return a
+
+
 def dense_stream_collide(
     f: torch.Tensor,  # (27, X, Y, Z) float32 f-space
     vel: torch.Tensor,  # (3, X, Y, Z)
@@ -219,6 +250,18 @@ def dense_stream_collide(
     iface: Optional[Dict[int, torch.Tensor]] = None,  # face -> (27, A+2, B+2)
 ):
     """One stream-collide sub-step; returns (f, rho, vel) of the level."""
+    return _stream_collide(
+        _roll3, f, vel, u_inlet, t_seed, static, patch, c_wale=c_wale,
+        nu_sgs_background=nu_sgs_background, inlet_turbulence=inlet_turbulence,
+        wall_model=wall_model, sponge_blend=sponge_blend, iface=iface)
+
+
+def _stream_collide(shift, f, vel, u_inlet, t_seed, static, patch, *, c_wale,
+                    nu_sgs_background, inlet_turbulence, wall_model,
+                    sponge_blend, iface=None):
+    """dense_stream_collide with the shift of a slot's source given:
+    shift(a, cx, cy, cz)[..., x, y, z] = a[..., x - cx, y - cy, z - cz] on
+    every cell the boundary masks keep."""
     X, Y, Z = patch.interior
     N = X * Y * Z
     fb = patch.face_bc
@@ -267,12 +310,10 @@ def dense_stream_collide(
             return f[int(lat.MIRROR_Z[k])]
         raise ValueError(f"unknown face bc {bc}")
 
-    streamed = []
+    f_str = torch.empty((27, N), dtype=f.dtype, device=dev)
     for k in range(27):
         cx, cy, cz = int(lat.C_X[k]), int(lat.C_Y[k]), int(lat.C_Z[k])
-        val = f[k]
-        if (cx, cy, cz) != (0, 0, 0):
-            val = torch.roll(val, (cx, cy, cz), dims=(0, 1, 2))
+        val = shift(f[k], cx, cy, cz)
         # masked overrides in reverse precedence (inlet strongest, applied
         # last; reference precedence inlet > outlet > y-mirror > z-mirror)
         if cz > 0:
@@ -287,13 +328,12 @@ def dense_stream_collide(
             val = torch.where(ix == X - 1, face_value(k, 1), val)
         elif cx > 0:
             val = torch.where(ix == 0, face_value(k, 0), val)
-        streamed.append(val.reshape(N))
-    f_str = torch.stack(streamed)
+        f_str[k] = val.reshape(N)
 
     # velocity face neighbours with self-fallback at every patch face
     # (reference: src/physics_utils.jl:45-70)
     def vel_nbr(dx, dy, dz):
-        r = torch.roll(vel, (-dx, -dy, -dz), dims=(1, 2, 3))
+        r = shift(vel, -dx, -dy, -dz)
         for d, idx, n in ((dx, ix, X), (dy, iy, Y), (dz, iz, Z)):
             if d > 0:
                 r = torch.where(idx == n - 1, vel, r)
@@ -306,24 +346,75 @@ def dense_stream_collide(
         vel_nbr(0, 1, 0), vel_nbr(0, -1, 0),
         vel_nbr(0, 0, 1), vel_nbr(0, 0, -1),
     )
-    f_out, rho_out, vel_out = collide(
-        f_str,
-        nbrs,
-        static["obstacle"].reshape(N),
-        static["sponge"].reshape(N),
-        static["wall_dist"].reshape(N),
-        u_in,
-        tau=patch.tau,
-        c_wale=c_wale,
-        nu_sgs_background=nu_sgs_background,
-        wall_model=wall_model,
-        sponge_blend=sponge_blend,
-    )
+    # the collision is local to each cell: it runs over chunks of cells,
+    # which bounds its transients (a 63.7M-cell level fits one card)
+    obstacle, sponge, wall_dist = (static[key].reshape(N) for key in
+                                   ("obstacle", "sponge", "wall_dist"))
+    f_out = torch.empty_like(f_str)
+    rho_out = torch.empty(N, dtype=torch.float32, device=dev)
+    vel_out = torch.empty((3, N), dtype=torch.float32, device=dev)
+    for a in range(0, N, _COLLIDE_CHUNK):
+        c = slice(a, a + _COLLIDE_CHUNK)
+        f_out[:, c], rho_out[c], vel_out[:, c] = collide(
+            f_str[:, c],
+            tuple(nb[:, c] for nb in nbrs),
+            obstacle[c],
+            sponge[c],
+            wall_dist[c],
+            u_in,
+            tau=patch.tau,
+            c_wale=c_wale,
+            nu_sgs_background=nu_sgs_background,
+            wall_model=wall_model,
+            sponge_blend=sponge_blend,
+        )
     return (
         f_out.reshape(27, X, Y, Z),
         rho_out.reshape(X, Y, Z),
         vel_out.reshape(3, X, Y, Z),
     )
+
+
+def stream_collide_flat_plain(
+    f: torch.Tensor,  # (27, X, Y, Z) float32 f-space
+    vel: torch.Tensor,  # (3, X, Y, Z)
+    u_inlet,
+    t_seed: int,
+    static: Dict,
+    patch: PatchLevel,
+    **kw,
+):
+    """K4's plain version: dense_stream_collide with the flat-(y,z) index
+    algebra of make_pallas_step_flat (pallas_step.py:2266-2350): one roll
+    over the flattened (Y * Z) axis per slot, then the boundary masks in the
+    order z -> y -> x, and velocity neighbours clamped to the cell itself at
+    every face.  Only interface-free levels qualify: an interface ghost row
+    would not overwrite the wrapped values."""
+    if BC_INTERFACE in patch.face_bc:
+        raise ValueError("the flat step needs a level without interface faces")
+    return _stream_collide(_roll_flat, f, vel, u_inlet, t_seed, static, patch,
+                           **kw)
+
+
+def stream_collide_inplace_plain(
+    f: torch.Tensor,  # (27, X, Y, Z) float32 f or bf16 g = f - w
+    vel: torch.Tensor,
+    u_inlet,
+    t_seed: int,
+    static: Dict,
+    patch: PatchLevel,
+    **kw,
+):
+    """K5's plain version: dense_stream_collide, then the result copied
+    into `f` (storage dtype), which is returned with fresh rho and vel."""
+    if BC_INTERFACE in patch.face_bc:
+        raise ValueError("the in-place step needs a level without interface faces")
+    fo, rho, vo = dense_stream_collide(decode_f(f), vel, u_inlet, t_seed,
+                                       static, patch, **kw)
+    if f.dtype == torch.bfloat16:
+        fo = encode_f(fo, STORE_BF16)
+    f.copy_(fo)
+    return f, rho, vo
 
 
 def build_bouzidi_dense_plan(patch: PatchLevel, q_min: float) -> Optional[Dict]:

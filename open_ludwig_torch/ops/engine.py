@@ -1,0 +1,165 @@
+"""Per-level kernel choice, made as the JAX package's dispatch makes it.
+
+The JAX package picks one Pallas step per level
+(`open_ludwig_tpu/solver_dense.py:233-336`): the flat-(y,z) kernel on a
+level the patch builder stored flat, the 1-D kernel where a whole
+x-plane window fits VMEM, the in-place (x, y)-chunked 2-D kernel where
+only that fits, and the XLA path otherwise.  The port runs a hand-written
+kernel on every level and maps that choice to its engines:
+
+  "flat"     K4 `stream_collide_flat` (replaces make_pallas_step_flat)
+  "inplace"  K5 `stream_collide_inplace` (replaces make_pallas_step_2d,
+             in place and unfused)
+  "k1"       K1 `stream_collide` (K3 on the finest level's pairs); also
+             where the reference falls back to XLA
+
+The gates are numpy ports of `_pallas_fits` (solver_dense.py:95-102),
+`_chunks_2d_vmem_est` / `choose_2d_chunks` (ops/pallas_step.py:1526-1572,
+with alias_f=True as production passes it), `choose_flat_px`
+(:2079-2097) and the structural and shape gate of
+`core/patch._use_flat_yz` (core/patch.py:135-183).  They are evaluated on
+the reference's single-device padded dims (X, ceil(Y, 8), ceil(Z, 128))
+(core/patch.py:276-280) and never ask for a backend: the choice is the
+same on the CPU and the GPU, so the CPU tests run the card's schedule.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import List, Optional, Tuple
+
+from open_ludwig_tpu.core.patch import BC_INTERFACE, PatchLevel
+
+from . import storage
+
+log = logging.getLogger("open_ludwig_torch")
+
+_SLOTS = 4  # the TPU kernels' rotating DMA slots (ops/pallas_step.py:49)
+_PALLAS_VMEM_BUDGET = 52 * 2**20  # solver_dense.py:95
+
+
+def _ceil(v: int, m: int) -> int:
+    return -(-int(v) // m) * m
+
+
+def ref_padded(patch: PatchLevel) -> Tuple[int, int, int]:
+    """The JAX package's array dims of the level on one device."""
+    X, Y, Z = patch.interior
+    return int(X), _ceil(Y, 8), _ceil(Z, 128)
+
+
+def flat_m(patch: PatchLevel) -> int:
+    """Lane extent of the flat layout: ceil(Y * Z, 128)."""
+    return _ceil(int(patch.interior[1]) * int(patch.interior[2]), 128)
+
+
+def pallas_fits(patch: PatchLevel, store_bf16: bool) -> bool:
+    """Whether one x-plane window of the 1-D kernel fits its VMEM budget
+    (the 3-D layout's form of solver_dense._pallas_fits)."""
+    _, YS, ZS = ref_padded(patch)
+    fb = 2 if store_bf16 else 4
+    est1 = (4 * (27 * fb + 12) + 2 * 9 + 2 * (27 * fb + 16)) * YS * ZS
+    return est1 < _PALLAS_VMEM_BUDGET
+
+
+def chunks_2d_vmem_est(PX: int, PY: int, ZS: int, f_bytes: int, YS: int = 0,
+                       alias_f: bool = False) -> int:
+    """Per-chunk VMEM footprint of the 2-D kernel (pallas_step.py:1526)."""
+    plane = PX * PY * ZS
+    halo = PY * ZS
+    est = (
+        _SLOTS * (27 * f_bytes + 3 * 4) * (plane + 2 * halo)
+        + 2 * 9 * plane
+        + 2 * (27 * f_bytes + 4 + 3 * 4) * plane
+    )
+    if alias_f:
+        assert YS and YS % PY == 0
+        est += 2 * (YS // PY) * 27 * (PY + 8) * ZS * f_bytes
+    return est
+
+
+def choose_2d_chunks(patch: PatchLevel, store_bf16: bool, alias_f: bool = True,
+                     px_c=(16, 8, 4), py_c=(32, 16, 8)) -> Optional[Tuple[int, int]]:
+    """(PX, PY) of the 2-D kernel, or None (pallas_step.py:1545), on a
+    level the reference stores in 3-D."""
+    XS, YS, ZS = ref_padded(patch)
+    if BC_INTERFACE in patch.face_bc:
+        return None
+    fbytes = 2 if store_bf16 else 4
+    for PX in px_c:
+        if XS % PX:
+            continue
+        for PY in py_c:
+            if YS % PY:
+                continue
+            if chunks_2d_vmem_est(PX, PY, ZS, fbytes, YS=YS,
+                                  alias_f=alias_f) < 64 * 2**20:
+                return PX, PY
+    return None
+
+
+def choose_flat_px(XL: int, M: int, f_bytes: int) -> Optional[int]:
+    """PX of the flat kernel, or None where it cannot run
+    (pallas_step.py:2079)."""
+    per = (_SLOTS * (27 * f_bytes + 12) + 2 * 9 + 2 * (27 * f_bytes + 16)) * M
+    for cand in (16, 8):
+        if XL % cand == 0 and cand * per < 36 * 2**20:
+            return cand
+    if XL % 8 == 0 and 8 * per < 100 * 2**20:
+        return 8
+    if XL % 16 == 0 and 16 * per < 100 * 2**20:
+        return 16
+    return None
+
+
+def flat_gate(mode: str, patch: PatchLevel, is_finest: bool,
+              store_bf16: bool) -> Tuple[bool, str]:
+    """The reference's `_use_flat_yz` on one device without its backend
+    check: (whether the level runs flat, why)."""
+    if mode == "off":
+        return False, "flat_coarse: off"
+    if any(bc == BC_INTERFACE for bc in patch.face_bc):
+        return False, "interface faces"
+    if is_finest or patch.bouzidi is not None:
+        return False, "finest level or Bouzidi level"
+    XS, YS, ZS = ref_padded(patch)
+    M = flat_m(patch)
+    if M >= YS * ZS:
+        return False, f"flat M={M} removes no padding of the {YS}x{ZS} plane"
+    px = choose_flat_px(XS, M, 2 if store_bf16 else 4)
+    if px is None:
+        if mode == "on":
+            log.warning(
+                "[Patch] level %d: flat_coarse=on but the Pallas flat step "
+                "is unavailable on this backend/shape; building the level "
+                "in 3-D layout instead", patch.level_id)
+        return False, f"no flat PX for x extent {patch.interior[0]} at M={M}"
+    return True, (f"interface-free, flat M={M} < padded plane {YS}x{ZS}, "
+                  f"PX={px} (flat_coarse: {mode})")
+
+
+def choose_engine(mode: str, patch: PatchLevel, is_finest: bool,
+                  store_bf16: bool) -> Tuple[str, str]:
+    """(engine, reason) of one level: the reference's dispatch order,
+    solver_dense.py:233-336, single device, Pallas on."""
+    flat, why = flat_gate(mode, patch, is_finest, store_bf16)
+    if flat:
+        return "flat", why
+    _, YS, ZS = ref_padded(patch)
+    if pallas_fits(patch, store_bf16):
+        return "k1", f"1-D window fits; not flat: {why}"
+    chunks = choose_2d_chunks(patch, store_bf16, alias_f=True)
+    if chunks is not None:
+        return "inplace", (f"plane {YS}x{ZS} exceeds the 1-D window budget; "
+                           f"2-D chunks {chunks} fit (in place)")
+    return "k1", (f"plane {YS}x{ZS} fits no Pallas window; the reference "
+                  "falls back to XLA here")
+
+
+def level_engines(cfg, patches: List[PatchLevel]) -> List[Tuple[str, str]]:
+    """(engine, reason) per level for `cfg`'s precision and flat_coarse."""
+    bf16 = storage.normalize_precision(cfg.precision) == storage.STORE_BF16
+    mode = str(getattr(cfg, "flat_coarse", "auto"))
+    last = len(patches) - 1
+    return [choose_engine(mode, p, li == last, bf16)
+            for li, p in enumerate(patches)]

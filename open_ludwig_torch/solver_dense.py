@@ -8,17 +8,28 @@ src/solver_control.jl:21-143).  After each parent step the (old, new)
 parent states give endpoint ghost planes for the child's two sub-steps at
 temporal weights 0.0 and 0.5.
 
-Temporal blocking (`fuse2=True`, the default, as in the JAX package): the
-childless finest level runs each pair of sub-steps as one K3 launch
+Each level's kernel is the JAX package's choice (`ops.engine`, mirroring
+solver_dense.py:233-336 of the reference), recorded as
+statics[l]["engine"]:
+  - "flat": K4 (`ops.cuda_step.stream_collide_flat`), on an
+    interface-free level the reference stores flat (level 1 of a
+    multi-level case);
+  - "inplace": K5 (`ops.cuda_step.stream_collide_inplace`), on an
+    interface-free level whose plane exceeds the reference's 1-D window:
+    f is updated in its own buffer, and the level takes no K3;
+  - "k1": K1 (`ops.cuda_step.stream_collide`) on every other level.
+Temporal blocking (`fuse2=True`, the default, as in the JAX package): a
+childless finest "k1" level runs each pair of sub-steps as one K3 launch
 (`ops.cuda_step.fused_pair`: step A, A's Bouzidi correction, step B) and
 one K2 launch after it; a single-level case runs pairs of coarse steps so
 (`coarse_step.pair_step`), an odd batch taking one plain step first.
-Every other sub-step is one K1 launch (`ops.cuda_step.stream_collide`),
-followed on the finest level by one K2 launch (`ops.cuda_step.bouzidi`).
-`fuse2=False` keeps the unfused schedule.  Ghost planes are plain torch.
-States are {f: (27, X, Y, Z), rho, vel} in the storage dtype (float32 f or
-bf16 g = f - w); each launch writes fresh buffers (A -> B), and a parent's
-pre-step state lives until its child's ghost planes are built.
+Every other sub-step is one launch of its level's kernel, followed on the
+finest level by one K2 launch (`ops.cuda_step.bouzidi`).  `fuse2=False`
+keeps the unfused schedule.  Ghost planes are plain torch.  States are
+{f: (27, X, Y, Z), rho, vel} in the storage dtype (float32 f or bf16
+g = f - w) on every level.  K1, K3 and K4 write fresh buffers (A -> B), and
+a parent's pre-step state lives until its child's ghost planes are built;
+on a K5 parent the old endpoint planes are taken before the launch.
 """
 
 from __future__ import annotations
@@ -32,8 +43,15 @@ from open_ludwig_tpu.core.patch import BC_INTERFACE, PatchLevel
 from open_ludwig_tpu.scaling import DomainParams
 
 from . import lattice as lat
-from .ops import storage
-from .ops.cuda_step import bouzidi, fused_pair, stream_collide
+from .ops import engine, storage
+from .ops.cuda_step import (
+    bouzidi,
+    fused_pair,
+    inplace_layout,
+    stream_collide,
+    stream_collide_flat,
+    stream_collide_inplace,
+)
 from .ops.dense_step import (
     build_bouzidi_dense_plan,
     interface_endpoints,
@@ -61,9 +79,10 @@ def init_patch_state(patch: PatchLevel, precision: str = "float32",
 def build_patch_statics(cfg: CaseConfig, patches: List[PatchLevel],
                         device="cpu") -> List[Dict]:
     """Per level: obstacle (bool), sponge, wall_dist as (X, Y, Z) device
-    tensors, and the Bouzidi plan (S as a float32 device tensor) or None."""
+    tensors, the Bouzidi plan (S as a float32 device tensor) or None, and
+    the level's kernel ("engine") with the reason for it ("engine_why")."""
     statics = []
-    for p in patches:
+    for p, (eng, why) in zip(patches, engine.level_engines(cfg, patches)):
         plan = build_bouzidi_dense_plan(p, cfg.q_min_threshold)
         if plan is not None:
             plan = {**plan, "S": torch.as_tensor(plan["S"], device=device)}
@@ -73,26 +92,35 @@ def build_patch_statics(cfg: CaseConfig, patches: List[PatchLevel],
             "wall_dist": torch.as_tensor(p.wall_dist, dtype=torch.float32,
                                          device=device),
             "bouzidi": plan,
+            "engine": eng,
+            "engine_why": why,
         })
     return statics
 
 
 def kernel_log_lines(patches: List[PatchLevel], statics: List[Dict],
                      precision: str, device) -> List[str]:
-    """Per level: the kernels its sub-steps run under the default (fused)
-    schedule, and whether its sub-step pairs take K3 (and why not)."""
+    """Per level: the kernel its sub-steps run under the default (fused)
+    schedule and why, and whether its sub-step pairs take K3 (and why
+    not)."""
     dev = torch.device(device)
     route = "CUDA" if dev.type == "cuda" else "plain torch (CPU)"
     store = ("bf16 g-native" if storage.f_dtype(precision) == torch.bfloat16
              else "float32")
     last = len(patches) - 1
+    names = {"k1": "K1 stream_collide", "flat": "K4 stream_collide_flat",
+             "inplace": "K5 stream_collide_inplace (in place)"}
     lines = []
     for li, (p, st) in enumerate(zip(patches, statics)):
         n_if = sum(bc == BC_INTERFACE for bc in p.face_bc)
         bz = st["bouzidi"]
+        eng = st["engine"]
         if li < last:
             k3 = (f"K3 no: parent of level {patches[li + 1].level_id} (its "
                   "state after each sub-step feeds the child's ghost planes)")
+        elif eng != "k1":
+            k3 = (f"K3 no: {names[eng].split()[0]} runs one sub-step per "
+                  "launch, as the reference's kernel for this level does")
         elif last == 0:
             k3 = (f"K3 fused_pair {route} on pairs of coarse steps (an odd "
                   "batch takes one K1 step first), K2 after each pair")
@@ -102,7 +130,8 @@ def kernel_log_lines(patches: List[PatchLevel], statics: List[Dict],
         lines.append(
             f"  [engine] level {p.level_id}: {'x'.join(map(str, p.interior))} "
             f"cells, {2 ** (p.level_id - 1)} sub-step(s)/coarse step | "
-            f"K1 stream_collide {route}, {store}, {n_if} interface face(s)"
+            f"{names[eng]} {route}, {store}, {n_if} interface face(s): "
+            f"{st['engine_why']}"
             + (f" | K2 bouzidi {route}, box {tuple(bz['dim'])} at {bz['lo']}"
                if bz is not None else "")
             + f" | {k3}"
@@ -114,13 +143,16 @@ def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
                            patches: List[PatchLevel], statics: List[Dict],
                            fuse2: bool = True):
     """coarse_step(states, t) -> states advancing every level by one coarse
-    step without any host synchronisation.  With `fuse2` the finest
-    level's sub-step pairs are K3 launches, each followed by K2; every
-    other sub-step is a K1 launch (followed by K2 on the finest level).
-    `coarse_step.pair_step(states, t)` runs coarse steps t and t + 1 of a
-    single-level case as one K3 + K2 (None otherwise)."""
+    step without any host synchronisation.  Each sub-step is one launch of
+    its level's kernel (statics[l]["engine"]: "k1" / "flat" / "inplace"),
+    followed on the finest level by K2.  With `fuse2` the sub-step pairs of a
+    finest "k1" level are K3 launches instead.  `coarse_step.pair_step(
+    states, t)` runs coarse steps t and t + 1 of such a single-level case
+    as one K3 + K2 (None otherwise)."""
     n_levels = len(patches)
     last = n_levels - 1
+    engs = [st["engine"] for st in statics]
+    fuse_last = bool(fuse2) and engs[last] == "k1"
     use_temporal = cfg.temporal_interpolation
     kw = dict(
         c_wale=cfg.c_wale,
@@ -129,6 +161,8 @@ def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
         wall_model=cfg.wall_model_enabled,
         sponge_blend=cfg.sponge_blend_distributions,
     )
+    iface_free_steps = {"flat": stream_collide_flat,
+                        "inplace": stream_collide_inplace}
 
     def fused(states: List[Dict], lvl: int, u, seeds, if_a, if_b) -> None:
         """Sub-steps A and B of level `lvl` as one K3, then B's K2."""
@@ -149,22 +183,33 @@ def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
         def visit(lvl: int, t_sub: int, iface):
             patch = patches[lvl]
             st = states[lvl]
-            f_new, rho_new, vel_new = stream_collide(
-                st["f"], st["vel"], u_curr, t_sub % 1000000, statics[lvl],
-                patch, iface=iface, **kw,
-            )
+            eng = engs[lvl]
+            child = patches[lvl + 1] if lvl + 1 < n_levels else None
+            ep_old = None
+            if child is not None and use_temporal and eng == "inplace":
+                # K5 overwrites the pre-step f: take the old endpoint
+                # planes first
+                ep_old = interface_endpoints(child, patch, st)
+            if eng == "k1":
+                f_new, rho_new, vel_new = stream_collide(
+                    st["f"], st["vel"], u_curr, t_sub % 1000000, statics[lvl],
+                    patch, iface=iface, **kw,
+                )
+            else:
+                f_new, rho_new, vel_new = iface_free_steps[eng](
+                    st["f"], st["vel"], u_curr, t_sub % 1000000, statics[lvl],
+                    patch, **kw,
+                )
             plan = statics[lvl]["bouzidi"]
             if plan is not None:
                 f_new = bouzidi(f_new, plan)
             states[lvl] = {"f": f_new, "rho": rho_new, "vel": vel_new}
-            if lvl + 1 < n_levels:
-                child = patches[lvl + 1]
-                if use_temporal:
+            if child is not None:
+                if use_temporal and eng != "inplace":
                     ep_old, ep_new = interface_endpoints_pair(
                         child, patch, st, states[lvl]
                     )
                 else:
-                    ep_old = None
                     ep_new = interface_endpoints(child, patch, states[lvl])
                 del st  # the parent's pre-step state is no longer needed
                 if_a = interface_from_endpoints(
@@ -173,7 +218,7 @@ def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
                 if_b = interface_from_endpoints(
                     ep_new, ep_old, child, patch, 0.5, use_temporal
                 )
-                if fuse2 and lvl + 1 == last:
+                if fuse_last and lvl + 1 == last:
                     ts = 2 * t_sub
                     fused(states, last, (u_curr, u_curr),
                           (ts % 1000000, (ts + 1) % 1000000), if_a, if_b)
@@ -182,10 +227,14 @@ def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
                 visit(lvl + 1, 2 * t_sub + 1, if_b)
 
         visit(0, int(t), None)
+        # visit refers to itself; clearing it breaks that cycle, which would
+        # otherwise keep this step's states alive until the garbage
+        # collector runs (up to a level's whole state per step)
+        del visit
         return states
 
     pair_step = None
-    if fuse2 and n_levels == 1:
+    if fuse_last and n_levels == 1:
         def pair_step(states: List[Dict], t: int) -> List[Dict]:
             """Coarse steps t and t + 1 of a single-level case as one K3
             (inlet velocity and noise seed of each step its own) + K2."""
@@ -198,7 +247,7 @@ def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
             return states
 
     coarse_step.pair_step = pair_step
-    coarse_step.fused2 = bool(fuse2)
+    coarse_step.fused2 = fuse_last
     return coarse_step
 
 
@@ -207,9 +256,10 @@ def make_batch_runner_dense(cfg: CaseConfig, params: DomainParams,
                             fuse2: bool = True):
     """run(states, t0, n) -> states after coarse steps t0 .. t0+n-1: a plain
     loop that only enqueues work (no host sync inside a batch).  A
-    single-level case with `fuse2` runs pairs of coarse steps; an odd batch
-    of n >= 3 takes one plain step first (the JAX runner's rule,
-    open_ludwig_tpu/solver_dense.py:690-700)."""
+    single-level case with a pair step runs pairs of coarse steps; an odd
+    batch of n >= 3 takes one plain step first (the JAX runner's rule,
+    open_ludwig_tpu/solver_dense.py:690-700).  A level run in place (K5)
+    updates the f tensor of the states passed in."""
     coarse_step = make_coarse_step_dense(cfg, params, patches, statics,
                                          fuse2=fuse2)
     pair = coarse_step.pair_step
@@ -234,13 +284,17 @@ def make_batch_runner_dense(cfg: CaseConfig, params: DomainParams,
 def hbm_report_patches(patches: List[PatchLevel], statics: List[Dict],
                        precision: str = "float32", device="cpu") -> str:
     """Per-level device-memory accounting: resident state (f + rho + vel)
-    and statics, plus the step's transient: every K1 sub-step, and every
-    K3 pair on the finest level, writes a second f/rho/vel (A -> B) while
-    the first is alive; K3's step A stays in shared memory and takes no
-    device buffer.  The transient counted is the largest level's."""
+    and statics, plus the step's transient: every K1 / K4 sub-step, and
+    every K3 pair on the finest level, writes a second f/rho/vel (A -> B)
+    while the first is alive, and K3's step A stays in shared memory; a K5
+    sub-step writes f in place and allocates only rho, vel and its edge
+    buffer (sized by the card's layout; the plain CPU path has none).  The
+    transient counted is the largest level's."""
     f_bytes = 2 if storage.f_dtype(precision) == torch.bfloat16 else 4
+    dev = torch.device(device)
     lines = [f"Device memory (dense patches, {precision} f-storage):"]
     total = 0
+    trans = []
     for p, st in zip(patches, statics):
         n = p.n_cells
         state_b = n * (27 * f_bytes + 4 * (1 + 3))
@@ -249,21 +303,28 @@ def hbm_report_patches(patches: List[PatchLevel], statics: List[Dict],
         # S (float32) + K2's snapshot of the box (storage dtype)
         bz_b = bz["S"].numel() * (4 + f_bytes) if bz is not None else 0
         total += state_b + field_b + bz_b
+        if st["engine"] == "inplace":
+            edge = (inplace_layout(*p.interior, dev)[1] * f_bytes
+                    if dev.type == "cuda" else 0)
+            trans.append(n * 16 + edge)
+            step = (f"K5 in place: rho/vel {n * 16 / 1e6:.1f} MB + edge buffer "
+                    f"{edge / 1e6:.1f} MB, no second f")
+        else:
+            trans.append(n * (27 * f_bytes + 16))
+            step = f"A->B f/rho/vel {trans[-1] / 1e6:.1f} MB"
         lines.append(
             f"  level {p.level_id}: {n/1e6:7.2f}M cells | state "
             f"{state_b/1e6:8.1f} MB | fields {field_b/1e6:6.1f} MB | bouzidi "
-            f"{bz_b/1e6:5.1f} MB"
+            f"{bz_b/1e6:5.1f} MB | step {step}"
         )
-    ab = [p.n_cells * (27 * f_bytes + 16) for p in patches]
-    lines.append(
-        f"  level {patches[-1].level_id}: K3 A->B output f/rho/vel "
-        f"{ab[-1]/1e6:.1f} MB per pair; step A in shared memory (no device "
-        "buffer)")
-    trans = max(ab)
-    total += trans
+    if statics[-1]["engine"] == "k1":
+        lines.append(
+            f"  level {patches[-1].level_id}: K3 A->B output f/rho/vel "
+            f"{trans[-1]/1e6:.1f} MB per pair; step A in shared memory (no "
+            "device buffer)")
+    total += max(trans)
     lines.append(f"  estimated total: {total/1e9:.3f} GB (incl. "
-                 f"{trans/1e6:.0f} MB A->B transient of the largest level)")
-    dev = torch.device(device)
+                 f"{max(trans)/1e6:.0f} MB step transient of the largest level)")
     if dev.type == "cuda":
         live = torch.cuda.memory_allocated(dev)
         cap = torch.cuda.get_device_properties(dev).total_memory

@@ -1,9 +1,11 @@
-"""The CUDA kernels K1 (stream-collide), K2 (Bouzidi) and K3 (fused pair)
-against their plain PyTorch versions on the card, at the shapes of
-chip_smoke.py: the bench case's levels (sphere Re~1M, N=25, 3 levels) with
-every face type, the 10.8M-cell single-level sweep shape, and the bench
-Bouzidi box; K3 + K2 on the bench's finest level and on the single-level
-shape, also against K1 -> K2 -> K1 -> K2.
+"""The CUDA kernels K1 (stream-collide), K2 (Bouzidi), K3 (fused pair), K4
+(flat stream-collide) and K5 (in-place stream-collide) against their plain
+PyTorch versions on the card, at the shapes of chip_smoke.py: the bench
+case's levels (sphere Re~1M, N=25, 3 levels) with every face type, the
+10.8M-cell single-level sweep shape, and the bench Bouzidi box; K3 + K2 on
+the bench's finest level and on the single-level shape, also against
+K1 -> K2 -> K1 -> K2; K4 and K5 on the bench's level 1 and the single-level
+shape, also against K1 (equal).
 
 Every test here needs an NVIDIA GPU and nvcc, and skips without them.  On
 the card:  python -m pytest tests/test_torch_*.py -q
@@ -95,3 +97,24 @@ def test_fused_pair_kernel_matches_plain(bench, sweep, cuda_device, case,
                                 23, kw, cuda_device, reps=1, plain_reps=1)
     assert r["finite"] and r["max_abs_err"] < r["tol"], r
     assert checks.within_k3_tol(r["unfused"], store_bf16), r["unfused"]
+
+
+@pytest.mark.parametrize("store_bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["L1", "sweep"])
+@pytest.mark.parametrize("kernel", ["flat", "inplace"])
+def test_flat_and_inplace_kernels_match_plain(bench, sweep, cuda_device, kernel,
+                                              case, store_bf16):
+    """K4 and K5 against their plain versions and against K1 on the bench's
+    level 1 (inlet, outlet, mirrors) and on the 10.8M-cell single level,
+    each with a sponge ramp; K5 from its own clone of the input."""
+    _, levels, statics, kw = bench
+    if case == "L1":
+        patch, static = levels[0], checks.with_sponge_ramp(statics[0])
+    else:
+        patch, static = sweep[0], checks.with_sponge_ramp(sweep[1])
+    check = checks.check_flat if kernel == "flat" else checks.check_inplace
+    r = check(patch, static, store_bf16, 17, kw, cuda_device, reps=1, plain_reps=1)
+    assert r["finite"] and r["max_abs_err"] < r["tol"], r
+    assert r["k1"]["diff_frac"] == 0.0, r["k1"]
+    if kernel == "inplace":
+        assert r["same_ptr"] and r["vel_kept"]
