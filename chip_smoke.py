@@ -7,10 +7,10 @@ Phases, each raising on failure (nothing is caught):
   1. device: CUDA must be available; prints the card, `nvidia-smi` name and
      power limit, and the toolchain;
   2. build: K1 (csrc/stream_collide.cu), K2 (csrc/bouzidi.cu), K3
-     (csrc/fused_pair.cu), K4 (csrc/stream_collide_flat.cu) and K5
-     (csrc/stream_collide_inplace.cu) with nvcc for sm_90a into
-     build/kernels/, one nvcc per source, all at once; prints registers,
-     spills and K3's and K5's shared memory and occupancy;
+     (csrc/fused_pair.cu), K4 (csrc/stream_collide_flat.cu), K5
+     (csrc/stream_collide_inplace.cu) and K6 (csrc/bouzidi_ab.cu) with nvcc
+     for sm_90a into build/kernels/, one nvcc per source, all at once;
+     prints registers, spills and K3's and K5's shared memory and occupancy;
   3. K1 against its plain PyTorch version on the card, on the bench case's
      levels (wall model, sponge blend, inlet noise 0.02, every face type)
      and on a 10.8M-cell single-level sweep shape, float32 and bf16;
@@ -52,8 +52,19 @@ Phases, each raising on failure (nothing is caught):
      vel + 25% of one f copy) and of one K1 step (a whole second f), and
      a 10-step batch from one perturbed state on K5, on K1 unfused (equal
      bit for bit) and on K3 pairs (the path the row ran before K5; within
-     K3's bound), each timed in turns.
-Prints one JSON line of kernel results, then, as its last line,
+     K3's bound), each timed in turns;
+  8. the probe's path: K6 against its plain version on the bench case's
+     own Bouzidi box, float32 (1e-6) and bf16 (2e-3, decoded f), and
+     against K2 on the same S (under the same bounds); then
+     `open_ludwig_torch.tools.probe_bz_encoding` at its defaults (the bench
+     case's finest box, K2 against K6 from one bf16 state, then interleaved
+     windows of 300 applications, CUDA events), which must launch each of
+     K2 and K6 once per application and nothing else.
+Every check prints its bound beside its time: the bytes the call must
+move over the card's memory rate (or its operations over the float32
+rate, where larger; `checks.bound`).  Before the last lines, neither jax
+nor any module of the JAX package may be loaded.  Prints one JSON line of
+kernel results, the card's name and power limit, then, as its last line,
 {"ok": true, "device": {...}}.  Exits non-zero without CUDA.
 """
 
@@ -98,6 +109,7 @@ def main() -> int:
         build_patch_statics,
         make_batch_runner_dense,
     )
+    from open_ludwig_torch.tools import probe_bz_encoding
 
     def check_run_outputs(res, cfg) -> None:
         """Finite CSV rows and a stable final state of a solve_case run."""
@@ -197,7 +209,8 @@ def main() -> int:
                 print(f"[3 K1] {label} {patch.interior} {'bf16' if bf16 else 'f32 '}"
                       f" err f/rho/vel {r['err']['f']:.2e}/{r['err']['rho']:.2e}/"
                       f"{r['err']['vel']:.2e} (tol {r['tol']:.0e}) | kernel "
-                      f"{r['ms']:.4f} ms ({n / r['ms'] / 1e3:.0f} MLUPS) | plain "
+                      f"{r['ms']:.4f} ms ({n / r['ms'] / 1e3:.0f} MLUPS), bound "
+                      f"{r['bound_ms']:.4f} ms ({r['bytes'] / 1e6:.1f} MB) | plain "
                       f"{r['plain_ms']:.3f} ms", flush=True)
                 require(r["finite"] and r["max_abs_err"] < r["tol"],
                         ("K1", label, bf16, r["err"], r["finite"]))
@@ -217,7 +230,8 @@ def main() -> int:
             print(f"[3 K1] sweep {'bf16' if bf16 else 'f32 '} err f/rho/vel "
                   f"{r['err']['f']:.2e}/{r['err']['rho']:.2e}/{r['err']['vel']:.2e}"
                   f" | kernel {r['ms']:.3f} ms ({sweep[0].n_cells / r['ms'] / 1e3:.0f}"
-                  f" MLUPS) | plain {r['plain_ms']:.3f} ms", flush=True)
+                  f" MLUPS), bound {r['bound_ms']:.4f} ms ({r['bytes'] / 1e6:.1f} MB)"
+                  f" | plain {r['plain_ms']:.3f} ms", flush=True)
             require(r["finite"] and r["max_abs_err"] < r["tol"],
                     ("K1 sweep", bf16, r["err"], r["finite"]))
         torch.cuda.empty_cache()
@@ -242,8 +256,9 @@ def main() -> int:
                           f"{r['err']['vel']:.2e} (tol {r['tol']:.0e}) | vs K1: "
                           f"{100 * r['k1']['diff_frac']:.4f}% stored f differ, max "
                           f"{r['k1']['max_abs_err']:.2e} | kernel {r['ms']:.4f} ms "
-                          f"({n / r['ms'] / 1e3:.0f} MLUPS), K1 {r['k1_ms']:.4f} ms, "
-                          f"plain {r['plain_ms']:.3f} ms | card: {smi}", flush=True)
+                          f"({n / r['ms'] / 1e3:.0f} MLUPS), bound {r['bound_ms']:.4f}"
+                          f" ms, K1 {r['k1_ms']:.4f} ms, plain {r['plain_ms']:.3f} "
+                          f"ms | card: {smi}", flush=True)
                     require(r["finite"] and r["max_abs_err"] < r["tol"],
                             (tag, label, bf16, r["err"], r["finite"]))
                     if "same_ptr" in r:
@@ -258,8 +273,8 @@ def main() -> int:
             k2[bf16] = r
             print(f"[4 K2] box {tuple(plan['dim'])} {'bf16' if bf16 else 'f32 '} err "
                   f"{r['max_abs_err']:.2e} (tol {r['tol']:.0e}, {r['changed']} slots "
-                  f"changed) | kernel+snapshot {r['ms']:.4f} ms | plain "
-                  f"{r['plain_ms']:.3f} ms", flush=True)
+                  f"changed) | kernel+snapshot {r['ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.5f} ms | plain {r['plain_ms']:.3f} ms", flush=True)
             require(r["changed"] > 0 and r["max_abs_err"] < r["tol"], ("K2", bf16, r))
 
         # ---- 4b. K3 (+ K2) against the plain pair and the unfused kernels ----
@@ -281,7 +296,8 @@ def main() -> int:
                       f"{r['err']['rho']:.2e}/{r['err']['vel']:.2e} (tol "
                       f"{r['tol']:.0e}), {100 * r['diff_frac']:.3f}% stored f "
                       f"differ | vs K1->K2->K1: max {u['max_abs_err']:.2e}, "
-                      f"{100 * u['diff_frac']:.3f}% differ | K3 {r['ms']:.4f} ms, "
+                      f"{100 * u['diff_frac']:.3f}% differ | K3 {r['ms']:.4f} ms "
+                      f"(bound {r['bound_ms']:.4f} ms), "
                       f"K1->K2->K1 {r['unfused_ms']:.4f} ms, plain "
                       f"{r['plain_ms']:.3f} ms | card: {smi}", flush=True)
                 require(r["finite"] and r["max_abs_err"] < r["tol"],
@@ -320,7 +336,7 @@ def main() -> int:
         print(f"[5 slice] launches {launches} over {steps} coarse steps", flush=True)
         require(launches == {"stream_collide_flat": steps, "stream_collide": 2 * steps,
                              "fused_pair": 2 * steps, "bouzidi": 2 * steps,
-                             "stream_collide_inplace": 0},
+                             "stream_collide_inplace": 0, "bouzidi_ab": 0},
                 ("slice launches", launches))
         check_run_outputs(res, cfg)
         win = res.windows[1:]  # the first interval carries the warm-up
@@ -348,7 +364,8 @@ def main() -> int:
         want = {"stream_collide": sum(n % 2 for n in sizes),
                 "fused_pair": sum(n // 2 for n in sizes),
                 "bouzidi": sum(n // 2 + n % 2 for n in sizes),
-                "stream_collide_flat": 0, "stream_collide_inplace": 0}
+                "stream_collide_flat": 0, "stream_collide_inplace": 0,
+                "bouzidi_ab": 0}
         print(f"[6 single] batches {sizes} | launches {got}", flush=True)
         require(sum(sizes) == cfg1.steps and got == want,
                 ("single-level launches", sizes, got, want))
@@ -395,7 +412,8 @@ def main() -> int:
         print(f"[7 in place] launches {got7} over {steps7} coarse steps", flush=True)
         require(got7 == {"stream_collide_inplace": steps7, "bouzidi": steps7,
                          "stream_collide": 0, "fused_pair": 0,
-                         "stream_collide_flat": 0}, ("63.7M launches", got7))
+                         "stream_collide_flat": 0, "bouzidi_ab": 0},
+                ("63.7M launches", got7))
         check_run_outputs(res7, cfg7)
         win = res7.windows[1:]
         n_steps = sum(b - a + 1 for a, b, _ in win)
@@ -427,7 +445,8 @@ def main() -> int:
               f"f/rho/vel {r['err']['f']:.2e}/{r['err']['rho']:.2e}/"
               f"{r['err']['vel']:.2e} (tol {r['tol']:.0e}) | vs K1: "
               f"{100 * r['k1']['diff_frac']:.4f}% stored f differ | K5 "
-              f"{r['ms']:.3f} ms, K1 {r['k1_ms']:.3f} ms, plain {r['plain_ms']:.1f}"
+              f"{r['ms']:.3f} ms (bound {r['bound_ms']:.3f} ms, "
+              f"{r['bytes'] / 1e9:.2f} GB), K1 {r['k1_ms']:.3f} ms, plain {r['plain_ms']:.1f}"
               f" ms | peak allocated during the plain step "
               f"{r['plain_peak_bytes'] / 1e9:.2f} GB | card: {smi}", flush=True)
         require(r["finite"] and r["max_abs_err"] < r["tol"] and r["same_ptr"]
@@ -438,8 +457,8 @@ def main() -> int:
         k2["row"] = r
         print(f"[7 in place] K2 on the row's box {tuple(plan7['dim'])} bf16 err "
               f"{r['max_abs_err']:.2e} (tol {r['tol']:.0e}, {r['changed']} slots "
-              f"changed) | kernel+snapshot {r['ms']:.4f} ms | plain "
-              f"{r['plain_ms']:.3f} ms", flush=True)
+              f"changed) | kernel+snapshot {r['ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.5f} ms | plain {r['plain_ms']:.3f} ms", flush=True)
         require(r["changed"] > 0 and r["max_abs_err"] < r["tol"], ("K2 row", r))
         torch.cuda.empty_cache()
 
@@ -504,39 +523,68 @@ def main() -> int:
         del state7, runs7, statics7, levels7, row, st7
         torch.cuda.empty_cache()
 
+        # ---- 8. the probe's path: K6, the two-array Bouzidi ----
+        k6 = {}
+        for bf16 in (False, True):
+            r = checks.check_bouzidi_ab(levels[2], plan, bf16, seed=43, device=dev)
+            k6[bf16] = r
+            print(f"[8 K6] box {tuple(plan['dim'])} {'bf16' if bf16 else 'f32 '} | vs "
+                  f"plain: err {r['max_abs_err']:.2e} (tol {r['tol']:.0e}, "
+                  f"{r['changed']} slots changed) | vs K2 on the same S: "
+                  f"{r['k2_err']:.2e} | kernel+snapshot {r['ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.5f} ms ({r['bytes'] / 1e6:.2f} MB), K2 "
+                  f"{r['k2_ms']:.4f} ms | plain {r['plain_ms']:.3f} ms | card: {smi}",
+                  flush=True)
+            require(r["changed"] > 0 and r["max_abs_err"] < r["tol"]
+                    and r["k2_err"] < r["tol"], ("K6", bf16, r))
+        cuda_step.reset_launches()
+        probe = probe_bz_encoding.main([])
+        got8 = dict(cuda_step.LAUNCHES)
+        apps = 2 + probe["reps"] * probe["n"]  # check, warm-up, windows
+        print(f"[8 probe] launches {got8} | K2 {probe['ms_min']['S']:.5f}, K6 "
+              f"{probe['ms_min']['AB']:.5f} ms per application (best of "
+              f"{probe['reps']} windows of {probe['n']}) -> K6 / K2 "
+              f"{probe['ms_min']['AB'] / probe['ms_min']['S']:.3f} | card: {smi}",
+              flush=True)
+        require(got8 == {**{k: 0 for k in got8}, "bouzidi": apps, "bouzidi_ab": apps},
+                ("probe launches", got8, apps))
+        require(probe["dim"] == tuple(plan["dim"]) and probe["max_abs_err"] < 2e-3,
+                ("probe box and K6 vs K2", probe["dim"], probe["max_abs_err"]))
+
     print(f"[done] {time.time() - t_run:.1f} s", flush=True)
+
+    def kernel_line(kname, source, replaces, n, r, max_abs_err):
+        return {"name": kname, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": n, "max_abs_err": max_abs_err, "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": None}
+
+    csrc = "open_ludwig_torch/csrc/"
+    pallas = "open_ludwig_tpu/ops/pallas_step.py:"
     kernels = [
-        {"name": "stream_collide", "route": "cuda",
-         "source": "open_ludwig_torch/csrc/stream_collide.cu",
-         "replaces": "open_ludwig_tpu/ops/pallas_step.py:247",
-         "launches": launches["stream_collide"],
-         "max_abs_err": max(r["max_abs_err"] for (lab, bf), r in k1.items() if bf),
-         "ms": k1[("L3", True)]["ms"], "plain_ms": k1[("L3", True)]["plain_ms"]},
-        {"name": "bouzidi", "route": "cuda",
-         "source": "open_ludwig_torch/csrc/bouzidi.cu",
-         "replaces": "open_ludwig_tpu/ops/pallas_step.py:62",
-         "launches": launches["bouzidi"],
-         "max_abs_err": max(k2[key]["max_abs_err"] for key in (True, "row")),
-         "ms": k2[True]["ms"], "plain_ms": k2[True]["plain_ms"]},
-        {"name": "fused_pair", "route": "cuda",
-         "source": "open_ludwig_torch/csrc/fused_pair.cu",
-         "replaces": "open_ludwig_tpu/ops/pallas_step.py:961",
-         "launches": launches["fused_pair"],
-         "max_abs_err": max(r["max_abs_err"] for (lab, bf), r in k3.items() if bf),
-         "ms": k3[("L3", True)]["ms"], "plain_ms": k3[("L3", True)]["plain_ms"]},
-        {"name": "stream_collide_flat", "route": "cuda",
-         "source": "open_ludwig_torch/csrc/stream_collide_flat.cu",
-         "replaces": "open_ludwig_tpu/ops/pallas_step.py:2100",
-         "launches": launches["stream_collide_flat"],
-         "max_abs_err": max(r["max_abs_err"] for (lab, bf), r in k4.items() if bf),
-         "ms": k4[("L1", True)]["ms"], "plain_ms": k4[("L1", True)]["plain_ms"]},
-        {"name": "stream_collide_inplace", "route": "cuda",
-         "source": "open_ludwig_torch/csrc/stream_collide_inplace.cu",
-         "replaces": "open_ludwig_tpu/ops/pallas_step.py:1575",
-         "launches": got7["stream_collide_inplace"],
-         "max_abs_err": max(r["max_abs_err"] for (lab, bf), r in k5.items() if bf),
-         "ms": k5[("row", True)]["ms"], "plain_ms": k5[("row", True)]["plain_ms"]},
+        kernel_line("stream_collide", csrc + "stream_collide.cu", pallas + "247",
+                    launches["stream_collide"], k1[("L3", True)],
+                    max(r["max_abs_err"] for (lab, bf), r in k1.items() if bf)),
+        kernel_line("bouzidi", csrc + "bouzidi.cu", pallas + "62",
+                    launches["bouzidi"], k2[True],
+                    max(k2[key]["max_abs_err"] for key in (True, "row"))),
+        kernel_line("fused_pair", csrc + "fused_pair.cu", pallas + "961",
+                    launches["fused_pair"], k3[("L3", True)],
+                    max(r["max_abs_err"] for (lab, bf), r in k3.items() if bf)),
+        kernel_line("stream_collide_flat", csrc + "stream_collide_flat.cu",
+                    pallas + "2100", launches["stream_collide_flat"], k4[("L1", True)],
+                    max(r["max_abs_err"] for (lab, bf), r in k4.items() if bf)),
+        kernel_line("stream_collide_inplace", csrc + "stream_collide_inplace.cu",
+                    pallas + "1575", got7["stream_collide_inplace"], k5[("row", True)],
+                    max(r["max_abs_err"] for (lab, bf), r in k5.items() if bf)),
+        kernel_line("bouzidi_ab", csrc + "bouzidi_ab.cu", "tools/probe_bz_encoding.py:117",
+                    got8["bouzidi_ab"], k6[True],
+                    max(r["max_abs_err"] for r in k6.values())),
     ]
+    # the port's independence from the JAX package, where jax is installed
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "open_ludwig_tpu"))
+    require(not loaded, ("jax or the JAX package was imported", loaded[:10]))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,10 @@ run the plain PyTorch versions in `ops/dense_step.py`, which the tests
 hold against the JAX package.
 
 The JAX package `open_ludwig_tpu` stays the reference.  This package
-imports only its numpy modules (lattice, config, scaling, geometry, cases,
-domain, native, core.patch's host-side box construction) and never jax.
+imports nothing of it and never jax: it carries its own copies of the
+host modules it needs (lattice, config, geometry, scaling, cases, native,
+domain, core.patch), which `tests/test_torch_host_modules.py` holds to
+the reference's arrays.  Only the tests import both packages.
 """
 
 __version__ = "0.1.0"

@@ -8,6 +8,9 @@ same layers (`tests/test_patch_pallas.py:114, :400, :439`):
 
   K1 stream-collide: float32 < 1e-5; bf16 g-storage < 2e-3 (decoded f)
   K2 Bouzidi:        float32 < 1e-6; bf16 g-storage < 2e-3 (decoded f)
+  K6 two-array Bouzidi: the same as K2, against its plain version; against
+                     K2 on the same S (A and B in the storage dtype) < 2e-3
+                     in bf16, the probe's bound
   K4 flat step, K5 in-place step: float32 < 1e-5; bf16 g-storage < 2e-3
                      (decoded f), against their plain versions (the
                      reference's flat and 2-D kernels are held to the XLA
@@ -25,6 +28,11 @@ same layers (`tests/test_patch_pallas.py:114, :400, :439`):
                      pair, whose float32 op order differs, ~1.2% of stored
                      bf16 entries land one rounding apart after a pair
                      (tests/test_torch_fused_pair.py); that share is reported.
+
+Each check also returns the call's bound: the bytes the function must move
+(each input read once, each output written once) over the card's memory
+rate, or its float32 operations over the card's float32 rate, whichever
+is larger (`bound`), from the card's published peaks (`CARD_PEAKS`).
 """
 
 from __future__ import annotations
@@ -32,33 +40,36 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, List, Tuple
 
+import numpy as np
 import torch
 
-from open_ludwig_tpu.cases import make_case_sphere
-from open_ludwig_tpu.config import CaseConfig, load_case_config
-from open_ludwig_tpu.core.patch import (
+from . import lattice as lat
+from .cases import make_case_sphere
+from .config import CaseConfig, load_case_config
+from .core.patch import (
     BC_INLET,
     BC_INTERFACE,
     BC_MIRROR_Y,
     BC_MIRROR_Z,
     BC_OUTLET,
     PatchLevel,
+    build_patches,
 )
-from open_ludwig_tpu.geometry import load_mesh
-from open_ludwig_tpu.scaling import DomainParams, compute_domain_params
-
-from . import lattice as lat
-from .core.patch import build_patches
+from .geometry import load_mesh
+from .scaling import DomainParams, compute_domain_params
 from .ops import storage
 from .ops.cuda_step import (
     bouzidi,
+    bouzidi_ab,
     fused_pair,
     stream_collide,
     stream_collide_flat,
     stream_collide_inplace,
 )
 from .ops.dense_step import (
+    apply_bouzidi_ab_plain,
     apply_bouzidi_dense,
+    bouzidi_ab_plan,
     dense_stream_collide,
     fused_pair_plain,
     stream_collide_flat_plain,
@@ -69,6 +80,59 @@ K1_TOL = {False: 1e-5, True: 2e-3}  # keyed by store_bf16
 K2_TOL = {False: 1e-6, True: 2e-3}
 K3_TOL = {False: 1e-5, True: 2e-3}
 K3_MAX_DIFF_FRAC = 0.01  # bf16: share of stored f entries that may differ
+
+# Published peaks by `torch.cuda.get_device_name` (NVIDIA's H100 SXM data
+# sheet: HBM3 at 3.35 TB/s, float32 outside the tensor cores at 67 TFLOP/s,
+# both at the 700 W power limit).
+CARD_PEAKS = {"NVIDIA H100 80GB HBM3": {"bytes_per_s": 3.35e12,
+                                        "f32_ops_per_s": 67e12}}
+# float32 operations of one fluid cell's sub-step in csrc/lbm_cell.cuh,
+# counted from the source without the wall model's branch: moments ~131,
+# sponge ~21, velocity gradient 18, WALE ~106, regularized BGK + Guo ~47,
+# reconstruction ~108, rounded up.  Against ~145 B per cell in bf16 that is
+# ~3 operations per byte, under the card's float32 ridge of 20.
+CELL_OPS = 450
+LINK_OPS = 3  # a * f_k + b * other, per linked Bouzidi slot
+
+
+def bound(nbytes: int, ops: int, device) -> Dict:
+    """The least time the card could take for a call that moves `nbytes`
+    and does `ops` float32 operations, and which of the two sets it."""
+    name = torch.cuda.get_device_name(device)
+    if name not in CARD_PEAKS:
+        raise ValueError(f"no published peaks recorded for {name!r} (CARD_PEAKS)")
+    peak = CARD_PEAKS[name]
+    t_bytes = nbytes / peak["bytes_per_s"] * 1e3
+    t_ops = ops / peak["f32_ops_per_s"] * 1e3
+    return {"bytes": int(nbytes), "ops": int(ops), "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def step_work(patch: PatchLevel, store_bf16: bool, wall_model: bool,
+              sub_steps: int = 1) -> Tuple[int, int]:
+    """(bytes, float32 operations) of `sub_steps` fused stream-collide
+    sub-steps of `patch`: f, vel, obstacle, sponge and (with the wall
+    model) the wall distance read once, f, rho and vel written once, and
+    each sub-step's interface ghost planes (float32) read once."""
+    fb = 2 if store_bf16 else 4
+    per_cell = 27 * fb + 12 + 1 + 4 + (4 if wall_model else 0) + 27 * fb + 4 + 12
+    planes = 0
+    for fc in range(6):
+        if patch.face_bc[fc] == BC_INTERFACE:
+            a, b = (patch.interior[t] for t in range(3) if t != fc // 2)
+            planes += 27 * (a + 2) * (b + 2) * 4
+    return (patch.n_cells * per_cell + sub_steps * planes,
+            sub_steps * CELL_OPS * patch.n_cells)
+
+
+def box_work(plan: Dict, coef_bytes: int, store_bf16: bool, links: int
+             ) -> Tuple[int, int]:
+    """(bytes, float32 operations) of one Bouzidi correction of `plan`'s
+    box: the box of f and the coefficients read once, the `links` linked
+    slots written once."""
+    fb = 2 if store_bf16 else 4
+    nb = int(np.prod(plan["dim"]))
+    return 27 * fb * nb + coef_bytes + links * fb, LINK_OPS * links
 
 
 def bench_config(case_dir: str, **over) -> CaseConfig:
@@ -204,7 +268,8 @@ def check_stream_collide(patch: PatchLevel, static: Dict, store_bf16: bool,
     fk, rk, vk = kernel()
     fp, rp, vp = plain()
     torch.cuda.synchronize()
-    out = {**state_diff(fk, rk, vk, fp, rp, vp), "tol": K1_TOL[store_bf16]}
+    out = {**state_diff(fk, rk, vk, fp, rp, vp), "tol": K1_TOL[store_bf16],
+           **bound(*step_work(patch, store_bf16, kw["wall_model"]), device)}
     del fk, rk, vk, fp, rp, vp
     out["ms"] = time_cuda(kernel, reps)
     out["plain_ms"] = time_cuda(plain, plain_reps)
@@ -237,7 +302,8 @@ def check_flat(patch: PatchLevel, static: Dict, store_bf16: bool, seed: int,
     a, b, c = k4(), k1(), plain()
     torch.cuda.synchronize()
     out = {**state_diff(*a, *c), "tol": K1_TOL[store_bf16],
-           "k1": state_diff(*a, *b)}
+           "k1": state_diff(*a, *b),
+           **bound(*step_work(patch, store_bf16, kw["wall_model"]), device)}
     del a, b, c
     out["ms"] = time_cuda(k4, reps)
     out["k1_ms"] = time_cuda(k1, reps)
@@ -269,7 +335,8 @@ def check_inplace(patch: PatchLevel, static: Dict, store_bf16: bool, seed: int,
     a = stream_collide_inplace(fk, vel, u, s, static, patch, **kw)
     out = {**state_diff(*a, *c), "tol": K1_TOL[store_bf16],
            "same_ptr": a[0].data_ptr() == ptr and bool(torch.equal(a[0], fk)),
-           "plain_peak_bytes": int(plain_peak)}
+           "plain_peak_bytes": int(plain_peak),
+           **bound(*step_work(patch, store_bf16, kw["wall_model"]), device)}
     del c
     out["k1"] = state_diff(*a, *stream_collide(f0, vel, u, s, static, patch, **kw))
     out["vel_kept"] = bool(torch.equal(vel, vel_in))
@@ -312,9 +379,40 @@ def check_bouzidi(patch: PatchLevel, plan: Dict, store_bf16: bool, seed: int,
     changed = int((fk != f0).sum())
     del fk, fp
     work = f0.clone()
-    out = {"max_abs_err": err, "changed": changed, "tol": K2_TOL[store_bf16]}
+    S = plan["S"]
+    out = {"max_abs_err": err, "changed": changed, "tol": K2_TOL[store_bf16],
+           **bound(*box_work(plan, S.numel() * 4, store_bf16,
+                             int(torch.count_nonzero(S))), device)}
     out["ms"] = time_cuda(lambda: bouzidi(work, plan), reps)
     out["plain_ms"] = time_cuda(lambda: apply_bouzidi_dense(f0, plan), plain_reps)
+    return out
+
+
+def check_bouzidi_ab(patch: PatchLevel, plan: Dict, store_bf16: bool, seed: int,
+                     device, reps: int = 50, plain_reps: int = 10) -> Dict:
+    """K6 (snapshot + kernel, in place; A and B in the storage dtype) against
+    apply_bouzidi_ab_plain and against K2 on the same S, on the card.
+    Returns the max-abs errors of decoded f against both, and ms per call of
+    K6, K2 and the plain version."""
+    f0 = random_level_inputs(patch, store_bf16, seed, device)["f"]
+    pab = bouzidi_ab_plan(plan, f0.dtype)
+    fk = bouzidi_ab(f0.clone(), pab)
+    fp = apply_bouzidi_ab_plain(f0, pab)
+    f2 = bouzidi(f0.clone(), plan)
+    torch.cuda.synchronize()
+    err = float((storage.decode_f(fk) - storage.decode_f(fp)).abs().max())
+    err_k2 = float((storage.decode_f(fk) - storage.decode_f(f2)).abs().max())
+    changed = int((fk != f0).sum())
+    del fk, fp, f2
+    links = int(torch.count_nonzero(pab["A"]))
+    out = {"max_abs_err": err, "k2_err": err_k2, "changed": changed,
+           "tol": K2_TOL[store_bf16],
+           **bound(*box_work(plan, 2 * pab["A"].numel() * pab["A"].element_size(),
+                             store_bf16, links), device)}
+    work = f0.clone()
+    out["ms"] = time_cuda(lambda: bouzidi_ab(work, pab), reps)
+    out["k2_ms"] = time_cuda(lambda: bouzidi(work, plan), reps)
+    out["plain_ms"] = time_cuda(lambda: apply_bouzidi_ab_plain(f0, pab), plain_reps)
     return out
 
 
@@ -365,6 +463,11 @@ def check_fused_pair(patch: PatchLevel, static: Dict, plan, store_bf16: bool,
     out = state_diff(fk, rk, vk, fp, rp, vp)
     out["unfused"] = state_diff(fk, rk, vk, fu, ru, vu)
     out["tol"] = K3_TOL[store_bf16]
+    nbytes, ops = step_work(patch, store_bf16, kw["wall_model"], sub_steps=2)
+    if plan is not None:  # step A's correction between the sub-steps
+        links = int(torch.count_nonzero(plan["S"]))
+        nbytes, ops = nbytes + plan["S"].numel() * 4, ops + LINK_OPS * links
+    out.update(bound(nbytes, ops, device))
     del fk, rk, vk, fu, ru, vu, fp, rp, vp
     out["ms"] = time_cuda(k3, reps)
     out["unfused_ms"] = time_cuda(unfused, reps)

@@ -6,8 +6,12 @@ JAX package stores every level padded to its TPU tile (`patch.padded`),
 or on a flat-(y,z) level (`patch.flat_yz`) as (..., XS, M) with
 n = y * Z + z and a pad tail up to M = ceil(Y * Z, 128), with flat (N,)
 statics; the port stores the interior (..., X, Y, Z) only.  bf16 g-storage
-crosses bit-exactly through a 16-bit integer view.  Nothing here imports
-jax.
+crosses bit-exactly through a 16-bit integer view.
+
+`patch` below is always a JAX package level: its attributes (`interior`,
+`padded`, `flat_yz`, `flat_m`, ...) are read by name, and nothing here
+imports the JAX package or jax.  `level_from_jax` gives the port's level
+for one.
 """
 
 from __future__ import annotations
@@ -17,8 +21,8 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from open_ludwig_tpu import lattice as lat
-from open_ludwig_tpu.core.patch import PatchLevel
+from . import lattice as lat
+from .core.patch import PatchLevel
 
 
 def trim(arr: np.ndarray, interior: Sequence[int]) -> np.ndarray:
@@ -36,13 +40,37 @@ def pad(arr: np.ndarray, padded: Sequence[int], fill=0) -> np.ndarray:
     return out
 
 
-def from_jax_layout(arr: np.ndarray, patch: PatchLevel) -> np.ndarray:
+def unflatten_host(arr: np.ndarray, patch) -> np.ndarray:
+    """A flat-(y,z) JAX level array (..., XS, M) -> (..., XS, Y, Z) over the
+    interior y/z (open_ludwig_tpu/core/patch.py:119-126); identity on a
+    3-D level."""
+    arr = np.asarray(arr)
+    if not patch.flat_yz:
+        return arr
+    Y, Z = patch.interior[1], patch.interior[2]
+    return arr[..., :Y * Z].reshape(arr.shape[:-1] + (Y, Z))
+
+
+def from_jax_layout(arr: np.ndarray, patch) -> np.ndarray:
     """A JAX level array, (..., XS, YS, ZS) or flat (..., XS, M), -> the
     interior (..., X, Y, Z)."""
-    return trim(patch.unflatten_host(np.asarray(arr)), patch.interior)
+    return trim(unflatten_host(arr, patch), patch.interior)
 
 
-def to_jax_layout(arr: np.ndarray, patch: PatchLevel, fill=0) -> np.ndarray:
+def level_from_jax(patch) -> PatchLevel:
+    """The port's level for a JAX package level: the same box, faces, tau
+    and Bouzidi data, its static fields ((XS, YS, ZS) on every JAX level)
+    cut to the interior."""
+    X, Y, Z = patch.interior
+    statics = {key: trim(getattr(patch, key), patch.interior).copy()
+               for key in ("obstacle", "sponge", "wall_dist")}
+    return PatchLevel(
+        level_id=patch.level_id, dx=patch.dx, tau=patch.tau,
+        lo=tuple(patch.lo), interior=(X, Y, Z), face_bc=tuple(patch.face_bc),
+        bouzidi=patch.bouzidi, **statics)
+
+
+def to_jax_layout(arr: np.ndarray, patch, fill=0) -> np.ndarray:
     """(..., X, Y, Z) -> the JAX level's layout, (..., XS, M) on a flat
     level, else (..., XS, YS, ZS); pad cells and slots take `fill`, a
     scalar or an array broadcast over the leading axes (for f: w or 0, the
@@ -80,7 +108,7 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-def state_from_jax(state: Dict, patch: PatchLevel, device="cpu") -> Dict:
+def state_from_jax(state: Dict, patch, device="cpu") -> Dict:
     """A JAX level state {f, rho, vel} (padded or flat, f32 or bf16 g) ->
     port."""
     return {
@@ -93,7 +121,7 @@ def state_to_numpy(state: Dict) -> Dict[str, np.ndarray]:
     return {key: to_numpy(state[key]) for key in ("f", "rho", "vel")}
 
 
-def state_to_jax(state: Dict, patch: PatchLevel) -> Dict[str, np.ndarray]:
+def state_to_jax(state: Dict, patch) -> Dict[str, np.ndarray]:
     """A port level state -> numpy arrays in the JAX level's layout, pads at
     the JAX rest state (f = w, or g = 0 on bf16; rho = 1; vel = 0).  bf16 g
     comes back as the float32 values it holds, which cast back to bfloat16
@@ -108,7 +136,7 @@ def state_to_jax(state: Dict, patch: PatchLevel) -> Dict[str, np.ndarray]:
     }
 
 
-def bouzidi_S_from_jax(plan_jax: Dict, patch: PatchLevel,
+def bouzidi_S_from_jax(plan_jax: Dict, patch,
                        port_lo: Sequence[int], port_dim: Sequence[int]) -> np.ndarray:
     """Embed the JAX plan's tile-aligned S box into a full-level array and
     crop the port's tight box out of it."""
@@ -133,7 +161,7 @@ def embed_S(plan: Dict, interior: Sequence[int]) -> np.ndarray:
     return full
 
 
-def statics_from_jax(static: Dict, patch: PatchLevel, port_plan: Optional[Dict],
+def statics_from_jax(static: Dict, patch, port_plan: Optional[Dict],
                      device="cpu") -> Dict:
     """JAX statics (flat padded obstacle/sponge/wall_dist + aligned Bouzidi
     plan) -> port statics for the same level."""

@@ -1,6 +1,6 @@
 """Wrappers of the hand-written CUDA kernels K1 (stream-collide), K2
-(Bouzidi), K3 (fused pair), K4 (flat stream-collide) and K5 (in-place
-stream-collide), with their launch counters.
+(Bouzidi), K3 (fused pair), K4 (flat stream-collide), K5 (in-place
+stream-collide) and K6 (two-array Bouzidi), with their launch counters.
 
 Each wrapper checks device, dtype, shape and contiguity, then:
   - for CPU tensors runs the kernel's plain PyTorch version
@@ -47,6 +47,12 @@ buffer, rho and vel are fresh.  An edge copy of the cells that neighbouring
 blocks read comes first (~11% of f at 63.7M cells), then each block marches
 its (y, z) tile along x.  Bound by device-memory bytes like K1; it saves
 the second f copy (3.4 GB at 63.7M cells in bf16).
+
+K6 `bouzidi_ab` (csrc/bouzidi_ab.cu) replaces the Pallas kernel of
+tools/probe_bz_encoding.py (:117): K2's sweep with the retired two-array
+coefficients (A, B) in the storage dtype, which the probe
+(`open_ludwig_torch.tools.probe_bz_encoding`) times against K2.  It shares
+K2's sweep (csrc/bouzidi_box.cuh) and reads one more coefficient array.
 """
 
 from __future__ import annotations
@@ -56,10 +62,10 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from open_ludwig_tpu.core.patch import BC_INTERFACE, PatchLevel
-
+from ..core.patch import BC_INTERFACE, PatchLevel
 from . import build, storage
 from .dense_step import (
+    apply_bouzidi_ab_plain,
     apply_bouzidi_dense,
     dense_stream_collide,
     fused_pair_plain,
@@ -68,7 +74,8 @@ from .dense_step import (
 )
 
 LAUNCHES: Dict[str, int] = {"stream_collide": 0, "bouzidi": 0, "fused_pair": 0,
-                            "stream_collide_flat": 0, "stream_collide_inplace": 0}
+                            "stream_collide_flat": 0, "stream_collide_inplace": 0,
+                            "bouzidi_ab": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -79,6 +86,7 @@ _SC_ARGTYPES = (
     + [_I, _I, _P]
 )
 _BZ_ARGTYPES = [_I, _P, _P, _P] + [_I] * 9 + [_P]
+_BZAB_ARGTYPES = [_I, _P, _P, _P, _P] + [_I] * 9 + [_P]
 _FLAT_ARGTYPES = [_I] + [_P] * 8 + [_I] * 5 + [_I] * 6 + [_F, _I] + [_D] * 4 + [_I, _I, _P]
 _IP_ARGTYPES = (
     [_I] + [_P] * 8 + [_I] * 5 + [_I] * 6 + [_F, _I] + [_D] * 4 + [_I, _I, _I, _P]
@@ -149,8 +157,10 @@ def _iface_planes(patch: PatchLevel, iface: Optional[Dict], device,
     return planes
 
 
-def _check_plan(plan: Dict, level_shape, device) -> None:
-    _check(plan["S"], "S", (27,) + tuple(plan["dim"]), (torch.float32,), device)
+def _check_plan(plan: Dict, level_shape, device, coefs=(("S", (torch.float32,)),)
+                ) -> None:
+    for key, dtypes in coefs:
+        _check(plan[key], key, (27,) + tuple(plan["dim"]), dtypes, device)
     lx, ly, lz = plan["lo"]
     bx, by, bz = plan["dim"]
     X, Y, Z = level_shape
@@ -241,7 +251,7 @@ def bouzidi(f: torch.Tensor, plan: Dict) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError(f"bouzidi: unsupported device {dev}")
     fn = _lib("bouzidi", "ol_bouzidi", _BZ_ARGTYPES)
-    # uncorrected post-collision snapshot of the box (see csrc/bouzidi.cu)
+    # uncorrected post-collision snapshot of the box (csrc/bouzidi_box.cuh)
     snap = f[:, lx:lx + bx, ly:ly + by, lz:lz + bz].contiguous()
     rc = fn(
         int(f.dtype == torch.bfloat16), snap.data_ptr(), plan["S"].data_ptr(),
@@ -250,6 +260,37 @@ def bouzidi(f: torch.Tensor, plan: Dict) -> torch.Tensor:
     )
     _raise_on(rc, "bouzidi")
     LAUNCHES["bouzidi"] += 1
+    return f
+
+
+def bouzidi_ab(f: torch.Tensor, plan: Dict) -> torch.Tensor:
+    """K6: Bouzidi correction of (27, X, Y, Z) f (float32 f or bf16 g) with
+    the two-array coefficients: plan["A"] and plan["B"] are (27, bx, by, bz)
+    tensors in f's dtype on f's device (`dense_step.bouzidi_ab_plan`).
+    On CUDA the correction is written into `f` in place and `f` is
+    returned; on the CPU the plain version returns a new tensor."""
+    dev = f.device
+    if f.dim() != 4 or f.shape[0] != 27:
+        raise ValueError(f"f shape {tuple(f.shape)}, expected (27, X, Y, Z)")
+    _check(f, "f", f.shape, (torch.float32, torch.bfloat16), dev)
+    _check_plan(plan, f.shape[1:], dev, (("A", (f.dtype,)), ("B", (f.dtype,))))
+    lx, ly, lz = plan["lo"]
+    bx, by, bz = plan["dim"]
+    X, Y, Z = f.shape[1:]
+    if dev.type == "cpu":
+        return apply_bouzidi_ab_plain(f, plan)
+    if dev.type != "cuda":
+        raise ValueError(f"bouzidi_ab: unsupported device {dev}")
+    fn = _lib("bouzidi_ab", "ol_bouzidi_ab", _BZAB_ARGTYPES)
+    # uncorrected post-collision snapshot of the box (csrc/bouzidi_box.cuh)
+    snap = f[:, lx:lx + bx, ly:ly + by, lz:lz + bz].contiguous()
+    rc = fn(
+        int(f.dtype == torch.bfloat16), snap.data_ptr(), plan["A"].data_ptr(),
+        plan["B"].data_ptr(), f.data_ptr(), bx, by, bz, lx, ly, lz, X, Y, Z,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(rc, "bouzidi_ab")
+    LAUNCHES["bouzidi_ab"] += 1
     return f
 
 

@@ -14,7 +14,9 @@ plain versions of the two CUDA kernels and the torch glue between them:
     (reference: src/physics_interpolation.jl:16-138);
   - `build_bouzidi_dense_plan` / `apply_bouzidi_dense`: the Bouzidi
     sub-box correction (K2's plain version; reference:
-    src/bouzidi_kernel.jl:38-88);
+    src/bouzidi_kernel.jl:38-88), and `apply_bouzidi_ab_plain`, the same
+    correction with the retired two-array coefficients (K6's plain
+    version);
   - `fused_pair_plain`: two sub-steps with the correction of the first
     between them (K3's plain version);
   - `stream_collide_flat_plain`: the sub-step of an interface-free level
@@ -33,7 +35,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from open_ludwig_tpu.core.patch import (
+from .. import lattice as lat
+from ..core.patch import (
     BC_INLET,
     BC_INTERFACE,
     BC_MIRROR_Y,
@@ -41,8 +44,6 @@ from open_ludwig_tpu.core.patch import (
     BC_OUTLET,
     PatchLevel,
 )
-
-from .. import lattice as lat
 from .collide_math import _CT, _contract, collide, hash_noise, inlet_equilibrium
 from .storage import STORE_BF16, decode_f, encode_f
 
@@ -467,13 +468,15 @@ def build_bouzidi_dense_plan(patch: PatchLevel, q_min: float) -> Optional[Dict]:
     return {"lo": tuple(int(v) for v in lo), "dim": bdim, "S": S}
 
 
-def apply_bouzidi_dense(f_out: torch.Tensor, plan: Dict) -> torch.Tensor:
-    """Bouzidi correction of (27, X, Y, Z), returned as a new tensor.
+def _bouzidi_box(f_out: torch.Tensor, plan: Dict, link) -> torch.Tensor:
+    """The Bouzidi box sweep shared by both coefficient encodings: for each
+    slot j != 13 with link direction k = opp(j),
 
-    Works unchanged on bf16 g-storage: the link coefficients sum to 1 and
-    w[opp k] = w[k], so the correction is form-invariant under the f - w
-    shift; compute is float32, store is the array's dtype.  plan["S"] is a
-    float32 tensor on f's device."""
+      f_j = a f*_k(cell) + b (f*_j(cell) if self else f*_k(cell + c_opp k))
+
+    where `link(k)` gives float32 (a, b, self, active) over the box and
+    slots with `active` False keep f*_j.  f* is the uncorrected box, and
+    the shifted read wraps inside the box.  Returns a new tensor."""
     lx, ly, lz = plan["lo"]
     bx, by, bz_ = plan["dim"]
     box = f_out[:, lx:lx + bx, ly:ly + by, lz:lz + bz_]
@@ -486,14 +489,69 @@ def apply_bouzidi_dense(f_out: torch.Tensor, plan: Dict) -> torch.Tensor:
         ck = (int(lat.C_X[k]), int(lat.C_Y[k]), int(lat.C_Z[k]))
         # f[k] at cell + c_opp = roll by +c (roll(a, s)[i] = a[i - s])
         ff = torch.roll(box[k], ck, dims=(0, 1, 2))
-        s = plan["S"][k]
-        a = s.abs()
-        other = torch.where(s < 0, box[j].float(), ff.float())
-        val = (a * box[k].float() + (1.0 - a) * other).to(box.dtype)
-        rows.append(torch.where(s != 0, val, box[j]))
+        a, b, self_, active = link(k)
+        other = torch.where(self_, box[j].float(), ff.float())
+        val = (a * box[k].float() + b * other).to(box.dtype)
+        rows.append(torch.where(active, val, box[j]))
     out = f_out.clone()
     out[:, lx:lx + bx, ly:ly + by, lz:lz + bz_] = torch.stack(rows)
     return out
+
+
+def apply_bouzidi_dense(f_out: torch.Tensor, plan: Dict) -> torch.Tensor:
+    """Bouzidi correction of (27, X, Y, Z) with the signed single-array
+    coefficients S (K2's plain version), returned as a new tensor.
+
+    Works unchanged on bf16 g-storage: the link coefficients sum to 1 and
+    w[opp k] = w[k], so the correction is form-invariant under the f - w
+    shift; compute is float32, store is the array's dtype.  plan["S"] is a
+    float32 tensor on f's device."""
+    def link(k):
+        s = plan["S"][k]
+        a = s.abs()
+        return a, 1.0 - a, s < 0, s != 0
+
+    return _bouzidi_box(f_out, plan, link)
+
+
+def bouzidi_ab_from_S(S) -> Tuple[np.ndarray, np.ndarray]:
+    """The retired two-array encoding (A, B) of a signed S box
+    (tools/probe_bz_encoding.py:59-62): A = |S|, B = sign(S)(1 - |S|), and
+    B = 0 where S = 1 (the folded fallback, whose other weight is 0).
+    float32 numpy arrays."""
+    S = np.asarray(S, np.float32)
+    A = np.abs(S)
+    B = np.where(S < 0, -(1.0 - A), np.where(S > 0, 1.0 - A, 0.0)).astype(np.float32)
+    B[S == 1.0] = 0.0
+    return A, B
+
+
+def bouzidi_ab_plan(plan: Dict, dtype) -> Dict:
+    """The plan's box with its S (a float32 tensor) recoded as the two
+    arrays A and B, tensors of `dtype` on S's device."""
+    A, B = bouzidi_ab_from_S(plan["S"].cpu().numpy())
+    dev = plan["S"].device
+    return {"lo": plan["lo"], "dim": plan["dim"],
+            "A": torch.as_tensor(A).to(device=dev, dtype=dtype),
+            "B": torch.as_tensor(B).to(device=dev, dtype=dtype)}
+
+
+def apply_bouzidi_ab_plain(f_out: torch.Tensor, plan: Dict) -> torch.Tensor:
+    """Bouzidi correction of (27, X, Y, Z) with the two-array coefficients
+    (K6's plain version; the TPU kernel of tools/probe_bz_encoding.py:76-136),
+    returned as a new tensor.  plan["A"] and plan["B"] are (27, bx, by, bz)
+    tensors on f's device, in any float dtype (the probe passes the storage
+    dtype); per slot j with k = opp(j), where A_k > 0:
+
+      f_j = A_k f*_k + |B_k| (f*_j if B_k < 0 else f*_k(cell + c_opp k))
+
+    computed in float32 and stored in f's dtype."""
+    def link(k):
+        a = plan["A"][k].float()
+        b = plan["B"][k].float()
+        return a, b.abs(), b < 0, a > 0
+
+    return _bouzidi_box(f_out, plan, link)
 
 
 def fused_pair_plain(

@@ -28,8 +28,7 @@ from __future__ import annotations
 import logging
 from typing import List, Optional, Tuple
 
-from open_ludwig_tpu.core.patch import BC_INTERFACE, PatchLevel
-
+from ..core.patch import BC_INTERFACE, PatchLevel
 from . import storage
 
 log = logging.getLogger("open_ludwig_torch")

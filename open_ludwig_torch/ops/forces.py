@@ -25,8 +25,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-from open_ludwig_tpu.geometry import TriMesh
-from open_ludwig_tpu.scaling import DomainParams
+from ..geometry import TriMesh
+from ..scaling import DomainParams
 
 log = logging.getLogger("open_ludwig_torch")
 

@@ -32,12 +32,10 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from open_ludwig_tpu.config import CaseConfig, load_case_config
-from open_ludwig_tpu.geometry import load_mesh
-from open_ludwig_tpu.scaling import compute_domain_params
-
+from .config import CaseConfig, load_case_config
 from .core.patch import build_patches
 from .diagnostics import FlowStats, check_stability, compute_flow_stats
+from .geometry import load_mesh
 from .io.csv_out import (
     append_convergence,
     append_forces,
@@ -47,6 +45,7 @@ from .io.csv_out import (
     write_forces_header,
 )
 from .ops.forces import ForceResult, compute_aerodynamics, make_force_context_dense
+from .scaling import compute_domain_params
 from .solver_dense import (
     build_patch_statics,
     hbm_report_patches,

@@ -38,11 +38,9 @@ from typing import Dict, List
 
 import torch
 
-from open_ludwig_tpu.config import CaseConfig
-from open_ludwig_tpu.core.patch import BC_INTERFACE, PatchLevel
-from open_ludwig_tpu.scaling import DomainParams
-
 from . import lattice as lat
+from .config import CaseConfig
+from .core.patch import BC_INTERFACE, PatchLevel
 from .ops import engine, storage
 from .ops.cuda_step import (
     bouzidi,
@@ -58,6 +56,7 @@ from .ops.dense_step import (
     interface_endpoints_pair,
     interface_from_endpoints,
 )
+from .scaling import DomainParams
 from .solver import ramp_velocity
 
 def init_patch_state(patch: PatchLevel, precision: str = "float32",

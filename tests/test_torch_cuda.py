@@ -1,11 +1,12 @@
 """The CUDA kernels K1 (stream-collide), K2 (Bouzidi), K3 (fused pair), K4
-(flat stream-collide) and K5 (in-place stream-collide) against their plain
-PyTorch versions on the card, at the shapes of chip_smoke.py: the bench
-case's levels (sphere Re~1M, N=25, 3 levels) with every face type, the
-10.8M-cell single-level sweep shape, and the bench Bouzidi box; K3 + K2 on
-the bench's finest level and on the single-level shape, also against
-K1 -> K2 -> K1 -> K2; K4 and K5 on the bench's level 1 and the single-level
-shape, also against K1 (equal).
+(flat stream-collide), K5 (in-place stream-collide) and K6 (two-array
+Bouzidi) against their plain PyTorch versions on the card, at the shapes of
+chip_smoke.py: the bench case's levels (sphere Re~1M, N=25, 3 levels) with
+every face type, the 10.8M-cell single-level sweep shape, and the bench
+Bouzidi box; K3 + K2 on the bench's finest level and on the single-level
+shape, also against K1 -> K2 -> K1 -> K2; K4 and K5 on the bench's level 1
+and the single-level shape, also against K1 (equal); K6 also against K2 on
+the same S.
 
 Every test here needs an NVIDIA GPU and nvcc, and skips without them.  On
 the card:  python -m pytest tests/test_torch_*.py -q
@@ -68,6 +69,18 @@ def test_bouzidi_kernel_matches_plain(bench, cuda_device, store_bf16):
                              cuda_device, reps=1, plain_reps=1)
     assert r["changed"] > 0
     assert r["max_abs_err"] < r["tol"], r
+
+
+@pytest.mark.parametrize("store_bf16", [False, True], ids=["f32", "bf16"])
+def test_bouzidi_ab_kernel_matches_plain(bench, cuda_device, store_bf16):
+    """K6 (A and B in the storage dtype) against its plain version and
+    against K2 on the same S, on the bench case's own Bouzidi box."""
+    _, levels, statics, _ = bench
+    r = checks.check_bouzidi_ab(levels[2], statics[2]["bouzidi"], store_bf16, 43,
+                                cuda_device, reps=1, plain_reps=1)
+    assert r["changed"] > 0
+    assert r["max_abs_err"] < r["tol"], r
+    assert r["k2_err"] < r["tol"], r
 
 
 @pytest.fixture(scope="module")

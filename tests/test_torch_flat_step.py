@@ -45,7 +45,7 @@ from open_ludwig_tpu.scaling import compute_domain_params
 
 from open_ludwig_torch import convert
 from open_ludwig_torch import solver_dense as sd
-from open_ludwig_torch.core.patch import build_patches, trim_patch
+from open_ludwig_torch.core.patch import build_patches
 from open_ludwig_torch.ops import cuda_step, engine, storage
 from open_ludwig_torch.ops import dense_step as ds
 from open_ludwig_torch.ops.cuda_step import stream_collide, stream_collide_flat
@@ -119,7 +119,7 @@ def test_flat_plain_matches_pallas_flat(interior, store_bf16):
     want = [convert.from_jax_layout(np.asarray(a).astype(np.float32), jp)
             for a in want]
 
-    tp = trim_patch(jp)
+    tp = convert.level_from_jax(jp)
     f_t = convert.to_tensor(convert.from_jax_layout(np.asarray(fj), jp))
     got = stream_collide_flat(f_t, torch.as_tensor(v0), 0.04, 9,
                               _port_static(tp), tp, **KW)
@@ -138,7 +138,7 @@ def test_flat_plain_equals_dense_stream_collide(store_bf16):
     boundary masks overwrite: K4's plain version and K1's are equal."""
     rng = np.random.default_rng(11)
     X, Y, Z = 7, 5, 9
-    tp = trim_patch(_jax_level((X, Y, Z)))
+    tp = convert.level_from_jax(_jax_level((X, Y, Z)))
     tp.obstacle[2:4, 1:3, 3:5] = True
     tp.sponge[5:] = 0.2
     tp.wall_dist[1, 1, 2] = 1.5
@@ -197,7 +197,8 @@ def test_engine_matches_reference_on_bench_sphere(tmp_path, precision):
     got = [e for e, _ in engine.level_engines(cfg, port)]
     assert got == want == ["flat", "k1", "k1"], (got, want)
     assert [engine.ref_padded(p) for p in port] == [r.padded for r in ref]
-    assert not any(p.flat_yz for p in port)
+    # the port's levels are (27, X, Y, Z) at their interior, never flat
+    assert all(p.padded == p.interior and not hasattr(p, "flat_yz") for p in port)
     off = dataclasses.replace(cfg, flat_coarse="off")
     assert [e for e, _ in engine.level_engines(off, port)] == ["k1"] * 3
 
@@ -215,7 +216,7 @@ def test_engine_matches_reference_on_sweep_shapes(interior, want, precision):
     there."""
     bf16 = precision == "bfloat16"
     jp = _jax_level(interior, lo=(0, 0, 0), fields=False)
-    tp = trim_patch(_jax_level(interior, lo=(0, 0, 0), fields=False))
+    tp = convert.level_from_jax(_jax_level(interior, lo=(0, 0, 0), fields=False))
     eng, why = engine.choose_engine("auto", tp, True, bf16)
     assert eng == _reference_engine(jp, bf16) == want[precision], why
     assert engine.pallas_fits(tp, bf16) == sd_jax._pallas_fits(jp, bf16)
@@ -242,12 +243,12 @@ def test_engine_gates_equal_reference_functions():
 def test_flat_coarse_on_warns_where_unavailable(caplog):
     """flat_coarse: on with an x extent that no flat PX divides logs the
     reference's warning and keeps the level on K1."""
-    tp = trim_patch(_jax_level((44, 40, 40), fields=False))
+    tp = convert.level_from_jax(_jax_level((44, 40, 40), fields=False))
     with caplog.at_level(logging.WARNING, logger="open_ludwig_torch"):
         eng, why = engine.choose_engine("on", tp, False, True)
     assert eng == "k1" and "flat PX" in why
     assert "flat_coarse=on but the Pallas flat step is unavailable" in caplog.text
-    assert engine.choose_engine("on", trim_patch(_jax_level((40, 40, 40), fields=False)),
+    assert engine.choose_engine("on", convert.level_from_jax(_jax_level((40, 40, 40), fields=False)),
                                 False, True)[0] == "flat"
 
 
@@ -368,7 +369,7 @@ def test_kernel_log_names_k4(sphere_flat):
 
 
 def test_flat_step_rejects_interface_levels():
-    tp = trim_patch(_jax_level((4, 3, 5), face_bc=(BC_INTERFACE,) + DOMAIN[1:]))
+    tp = convert.level_from_jax(_jax_level((4, 3, 5), face_bc=(BC_INTERFACE,) + DOMAIN[1:]))
     f = torch.zeros((27, 4, 3, 5))
     cuda_step.reset_launches()
     with pytest.raises(ValueError, match="interface"):

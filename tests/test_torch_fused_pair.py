@@ -52,7 +52,7 @@ from open_ludwig_tpu.scaling import compute_domain_params
 
 from open_ludwig_torch import convert
 from open_ludwig_torch import solver_dense as sd
-from open_ludwig_torch.core.patch import build_patches, trim_patch
+from open_ludwig_torch.core.patch import build_patches
 from open_ludwig_torch.ops import cuda_step
 from open_ludwig_torch.ops import dense_step as ds
 from open_ludwig_torch.ops.cuda_step import fused_pair
@@ -153,7 +153,7 @@ def test_fused_pair_plain_matches_pallas_fused2(store_bf16):
     want = fstep(fj, vj, jnp.asarray([0.03, 0.032], jnp.float32),
                  jnp.asarray([9, 10], jnp.int32), prepare_pallas_statics(jp))
 
-    tp = trim_patch(jp)
+    tp = convert.level_from_jax(jp)
     plan = ds.build_bouzidi_dense_plan(tp, 0.001)
     plan = {**plan, "S": torch.as_tensor(plan["S"])}
     f_t = convert.to_tensor(convert.trim(np.asarray(fj), tp.interior))
@@ -195,7 +195,7 @@ def test_fused_pair_plain_matches_pallas_fused2_interface(store_bf16):
                  jnp.asarray([3, 4], jnp.int32), prepare_pallas_statics(jp),
                  pair, nsub_ab=(0, 1))
 
-    tp = trim_patch(jp)
+    tp = convert.level_from_jax(jp)
     ifaces = []
     for w in range(2):
         ifaces.append({})
@@ -370,7 +370,7 @@ def test_fused_pair_rejects_bad_inputs(bad):
     rng = np.random.default_rng(2)
     faces = (BC_INTERFACE, BC_OUTLET, BC_INTERFACE, BC_MIRROR_Y, BC_INTERFACE,
              BC_INTERFACE)
-    tp = trim_patch(_patch((6, 5, 4), face_bc=faces))
+    tp = convert.level_from_jax(_patch((6, 5, 4), face_bc=faces))
     f = torch.as_tensor(np.tile(lat.W[:, None, None, None], (1, 6, 5, 4))
                         .astype(np.float32))
     vel = torch.zeros((3, 6, 5, 4))

@@ -38,7 +38,7 @@ from open_ludwig_tpu.scaling import compute_domain_params
 
 from open_ludwig_torch import convert
 from open_ludwig_torch import solver_dense as sd
-from open_ludwig_torch.core.patch import build_patches, trim_patch
+from open_ludwig_torch.core.patch import build_patches
 from open_ludwig_torch.ops import cuda_step, engine, storage
 from open_ludwig_torch.ops.cuda_step import stream_collide, stream_collide_inplace
 
@@ -82,7 +82,7 @@ def test_inplace_plain_matches_pallas_2d(rng, store_bf16):
                  prepare_pallas_statics(p))
     want = [convert.trim(np.asarray(a).astype(np.float32), p.interior) for a in want]
 
-    tp = trim_patch(p)
+    tp = convert.level_from_jax(p)
     f_t = convert.to_tensor(convert.trim(np.asarray(fj), tp.interior))
     v_t = torch.as_tensor(convert.trim(v0, tp.interior)).contiguous()
     got = stream_collide_inplace(f_t, v_t, 0.04, 9, _port_static(tp), tp, **KW)
@@ -100,7 +100,7 @@ def test_inplace_wrapper_updates_its_input(store_bf16):
     vel are fresh, vel_in unchanged; the values are K1's."""
     rng = np.random.default_rng(4)
     X, Y, Z = 6, 5, 7
-    tp = trim_patch(_jax_level((X, Y, Z)))
+    tp = convert.level_from_jax(_jax_level((X, Y, Z)))
     tp.obstacle[2:4, 1:3, 2:4] = True
     f = torch.as_tensor((lat.W[:, None, None, None] * (1 + 0.05 * rng.standard_normal(
         (27, X, Y, Z)))).astype(np.float32))
@@ -240,7 +240,7 @@ def test_reference_fused_pair_declines_k5_shapes(interior, store_bf16):
     kw = dict(KW, inlet_turbulence=0.0)
     assert make_pallas_step_fused2(jp, store_bf16=store_bf16, alias_f=True,
                                    **kw) is None
-    eng, _ = engine.choose_engine("auto", trim_patch(jp), True, store_bf16)
+    eng, _ = engine.choose_engine("auto", convert.level_from_jax(jp), True, store_bf16)
     if eng == "inplace":
         assert (interior, store_bf16) in (((432, 384, 384), True),
                                           ((320, 304, 384), False))

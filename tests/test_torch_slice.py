@@ -180,4 +180,4 @@ def test_plain_path_counts_no_kernel_launches(sphere2):
     sd.make_batch_runner_dense(cfg, params, levels_t, statics)(states, 1, 1)
     assert cuda_step.LAUNCHES == {"stream_collide": 0, "bouzidi": 0,
                                   "fused_pair": 0, "stream_collide_flat": 0,
-                                  "stream_collide_inplace": 0}
+                                  "stream_collide_inplace": 0, "bouzidi_ab": 0}

@@ -6,10 +6,15 @@ package, and the port's independence from jax.
   its tight Bouzidi plan equals the reference's aligned one after
   embedding, for a 3-level sphere (surface_resolution 16, the smallest
   that keeps three levels);
-- importing the port, building a case and stepping it on the CPU never
-  imports jax (checked in a fresh interpreter).
+- no source of the port (nor chip_smoke.py) imports jax or the JAX
+  package, at top level or inside a function (an AST scan), and importing
+  every module of the port, building a case with its own `cases`, stepping
+  it and running its Bouzidi probe on the CPU loads neither (checked in a
+  fresh interpreter).
 """
 
+import ast
+import glob
 import os
 import subprocess
 import sys
@@ -79,7 +84,7 @@ def test_patches_equal_reference_interior(sphere3):
     for p, r in zip(port, ref):
         assert p.padded == p.interior == r.interior
         assert (p.lo, p.face_bc, p.tau, p.dx) == (r.lo, r.face_bc, r.tau, r.dx)
-        assert not p.flat_yz
+        assert not hasattr(p, "flat_yz")  # no flat layout in the port
         for key in ("obstacle", "sponge", "wall_dist"):
             got = getattr(p, key)
             assert got.shape == tuple(p.interior)
@@ -95,24 +100,80 @@ def test_patches_equal_reference_interior(sphere3):
     assert np.count_nonzero(plan["S"]) > 0
 
 
+FORBIDDEN = ("jax", "jaxlib", "open_ludwig_tpu")
+
+
+def _imported_roots(tree: ast.AST):
+    """(line, module) of every import in `tree`, at any depth, including
+    importlib.import_module / __import__ calls with a constant name."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)
+              and getattr(node.func, "attr", getattr(node.func, "id", None))
+              in ("import_module", "__import__")):
+            yield node.lineno, node.args[0].value
+
+
+def test_port_sources_never_import_jax():
+    paths = sorted(glob.glob(os.path.join(REPO, "open_ludwig_torch", "**", "*.py"),
+                             recursive=True)) + [os.path.join(REPO, "chip_smoke.py")]
+    assert len(paths) > 25, paths
+    bad = []
+    for path in paths:
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        bad += [(os.path.relpath(path, REPO), line, name)
+                for line, name in _imported_roots(tree)
+                if name.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_import_scan_finds_nested_imports():
+    """The scan itself: imports inside functions and dynamic imports count."""
+    src = ("def f():\n    import jax.numpy as jnp\n"
+           "def g():\n    from open_ludwig_tpu.core import patch\n"
+           "importlib.import_module('jaxlib')\nfrom . import lattice\n")
+    names = [n for _, n in _imported_roots(ast.parse(src))]
+    assert names == ["jax.numpy", "open_ludwig_tpu.core", "jaxlib"]
+
+
 def test_port_never_imports_jax(tmp_path):
-    """A fresh interpreter builds a 2-level case and runs one coarse step of
-    the port on the CPU; jax must never enter sys.modules."""
+    """A fresh interpreter imports every module of the port, builds a
+    2-level case with the port's own `cases`, runs two coarse steps and the
+    Bouzidi probe on the CPU; neither jax nor the JAX package may enter
+    sys.modules."""
     script = textwrap.dedent(f"""
-        import sys, torch
+        import importlib, pkgutil, sys, torch
         torch.set_num_threads(1)
+        import open_ludwig_torch
+        mods = [m.name for m in pkgutil.walk_packages(open_ludwig_torch.__path__,
+                                                      "open_ludwig_torch.")]
+        for name in mods:
+            importlib.import_module(name)
+        assert "open_ludwig_torch.tools.probe_bz_encoding" in mods, mods
+        from open_ludwig_torch.cases import make_case_sphere
+        from open_ludwig_torch.config import load_case_config
         from open_ludwig_torch.runner import solve_case
-        from open_ludwig_tpu.cases import make_case_sphere
-        from open_ludwig_tpu.config import load_case_config
+        from open_ludwig_torch.tools import probe_bz_encoding
         make_case_sphere({str(tmp_path)!r}, "1M", surface_resolution=8,
-                         num_levels=2, steps=1, ramp_steps=1, output_freq=10,
+                         num_levels=2, steps=2, ramp_steps=1, output_freq=10,
                          diag_freq=1, precision="bfloat16",
                          inlet_turbulence=0.02)
         res = solve_case(load_case_config({str(tmp_path)!r}), device="cpu")
-        assert res.final_stats.rho_min > 0.5, res.final_stats
-        bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+        assert res.steps == 2 and res.final_stats.rho_min > 0.5, res.final_stats
+        out = probe_bz_encoding.main(["--device", "cpu", "--res", "8", "--levels",
+                                      "1", "--n", "2", "--reps", "1"])
+        assert out["links"] > 0 and out["max_abs_err"] < 2e-3, out
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "open_ludwig_tpu"))
         assert not bad, bad
-        print("NO_JAX_OK")
+        print("NO_JAX_OK", len(mods))
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
