@@ -10,7 +10,8 @@ Phases, each raising on failure (nothing is caught):
      (csrc/fused_pair.cu), K4 (csrc/stream_collide_flat.cu), K5
      (csrc/stream_collide_inplace.cu) and K6 (csrc/bouzidi_ab.cu) with nvcc
      for sm_90a into build/kernels/, one nvcc per source, all at once;
-     prints registers, spills and K3's and K5's shared memory and occupancy;
+     prints registers, spills and K3's and K5's shared memory and occupancy
+     (K5's at the 63.7M-cell row's layout);
   3. K1 against its plain PyTorch version on the card, on the bench case's
      levels (wall model, sponge blend, inlet noise 0.02, every face type)
      and on a 10.8M-cell single-level sweep shape, float32 and bf16;
@@ -18,13 +19,16 @@ Phases, each raising on failure (nothing is caught):
      entries that differ, expected 0), float32 and bf16, on the bench
      case's level 1 (64x56x56, which the bench runs on K4) and on the
      10.8M-cell shape;
-  3d. the same for K5, each call on its own clone of the input;
+  3d. the same for K5, each call on its own clone of the input (K5 must
+     equal K1 bit for bit), timed against K1 in turns, with its two
+     launches (edge copy, step) timed apart, its layout and its occupancy;
   4. K2 against its plain version on the bench case's own Bouzidi box;
   4b. K3 (+ K2) against the plain pair and against K1 -> K2 -> K1 (+ K2),
      float32 and bf16, on the bench's finest level (six interface faces,
      distinct ghost planes per sub-step, box 29x28x28) and on the 10.8M-cell
      single level (inlet, outlet, mirrors, inlet noise, wall model, sponge
-     ramp, the sphere's box); times K3, the unfused kernels and the plain pair;
+     ramp, the sphere's box); times K3 against the unfused kernels in turns,
+     and the plain pair; prints K3's registers and occupancy;
   4c. fused against unfused on the card: 4 coarse steps of the bench case
      through make_batch_runner_dense(fuse2=True) and (fuse2=False) from one
      random state, float32 and bf16, per level;
@@ -142,6 +146,19 @@ def main() -> int:
             })
         return states
 
+    def k5_detail(r):
+        """K5's two launches timed apart, its turns against K1, its layout
+        and its occupancy, from a checks.check_inplace result."""
+        lay, a = r["layout"], r["attrs"]
+        return (f"edge copy {r['edge_copy_ms']:.4f} ms + step {r['step_ms']:.4f} ms"
+                f" | in turns K5, K1, K1, K5: "
+                + ", ".join(f"{t:.4f}" for t in r["turns_ms"])
+                + f" ms | tiles of {lay['ty']} rows x chunks of {lay['chunk']}, "
+                f"runs of {lay['xr']}, edge buffer {lay['edge_elems'] / 1e6:.2f}M "
+                f"elements | {a['registers']} registers, {a['local_bytes']} B "
+                f"local, {a['smem_bytes']} B shared, {a['blocks_per_sm']} "
+                "block(s) per SM")
+
     def cloned(states):
         """A copy of level states that an in-place (K5) run may overwrite."""
         return [{**st, "f": st["f"].clone()} for st in states]
@@ -181,8 +198,12 @@ def main() -> int:
               f"{a['smem_bytes']} B shared per block, {a['blocks_per_sm']} "
               "block(s) per SM", flush=True)
         require(a["blocks_per_sm"] >= 1, ("fused_pair occupancy", bf16, a))
-        a = cuda_step.inplace_attrs(bf16)
-        print(f"[2 build] stream_collide_inplace {'bf16' if bf16 else 'f32 '}: "
+        lay = cuda_step.inplace_layout(432, 384, 384, dev, 2 if bf16 else 4)
+        a = cuda_step.inplace_attrs(bf16, lay)
+        print(f"[2 build] stream_collide_inplace {'bf16' if bf16 else 'f32 '} at "
+              f"432x384x384 (tiles of {lay['ty']} rows, chunks of {lay['chunk']} "
+              f"cells, runs of {lay['xr']} planes, {lay['nty'] * lay['nr']} blocks, "
+              f"edge buffer {lay['edge_elems'] / 1e6:.1f}M elements): "
               f"{a['registers']} registers, {a['local_bytes']} B local, "
               f"{a['smem_bytes']} B shared per block, {a['blocks_per_sm']} "
               "block(s) per SM", flush=True)
@@ -262,8 +283,10 @@ def main() -> int:
                     require(r["finite"] and r["max_abs_err"] < r["tol"],
                             (tag, label, bf16, r["err"], r["finite"]))
                     if "same_ptr" in r:
-                        require(r["same_ptr"] and r["vel_kept"],
-                                (tag, label, bf16, "in-place contract"))
+                        require(r["same_ptr"] and r["vel_kept"]
+                                and r["k1"]["diff_frac"] == 0.0,
+                                (tag, label, bf16, "in-place contract", r["k1"]))
+                        print(f"[{tag}]   {k5_detail(r)}", flush=True)
         torch.cuda.empty_cache()
         # ---- 4. K2 against plain on the bench Bouzidi box ----
         plan = statics[2]["bouzidi"]
@@ -298,8 +321,14 @@ def main() -> int:
                       f"differ | vs K1->K2->K1: max {u['max_abs_err']:.2e}, "
                       f"{100 * u['diff_frac']:.3f}% differ | K3 {r['ms']:.4f} ms "
                       f"(bound {r['bound_ms']:.4f} ms), "
-                      f"K1->K2->K1 {r['unfused_ms']:.4f} ms, plain "
-                      f"{r['plain_ms']:.3f} ms | card: {smi}", flush=True)
+                      f"K1->K2->K1 {r['unfused_ms']:.4f} ms (in turns K3, "
+                      "unfused, unfused, K3: "
+                      + ", ".join(f"{t:.4f}" for t in r["turns_ms"])
+                      + f" ms), plain {r['plain_ms']:.3f} ms | "
+                      f"{r['attrs']['registers']} registers, "
+                      f"{r['attrs']['local_bytes']} B local, "
+                      f"{r['attrs']['blocks_per_sm']} block(s) per SM | card: "
+                      f"{smi}", flush=True)
                 require(r["finite"] and r["max_abs_err"] < r["tol"],
                         ("K3 vs plain", label, bf16, r["err"]))
                 require(checks.within_k3_tol(u, bf16),
@@ -449,6 +478,7 @@ def main() -> int:
               f"{r['bytes'] / 1e9:.2f} GB), K1 {r['k1_ms']:.3f} ms, plain {r['plain_ms']:.1f}"
               f" ms | peak allocated during the plain step "
               f"{r['plain_peak_bytes'] / 1e9:.2f} GB | card: {smi}", flush=True)
+        print(f"[7 in place]   {k5_detail(r)}", flush=True)
         require(r["finite"] and r["max_abs_err"] < r["tol"] and r["same_ptr"]
                 and r["vel_kept"] and r["k1"]["diff_frac"] == 0.0,
                 ("K5 on the 63.7M row", r["err"], r["k1"]))

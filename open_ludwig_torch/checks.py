@@ -62,6 +62,10 @@ from .ops.cuda_step import (
     bouzidi,
     bouzidi_ab,
     fused_pair,
+    fused_pair_attrs,
+    inplace_attrs,
+    inplace_layout,
+    inplace_parts_ms,
     stream_collide,
     stream_collide_flat,
     stream_collide_inplace,
@@ -316,8 +320,10 @@ def check_inplace(patch: PatchLevel, static: Dict, store_bf16: bool, seed: int,
     """K5 against stream_collide_inplace_plain and against K1 on the card.
     K5 and its plain version overwrite their f, so each runs on its own
     clone of the input.  Returns what check_flat returns, with "same_ptr":
-    whether K5 returned the storage it was given, and "plain_peak_bytes":
-    the peak allocation of the plain step above its inputs."""
+    whether K5 returned the storage it was given, "plain_peak_bytes": the
+    peak allocation of the plain step above its inputs, "edge_copy_ms" and
+    "step_ms": K5's two launches timed apart, and its "layout" and "attrs"
+    (registers, local and shared memory, blocks per SM) at this shape."""
     inp = random_level_inputs(patch, store_bf16, seed, device)
     u, s = 0.04, 9
     f0, vel = inp["f"], inp["vel"]
@@ -341,12 +347,24 @@ def check_inplace(patch: PatchLevel, static: Dict, store_bf16: bool, seed: int,
     out["k1"] = state_diff(*a, *stream_collide(f0, vel, u, s, static, patch, **kw))
     out["vel_kept"] = bool(torch.equal(vel, vel_in))
     del a, fk, vel_in
-    # timed on one working copy each, which every call steps further on
+    # timed on one working copy each, which every call steps further on, in
+    # turns (K5, K1, K1, K5): "ms" and "k1_ms" are each the better of two
     work = f0.clone()
-    out["ms"] = time_cuda(
-        lambda: stream_collide_inplace(work, vel, u, s, static, patch, **kw), reps)
-    out["k1_ms"] = time_cuda(
-        lambda: stream_collide(f0, vel, u, s, static, patch, **kw), reps)
+
+    def k5():
+        return stream_collide_inplace(work, vel, u, s, static, patch, **kw)
+
+    def k1():
+        return stream_collide(f0, vel, u, s, static, patch, **kw)
+
+    turns = [time_cuda(fn, reps) for fn in (k5, k1, k1, k5)]
+    out["turns_ms"] = turns
+    out["ms"], out["k1_ms"] = min(turns[0], turns[3]), min(turns[1], turns[2])
+    # K5's two launches, each alone
+    out.update(inplace_parts_ms(work, vel, u, s, static, patch, reps, **kw))
+    X, Y, Z = patch.interior
+    out["layout"] = inplace_layout(X, Y, Z, device, 2 if store_bf16 else 4)
+    out["attrs"] = inplace_attrs(store_bf16, out["layout"])
     work_p = f0.clone()
     out["plain_ms"] = time_cuda(
         lambda: stream_collide_inplace_plain(work_p, vel, u, s, static, patch, **kw),
@@ -427,8 +445,9 @@ def check_fused_pair(patch: PatchLevel, static: Dict, plan, store_bf16: bool,
     """K3 + K2 against fused_pair_plain + the plain correction on the card.
     `iface` is (iface_a, iface_b) or None for random, distinct ghost planes
     of the two sub-steps.  Returns the max-abs errors of f (decoded), rho
-    and vel, the share of stored f entries that differ, and ms per call of
-    K3 alone, of the unfused kernels K1 -> K2 -> K1, and of the plain pair."""
+    and vel, the share of stored f entries that differ, ms per call of K3
+    alone, of the unfused kernels K1 -> K2 -> K1 (timed in turns in this
+    call) and of the plain pair, and K3's "attrs"."""
     inp = random_level_inputs(patch, store_bf16, seed, device)
     if iface is None:
         iface = (inp["iface"],
@@ -469,7 +488,10 @@ def check_fused_pair(patch: PatchLevel, static: Dict, plan, store_bf16: bool,
         nbytes, ops = nbytes + plan["S"].numel() * 4, ops + LINK_OPS * links
     out.update(bound(nbytes, ops, device))
     del fk, rk, vk, fu, ru, vu, fp, rp, vp
-    out["ms"] = time_cuda(k3, reps)
-    out["unfused_ms"] = time_cuda(unfused, reps)
+    # in turns (K3, unfused, unfused, K3): each time the better of two
+    turns = [time_cuda(fn, reps) for fn in (k3, unfused, unfused, k3)]
+    out["turns_ms"] = turns
+    out["ms"], out["unfused_ms"] = min(turns[0], turns[3]), min(turns[1], turns[2])
+    out["attrs"] = fused_pair_attrs(store_bf16)
     out["plain_ms"] = time_cuda(plain, plain_reps)
     return out

@@ -16,21 +16,30 @@
 // Device memory sees f read once and written once per pair: step A's f
 // (storage type) and vel (f32) live only in shared memory.
 //
-// Tiling.  A block owns an output tile of TY x TZ = 14 x 30 cells in (y, z)
-// and marches along x over cx_planes planes.  Its 512 threads map one to
-// one onto the tile plus a one-cell halo, HY x HZ = 16 x 32 cells (z
-// fastest, one warp per halo row).  Shared memory holds a ring of three
-// A-planes.  For each output plane xb:
-//   1. every thread runs step A on its halo cell of plane xb + 1 (the cell
-//      update of K1, reading f_in and vel_in from device memory) and puts
-//      f and vel into the ring;
-//   2. __syncthreads;
-//   3. the 420 inner threads run step B on plane xb, pulling A's f from the
-//      ring planes xb - 1, xb, xb + 1 and A's vel for WALE from the same;
-//   4. __syncthreads: the slot of plane xb - 1 takes plane xb + 2 next.
-// A block starts with A on planes x0 - 1 and x0.  At the level's faces A
-// and B take the face conditions exactly as K1 does, so nothing is read
-// beyond the level; B's inlet noise and ghost planes are its own.
+// Tiling and schedule.  A block owns an output tile of TY x TZ cells in
+// (y, z), TZ = 30 and TY = 14 (bf16) or 12 (f32), and marches along x over
+// cx_planes planes.  Step A runs on the tile plus a one-cell halo, HY x HZ =
+// (TY + 2) x 32 cells, z fastest.  Shared memory holds a ring of four
+// A-planes.  The block is warp-specialised:
+//   - producer warps, one per halo row (a lane per z), run step A of plane
+//     pl, the cell update of K1 reading f_in and vel_in from device memory,
+//     and put f and vel into ring slot pl % 4;
+//   - consumer warps, one per output row, run step B of plane xb, pulling
+//     A's f from ring planes xb - 1, xb, xb + 1 and A's vel for WALE from
+//     the same, and write B's f, rho and vel to device memory.
+// They meet through named barriers, one "full" and one "free" per ring
+// slot (bar.arrive by the side that signals, bar.sync by the side that
+// waits, both counted over the whole block): a producer waits for "free"
+// of its slot from the fifth plane on and signals "full" when the plane is
+// stored; a consumer waits once for "full" of each plane up to xb + 1 and
+// signals "free" of plane xb - 1 when its step B of plane xb is done.  So
+// the producers run up to two planes ahead, their device-memory loads in
+// flight while the consumers compute from shared memory, and no barrier
+// spans the block.  A block starts with A on planes x0 - 1 and x0.  At the
+// level's faces A and B take the face conditions exactly as K1 does (loads
+// clamped into the level or the ring, then the face slots overwritten), so
+// nothing is read beyond the level; B's inlet noise and ghost planes are
+// its own.
 //
 // Bouzidi where B reads A.  B at cell c pulls slot j from s = c - c_j.
 // With k = opp(j), K2 makes that value
@@ -48,15 +57,25 @@
 // What bounds it on an H100.  Per pair, device memory moves about 2 x 27
 // sizeof(T) of f + 12 (vel in) + 16 (rho, vel out) + 18 (statics, read by
 // both steps) bytes per cell: ~154 B in bf16 against ~290 for K1 -> K2 ->
-// K1.  The arithmetic grows instead: step A runs on the halo too (512 cells
-// per 420 outputs, plus two extra planes per x-run), ~2.4 cell updates per
-// pair against 2, and the two sub-steps inlined into one kernel need more
-// than 128 registers a thread.  So K3 is bound by latency at low occupancy,
-// not by bytes: one block of 16 warps per SM in f32 (128 registers; ring
-// 184,320 B of shared memory), two in bf16 (64 registers with spills; ring
-// 101,376 B), with A and B separated by barriers.  This first version does
-// nothing more about it: plain loads, no TMA, no overlap of A and B across
-// warps.
+// K1.  But the cell update is bound by instruction throughput before bytes
+// (K1's code is ~3,400 instructions a cell, ~730 of them float32 arithmetic,
+// tools/sass_counts.py, and it stops at ~60% of its byte bound), and K3
+// runs more of them: step A on the halo too (512 cells per 420 outputs in bf16,
+// 448 per 360 in f32, plus two extra planes per x-run and the tiles' ragged
+// edges), ~2.25-2.5 cell updates per pair against 2.  The ring sets the
+// rest: four planes take 135,168 B (bf16) or 215,040 B (f32) of the SM's
+// 232,448, so one block of 30 (26) warps with 64 (72) registers a thread is
+// resident per SM.  The design answers with the two roles above (A's 27
+// loads go out back to back and overlap B's arithmetic; two rows a warp at
+// 128 registers was slower, 3.9 against 3.0 ms per pair at 10.8M cells in
+// bf16: the kernel's pace follows its resident warps) and x-runs sized so
+// that whole waves of blocks fill the SMs.  What it does not do: stage A's
+// input planes through shared memory once (the ring leaves no room: the
+// three pulls of a plane go through L1/L2 instead), trim the ring to the
+// slots B still reads (the Bouzidi term reads the opposite slot at the
+// source cell, which a trimmed ring has dropped), or widen the tile (a
+// 32 x 32 halo would need 270 KB).  Fusing saves bytes, which do not bound
+// the pair on this card: K1 -> K2 -> K1 stays faster (PERF.md).
 
 #include "lbm_cell.cuh"
 
@@ -64,19 +83,30 @@ namespace {
 
 using lbm::st;
 
-constexpr int HZ = 32;       // halo cells along z: one warp per halo row
-constexpr int TZ = HZ - 2;   // output cells along z
-constexpr int HY = 16;       // halo rows along y
-constexpr int TY = HY - 2;   // output rows along y
-constexpr int NC = HY * HZ;  // halo cells of a plane = threads per block
-constexpr int RING = 3;      // A-planes held: xb - 1, xb, xb + 1
-// Resident blocks per SM asked of the compiler (launch bound): one in f32
-// (128 registers a thread; the ring takes 184,320 B), two in bf16 (64
-// registers, some spilled; 2 x 101,376 B).  Measured against 1-4 blocks of
-// 256 and 512 threads on the 10.8M-cell level, these were the fastest.
+constexpr int HZ = 32;      // halo cells along z: a lane each
+constexpr int TZ = HZ - 2;  // output cells along z
+constexpr int RING = 4;     // A-planes held: xb - 1 .. xb + 2
+// named barriers of ring slot s: FULL + s, FREE + s (0 is __syncthreads')
+constexpr int FULL = 1;
+constexpr int FREE = 1 + RING;
+
+// halo rows along y: what four planes of the ring leave room for
 template <typename T>
-constexpr int min_blocks() {
-  return sizeof(T) == 2 ? 2 : 1;
+__host__ __device__ constexpr int halo_rows() {
+  return sizeof(T) == 2 ? 16 : 14;
+}
+// a producer warp per halo row, a consumer warp per output row
+template <typename T>
+__host__ __device__ constexpr int a_warps() {
+  return halo_rows<T>();
+}
+template <typename T>
+__host__ __device__ constexpr int b_warps() {
+  return halo_rows<T>() - 2;
+}
+template <typename T>
+__host__ __device__ constexpr int threads() {
+  return 32 * (a_warps<T>() + b_warps<T>());
 }
 
 struct Params {
@@ -94,7 +124,7 @@ struct Params {
 
 template <typename T>
 constexpr size_t smem_bytes() {
-  return (size_t)RING * NC * (27 * sizeof(T) + 3 * sizeof(float));
+  return (size_t)RING * halo_rows<T>() * HZ * (27 * sizeof(T) + 3 * sizeof(float));
 }
 
 __device__ __forceinline__ float sm_ld(const float* p) { return *p; }
@@ -102,16 +132,27 @@ __device__ __forceinline__ float sm_ld(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 
+// bar.sync waits until `count` threads have arrived at barrier `id`;
+// bar.arrive counts the caller in and goes on.  Both order the caller's
+// earlier shared-memory accesses before the barrier completes.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
 // K2's value of slot j at level cell (sx, sy, sz), which the ring holds at
 // (slot, i) with the uncorrected value v; the far read is ring (fslot, fi).
-// Not inlined: only blocks whose sources meet the Bouzidi box call it, and
-// inlined at each of the 27 pulls it would take registers from every block.
+// Not inlined: only cells within one cell of the Bouzidi box call it, and
+// inlined at each of the 27 pulls it would take registers from every thread.
 template <typename T>
 __device__ __noinline__ float bz_corrected(const T* ringf, const float* S,
                                            int lx, int ly, int lz, int bx,
                                            int by, int bz, int j, int slot,
                                            int sx, int sy, int sz, int i,
                                            float v, int fslot, int fi) {
+  constexpr int NC = halo_rows<T>() * HZ;
   const int dx = sx - lx, dy = sy - ly, dz = sz - lz;
   if ((unsigned)dx >= (unsigned)bx || (unsigned)dy >= (unsigned)by ||
       (unsigned)dz >= (unsigned)bz)
@@ -127,114 +168,134 @@ __device__ __noinline__ float bz_corrected(const T* ringf, const float* S,
 }
 
 template <typename T>
-__global__ void __launch_bounds__(NC, min_blocks<T>())
+__global__ void __launch_bounds__(threads<T>(), 1)
 fused_pair_kernel(const Params p) {
   constexpr bool G = sizeof(T) == 2;  // bf16 g-space storage
+  constexpr int HY = halo_rows<T>(), TY = HY - 2;
+  constexpr int NC = HY * HZ;  // halo cells of a plane
+  constexpr int NTHR = threads<T>();
   extern __shared__ __align__(16) unsigned char smem[];
   T* ringf = reinterpret_cast<T*>(smem);  // [RING][27][NC]
   float* ringv = reinterpret_cast<float*>(
       smem + (size_t)RING * 27 * NC * sizeof(T));  // [RING][3][NC]
 
   const int X = p.a.X, Y = p.a.Y, Z = p.a.Z;
-  const int tid = threadIdx.x;
-  const int hy = tid / HZ, hz = tid % HZ;
+  const int warp = threadIdx.x / 32, hz = threadIdx.x % 32;
   const int y0 = blockIdx.y * TY, z0 = blockIdx.x * TZ;
   const int x0 = blockIdx.z * p.cx_planes;
   const int x1 = min(x0 + p.cx_planes, X);
-  const int y = y0 - 1 + hy, z = z0 - 1 + hz;
-  const bool in_level = y >= 0 && y < Y && z >= 0 && z < Z;
-  const bool b_cell =
-      hy >= 1 && hy <= TY && hz >= 1 && hz <= TZ && y < Y && z < Z;
+  const int z = z0 - 1 + hz;
+  // step A makes planes pa0 .. pa1
+  const int pa0 = max(x0 - 1, 0), pa1 = min(x1, X - 1);
   const T* fin = static_cast<const T*>(p.f_in);
-  // only planes whose sources meet the Bouzidi box look S up
-  auto box_near = [&](int xb) {
-    return p.S != nullptr && xb + 1 >= p.lx && xb - 1 < p.lx + p.bx &&
-           y0 + TY >= p.ly && y0 - 1 < p.ly + p.by && z0 + TZ >= p.lz &&
-           z0 - 1 < p.lz + p.bz;
-  };
 
-  // ---- step A of halo cell (xa, y, z) -> ring ----
-  auto step_a = [&](int xa) {
-    float f[27], rho, u[3];
-    lbm::update_from_global(p.a, p.fld, fin, p.vel_in, xa, y, z, f, rho, u);
-    const int slot = xa % RING;
+  if (warp < a_warps<T>()) {
+    // ---- producers: step A of halo cell (pl, y, z) -> ring ----
+    for (int pl = pa0; pl <= pa1; ++pl) {
+      const int slot = pl % RING;
+      if (pl - pa0 >= RING) bar_sync(FREE + slot, NTHR);
+      const int hy = warp, y = y0 - 1 + hy;
+      if (y >= 0 && y < Y && z >= 0 && z < Z) {
+        const int i = hy * HZ + hz;
+        float f[27], rho, u[3];
+        lbm::update_from_global(p.a, p.fld, fin, p.vel_in, pl, y, z, f, rho, u);
 #pragma unroll
-    for (int k = 0; k < 27; ++k) st(ringf + (slot * 27 + k) * NC, tid, f[k]);
+        for (int k = 0; k < 27; ++k) st(ringf + (slot * 27 + k) * NC, i, f[k]);
 #pragma unroll
-    for (int c = 0; c < 3; ++c) ringv[(slot * 3 + c) * NC + tid] = u[c];
-  };
-
-  // ---- step B of tile cell (xb, y, z) -> device memory ----
-  auto step_b = [&](int xb, bool corr) {
-    const long long N = (long long)X * Y * Z;
-    // ring slots of planes xb - 1, xb, xb + 1
-    const int sP = (xb + 2) % RING, s0 = xb % RING, sN = (xb + 1) % RING;
-    auto slot_of = [&](int dx) { return dx < 0 ? sP : (dx == 0 ? s0 : sN); };
-    auto A = [&](int slot, int k, int i) {
-      return sm_ld(ringf + (slot * 27 + k) * NC + i);
-    };
-    auto corrected = [&](int j, int slot, int sx, int sy, int sz, int i,
-                         float v, int fslot, int fi) {
-      return bz_corrected(ringf, p.S, p.lx, p.ly, p.lz, p.bx, p.by, p.bz, j,
-                          slot, sx, sy, sz, i, v, fslot, fi);
-    };
-
-    float f[27];
-    lbm::stream_pull<G>(
-        p.b, xb, y, z,
-        [&](int k, int cx, int cy, int cz) {
-          const int slot = slot_of(-cx);
-          const int i = tid - cy * HZ - cz;
-          const float v = A(slot, k, i);
-          return corr ? corrected(k, slot, xb - cx, y - cy, z - cz, i, v,
-                                  s0, tid)
-                      : v;
-        },
-        [&](int km) {
-          const float v = A(s0, km, tid);
-          const int cx = km % 3 - 1, cy = (km / 3) % 3 - 1, cz = km / 9 - 1;
-          return corr ? corrected(km, s0, xb, y, z, tid, v, slot_of(cx),
-                                  tid + cy * HZ + cz)
-                      : v;
-        },
-        f);
-
-    const long long cell = ((long long)xb * Y + y) * Z + z;
-    float rho, u[3];
-    lbm::collide<G>(
-        p.b, p.fld, cell,
-        [&](float g[3][3]) {
-          const int sE = xb + 1 < X ? sN : s0, sW = xb > 0 ? sP : s0;
-          const int iN = tid + (y + 1 < Y ? HZ : 0), iS = tid - (y > 0 ? HZ : 0);
-          const int iT = tid + (z + 1 < Z ? 1 : 0), iB = tid - (z > 0 ? 1 : 0);
-#pragma unroll
-          for (int c = 0; c < 3; ++c) {
-            const float* V0 = ringv + (s0 * 3 + c) * NC;
-            g[c][0] = 0.5f * (ringv[(sE * 3 + c) * NC + tid] -
-                              ringv[(sW * 3 + c) * NC + tid]);
-            g[c][1] = 0.5f * (V0[iN] - V0[iS]);
-            g[c][2] = 0.5f * (V0[iT] - V0[iB]);
-          }
-        },
-        f, rho, u);
-
-    T* fout = static_cast<T*>(p.f_out);
-#pragma unroll
-    for (int k = 0; k < 27; ++k) st(fout, (long long)k * N + cell, f[k]);
-    p.rho_out[cell] = rho;
-    p.vel_out[cell] = u[0];
-    p.vel_out[N + cell] = u[1];
-    p.vel_out[2 * N + cell] = u[2];
-  };
-
-  for (int xa = max(x0 - 1, 0); xa <= x0; ++xa) {
-    if (in_level) step_a(xa);
+        for (int c = 0; c < 3; ++c) ringv[(slot * 3 + c) * NC + i] = u[c];
+      }
+      __threadfence_block();
+      bar_arrive(FULL + slot, NTHR);
+    }
+    return;
   }
+
+  // ---- consumers: step B of tile cell (xb, y, z) -> device memory ----
+  const int hy = 1 + warp - a_warps<T>(), y = y0 - 1 + hy;
+  const int i = hy * HZ + hz;
+  const long long N = (long long)X * Y * Z;
+  T* fout = static_cast<T*>(p.f_out);
+  int ready = pa0 - 1;  // the last plane known to be in the ring
   for (int xb = x0; xb < x1; ++xb) {
-    if (in_level && xb + 1 < X) step_a(xb + 1);
-    __syncthreads();  // B(xb) reads the plane just made
-    if (b_cell) step_b(xb, box_near(xb));
-    __syncthreads();  // the slot of plane xb - 1 takes plane xb + 2 next
+    const int need = min(xb + 1, X - 1);
+    while (ready < need) {
+      ++ready;
+      bar_sync(FULL + ready % RING, NTHR);
+    }
+    // only cells whose sources (the cell and its neighbours) meet the
+    // Bouzidi box look S up: the cells of the box grown by one
+    const bool corr = p.S != nullptr &&
+                      (unsigned)(xb - p.lx + 1) < (unsigned)(p.bx + 2) &&
+                      (unsigned)(y - p.ly + 1) < (unsigned)(p.by + 2) &&
+                      (unsigned)(z - p.lz + 1) < (unsigned)(p.bz + 2);
+    // ring slots of planes xb - 1, xb, xb + 1
+    const int sP = (xb + RING - 1) % RING, s0 = xb % RING, sN = (xb + 1) % RING;
+    if (hz >= 1 && hz <= TZ && y < Y && z < Z) {
+      auto slot_of = [&](int dx) { return dx < 0 ? sP : (dx == 0 ? s0 : sN); };
+      auto A = [&](int slot, int k, int ii) {
+        return sm_ld(ringf + (slot * 27 + k) * NC + ii);
+      };
+      auto corrected = [&](int j, int slot, int sx, int sy, int sz, int ii,
+                           float v, int fslot, int fi) {
+        return bz_corrected(ringf, p.S, p.lx, p.ly, p.lz, p.bx, p.by, p.bz, j,
+                            slot, sx, sy, sz, ii, v, fslot, fi);
+      };
+
+      float f[27];
+      // beyond a face of the level the ring holds no plane, row or column:
+      // the value read there is overwritten by the face's condition
+      if (!corr) {
+#pragma unroll
+        for (int k = 0; k < 27; ++k) {
+          const int cx = k % 3 - 1, cy = (k / 3) % 3 - 1, cz = k / 9 - 1;
+          f[k] = A(slot_of(-cx), k, i - cy * HZ - cz);
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < 27; ++k) {
+          const int cx = k % 3 - 1, cy = (k / 3) % 3 - 1, cz = k / 9 - 1;
+          const int slot = slot_of(-cx);
+          const int ii = i - cy * HZ - cz;
+          f[k] = corrected(k, slot, xb - cx, y - cy, z - cz, ii, A(slot, k, ii),
+                           s0, i);
+        }
+      }
+      lbm::apply_faces<G>(
+          p.b, xb, y, z,
+          [&](int km) {
+            const float v = A(s0, km, i);
+            const int cx = km % 3 - 1, cy = (km / 3) % 3 - 1, cz = km / 9 - 1;
+            return corr ? corrected(km, s0, xb, y, z, i, v, slot_of(cx),
+                                    i + cy * HZ + cz)
+                        : v;
+          },
+          f);
+
+      const long long cell = ((long long)xb * Y + y) * Z + z;
+      float rho, u[3];
+      lbm::collide<G>(
+          p.b, p.fld, cell,
+          [&](float g[3][3]) {
+            const int sE = xb + 1 < X ? sN : s0, sW = xb > 0 ? sP : s0;
+            const int iN = i + (y + 1 < Y ? HZ : 0), iS = i - (y > 0 ? HZ : 0);
+            const int iT = i + (z + 1 < Z ? 1 : 0), iB = i - (z > 0 ? 1 : 0);
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+              const float* V0 = ringv + (s0 * 3 + c) * NC;
+              g[c][0] = 0.5f * (ringv[(sE * 3 + c) * NC + i] -
+                                ringv[(sW * 3 + c) * NC + i]);
+              g[c][1] = 0.5f * (V0[iN] - V0[iS]);
+              g[c][2] = 0.5f * (V0[iT] - V0[iB]);
+            }
+          },
+          f, rho, u);
+
+      lbm::store_cell(fout, p.rho_out, p.vel_out, N, cell, f, rho, u);
+    }
+    // plane xb - 1 is read for the last time: its slot takes plane
+    // xb - 1 + RING, if the producers make one
+    if (xb - 1 >= pa0 && xb - 1 + RING <= pa1)
+      bar_arrive(FREE + (xb - 1) % RING, NTHR);
   }
 }
 
@@ -247,13 +308,48 @@ cudaError_t opt_in_smem() {
   return e;
 }
 
+// Output planes per block along x: the split of X into runs that takes the
+// fewest plane-times, waves of blocks x (planes of a run + the two A-planes
+// a run makes first), with `slots` blocks resident on the card at once;
+// runs stay at least 4 planes long.
+inline int planes_per_run(int X, long long tiles, long long slots) {
+  int best_cx = X;
+  long long best_cost = -1;
+  for (int runs = 1; runs <= X; ++runs) {
+    const int cx = (X + runs - 1) / runs;
+    if (cx < 4 && runs > 1) break;
+    const long long blocks = tiles * ((X + cx - 1) / cx);
+    const long long cost = ((blocks + slots - 1) / slots) * (cx + 2);
+    if (best_cost < 0 || cost < best_cost) {
+      best_cost = cost;
+      best_cx = cx;
+    }
+  }
+  return best_cx;
+}
+
 template <typename T>
-int launch(const Params& p, cudaStream_t s) {
-  const cudaError_t attr = opt_in_smem<T>();
-  if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((p.a.Z + TZ - 1) / TZ, (p.a.Y + TY - 1) / TY,
-                  (p.a.X + p.cx_planes - 1) / p.cx_planes);
-  fused_pair_kernel<T><<<grid, NC, smem_bytes<T>(), s>>>(p);
+int launch(Params& p, cudaStream_t s) {
+  cudaError_t e = opt_in_smem<T>();
+  if (e != cudaSuccess) return (int)e;
+  static int slots = 0;  // blocks resident on the card at once
+  if (slots == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, fused_pair_kernel<T>, threads<T>(), smem_bytes<T>());
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
+    slots = sms * per_sm;
+  }
+  constexpr int TY = halo_rows<T>() - 2;
+  const dim3 tiles((p.a.Z + TZ - 1) / TZ, (p.a.Y + TY - 1) / TY);
+  p.cx_planes = planes_per_run(p.a.X, (long long)tiles.x * tiles.y, slots);
+  const dim3 grid(tiles.x, tiles.y, (p.a.X + p.cx_planes - 1) / p.cx_planes);
+  fused_pair_kernel<T><<<grid, threads<T>(), smem_bytes<T>(), s>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -264,7 +360,7 @@ int attrs(int* regs, int* local_bytes, int* smem, int* blocks_per_sm) {
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, fused_pair_kernel<T>);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, fused_pair_kernel<T>, NC, smem_bytes<T>());
+        blocks_per_sm, fused_pair_kernel<T>, threads<T>(), smem_bytes<T>());
   if (e != cudaSuccess) return (int)e;
   *regs = fa.numRegs;
   *local_bytes = (int)fa.localSizeBytes;
@@ -315,19 +411,6 @@ extern "C" int ol_fused_pair(
   p.bx = bx;
   p.by = by;
   p.bz = bz;
-  // split x into runs so that ~16 blocks per SM exist; a run re-computes
-  // two A-planes at its start, so runs stay at least 4 planes long
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  const long long tiles =
-      (long long)((Z + TZ - 1) / TZ) * ((Y + TY - 1) / TY);
-  long long runs = (16LL * sms + tiles - 1) / tiles;
-  runs = runs < 1 ? 1 : (runs > X ? X : runs);
-  int cx = (int)((X + runs - 1) / runs);
-  p.cx_planes = cx < 4 ? 4 : cx;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return store_bf16 ? launch<__nv_bfloat16>(p, s) : launch<float>(p, s);
 }

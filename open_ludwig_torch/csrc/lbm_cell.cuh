@@ -1,8 +1,10 @@
 // Per-cell physics of one stream-collide sub-step, shared by K1
 // (stream_collide.cu), K3 (fused_pair.cu), K4 (stream_collide_flat.cu) and
 // K5 (stream_collide_inplace.cu) so that all compile the same device code:
-//   stream_pull: pull streaming of the 27 populations with the boundary
-//     conditions of the level's six faces (face_value), in the precedence
+//   neighbours + apply_faces: pull streaming of the 27 populations with
+//     the boundary conditions of the level's six faces (face_value): every
+//     slot is loaded from its source clamped into the level, with no branch
+//     between the loads, then the face slots are overwritten, in the precedence
 //     of the plain version (ops/dense_step.py): x faces over y faces over z
 //     faces, i.e. inlet > outlet > y-mirror > z-mirror.  Mirror faces read
 //     the destination cell's own mirrored row (unshifted); interface faces
@@ -92,20 +94,21 @@ static inline bool make_step(Step& s, const void* const planes[6],
 
 // Every input of K1-K4 is read-only while it runs (A -> B buffers), so
 // device-memory loads go through the read-only data cache (__ldg); K5
-// reads its f, which it writes in place, with ld_cg instead.  Measured
-// on the 10.8M-cell level, this took K1 f32 from 1.30 to 1.08 ms and bf16
-// from 2.24 to 1.55 ms per call.  bf16 -> f32 is exact as a 16-bit shift.
+// reads its f, which it writes in place, with plain loads instead
+// (ld_plain).  Measured on the 10.8M-cell level, __ldg took K1 f32 from 1.30
+// to 1.08 ms and bf16 from 2.24 to 1.55 ms per call.  bf16 -> f32 is exact
+// as a 16-bit shift.
 __device__ __forceinline__ float ld(const float* p, long long i) { return __ldg(p + i); }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p, long long i) {
   return __uint_as_float(
       (unsigned)__ldg(reinterpret_cast<const unsigned short*>(p) + i) << 16);
 }
-// Loads of an array that the running kernel also writes (K5's f): global
-// loads cached in L2 only, never through the read-only path.
-__device__ __forceinline__ float ld_cg(const float* p, long long i) { return __ldcg(p + i); }
-__device__ __forceinline__ float ld_cg(const __nv_bfloat16* p, long long i) {
+// Loads of an array that the running kernel also writes (K5's f): plain
+// loads, cached in L1 and L2, never the read-only path (see K5's note).
+__device__ __forceinline__ float ld_plain(const float* p, long long i) { return p[i]; }
+__device__ __forceinline__ float ld_plain(const __nv_bfloat16* p, long long i) {
   return __uint_as_float(
-      (unsigned)__ldcg(reinterpret_cast<const unsigned short*>(p) + i) << 16);
+      (unsigned)reinterpret_cast<const unsigned short*>(p)[i] << 16);
 }
 __device__ __forceinline__ void st(float* p, long long i, float v) { p[i] = v; }
 __device__ __forceinline__ void st(__nv_bfloat16* p, long long i, float v) {
@@ -191,14 +194,44 @@ __device__ __forceinline__ float face_value(const Step& p, int k, int face,
   return v;
 }
 
-// Pull streaming into f[27] for cell (x, y, z).  `interior(k, cx, cy, cz)`
-// returns population k of the level cell (x - cx, y - cy, z - cz);
-// `mirror(km)` returns population km of the cell itself.
-template <bool G, class Interior, class Mirror>
-__device__ __forceinline__ void stream_pull(const Step& p, int x, int y, int z,
-                                            Interior interior, Mirror mirror,
-                                            float f[27]) {
+// Pull streaming into f[27] for cell (x, y, z), in two phases, so that the
+// 27 loads go out back to back with no branch between them:
+//   phase 1: slot k is loaded from its source (x - cx, y - cy, z - cz)
+//     clamped into the level: always a cell of the level, the true source
+//     wherever that lies inside.  `neighbours` gives the clamped sources
+//     as element offsets from the cell itself, three ints per axis, so a
+//     slot's address is one running pointer plus a sum of three ints: the
+//     kernels are bound by instruction throughput before they are bound by
+//     bytes, and 64-bit index arithmetic per slot was most of it;
+//   phase 2 (apply_faces): the slots whose source lay beyond a face are
+//     overwritten with the face's condition, x faces over y faces over z
+//     faces (the plain version applies its masks z -> y -> x, later ones
+//     winning: the same precedence).  `mirror(km)` returns population km
+//     of the cell itself.  Cells off every face, nearly all, skip the phase.
+struct Nbr {
+  int dx[3], dy[3], dz[3];  // offset of the cell - c, clamped, at [c + 1]
+};
+__device__ __forceinline__ Nbr neighbours(const Step& p, int x, int y, int z) {
+  const int YZ = p.Y * p.Z;
+  Nbr n;
+  n.dx[0] = x + 1 < p.X ? YZ : 0;
+  n.dx[1] = 0;
+  n.dx[2] = x > 0 ? -YZ : 0;
+  n.dy[0] = y + 1 < p.Y ? p.Z : 0;
+  n.dy[1] = 0;
+  n.dy[2] = y > 0 ? -p.Z : 0;
+  n.dz[0] = z + 1 < p.Z ? 1 : 0;
+  n.dz[1] = 0;
+  n.dz[2] = z > 0 ? -1 : 0;
+  return n;
+}
+
+template <bool G, class Mirror>
+__device__ __forceinline__ void apply_faces(const Step& p, int x, int y, int z,
+                                            Mirror mirror, float f[27]) {
   const int X = p.X, Y = p.Y, Z = p.Z;
+  if (x != 0 && x != X - 1 && y != 0 && y != Y - 1 && z != 0 && z != Z - 1)
+    return;
   const float inlet_fac = inlet_factor<G>(p, x, y, z);
 #pragma unroll
   for (int k = 0; k < 27; ++k) {
@@ -210,8 +243,8 @@ __device__ __forceinline__ void stream_pull(const Step& p, int x, int y, int z,
     else if (cy < 0 && y == Y - 1) face = 3;
     else if (cz > 0 && z == 0) face = 4;
     else if (cz < 0 && z == Z - 1) face = 5;
-    f[k] = face < 0 ? interior(k, cx, cy, cz)
-                    : face_value<G>(p, k, face, x, y, z, inlet_fac, mirror);
+    if (face >= 0)
+      f[k] = face_value<G>(p, k, face, x, y, z, inlet_fac, mirror);
   }
 }
 
@@ -413,25 +446,18 @@ __device__ __forceinline__ void collide(const Step& p, const Fields& fld,
   u_out[2] = uz;
 }
 
-// Central differences of the previous sub-step's velocity at cell
-// (x, y, z) of a (3, X, Y, Z) device array, the cell itself standing in for
-// a neighbour beyond any face of the level.
-__device__ __forceinline__ void vel_grad_global(const Step& p,
-                                                const float* vel_in, int x,
-                                                int y, int z, long long cell,
-                                                float g[3][3]) {
-  const int X = p.X, Y = p.Y, Z = p.Z;
-  const long long N = (long long)X * Y * Z;
-  const long long sx = (long long)Y * Z, sy = Z;
-  const long long oE = x + 1 < X ? sx : 0, oW = x > 0 ? -sx : 0;
-  const long long oN = y + 1 < Y ? sy : 0, oS = y > 0 ? -sy : 0;
-  const long long oT = z + 1 < Z ? 1 : 0, oB = z > 0 ? -1 : 0;
+// Central differences of the previous sub-step's velocity at a cell of a
+// (3, X, Y, Z) device array, `V` pointing at the cell's first component;
+// the cell itself stands in for a neighbour beyond any face of the level
+// (the clamped offsets of `neighbours`).
+__device__ __forceinline__ void vel_grad_global(const float* V, long long N,
+                                                const Nbr& nb, float g[3][3]) {
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    const float* Vc = vel_in + c * N + cell;
-    g[c][0] = 0.5f * (__ldg(Vc + oE) - __ldg(Vc + oW));
-    g[c][1] = 0.5f * (__ldg(Vc + oN) - __ldg(Vc + oS));
-    g[c][2] = 0.5f * (__ldg(Vc + oT) - __ldg(Vc + oB));
+    g[c][0] = 0.5f * (__ldg(V + nb.dx[0]) - __ldg(V + nb.dx[2]));
+    g[c][1] = 0.5f * (__ldg(V + nb.dy[0]) - __ldg(V + nb.dy[2]));
+    g[c][2] = 0.5f * (__ldg(V + nb.dz[0]) - __ldg(V + nb.dz[2]));
+    V += N;
   }
 }
 
@@ -443,20 +469,41 @@ __device__ __forceinline__ void update_from_global(
     const Step& p, const Fields& fld, const T* fin, const float* vel_in, int x,
     int y, int z, float f[27], float& rho, float u[3]) {
   constexpr bool G = sizeof(T) == 2;  // bf16 g-space storage
-  const int X = p.X, Y = p.Y, Z = p.Z;
-  const long long N = (long long)X * Y * Z;
-  const long long cell = ((long long)x * Y + y) * Z + z;
-  stream_pull<G>(
-      p, x, y, z,
-      [&](int k, int cx, int cy, int cz) {
-        return ld(fin, (long long)k * N +
-                           ((long long)(x - cx) * Y + (y - cy)) * Z + (z - cz));
-      },
-      [&](int km) { return ld(fin, (long long)km * N + cell); }, f);
+  const long long N = (long long)p.X * p.Y * p.Z;
+  const long long cell = ((long long)x * p.Y + y) * p.Z + z;
+  const Nbr nb = neighbours(p, x, y, z);
+  const T* pk = fin + cell;
+#pragma unroll
+  for (int k = 0; k < 27; ++k) {
+    const int cx = k % 3 - 1, cy = (k / 3) % 3 - 1, cz = k / 9 - 1;
+    f[k] = ld(pk, nb.dx[cx + 1] + nb.dy[cy + 1] + nb.dz[cz + 1]);
+    pk += N;
+  }
+  apply_faces<G>(
+      p, x, y, z, [&](int km) { return ld(fin, (long long)km * N + cell); }, f);
   collide<G>(
       p, fld, cell,
-      [&](float g[3][3]) { vel_grad_global(p, vel_in, x, y, z, cell, g); },
-      f, rho, u);
+      [&](float g[3][3]) { vel_grad_global(vel_in + cell, N, nb, g); }, f, rho,
+      u);
+}
+
+// f[27], rho and u of a cell to (27|1|3, X, Y, Z) device arrays.
+template <typename T>
+__device__ __forceinline__ void store_cell(T* fout, float* rho_out,
+                                           float* vel_out, long long N,
+                                           long long cell, const float f[27],
+                                           float rho, const float u[3]) {
+  T* qk = fout + cell;
+#pragma unroll
+  for (int k = 0; k < 27; ++k) {
+    st(qk, 0, f[k]);
+    qk += N;
+  }
+  rho_out[cell] = rho;
+  float* v = vel_out + cell;
+  v[0] = u[0];
+  v[N] = u[1];
+  v[2 * N] = u[2];
 }
 
 }  // namespace lbm

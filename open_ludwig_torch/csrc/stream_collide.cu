@@ -7,8 +7,9 @@
 // reads 32 consecutive cells of each population row.  Per cell
 // (lbm_cell.cuh, shared with K3):
 //   1. pull streaming: population k comes from cell - c_k of the A buffer
-//      (f_in); where that source lies outside the box the face's boundary
-//      condition supplies it;
+//      (f_in), loaded from that source clamped into the box, 27 loads back
+//      to back; where the source lies outside the box the face's boundary
+//      condition then overwrites it;
 //   2. collision: moments, sponge blend, wall model, WALE omega from the six
 //      face-neighbour velocities of vel_in, regularized BGK + Guo forcing;
 //   3. f, rho and vel go to the B buffer.  Concurrent CTAs run in no
@@ -27,8 +28,6 @@
 
 namespace {
 
-using lbm::st;
-
 struct Params {
   const void* f_in;
   const float* vel_in;
@@ -46,22 +45,25 @@ stream_collide_kernel(const Params p) {
   const long long N = (long long)p.s.X * Y * Z;
   const long long cell = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (cell >= N) return;
-  const int z = (int)(cell % Z);
-  const long long r = cell / Z;
-  const int y = (int)(r % Y);
-  const int x = (int)(r / Y);
+  int x, y, z;
+  if (N <= 0xffffffffLL) {  // 32-bit divisions: a fraction of the 64-bit ones
+    const unsigned c = (unsigned)cell, r = c / (unsigned)Z;
+    z = (int)(c - r * (unsigned)Z);
+    x = (int)(r / (unsigned)Y);
+    y = (int)(r - (unsigned)x * (unsigned)Y);
+  } else {
+    z = (int)(cell % Z);
+    const long long r = cell / Z;
+    y = (int)(r % Y);
+    x = (int)(r / Y);
+  }
 
   float f[27], rho, u[3];
   lbm::update_from_global(p.s, p.fld, static_cast<const T*>(p.f_in), p.vel_in,
                           x, y, z, f, rho, u);
 
-  T* fout = static_cast<T*>(p.f_out);
-#pragma unroll
-  for (int k = 0; k < 27; ++k) st(fout, (long long)k * N + cell, f[k]);
-  p.rho_out[cell] = rho;
-  p.vel_out[cell] = u[0];
-  p.vel_out[N + cell] = u[1];
-  p.vel_out[2 * N + cell] = u[2];
+  lbm::store_cell(static_cast<T*>(p.f_out), p.rho_out, p.vel_out, N, cell, f,
+                  rho, u);
 }
 
 }  // namespace

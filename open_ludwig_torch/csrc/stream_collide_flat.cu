@@ -34,8 +34,6 @@
 
 namespace {
 
-using lbm::st;
-
 struct Params {
   const void* f_in;
   const float* vel_in;
@@ -55,7 +53,8 @@ stream_collide_flat_kernel(const Params p) {
   const long long N = (long long)X * M;
   const long long cell = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (cell >= N) return;
-  const int x = (int)(cell / M);
+  const int x = N <= 0xffffffffLL ? (int)((unsigned)cell / (unsigned)M)
+                                  : (int)(cell / M);
   const int n = (int)(cell - (long long)x * M);
   const int y = n / Z, z = n - y * Z;
   const T* fin = static_cast<const T*>(p.f_in);
@@ -87,16 +86,13 @@ stream_collide_flat_kernel(const Params p) {
   float rho, u[3];
   lbm::collide<G>(
       p.s, p.fld, cell,
-      [&](float g[3][3]) { lbm::vel_grad_global(p.s, p.vel_in, x, y, z, cell, g); },
+      [&](float g[3][3]) {
+        lbm::vel_grad_global(p.vel_in + cell, N, lbm::neighbours(p.s, x, y, z), g);
+      },
       f, rho, u);
 
-  T* fout = static_cast<T*>(p.f_out);
-#pragma unroll
-  for (int k = 0; k < 27; ++k) st(fout, (long long)k * N + cell, f[k]);
-  p.rho_out[cell] = rho;
-  p.vel_out[cell] = u[0];
-  p.vel_out[N + cell] = u[1];
-  p.vel_out[2 * N + cell] = u[2];
+  lbm::store_cell(static_cast<T*>(p.f_out), p.rho_out, p.vel_out, N, cell, f,
+                  rho, u);
 }
 
 }  // namespace

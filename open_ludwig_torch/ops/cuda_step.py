@@ -13,11 +13,15 @@ Each wrapper checks device, dtype, shape and contiguity, then:
 can show that its main path went through the kernels.
 
 K1 `stream_collide` (csrc/stream_collide.cu) replaces the Pallas kernel
-make_pallas_step (open_ludwig_tpu/ops/pallas_step.py:247).  Bound on the
-card by device-memory bytes (~145 B per cell per bf16 sub-step); the design
-answers with one thread per cell, z-fastest coalesced rows read through
-the read-only cache, A->B buffers (no in-place hazard between concurrent
-CTAs), and g-space math on bf16 storage so decode/encode are bare casts.
+make_pallas_step (open_ludwig_tpu/ops/pallas_step.py:247).  It moves ~145 B
+per cell per bf16 sub-step, but its code is ~3,400 instructions a cell
+(`tools/sass_counts.py`), ~730 of them float32 arithmetic, and it is bound
+by instruction throughput before bytes; the design answers with one
+thread per cell, z-fastest coalesced rows read through the read-only
+cache, every slot loaded from its source clamped into the level through
+one running pointer (27 loads back to back, the face slots overwritten
+afterwards), A->B buffers (no in-place hazard between concurrent CTAs),
+and g-space math on bf16 storage so decode/encode are bare casts.
 
 K2 `bouzidi` (csrc/bouzidi.cu) replaces make_bouzidi_pallas
 (pallas_step.py:62).  Bound by launch latency on the bench box (a few MB);
@@ -29,10 +33,14 @@ K3 `fused_pair` (csrc/fused_pair.cu) replaces make_pallas_step_fused2
 A's Bouzidi correction between them, step B's output uncorrected (the
 caller runs K2 after it).  It reads f once and writes it once per pair,
 ~154 B per cell in bf16 against ~290 for K1 -> K2 -> K1, and keeps step A
-in shared memory; what bounds it instead is the arithmetic of step A on
-the tile halo (~2.5 cell updates per pair) at the occupancy its
-shared-memory ring allows.  The per-cell physics is K1's own
-(csrc/lbm_cell.cuh).
+in a ring of four planes in shared memory.  The block is warp-specialised:
+producer warps run step A from device memory a plane or two ahead,
+consumer warps run step B from the ring, and they meet through named
+barriers per ring slot (tests/test_torch_kernel_schedules.py steps the
+protocol through random interleavings).
+What bounds it is the instructions of ~2.25-2.5 cell updates per pair at
+the one block per SM its ring allows, not bytes.  The per-cell physics is
+K1's own (csrc/lbm_cell.cuh).
 
 K4 `stream_collide_flat` (csrc/stream_collide_flat.cu) replaces
 make_pallas_step_flat (pallas_step.py:2100) on interface-free levels the
@@ -43,10 +51,14 @@ masks.  Bound by launch latency at the bench case's level 1 (0.2M cells).
 K5 `stream_collide_inplace` (csrc/stream_collide_inplace.cu) replaces the
 in-place make_pallas_step_2d (pallas_step.py:1575) on interface-free levels
 whose plane exceeds the reference's 1-D window: f is updated in its own
-buffer, rho and vel are fresh.  An edge copy of the cells that neighbouring
-blocks read comes first (~11% of f at 63.7M cells), then each block marches
-its (y, z) tile along x.  Bound by device-memory bytes like K1; it saves
-the second f copy (3.4 GB at 63.7M cells in bf16).
+buffer, rho and vel are fresh.  The level is cut into regions of a few
+rows, all of z and a run of planes (ops/inplace_layout.py); an edge copy
+of the cells that other regions read comes first (~10% of f at 63.7M
+cells), then each block walks its region in z-chunks of 128 bytes a row
+and marches along x inside a chunk, the old values it has overwritten
+kept in shared memory.  Bound like K1, plus its edge traffic and the
+lockstep of a block's warps; it saves the second f copy (3.4 GB at 63.7M
+cells in bf16).
 
 K6 `bouzidi_ab` (csrc/bouzidi_ab.cu) replaces the Pallas kernel of
 tools/probe_bz_encoding.py (:117): K2's sweep with the retired two-array
@@ -64,6 +76,7 @@ import torch
 
 from ..core.patch import BC_INTERFACE, PatchLevel
 from . import build, storage
+from . import inplace_layout as inplace_layout_mod
 from .dense_step import (
     apply_bouzidi_ab_plain,
     apply_bouzidi_dense,
@@ -89,7 +102,8 @@ _BZ_ARGTYPES = [_I, _P, _P, _P] + [_I] * 9 + [_P]
 _BZAB_ARGTYPES = [_I, _P, _P, _P, _P] + [_I] * 9 + [_P]
 _FLAT_ARGTYPES = [_I] + [_P] * 8 + [_I] * 5 + [_I] * 6 + [_F, _I] + [_D] * 4 + [_I, _I, _P]
 _IP_ARGTYPES = (
-    [_I] + [_P] * 8 + [_I] * 5 + [_I] * 6 + [_F, _I] + [_D] * 4 + [_I, _I, _I, _P]
+    [_I] + [_P] * 8 + [_I] * 5 + [_I] * 6 + [_F, _I] + [_D] * 4
+    + [_I, _I, _I, _I, _I, _P]
 )
 _FP_ARGTYPES = (
     [_I] + [_P] * 21 + [_I] * 5 + [_I] * 6 + [_F, _F, _I, _I] + [_D] * 4
@@ -448,24 +462,30 @@ def stream_collide_flat(
     return f_out, rho, vel_out
 
 
-_INPLACE_LAYOUT: Dict[Tuple[int, int, int, int], Tuple[int, int]] = {}
+def inplace_layout(X: int, Y: int, Z: int, device, elem_bytes: int
+                   ) -> Dict[str, int]:
+    """K5's region layout (`ops/inplace_layout.py`) of an (X, Y, Z) level of
+    `elem_bytes`-wide storage on the card of `device`."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return inplace_layout_mod.inplace_layout(X, Y, Z, sms, elem_bytes)
 
 
-def inplace_layout(X: int, Y: int, Z: int, device) -> Tuple[int, int]:
-    """(planes per x-run, edge-buffer elements) of K5 for an (X, Y, Z) level
-    on the card of `device`."""
-    dev = torch.device(device)
-    key = (X, Y, Z, dev.index if dev.index is not None else torch.cuda.current_device())
-    if key not in _INPLACE_LAYOUT:
-        fn = _lib("stream_collide_inplace", "ol_inplace_layout",
-                  [_I, _I, _I, ctypes.POINTER(ctypes.c_int),
-                   ctypes.POINTER(ctypes.c_longlong)])
-        xr, n = ctypes.c_int(0), ctypes.c_longlong(0)
-        with torch.cuda.device(dev):
-            _raise_on(fn(X, Y, Z, ctypes.byref(xr), ctypes.byref(n)),
-                      "stream_collide_inplace layout")
-        _INPLACE_LAYOUT[key] = (xr.value, n.value)
-    return _INPLACE_LAYOUT[key]
+def _inplace_launch(f, vel, rho, vel_out, edge, static, patch, lay, scalars,
+                    parts: int) -> None:
+    """Launch K5's edge copy (parts & 1) and its in-place step (parts & 2)
+    on the current stream; raises if a launch fails."""
+    fn = _lib("stream_collide_inplace", "ol_stream_collide_inplace",
+              _IP_ARGTYPES)
+    rc = fn(
+        int(f.dtype == torch.bfloat16),
+        f.data_ptr(), vel.data_ptr(), rho.data_ptr(), vel_out.data_ptr(),
+        edge.data_ptr(),
+        static["obstacle"].data_ptr(), static["sponge"].data_ptr(),
+        static["wall_dist"].data_ptr(),
+        *scalars, lay["ty"], lay["xr"], parts,
+        torch.cuda.current_stream(f.device).cuda_stream,
+    )
+    _raise_on(rc, "stream_collide_inplace")
 
 
 def stream_collide_inplace(
@@ -500,33 +520,55 @@ def stream_collide_inplace(
     if dev.type != "cuda":
         raise ValueError(f"stream_collide_inplace: unsupported device {dev}")
 
-    fn = _lib("stream_collide_inplace", "ol_stream_collide_inplace",
-              _IP_ARGTYPES)
-    xr, n_edge = inplace_layout(X, Y, Z, dev)
-    edge = torch.empty((max(n_edge, 1),), dtype=f.dtype, device=dev)
+    lay = inplace_layout(X, Y, Z, dev, f.element_size())
+    edge = torch.empty((max(lay["edge_elems"], 1),), dtype=f.dtype, device=dev)
     rho = torch.empty((X, Y, Z), dtype=torch.float32, device=dev)
     vel_out = torch.empty_like(vel)
-    rc = fn(
-        int(f.dtype == torch.bfloat16),
-        f.data_ptr(), vel.data_ptr(), rho.data_ptr(), vel_out.data_ptr(),
-        edge.data_ptr(),
-        static["obstacle"].data_ptr(), static["sponge"].data_ptr(),
-        static["wall_dist"].data_ptr(),
-        *_step_scalars(patch, u_inlet, t_seed, **kw),
-        xr, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _raise_on(rc, "stream_collide_inplace")
+    _inplace_launch(f, vel, rho, vel_out, edge, static, patch, lay,
+                    _step_scalars(patch, u_inlet, t_seed, **kw), parts=3)
     LAUNCHES["stream_collide_inplace"] += 1
     return f, rho, vel_out
 
 
-def inplace_attrs(store_bf16: bool) -> Dict[str, int]:
-    """K5's registers and local memory per thread, static shared memory per
-    block and resident blocks per SM on the current card."""
+def inplace_parts_ms(f, vel, u_inlet, t_seed, static, patch, reps: int, **kw
+                     ) -> Dict[str, float]:
+    """Milliseconds per launch of K5's edge copy and of its in-place step,
+    each timed alone between CUDA events over `reps` launches.  A
+    measurement, not a step: it counts no launch, and the step launched
+    alone reads the edges of the last copy, so what it leaves in `f` is no
+    solution."""
+    X, Y, Z = patch.interior
+    dev = f.device
+    _check_interface_free(patch, "stream_collide_inplace")
+    _check_level(f, vel, static, patch)
+    lay = inplace_layout(X, Y, Z, dev, f.element_size())
+    edge = torch.empty((max(lay["edge_elems"], 1),), dtype=f.dtype, device=dev)
+    rho = torch.empty((X, Y, Z), dtype=torch.float32, device=dev)
+    vel_out = torch.empty_like(vel)
+    scalars = _step_scalars(patch, u_inlet, t_seed, **kw)
+    out = {}
+    for name, parts in (("edge_copy_ms", 1), ("step_ms", 2)):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        _inplace_launch(f, vel, rho, vel_out, edge, static, patch, lay,
+                        scalars, parts)
+        start.record()
+        for _ in range(reps):
+            _inplace_launch(f, vel, rho, vel_out, edge, static, patch, lay,
+                            scalars, parts)
+        end.record()
+        torch.cuda.synchronize(dev)
+        out[name] = start.elapsed_time(end) / reps
+    return out
+
+
+def inplace_attrs(store_bf16: bool, lay: Dict[str, int]) -> Dict[str, int]:
+    """K5's registers and local memory per thread, dynamic shared memory
+    per block and resident blocks per SM on the current card, for the run
+    length of layout `lay`."""
     fn = _lib("stream_collide_inplace", "ol_stream_collide_inplace_attrs",
-              [_I] + [ctypes.POINTER(ctypes.c_int)] * 4)
+              [_I, _I] + [ctypes.POINTER(ctypes.c_int)] * 4)
     vals = [ctypes.c_int(0) for _ in range(4)]
-    rc = fn(int(store_bf16), *[ctypes.byref(v) for v in vals])
+    rc = fn(int(store_bf16), lay["xr"], *[ctypes.byref(v) for v in vals])
     _raise_on(rc, "stream_collide_inplace attribute query")
     return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"),
                     (v.value for v in vals)))

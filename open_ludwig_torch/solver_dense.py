@@ -303,7 +303,7 @@ def hbm_report_patches(patches: List[PatchLevel], statics: List[Dict],
         bz_b = bz["S"].numel() * (4 + f_bytes) if bz is not None else 0
         total += state_b + field_b + bz_b
         if st["engine"] == "inplace":
-            edge = (inplace_layout(*p.interior, dev)[1] * f_bytes
+            edge = (inplace_layout(*p.interior, dev, f_bytes)["edge_elems"] * f_bytes
                     if dev.type == "cuda" else 0)
             trans.append(n * 16 + edge)
             step = (f"K5 in place: rho/vel {n * 16 / 1e6:.1f} MB + edge buffer "
