@@ -1,7 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (open_ludwig_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--k1-reference DIR]
+
+`--k1-reference DIR` names a directory holding an earlier K1
+(`stream_collide.cu` and its headers, the same C interface): phase 3 then
+also runs it on every K1 input and prints the share of stored f entries
+in which today's K1 differs from it, and both times in turns.  Without it
+(as the smoke run is meant to be run) nothing else changes.
 
 Phases, each raising on failure (nothing is caught):
   1. device: CUDA must be available; prints the card, `nvidia-smi` name and
@@ -22,7 +28,9 @@ Phases, each raising on failure (nothing is caught):
   3d. the same for K5, each call on its own clone of the input (K5 must
      equal K1 bit for bit), timed against K1 in turns, with its two
      launches (edge copy, step) timed apart, its layout and its occupancy;
-  4. K2 against its plain version on the bench case's own Bouzidi box;
+  4. K2 against its plain version on the bench case's own Bouzidi box: one
+     launch over the plan's links, its bound from the links' work beside
+     the box sweep's, and no byte allocated per call;
   4b. K3 (+ K2) against the plain pair and against K1 -> K2 -> K1 (+ K2),
      float32 and bf16, on the bench's finest level (six interface faces,
      distinct ghost planes per sub-step, box 29x28x28) and on the 10.8M-cell
@@ -51,7 +59,8 @@ Phases, each raising on failure (nothing is caught):
      CSVs, rho_min in (0.5, 1.5), MLUPS from CUDA events over the batches
      after the first.  Then, on the row's level rebuilt as solve_case
      builds it: K5 against its plain version (bf16 2e-3) and K1 (0 stored
-     f differ), K2 against its plain version on the row's Bouzidi box, the
+     f differ), K2 against its plain version on the row's Bouzidi box (no
+     byte allocated per call), the
      peak allocation above the live state of one K5 step (at most rho +
      vel + 25% of one f copy) and of one K1 step (a whole second f), and
      a 10-step batch from one perturbed state on K5, on K1 unfused (equal
@@ -59,7 +68,8 @@ Phases, each raising on failure (nothing is caught):
      K3's bound), each timed in turns;
   8. the probe's path: K6 against its plain version on the bench case's
      own Bouzidi box, float32 (1e-6) and bf16 (2e-3, decoded f), and
-     against K2 on the same S (under the same bounds); then
+     against K2 on the same S (under the same bounds; K2 runs over the
+     links, K6 sweeps the box after a snapshot); then
      `open_ludwig_torch.tools.probe_bz_encoding` at its defaults (the bench
      case's finest box, K2 against K6 from one bf16 state, then interleaved
      windows of 300 applications, CUDA events), which must launch each of
@@ -96,8 +106,15 @@ def require(ok: bool, what) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--k1-reference", default=None, metavar="DIR",
+                    help="an earlier K1's source directory to compare with")
+    opts = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing to run", file=sys.stderr)
@@ -159,6 +176,27 @@ def main() -> int:
                 f"local, {a['smem_bytes']} B shared, {a['blocks_per_sm']} "
                 "block(s) per SM")
 
+    def print_k1_ref(label, bf16, r):
+        """K1 against the --k1-reference build on the same input."""
+        d = r["ref"]
+        print(f"[3 K1] {label} {'bf16' if bf16 else 'f32 '} vs the reference K1: "
+              f"{100 * d['diff_frac']:.5f}% stored f differ (max {d['max_abs_err']:.2e})"
+              f" | in turns K1, reference, reference, K1: "
+              + ", ".join(f"{t:.4f}" for t in r["turns_ms"]) + f" ms | card: {smi}",
+              flush=True)
+
+    def print_k2(tag, plan, bf16, r):
+        print(f"[{tag}] box {tuple(plan['dim'])} {'bf16' if bf16 else 'f32 '}, "
+              f"{r['links']} links: err {r['max_abs_err']:.2e} (tol {r['tol']:.0e}, "
+              f"{r['changed']} slots changed) | kernel {r['ms']:.5f} ms (from a CUDA "
+              f"graph {r['graph_ms']:.5f} ms), bound "
+              f"{r['bound_ms']:.6f} ms ({r['bytes'] / 1e3:.1f} kB of links; the box "
+              f"sweep's {r['box_bound_ms']:.6f}) | allocated per call "
+              f"{r['peak_bytes']} B | plain {r['plain_ms']:.3f} ms | card: {smi}",
+              flush=True)
+        require(r["changed"] > 0 and r["max_abs_err"] < r["tol"]
+                and r["peak_bytes"] == 0, (tag, bf16, r))
+
     def cloned(states):
         """A copy of level states that an in-place (K5) run may overwrite."""
         return [{**st, "f": st["f"].clone()} for st in states]
@@ -191,6 +229,11 @@ def main() -> int:
         for ln in res:
             print(f"[2 build]   {ln}")
     print(f"[2 build] all kernels in {time.time() - t0:.1f} s (parallel nvcc)")
+    k1_ref = None
+    if opts.k1_reference:
+        k1_ref = build.load("stream_collide", opts.k1_reference)
+        print(f"[2 build] K1 reference from {opts.k1_reference}: {k1_ref.seconds:.1f} s"
+              f" -> {k1_ref.path}", flush=True)
     for bf16 in (False, True):
         a = cuda_step.fused_pair_attrs(bf16)
         print(f"[2 build] fused_pair {'bf16' if bf16 else 'f32 '}: "
@@ -235,6 +278,9 @@ def main() -> int:
                       f"{r['plain_ms']:.3f} ms", flush=True)
                 require(r["finite"] and r["max_abs_err"] < r["tol"],
                         ("K1", label, bf16, r["err"], r["finite"]))
+                if k1_ref is not None:
+                    print_k1_ref(label, bf16, checks.check_k1_against(
+                        k1_ref, patch, static, bf16, 17, kw, dev))
 
         # ---- 3b. K1 on the 10.8M-cell single-level sweep shape ----
         t0 = time.time()
@@ -255,6 +301,9 @@ def main() -> int:
                   f" | plain {r['plain_ms']:.3f} ms", flush=True)
             require(r["finite"] and r["max_abs_err"] < r["tol"],
                     ("K1 sweep", bf16, r["err"], r["finite"]))
+            if k1_ref is not None:
+                print_k1_ref("sweep", bf16, checks.check_k1_against(
+                    k1_ref, sweep[0], sweep_static, bf16, 18, kw, dev, reps=5))
         torch.cuda.empty_cache()
 
         # ---- 3c/3d. K4 and K5 against plain and against K1 ----
@@ -294,11 +343,7 @@ def main() -> int:
         for bf16 in (False, True):
             r = checks.check_bouzidi(levels[2], plan, bf16, seed=19, device=dev)
             k2[bf16] = r
-            print(f"[4 K2] box {tuple(plan['dim'])} {'bf16' if bf16 else 'f32 '} err "
-                  f"{r['max_abs_err']:.2e} (tol {r['tol']:.0e}, {r['changed']} slots "
-                  f"changed) | kernel+snapshot {r['ms']:.4f} ms, bound "
-                  f"{r['bound_ms']:.5f} ms | plain {r['plain_ms']:.3f} ms", flush=True)
-            require(r["changed"] > 0 and r["max_abs_err"] < r["tol"], ("K2", bf16, r))
+            print_k2("4 K2", plan, bf16, r)
 
         # ---- 4b. K3 (+ K2) against the plain pair and the unfused kernels ----
         k3 = {}
@@ -485,11 +530,7 @@ def main() -> int:
         plan7 = st7["bouzidi"]
         r = checks.check_bouzidi(row, plan7, True, seed=39, device=dev)
         k2["row"] = r
-        print(f"[7 in place] K2 on the row's box {tuple(plan7['dim'])} bf16 err "
-              f"{r['max_abs_err']:.2e} (tol {r['tol']:.0e}, {r['changed']} slots "
-              f"changed) | kernel+snapshot {r['ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.5f} ms | plain {r['plain_ms']:.3f} ms", flush=True)
-        require(r["changed"] > 0 and r["max_abs_err"] < r["tol"], ("K2 row", r))
+        print_k2("7 in place: K2 on the row", plan7, True, r)
         torch.cuda.empty_cache()
 
         # peak allocation above the live state of one K5 and one K1 step
@@ -562,7 +603,8 @@ def main() -> int:
                   f"plain: err {r['max_abs_err']:.2e} (tol {r['tol']:.0e}, "
                   f"{r['changed']} slots changed) | vs K2 on the same S: "
                   f"{r['k2_err']:.2e} | kernel+snapshot {r['ms']:.4f} ms, bound "
-                  f"{r['bound_ms']:.5f} ms ({r['bytes'] / 1e6:.2f} MB), K2 "
+                  f"{r['bound_ms']:.6f} ms ({r['bytes'] / 1e3:.1f} kB of links; the "
+                  f"box sweep's {r['box_bound_ms']:.6f}), K2 "
                   f"{r['k2_ms']:.4f} ms | plain {r['plain_ms']:.3f} ms | card: {smi}",
                   flush=True)
             require(r["changed"] > 0 and r["max_abs_err"] < r["tol"]

@@ -57,7 +57,7 @@ from .core.patch import (
 )
 from .geometry import load_mesh
 from .scaling import DomainParams, compute_domain_params
-from .ops import storage
+from .ops import build, storage
 from .ops.cuda_step import (
     bouzidi,
     bouzidi_ab,
@@ -73,6 +73,7 @@ from .ops.cuda_step import (
 from .ops.dense_step import (
     apply_bouzidi_ab_plain,
     apply_bouzidi_dense,
+    apply_bouzidi_links,
     bouzidi_ab_plan,
     dense_stream_collide,
     fused_pair_plain,
@@ -132,11 +133,22 @@ def step_work(patch: PatchLevel, store_bf16: bool, wall_model: bool,
 def box_work(plan: Dict, coef_bytes: int, store_bf16: bool, links: int
              ) -> Tuple[int, int]:
     """(bytes, float32 operations) of one Bouzidi correction of `plan`'s
-    box: the box of f and the coefficients read once, the `links` linked
-    slots written once."""
+    box as a box sweep reads it: the box of f and the coefficients read
+    once, the `links` linked slots written once (the earlier bound of K2)."""
     fb = 2 if store_bf16 else 4
     nb = int(np.prod(plan["dim"]))
     return 27 * fb * nb + coef_bytes + links * fb, LINK_OPS * links
+
+
+def link_work(plan: Dict, store_bf16: bool, coef_bytes: int = 4
+              ) -> Tuple[int, int]:
+    """(bytes, float32 operations) that one Bouzidi correction of `plan`
+    needs, whatever computes it: per linked slot, its two inputs read and
+    its value written in the storage type, and its coefficient(s) of
+    `coef_bytes` read; the rest of the box is not touched."""
+    fb = 2 if store_bf16 else 4
+    n = len(plan["links"]["a"])
+    return n * (3 * fb + coef_bytes), LINK_OPS * n
 
 
 def bench_config(case_dir: str, **over) -> CaseConfig:
@@ -178,6 +190,23 @@ def time_cuda(fn: Callable[[], object], reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn: Callable[[], object], reps: int, calls: int = 20) -> float:
+    """Milliseconds per call of `fn` replayed from a CUDA graph of `calls`
+    calls, between CUDA events over `reps` replays: the device's time with
+    no host launch overhead between the calls.  `fn` must allocate nothing
+    that outlives the capture (an in-place kernel)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return time_cuda(graph.replay, reps) / calls
 
 
 def random_level_inputs(patch: PatchLevel, store_bf16: bool, seed: int,
@@ -277,6 +306,34 @@ def check_stream_collide(patch: PatchLevel, static: Dict, store_bf16: bool,
     del fk, rk, vk, fp, rp, vp
     out["ms"] = time_cuda(kernel, reps)
     out["plain_ms"] = time_cuda(plain, plain_reps)
+    return out
+
+
+def check_k1_against(ref: build.Built, patch: PatchLevel, static: Dict,
+                     store_bf16: bool, seed: int, kw: Dict, device,
+                     reps: int = 20) -> Dict:
+    """K1 against `ref`, another build of it with the same C interface (K1
+    of an earlier source, `build.load("stream_collide", csrc=DIR)`), on one
+    input: "ref" holds the differences (`state_diff`: the share of stored f
+    entries that differ, max-abs errors), "turns_ms" both times in turns
+    (K1, ref, ref, K1), "ms" and "ref_ms" the better of each pair."""
+    inp = random_level_inputs(patch, store_bf16, seed, device)
+
+    def k1():
+        return stream_collide(inp["f"], inp["vel"], 0.04, 9, static, patch,
+                              iface=inp["iface"], **kw)
+
+    def other():
+        with build.substituted("stream_collide", ref):
+            return k1()
+
+    a, b = k1(), other()
+    torch.cuda.synchronize()
+    out = {"ref": state_diff(*a, *b)}
+    del a, b
+    turns = [time_cuda(fn, reps) for fn in (k1, other, other, k1)]
+    out.update(turns_ms=turns, ms=min(turns[0], turns[3]),
+               ref_ms=min(turns[1], turns[2]))
     return out
 
 
@@ -387,31 +444,41 @@ def step_peak_bytes(fn: Callable[[], object], device) -> int:
 
 def check_bouzidi(patch: PatchLevel, plan: Dict, store_bf16: bool, seed: int,
                   device, reps: int = 50, plain_reps: int = 10) -> Dict:
-    """K2 (snapshot + kernel, in place) against apply_bouzidi_dense on the
-    card.  Returns the max-abs error of decoded f and ms per call of both."""
+    """K2 (one launch over the plan's links, in place) against its plain
+    version `apply_bouzidi_links` on the card.  Returns the max-abs error of
+    decoded f, the slots changed, the bound of the links' work beside the
+    box sweep's ("box_bound_ms"), the bytes allocated at the peak of one
+    call ("peak_bytes", 0 expected), ms per call of both, and K2's ms per
+    call replayed from a CUDA graph ("graph_ms": no host launch overhead;
+    K2 allocates nothing, so it can be captured)."""
     f0 = random_level_inputs(patch, store_bf16, seed, device)["f"]
     fk = bouzidi(f0.clone(), plan)
-    fp = apply_bouzidi_dense(f0, plan)
+    fp = apply_bouzidi_links(f0, plan)
     torch.cuda.synchronize()
     err = float((storage.decode_f(fk) - storage.decode_f(fp)).abs().max())
     changed = int((fk != f0).sum())
     del fk, fp
     work = f0.clone()
     S = plan["S"]
+    box = bound(*box_work(plan, S.numel() * 4, store_bf16,
+                          int(torch.count_nonzero(S))), device)
     out = {"max_abs_err": err, "changed": changed, "tol": K2_TOL[store_bf16],
-           **bound(*box_work(plan, S.numel() * 4, store_bf16,
-                             int(torch.count_nonzero(S))), device)}
+           "links": len(plan["links"]["a"]), "box_bound_ms": box["bound_ms"],
+           **bound(*link_work(plan, store_bf16), device)}
+    out["peak_bytes"] = step_peak_bytes(lambda: bouzidi(work, plan), device)
     out["ms"] = time_cuda(lambda: bouzidi(work, plan), reps)
-    out["plain_ms"] = time_cuda(lambda: apply_bouzidi_dense(f0, plan), plain_reps)
+    out["graph_ms"] = graph_ms(lambda: bouzidi(work, plan), reps)
+    out["plain_ms"] = time_cuda(lambda: apply_bouzidi_links(f0, plan), plain_reps)
     return out
 
 
 def check_bouzidi_ab(patch: PatchLevel, plan: Dict, store_bf16: bool, seed: int,
                      device, reps: int = 50, plain_reps: int = 10) -> Dict:
-    """K6 (snapshot + kernel, in place; A and B in the storage dtype) against
-    apply_bouzidi_ab_plain and against K2 on the same S, on the card.
-    Returns the max-abs errors of decoded f against both, and ms per call of
-    K6, K2 and the plain version."""
+    """K6 (snapshot + box sweep, in place; A and B in the storage dtype)
+    against apply_bouzidi_ab_plain and against K2 on the same S, on the
+    card.  Returns the max-abs errors of decoded f against both, the links'
+    bound (two coefficients of the storage type each) beside the box
+    sweep's, and ms per call of K6, K2 and the plain version."""
     f0 = random_level_inputs(patch, store_bf16, seed, device)["f"]
     pab = bouzidi_ab_plan(plan, f0.dtype)
     fk = bouzidi_ab(f0.clone(), pab)
@@ -423,10 +490,12 @@ def check_bouzidi_ab(patch: PatchLevel, plan: Dict, store_bf16: bool, seed: int,
     changed = int((fk != f0).sum())
     del fk, fp, f2
     links = int(torch.count_nonzero(pab["A"]))
+    box = bound(*box_work(plan, 2 * pab["A"].numel() * pab["A"].element_size(),
+                          store_bf16, links), device)
     out = {"max_abs_err": err, "k2_err": err_k2, "changed": changed,
-           "tol": K2_TOL[store_bf16],
-           **bound(*box_work(plan, 2 * pab["A"].numel() * pab["A"].element_size(),
-                             store_bf16, links), device)}
+           "tol": K2_TOL[store_bf16], "box_bound_ms": box["bound_ms"],
+           **bound(*link_work(plan, store_bf16, 2 * pab["A"].element_size()),
+                   device)}
     work = f0.clone()
     out["ms"] = time_cuda(lambda: bouzidi_ab(work, pab), reps)
     out["k2_ms"] = time_cuda(lambda: bouzidi(work, plan), reps)

@@ -1,6 +1,7 @@
-// The Bouzidi box sweep shared by K2 (csrc/bouzidi.cu, signed single-array
-// coefficients S) and K6 (csrc/bouzidi_ab.cu, the retired two-array
-// coefficients A and B).
+// The Bouzidi box sweep of K6 (csrc/bouzidi_ab.cu, the retired two-array
+// coefficients A and B), written for any coefficient encoding (a Link
+// functor).  K2 (csrc/bouzidi.cu) runs over the plan's link list instead;
+// the probe (tools/probe_bz_encoding.py) times the two designs.
 //
 // One thread per cell of the (bx, by, bz) box at offset (lx, ly, lz) of an
 // (X, Y, Z) level.  For every slot j != 13 with link direction k = opp(j)

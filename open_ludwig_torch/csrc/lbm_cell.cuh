@@ -3,8 +3,9 @@
 // K5 (stream_collide_inplace.cu) so that all compile the same device code:
 //   neighbours + apply_faces: pull streaming of the 27 populations with
 //     the boundary conditions of the level's six faces (face_value): every
-//     slot is loaded from its source clamped into the level, with no branch
-//     between the loads, then the face slots are overwritten, in the precedence
+//     slot is loaded from its source clamped into the level (K1 leaves z
+//     unclamped: its addresses stay inside f), with no branch between the
+//     loads, then the face slots are overwritten, in the precedence
 //     of the plain version (ops/dense_step.py): x faces over y faces over z
 //     faces, i.e. inlet > outlet > y-mirror > z-mirror.  Mirror faces read
 //     the destination cell's own mirrored row (unshifted); interface faces
@@ -17,7 +18,8 @@
 //     give all ten moments, sponge blend, log-law wall-model force, WALE
 //     omega from the six face-neighbour velocities (the caller's gradient
 //     accessor, self at every patch face), regularized BGK + Guo forcing as
-//     a quadratic form in c.  Obstacle cells bounce back.
+//     a quadratic form in c, the wall model only where the wall distance
+//     is in (0, 10).  Obstacle cells bounce back.
 //
 // Storage: T = float (f-space) or __nv_bfloat16 (g = f - w).  In g-space
 // the weight shift folds into constants: rho_raw += 1, diagonal raw second
@@ -248,6 +250,15 @@ __device__ __forceinline__ void apply_faces(const Step& p, int x, int y, int z,
   }
 }
 
+// Section marks of the cell update, for tools/probe_k1_sections.py: `mark(s)`
+// is called where section s of the update ends (2 moments and sponge, 3 wall
+// model, 4 velocity gradient and WALE, 5 BGK and reconstruction; the kernel
+// marks 0 index and pull, 1 faces, 6 store).  NoMark, which every normal
+// build passes, does nothing and compiles to nothing.
+struct NoMark {
+  __device__ __forceinline__ void operator()(int) const {}
+};
+
 // WALE omega from the velocity gradient g[c][d] = d u_c / d x_d
 // (reference: src/physics_kernels.jl:251-301, physics_utils.jl:45-70)
 __device__ __forceinline__ float wale_omega(const Step& p, const float g[3][3]) {
@@ -286,16 +297,26 @@ __device__ __forceinline__ float wale_omega(const Step& p, const float g[3][3]) 
 }
 
 // Collision of the streamed f[27] of one cell, in place: f becomes the
-// post-collision populations; rho and u[3] the cell's moments.
+// post-collision populations; rho and u[3] the cell's moments.  The cell's
+// static fields come as values: `solid` (obstacle), its sponge weight `sp`
+// and its wall distance `wd` (read only with the wall model).
 // `vel_grad(g)` fills g[c][d] with the central differences of the previous
 // sub-step's velocity (self-fallback at every patch face).
-template <bool G, class VelGrad>
-__device__ __forceinline__ void collide(const Step& p, const Fields& fld,
-                                        long long cell, VelGrad vel_grad,
-                                        float f[27], float& rho_out,
-                                        float u_out[3]) {
+//
+// The wall model acts only where 0 < wd < 10 (its `active` test): the wall
+// distance field holds the 100.0 sentinel everywhere but the fluid shell
+// next to the body (domain/fields.py), and elsewhere its force is exactly
+// +-0, which leaves u_eq = u and every Guo term as it was (x + (+-0) = x).
+// So the sqrt / pow / log / division chain and the Guo terms run only on
+// the cells inside that range (`near_wall`): the stored f is unchanged,
+// the sign of a zero aside.
+template <bool G, class VelGrad, class Mark = NoMark>
+__device__ __forceinline__ void collide_values(const Step& p, bool solid, float sp,
+                                               float wd, VelGrad vel_grad,
+                                               float f[27], float& rho_out,
+                                               float u_out[3], Mark mark = Mark()) {
   const float u_in = p.u_inlet;
-  if (__ldg(fld.obstacle + cell) != 0) {
+  if (solid) {
     // full bounce-back of the raw streamed values
     // (reference: src/physics_kernels.jl:154-166)
 #pragma unroll
@@ -338,7 +359,6 @@ __device__ __forceinline__ void collide(const Step& p, const Fields& fld,
   const float inv_rho_raw = 1.0f / rho_raw;
   float ux = jx * inv_rho_raw, uy = jy * inv_rho_raw, uz = jz * inv_rho_raw;
 
-  const float sp = __ldg(fld.sponge + cell);
   const float one_m = 1.0f - sp;
   const float rho = rho_raw * one_m + sp;
   ux = ux * one_m + u_in * sp;
@@ -353,13 +373,14 @@ __device__ __forceinline__ void collide(const Step& p, const Fields& fld,
     Syz = Syz * one_m;
     Szx = Szx * one_m;
   }
+  mark(2);
 
   // equilibrium log-law wall-stress body force
   // (reference: src/physics_kernels.jl:206-241)
   float Fx = 0.f, Fy = 0.f, Fz = 0.f;
   float ux_eq = ux, uy_eq = uy, uz_eq = uz;
-  if (p.wall_model) {
-    const float wd = __ldg(fld.wall + cell);
+  const bool near_wall = p.wall_model && wd > 0.0f && wd < 10.0f;
+  if (near_wall) {
     const float nu_visc = p.nu_visc;
     const float u_mag = sqrtf(ux * ux + uy * uy + uz * uz);
     float u_tau = u_mag * powf(nu_visc / (wd * u_mag + 1e-10f), (float)(1.0 / 7.0)) *
@@ -385,11 +406,13 @@ __device__ __forceinline__ void collide(const Step& p, const Fields& fld,
     uz_eq = uz + 0.5f * Fz * inv_rho_raw;
   }
   const float usq_eq = ux_eq * ux_eq + uy_eq * uy_eq + uz_eq * uz_eq;
+  mark(3);
 
   float g[3][3];
   vel_grad(g);
   const float omega = wale_omega(p, g);
   const float one_m_om = 1.0f - omega;
+  mark(4);
 
   // ---- regularized BGK + Guo forcing as f_k / w_k = t0 + c.t + c^T T2 c ----
   const float rux = rho * ux_eq, ruy = rho * uy_eq, ruz = rho * uz_eq;
@@ -408,7 +431,7 @@ __device__ __forceinline__ void collide(const Step& p, const Fields& fld,
   float tx = 3.0f * rux, ty = 3.0f * ruy, tz = 3.0f * ruz;
   float txx = 4.5f * (ruxx + P1), tyy = 4.5f * (ruyy + P2), tzz = 4.5f * (ruzz + P3);
   float txy = 9.0f * (ruxy + P4), tyz = 9.0f * (ruyz + P5), tzx = 9.0f * (ruzx + P6);
-  if (p.wall_model) {
+  if (near_wall) {
     const float guo = 1.0f - 0.5f * omega;
     const float Gx = guo * Fx, Gy = guo * Fy, Gz = guo * Fz;
     // uF uses the post-sponge u, like the reference (physics_kernels.jl:348)
@@ -440,10 +463,23 @@ __device__ __forceinline__ void collide(const Step& p, const Fields& fld,
     f[km + 1] = weight(km + 1) * (bx + xlin);
     f[km - 1] = weight(km - 1) * (bx - xlin);
   }
+  mark(5);
   rho_out = rho;
   u_out[0] = ux;
   u_out[1] = uy;
   u_out[2] = uz;
+}
+
+// collide_values with the cell's static fields read from device memory.
+template <bool G, class VelGrad>
+__device__ __forceinline__ void collide(const Step& p, const Fields& fld,
+                                        long long cell, VelGrad vel_grad,
+                                        float f[27], float& rho_out,
+                                        float u_out[3]) {
+  const bool solid = __ldg(fld.obstacle + cell) != 0;
+  const float sp = __ldg(fld.sponge + cell);
+  const float wd = p.wall_model ? __ldg(fld.wall + cell) : 0.0f;
+  collide_values<G>(p, solid, sp, wd, vel_grad, f, rho_out, u_out);
 }
 
 // Central differences of the previous sub-step's velocity at a cell of a

@@ -12,12 +12,17 @@ The library name carries a hash of the source, the shared headers
 one loads the library already built.  The build directory is
 `build/kernels/` beside the package (git-ignored).  Nothing here runs at
 import; the first kernel launch builds.  `load_all` starts one nvcc per
-source at once.  There is no fast-math flag: the wall model's pow/log and
+source at once.  `load(name, csrc=DIR, extra=flags)` builds the same
+kernel from another source directory (an earlier version of `csrc/`, for a
+comparison on the card) or with extra flags (a measurement build) into its
+own library, loaded beside the package's own; `substituted` lets the
+wrappers launch such a library for the length of a `with` block.  There is no fast-math flag: the wall model's pow/log and
 the WALE square roots must match the plain version to 1e-5.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -26,7 +31,7 @@ import shutil
 import subprocess
 import time
 from dataclasses import dataclass
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -65,39 +70,52 @@ def nvcc_path() -> str:
     )
 
 
-def _paths(name: str) -> Tuple[str, str, str]:
-    """(source, library, ptxas log) of csrc/<name>.cu."""
-    src = os.path.join(CSRC, name + ".cu")
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+def _key(name: str, csrc: Optional[str], extra: Tuple[str, ...]) -> str:
+    """The _LOADED key of kernel `name` built from `csrc` (None: CSRC) with
+    the extra nvcc flags `extra`."""
+    where = CSRC if csrc is None else os.path.abspath(csrc)
+    return " ".join((name, where) + tuple(extra))
+
+
+def _paths(name: str, csrc: Optional[str], extra: Tuple[str, ...]
+           ) -> Tuple[str, str, str]:
+    """(source, library, ptxas log) of <csrc>/<name>.cu."""
+    csrc = CSRC if csrc is None else os.path.abspath(csrc)
+    src = os.path.join(csrc, name + ".cu")
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(extra)).encode())
+    digest.update(csrc.encode())
+    for path in [src] + sorted(glob.glob(os.path.join(csrc, "*.cuh"))):
         with open(path, "rb") as fh:
             digest.update(fh.read())
     lib_path = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
     return src, lib_path, lib_path[:-3] + ".log"
 
 
-def _start(name: str) -> Optional[Tuple[subprocess.Popen, str, float]]:
-    """Start nvcc for csrc/<name>.cu unless its library is built."""
-    if name in _LOADED:
+def _start(name: str, csrc: Optional[str] = None, extra: Tuple[str, ...] = ()
+           ) -> Optional[Tuple[subprocess.Popen, str, float]]:
+    """Start nvcc for <csrc>/<name>.cu unless its library is built."""
+    if _key(name, csrc, extra) in _LOADED:
         return None
-    src, lib_path, _ = _paths(name)
+    src, lib_path, _ = _paths(name, csrc, extra)
     if os.path.isfile(lib_path):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib_path}.{os.getpid()}.tmp"
     proc = subprocess.Popen(
-        [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
+        [nvcc_path(), *NVCC_FLAGS, *extra, "-o", tmp, src],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
     )
     return proc, tmp, time.perf_counter()
 
 
-def _finish(name: str, started) -> Built:
+def _finish(name: str, started, csrc: Optional[str] = None,
+            extra: Tuple[str, ...] = ()) -> Built:
     """Wait for the build started by _start (if any) and load the library;
     raises on any failure."""
-    if name in _LOADED:
-        return _LOADED[name]
-    src, lib_path, log_path = _paths(name)
+    key = _key(name, csrc, extra)
+    if key in _LOADED:
+        return _LOADED[key]
+    src, lib_path, log_path = _paths(name, csrc, extra)
     seconds = 0.0
     if started is not None:
         proc, tmp, t0 = started
@@ -113,15 +131,38 @@ def _finish(name: str, started) -> Built:
     with open(log_path) as fh:
         ptxas_log = fh.read()
     built = Built(ctypes.CDLL(lib_path), lib_path, seconds, ptxas_log)
-    _LOADED[name] = built
+    _LOADED[key] = built
     return built
 
 
-def load(name: str) -> Built:
-    """Build (if needed) and load csrc/<name>.cu; raises on any failure.
-    Every launch calls this: a library already loaded returns at once."""
-    built = _LOADED.get(name)
-    return built if built is not None else _finish(name, _start(name))
+def load(name: str, csrc: Optional[str] = None, extra: Sequence[str] = ()
+         ) -> Built:
+    """Build (if needed) and load <csrc>/<name>.cu (default: the package's
+    csrc/) with the extra nvcc flags `extra` (e.g. a -D of a measurement
+    build); raises on any failure.  Every launch calls load(name): a
+    library already loaded returns at once."""
+    extra = tuple(extra)
+    built = _LOADED.get(_key(name, csrc, extra))
+    if built is not None:
+        return built
+    return _finish(name, _start(name, csrc, extra), csrc, extra)
+
+
+@contextlib.contextmanager
+def substituted(name: str, built: Built) -> Iterator[None]:
+    """Within the block, the wrappers launch `built` (a library with the
+    same C interface, built from another source directory or with other
+    flags) as kernel `name`: a measurement's swap, never a fallback."""
+    key = _key(name, None, ())
+    old = _LOADED.get(key)
+    _LOADED[key] = built
+    try:
+        yield
+    finally:
+        if old is None:
+            _LOADED.pop(key, None)
+        else:
+            _LOADED[key] = old
 
 
 def load_all(names: Iterable[str]) -> List[Built]:

@@ -14,19 +14,21 @@ can show that its main path went through the kernels.
 
 K1 `stream_collide` (csrc/stream_collide.cu) replaces the Pallas kernel
 make_pallas_step (open_ludwig_tpu/ops/pallas_step.py:247).  It moves ~145 B
-per cell per bf16 sub-step, but its code is ~3,400 instructions a cell
-(`tools/sass_counts.py`), ~730 of them float32 arithmetic, and it is bound
-by instruction throughput before bytes; the design answers with one
-thread per cell, z-fastest coalesced rows read through the read-only
-cache, every slot loaded from its source clamped into the level through
-one running pointer (27 loads back to back, the face slots overwritten
-afterwards), A->B buffers (no in-place hazard between concurrent CTAs),
-and g-space math on bf16 storage so decode/encode are bare casts.
+per cell per bf16 sub-step and runs at 60-80% of that bound; the design is
+one thread per cell, z-fastest coalesced rows read through the read-only
+cache, the 27 loads back to back off the level's plane base pointers with
+32-bit offsets (the face slots overwritten afterwards), the wall model's
+transcendental chain only where the wall distance is in (0, 10), A->B
+buffers (no in-place hazard between concurrent CTAs), and g-space math on
+bf16 storage so decode/encode are bare casts.  `tools/probe_k1_sections.py`
+times its sections on the card.
 
 K2 `bouzidi` (csrc/bouzidi.cu) replaces make_bouzidi_pallas
-(pallas_step.py:62).  Bound by launch latency on the bench box (a few MB);
-one thread per box cell reads an uncorrected snapshot and writes only the
-linked slots in place.
+(pallas_step.py:62).  Its work is a few hundred kB of linked slots, so a
+call is its launch and a few dependent loads: one cooperative launch over
+the plan's list of links, which reads every link's inputs, meets every
+other block at one grid barrier, and then writes every link in place;
+nothing is allocated per call.
 
 K3 `fused_pair` (csrc/fused_pair.cu) replaces make_pallas_step_fused2
 (pallas_step.py:961): two sub-steps of a childless level in one pass, step
@@ -79,7 +81,7 @@ from . import build, storage
 from . import inplace_layout as inplace_layout_mod
 from .dense_step import (
     apply_bouzidi_ab_plain,
-    apply_bouzidi_dense,
+    apply_bouzidi_links,
     dense_stream_collide,
     fused_pair_plain,
     stream_collide_flat_plain,
@@ -98,7 +100,7 @@ _SC_ARGTYPES = (
     [_I] + [_P] * 14 + [_I] * 5 + [_I] * 6 + [_F, _I] + [_D] * 4
     + [_I, _I, _P]
 )
-_BZ_ARGTYPES = [_I, _P, _P, _P] + [_I] * 9 + [_P]
+_BZ_ARGTYPES = [_I] + [_P] * 6 + [_I] * 4 + [_P]
 _BZAB_ARGTYPES = [_I, _P, _P, _P, _P] + [_I] * 9 + [_P]
 _FLAT_ARGTYPES = [_I] + [_P] * 8 + [_I] * 5 + [_I] * 6 + [_F, _I] + [_D] * 4 + [_I, _I, _P]
 _IP_ARGTYPES = (
@@ -247,30 +249,44 @@ def stream_collide(
     return f_out, rho, vel_out
 
 
+def _check_links(plan: Dict, level_shape, device) -> Dict:
+    """The plan's link list (`dense_step.bouzidi_plan_to`) on `device`,
+    checked against the level; returns it."""
+    if tuple(plan["level"]) != tuple(level_shape):
+        raise ValueError(f"Bouzidi plan of a level {tuple(plan['level'])}, f's "
+                         f"level is {tuple(level_shape)}")
+    links = plan["links"]
+    n = links["a"].shape[0]
+    for key, dtype in (("cell", torch.int32), ("code", torch.uint8),
+                       ("src", torch.int32), ("a", torch.float32),
+                       ("scratch", torch.float32)):
+        _check(links[key], f"links[{key!r}]", (n,), (dtype,), device)
+    if n == 0:
+        raise ValueError("a Bouzidi plan without links (the plan is None then)")
+    return links
+
+
 def bouzidi(f: torch.Tensor, plan: Dict) -> torch.Tensor:
-    """K2: Bouzidi correction of (27, X, Y, Z) f (float32 f or bf16 g).
-    plan["S"] is a float32 (27, bx, by, bz) tensor on f's device.  On CUDA
-    the correction is written into `f` in place and `f` is returned; on
-    the CPU the plain version returns a new tensor."""
+    """K2: Bouzidi correction of (27, X, Y, Z) f (float32 f or bf16 g) over
+    the plan's link list.  On CUDA the links (and their scratch) are
+    tensors on f's device (`dense_step.bouzidi_plan_to`), the correction is
+    written into `f` in place by one launch and `f` is returned; on the CPU
+    the plain version returns a new tensor."""
     dev = f.device
     if f.dim() != 4 or f.shape[0] != 27:
         raise ValueError(f"f shape {tuple(f.shape)}, expected (27, X, Y, Z)")
     _check(f, "f", f.shape, (torch.float32, torch.bfloat16), dev)
-    _check_plan(plan, f.shape[1:], dev)
-    lx, ly, lz = plan["lo"]
-    bx, by, bz = plan["dim"]
     X, Y, Z = f.shape[1:]
     if dev.type == "cpu":
-        return apply_bouzidi_dense(f, plan)
+        return apply_bouzidi_links(f, plan)
     if dev.type != "cuda":
         raise ValueError(f"bouzidi: unsupported device {dev}")
+    links = _check_links(plan, (X, Y, Z), dev)
     fn = _lib("bouzidi", "ol_bouzidi", _BZ_ARGTYPES)
-    # uncorrected post-collision snapshot of the box (csrc/bouzidi_box.cuh)
-    snap = f[:, lx:lx + bx, ly:ly + by, lz:lz + bz].contiguous()
     rc = fn(
-        int(f.dtype == torch.bfloat16), snap.data_ptr(), plan["S"].data_ptr(),
-        f.data_ptr(), bx, by, bz, lx, ly, lz, X, Y, Z,
-        torch.cuda.current_stream(dev).cuda_stream,
+        int(f.dtype == torch.bfloat16), f.data_ptr(),
+        *[links[key].data_ptr() for key in ("cell", "code", "src", "a", "scratch")],
+        links["a"].shape[0], X, Y, Z, torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, "bouzidi")
     LAUNCHES["bouzidi"] += 1

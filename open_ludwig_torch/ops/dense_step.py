@@ -13,9 +13,10 @@ plain versions of the two CUDA kernels and the torch glue between them:
     the reference's parity-biased corner rule and f_neq rescaling
     (reference: src/physics_interpolation.jl:16-138);
   - `build_bouzidi_dense_plan` / `apply_bouzidi_dense`: the Bouzidi
-    sub-box correction (K2's plain version; reference:
-    src/bouzidi_kernel.jl:38-88), and `apply_bouzidi_ab_plain`, the same
-    correction with the retired two-array coefficients (K6's plain
+    sub-box correction (reference: src/bouzidi_kernel.jl:38-88), its link
+    list (`bouzidi_links`) and `apply_bouzidi_links`, the same correction
+    over the links (K2's plain version), and `apply_bouzidi_ab_plain`, the
+    box sweep with the retired two-array coefficients (K6's plain
     version);
   - `fused_pair_plain`: two sub-steps with the correction of the first
     between them (K3's plain version);
@@ -429,7 +430,9 @@ def build_bouzidi_dense_plan(patch: PatchLevel, q_min: float) -> Optional[Dict]:
     written into slot opp(k); S's sign encodes the q >= 0.5 branch and S = 0
     means no link (reference: src/bouzidi_kernel.jl:38-88).  The JAX
     package additionally aligns the box to the TPU's (8, 128) tile; the
-    port keeps the tight box.  Returns None without boundary cells."""
+    port keeps the tight box.  The plan also holds the level's shape and
+    the link list K2 runs over (`bouzidi_links`).  Returns None without a
+    link."""
     bz = patch.bouzidi
     if bz is None or bz.n_boundary_cells == 0:
         return None
@@ -465,7 +468,66 @@ def build_bouzidi_dense_plan(patch: PatchLevel, q_min: float) -> Optional[Dict]:
         )
         a = np.where(lo_case, np.where(inside, 2.0 * qs, 1.0), 1.0 / (2.0 * qs))
         S[k, cx[sel], cy[sel], cz[sel]] = np.where(lo_case, a, -a)
-    return {"lo": tuple(int(v) for v in lo), "dim": bdim, "S": S}
+    if not S.any():
+        return None
+    lo = tuple(int(v) for v in lo)
+    return {"lo": lo, "dim": bdim, "level": (X, Y, Z), "S": S,
+            "links": bouzidi_links(S, lo, (X, Y, Z))}
+
+
+SELF_LINK = 0x80  # bit of a link's `code`: `other` is slot j of the cell itself
+
+
+def bouzidi_links(S: np.ndarray, lo, level) -> Dict[str, np.ndarray]:
+    """K2's list of the linked slots of a plan's S box: one entry per
+    (cell, slot j) with S[opp j](cell) != 0, sorted by slot, then by cell,
+    so that a warp's reads and stores run along z.  numpy arrays:
+
+      cell  int32    the cell, an index into the (X, Y, Z) level
+      code  uint8    j, | SELF_LINK where S < 0
+      src   int32    the cell `other` is read at: the cell itself (slot j)
+                     where S < 0, else (slot k = opp j) the cell the box
+                     sweep reads, cell - c_k wrapped inside the box
+      a     float32  |S|
+
+    so that  f_j(cell) = a f*_k(cell) + (1 - a) other  reads every value
+    the box sweep (`apply_bouzidi_dense`) reads.  A cell index fits 32 bits;
+    27 N does not above 79.5M cells, so the kernel forms j N + cell in 64
+    bits."""
+    lx, ly, lz = lo
+    bx, by, bz = S.shape[1:]
+    X, Y, Z = level
+    if X * Y * Z >= 2 ** 31:
+        raise ValueError(f"level {level}: cell indices exceed int32")
+    parts = []
+    for j in range(27):
+        if j == 13:
+            continue
+        k = int(lat.OPP[j])  # the link direction writing into slot j
+        ix, iy, iz = np.nonzero(S[k])  # lexicographic: ascending cells
+        s = S[k, ix, iy, iz]
+        cell = ((lx + ix) * Y + (ly + iy)) * Z + (lz + iz)
+        nx = (ix - int(lat.C_X[k])) % bx
+        ny = (iy - int(lat.C_Y[k])) % by
+        nz = (iz - int(lat.C_Z[k])) % bz
+        far = ((lx + nx) * Y + (ly + ny)) * Z + (lz + nz)
+        self_ = s < 0
+        parts.append((cell, np.where(self_, SELF_LINK | j, j), np.where(self_, cell, far),
+                      np.abs(s)))
+    cat = [np.concatenate([p[i] for p in parts]) if parts else np.zeros(0)
+           for i in range(4)]
+    return {"cell": cat[0].astype(np.int32), "code": cat[1].astype(np.uint8),
+            "src": cat[2].astype(np.int32), "a": cat[3].astype(np.float32)}
+
+
+def bouzidi_plan_to(plan: Optional[Dict], device) -> Optional[Dict]:
+    """A plan with S and its links as tensors on `device`, and the links'
+    float32 scratch (one value per link, K2's between its two phases)."""
+    if plan is None:
+        return None
+    links = {key: torch.as_tensor(v, device=device) for key, v in plan["links"].items()}
+    links["scratch"] = torch.empty(links["a"].shape, dtype=torch.float32, device=device)
+    return {**plan, "S": torch.as_tensor(plan["S"], device=device), "links": links}
 
 
 def _bouzidi_box(f_out: torch.Tensor, plan: Dict, link) -> torch.Tensor:
@@ -512,6 +574,30 @@ def apply_bouzidi_dense(f_out: torch.Tensor, plan: Dict) -> torch.Tensor:
         return a, 1.0 - a, s < 0, s != 0
 
     return _bouzidi_box(f_out, plan, link)
+
+
+def apply_bouzidi_links(f_out: torch.Tensor, plan: Dict) -> torch.Tensor:
+    """Bouzidi correction of (27, X, Y, Z) f over the plan's link list (K2's
+    plain version), returned as a new tensor: every link's inputs gathered
+    from the uncorrected f, then every value scattered.  Equal bit for bit
+    to `apply_bouzidi_dense` (the same float32 expression on the same
+    values), on float32 f and bf16 g alike."""
+    links = plan["links"]
+    dev = f_out.device
+    cell, code, src = (torch.as_tensor(links[key], device=dev).long()
+                       for key in ("cell", "code", "src"))
+    a = torch.as_tensor(links["a"], device=dev)
+    N = f_out[0].numel()
+    j = code & 31
+    k = 26 - j
+    oslot = torch.where(code >= SELF_LINK, j, k)
+    flat = f_out.reshape(-1)
+    fk = flat[k * N + cell].float()
+    other = flat[oslot * N + src].float()
+    val = (a * fk + (1.0 - a) * other).to(f_out.dtype)
+    out = f_out.clone()
+    out.view(-1)[j * N + cell] = val
+    return out
 
 
 def bouzidi_ab_from_S(S) -> Tuple[np.ndarray, np.ndarray]:

@@ -51,6 +51,7 @@ from .ops.cuda_step import (
     stream_collide_inplace,
 )
 from .ops.dense_step import (
+    bouzidi_plan_to,
     build_bouzidi_dense_plan,
     interface_endpoints,
     interface_endpoints_pair,
@@ -78,13 +79,13 @@ def init_patch_state(patch: PatchLevel, precision: str = "float32",
 def build_patch_statics(cfg: CaseConfig, patches: List[PatchLevel],
                         device="cpu") -> List[Dict]:
     """Per level: obstacle (bool), sponge, wall_dist as (X, Y, Z) device
-    tensors, the Bouzidi plan (S as a float32 device tensor) or None, and
+    tensors, the Bouzidi plan (S, the link list and its scratch as device
+    tensors: `dense_step.bouzidi_plan_to`) or None, and
     the level's kernel ("engine") with the reason for it ("engine_why")."""
     statics = []
     for p, (eng, why) in zip(patches, engine.level_engines(cfg, patches)):
-        plan = build_bouzidi_dense_plan(p, cfg.q_min_threshold)
-        if plan is not None:
-            plan = {**plan, "S": torch.as_tensor(plan["S"], device=device)}
+        plan = bouzidi_plan_to(build_bouzidi_dense_plan(p, cfg.q_min_threshold),
+                               device)
         statics.append({
             "obstacle": torch.as_tensor(p.obstacle, dtype=torch.bool, device=device),
             "sponge": torch.as_tensor(p.sponge, dtype=torch.float32, device=device),
@@ -299,8 +300,9 @@ def hbm_report_patches(patches: List[PatchLevel], statics: List[Dict],
         state_b = n * (27 * f_bytes + 4 * (1 + 3))
         field_b = n * (1 + 4 + 4)
         bz = st["bouzidi"]
-        # S (float32) + K2's snapshot of the box (storage dtype)
-        bz_b = bz["S"].numel() * (4 + f_bytes) if bz is not None else 0
+        # S (float32, K3's) + K2's links (13 B each) and their scratch (4 B)
+        bz_b = (bz["S"].numel() * 4 + bz["links"]["a"].numel() * 17
+                if bz is not None else 0)
         total += state_b + field_b + bz_b
         if st["engine"] == "inplace":
             edge = (inplace_layout(*p.interior, dev, f_bytes)["edge_elems"] * f_bytes

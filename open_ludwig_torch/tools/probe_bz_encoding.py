@@ -1,6 +1,8 @@
 """Interleaved A/B of the two Bouzidi coefficient encodings on the bench
 case's finest-level box: K2 (the signed single array S, production)
-against K6 (the retired two arrays A and B).
+against K6 (the retired two arrays A and B).  K2 runs over the plan's link
+list in one launch and K6 sweeps the box after a snapshot, so the ratio
+measures the two designs as well as the two encodings.
 
 The port's counterpart of tools/probe_bz_encoding.py.  A and B are exactly
 recoverable from S (A = |S|, B = sign(S)(1 - |S|)), so both kernels run on
@@ -33,7 +35,7 @@ from ..core.patch import PatchLevel, build_patches
 from ..geometry import load_mesh
 from ..ops import engine
 from ..ops.cuda_step import bouzidi, bouzidi_ab
-from ..ops.dense_step import bouzidi_ab_plan, build_bouzidi_dense_plan
+from ..ops.dense_step import bouzidi_ab_plan, bouzidi_plan_to, build_bouzidi_dense_plan
 from ..ops.storage import decode_f
 from ..scaling import compute_domain_params
 
@@ -114,7 +116,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     rng = np.random.default_rng(0)
     f0 = torch.as_tensor(rng.standard_normal(shape, np.float32) * 0.01).to(
         device=dev, dtype=torch.bfloat16)
-    plan_s = {**plan, "S": torch.as_tensor(plan["S"], device=dev)}
+    plan_s = bouzidi_plan_to(plan, dev)
     plan_ab = bouzidi_ab_plan(plan_s, torch.bfloat16)
     apply = {"S": lambda f: bouzidi(f, plan_s), "AB": lambda f: bouzidi_ab(f, plan_ab)}
 

@@ -69,6 +69,7 @@ def test_bouzidi_kernel_matches_plain(bench, cuda_device, store_bf16):
                              cuda_device, reps=1, plain_reps=1)
     assert r["changed"] > 0
     assert r["max_abs_err"] < r["tol"], r
+    assert r["peak_bytes"] == 0, r  # one launch over the links, no snapshot
 
 
 @pytest.mark.parametrize("store_bf16", [False, True], ids=["f32", "bf16"])

@@ -395,7 +395,240 @@ def test_fused_pair_ring_protocol(x0, x1, X):
         assert [xb for _, xb in read] == list(range(x0, x1))
 
 
+# ---- K1: the launch geometry and the pull ----
+
+import os
+import re
+
+from open_ludwig_torch.ops import build
+from open_ludwig_torch.ops.collide_math import collide
+
+
+def _k1_threads_per_block():
+    with open(os.path.join(build.CSRC, "stream_collide.cu")) as fh:
+        src = fh.read()
+    return int(re.search(r"constexpr int THREADS = (\d+);", src).group(1))
+
+
+def _divisor(d):
+    """(m, s) of K1's make_divisor: m = ceil(2^(31 + L) / d), L = ceil(log2
+    d), s = L - 1; m = 0 for d = 1."""
+    if d <= 1:
+        return 0, 0
+    L = int(d - 1).bit_length()
+    return ((1 << (31 + L)) + d - 1) // d, L - 1
+
+
+def _divide(n, d):
+    """K1's divide(): umulhi(n, m) >> s, for uint64 arrays of n < 2^31."""
+    m, s = _divisor(d)
+    if m == 0:
+        return n
+    return ((n * np.uint64(m)) >> np.uint64(32)) >> np.uint64(s)
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 7, 48, 56, 64, 104, 128, 216, 384, 5 * 7,
+                               216 * 216, 384 * 384, 2 ** 30 + 7, 2 ** 31 - 1])
+def test_k1_reciprocal_division_is_exact(d):
+    m, _ = _divisor(d)
+    assert m < 2 ** 32
+    rng = np.random.default_rng(d)
+    n = np.concatenate([rng.integers(0, 2 ** 31, 20000), np.arange(4096),
+                        [2 ** 31 - 1, 2 ** 31 - 2], d * np.arange(1, 50) - 1,
+                        d * np.arange(1, 50)]).astype(np.uint64) % np.uint64(2 ** 31)
+    assert np.array_equal(_divide(n, d), n // np.uint64(d))
+
+
+def _k1_cells(X, Y, Z):
+    """Every thread of K1's grid (ceil(N / THREADS) blocks of THREADS), as
+    the kernel indexes it: (x, y, z) of the threads that run, decoded from
+    the flat cell by the reciprocals of Z and Y."""
+    T = _k1_threads_per_block()
+    N = X * Y * Z
+    cell = (np.arange(-(-N // T))[:, None] * T + np.arange(T)[None, :]).ravel()
+    cell = cell[cell < N].astype(np.uint64)
+    r = _divide(cell, Z)
+    z = cell - r * np.uint64(Z)
+    x = _divide(r, Y)
+    y = r - x * np.uint64(Y)
+    return x.astype(np.int64), y.astype(np.int64), z.astype(np.int64)
+
+
+@pytest.mark.parametrize("shape", [(64, 56, 56), (46, 48, 104), (60, 64, 128),
+                                   (5, 7, 9), (3, 20, 1)],
+                         ids=["L1", "L2", "L3", "odd-Z", "Z1"])
+def test_k1_grid_covers_every_cell_once(shape):
+    X, Y, Z = shape
+    x, y, z = _k1_cells(X, Y, Z)
+    assert (x < X).all() and (y < Y).all() and (z < Z).all()
+    stored = np.zeros(shape, np.int64)
+    np.add.at(stored, (x, y, z), 1)
+    assert (stored == 1).all()
+    assert _k1_threads_per_block() % 32 == 0
+
+
+def _k1_sources(X, Y, Z):
+    """The flat element of the (27, X, Y, Z) input that K1 loads for slot k
+    of each cell (27, X, Y, Z): x and y clamped into the level, z unclamped
+    (+1 / -1 off the source row's address); and each cell's six velocity
+    neighbours (6, X, Y, Z: E, W, N, S, T, B) as its gradient reads them."""
+    N, YZ = X * Y * Z, Y * Z
+    x, y, z = _k1_cells(X, Y, Z)
+    c = (x * Y + y) * Z + z
+    dx = {-1: np.where(x + 1 < X, YZ, 0), 0: 0, 1: np.where(x > 0, -YZ, 0)}
+    dy = {-1: np.where(y + 1 < Y, Z, 0), 0: 0, 1: np.where(y > 0, -Z, 0)}
+    src = np.full((27, X, Y, Z), -1, np.int64)
+    for k in range(27):
+        cx, cy, cz = int(lat.C_X[k]), int(lat.C_Y[k]), int(lat.C_Z[k])
+        src[k, x, y, z] = k * N + c + dx[cx] + dy[cy] - cz
+    nb = np.full((6, X, Y, Z), -1, np.int64)
+    nb[:, x, y, z] = np.stack([c + dx[-1], c + dx[1], c + dy[-1], c + dy[1],
+                               c + np.where(z + 1 < Z, 1, 0), c - np.where(z > 0, 1, 0)])
+    return src, nb
+
+
+@pytest.mark.parametrize("interior", [(6, 7, 10), (5, 4, 9), (3, 4, 2)],
+                         ids=["even-Z", "odd-Z", "Z2"])
+def test_k1_pull_sources(interior):
+    """K1's loads: inside f, the clamped pull's source wherever that is the
+    true source (the slots whose source lies beyond a face differ only in
+    z, and are the ones the face conditions overwrite), and the clamped
+    velocity neighbours exactly."""
+    X, Y, Z = interior
+    N = X * Y * Z
+    src, nb = _k1_sources(X, Y, Z)
+    assert (src >= 0).all() and (src < 27 * N).all()
+    ix, iy, iz = np.meshgrid(np.arange(X), np.arange(Y), np.arange(Z), indexing="ij")
+    for k in range(27):
+        cx, cy, cz = int(lat.C_X[k]), int(lat.C_Y[k]), int(lat.C_Z[k])
+        sx, sy, sz = ix - cx, iy - cy, iz - cz
+        inside = ((sx >= 0) & (sx < X) & (sy >= 0) & (sy < Y) & (sz >= 0) & (sz < Z))
+        clamped = (k * N + (np.clip(sx, 0, X - 1) * Y + np.clip(sy, 0, Y - 1)) * Z
+                   + np.clip(sz, 0, Z - 1))
+        assert np.array_equal(src[k][inside], clamped[inside])
+        assert np.array_equal(src[k] - clamped, sz - np.clip(sz, 0, Z - 1))
+    for i, (ax, d) in enumerate(((0, 1), (0, -1), (1, 1), (1, -1), (2, 1), (2, -1))):
+        n = [ix, iy, iz]
+        n[ax] = np.clip(n[ax] + d, 0, interior[ax] - 1)
+        assert np.array_equal(nb[i], (n[0] * Y + n[1]) * Z + n[2]), i
+
+
+@pytest.mark.parametrize("faces", list(FACES))
+@pytest.mark.parametrize("interior", [(6, 7, 10), (5, 4, 9)], ids=["even-Z", "odd-Z"])
+def test_k1_pull_equals_plain_step(rng, interior, faces):
+    """What K1's loads pull (`_k1_sources`), through the plain step's face
+    masks and collision, equals the plain step exactly, on every face type."""
+    patch, static = _level(interior, FACES[faces], rng)
+    f, vel, iface = _inputs(patch, rng, False)
+    want = ds.dense_stream_collide(f, vel, 0.04, 9, static, patch, iface=iface, **KW)
+    src, _ = _k1_sources(*interior)
+    pulled = f.reshape(-1)[torch.as_tensor(src)]
+
+    def shift(a, cx, cy, cz):  # f[k] is 3-D, vel 4-D
+        if a.dim() == 3:
+            return pulled[(cx + 1) + 3 * (cy + 1) + 9 * (cz + 1)]
+        return _shift_clamped(a, cx, cy, cz)
+
+    got = ds._stream_collide(shift, f, vel, 0.04, 9, static, patch, iface=iface, **KW)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_wall_model_off_its_range_is_no_wall_model(rng):
+    """The identity the kernels' gate rests on (csrc/lbm_cell.cuh,
+    collide_values): on cells whose wall distance is outside (0, 10) the
+    plain collision with the wall model equals the one without, bit for
+    bit, float32."""
+    n = 4000
+    f = torch.as_tensor((lat.W[:, None] * (1 + 0.1 * rng.standard_normal((27, n))))
+                        .astype(np.float32))
+    nbrs = tuple(torch.as_tensor((0.05 * rng.standard_normal((3, n))).astype(np.float32))
+                 for _ in range(6))
+    obstacle = torch.as_tensor(rng.random(n) < 0.05)
+    sponge = torch.as_tensor(np.where(rng.random(n) < 0.3, rng.random(n), 0.0)
+                             .astype(np.float32))
+    wd = torch.as_tensor(rng.choice(np.array([100.0, 10.0, 0.0, -1.0, 1e4, 37.5],
+                                             np.float32), n))
+    kw = dict(tau=0.52, c_wale=0.5, nu_sgs_background=5e-4, sponge_blend=True)
+    u_in = torch.tensor(0.04, dtype=torch.float32)
+    on = collide(f, nbrs, obstacle, sponge, wd, u_in, wall_model=True, **kw)
+    off = collide(f, nbrs, obstacle, sponge, wd, u_in, wall_model=False, **kw)
+    for a, b in zip(on, off):
+        assert torch.equal(a, b)
+    # and inside the range the model acts
+    near = collide(f, nbrs, obstacle, sponge, torch.full((n,), 0.7), u_in,
+                   wall_model=True, **kw)
+    assert not torch.equal(near[0], off[0])
+
+
+# ---- K2: one launch over the links, a barrier between reads and writes ----
+
+
+def _k2_model(f, plan, order_rng, barrier=True):
+    """K2's schedule on one float32 numpy buffer: with the barrier, every
+    link's value computed (phase 1, links in a shuffled order) before any
+    is stored (phase 2, another order); without it, each link computed and
+    stored in turn, as a launch with no barrier may run them."""
+    links = plan["links"]
+    flat = f.reshape(-1).copy()
+    N = f[0].size
+    j = (links["code"] & 31).astype(np.int64)
+    k = 26 - j
+    oslot = np.where(links["code"] & ds.SELF_LINK, j, k)
+    a = links["a"]
+    b = np.float32(1.0) - a
+
+    def value(i):
+        return a[i] * flat[k[i] * N + links["cell"][i]] + b[i] * flat[oslot[i] * N + links["src"][i]]
+
+    order = order_rng.permutation(len(a))
+    if barrier:
+        vals = {i: value(i) for i in order}
+        for i in order_rng.permutation(len(a)):
+            flat[j[i] * N + links["cell"][i]] = vals[i]
+    else:
+        for i in order:
+            flat[j[i] * N + links["cell"][i]] = value(i)
+    return flat.reshape(f.shape)
+
+
+def test_k2_schedule_equals_plain_and_needs_its_barrier():
+    from test_torch_bouzidi_links import synthetic_plan
+
+    plan = synthetic_plan()
+    rng = np.random.default_rng(4)
+    f = (lat.W[:, None, None, None] * (1 + 0.05 * rng.standard_normal(
+        (27,) + tuple(plan["level"])))).astype(np.float32)
+    want = ds.apply_bouzidi_links(torch.as_tensor(f), plan).numpy()
+    for seed in range(5):
+        got = _k2_model(f, plan, np.random.default_rng(seed))
+        assert np.array_equal(got, want)
+    bad = [_k2_model(f, plan, np.random.default_rng(seed), barrier=False)
+           for seed in range(5)]
+    assert any(not np.array_equal(b, want) for b in bad)
+
+
 # ---- tools ----
+
+
+def test_build_variants_and_substitution(tmp_path):
+    """A kernel built from another source directory or with extra flags
+    gets its own library (and _LOADED key); `substituted` hands a library
+    to the wrappers for the block only.  No nvcc is needed for this."""
+    import shutil
+
+    for f in ("stream_collide.cu", "lbm_cell.cuh"):
+        shutil.copy(os.path.join(build.CSRC, f), tmp_path / f)
+    libs = {build._paths("stream_collide", None, ())[1],
+            build._paths("stream_collide", str(tmp_path), ())[1],
+            build._paths("stream_collide", None, ("-DOL_K1_SECTIONS",))[1]}
+    assert len(libs) == 3
+    fake = build.Built(lib=None, path="x", seconds=0.0, ptxas_log="")
+    key = build._key("stream_collide", None, ())
+    before = build._LOADED.get(key)
+    with build.substituted("stream_collide", fake):
+        assert build.load("stream_collide") is fake
+    assert build._LOADED.get(key) is before
 
 
 def test_sass_counts_parses_a_listing():
