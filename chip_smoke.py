@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (open_ludwig_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--k1-reference DIR]
+    python3 chip_smoke.py [--reference DIR]
 
-`--k1-reference DIR` names a directory holding an earlier K1
-(`stream_collide.cu` and its headers, the same C interface): phase 3 then
-also runs it on every K1 input and prints the share of stored f entries
-in which today's K1 differs from it, and both times in turns.  Without it
-(as the smoke run is meant to be run) nothing else changes.
+`--reference DIR` (also `--k1-reference`) names a directory holding an
+earlier `csrc/` (an earlier commit's sources and headers): each of K1-K6
+whose source it holds is built from it too, run beside today's kernel on
+the same inputs (K1 on every phase-3 input, K4 and K5 on phase 3c's and
+3d's, K3 on 4b's, K2 and K6 on the bench box) and timed against it in
+turns, eager and (K2, K4, K6) from a CUDA graph, with the share of stored
+f entries that differ printed.
+Without it (as the smoke run is meant to be run) nothing else changes.
 
 Phases, each raising on failure (nothing is caught):
   1. device: CUDA must be available; prints the card, `nvidia-smi` name and
@@ -24,7 +27,9 @@ Phases, each raising on failure (nothing is caught):
   3c. K4 against its plain version and against K1 (share of stored f
      entries that differ, expected 0), float32 and bf16, on the bench
      case's level 1 (64x56x56, which the bench runs on K4) and on the
-     10.8M-cell shape;
+     10.8M-cell shape, timed against K1 in turns eager and replayed from a
+     CUDA graph (K4 into preallocated outputs), with K4's registers and
+     spills;
   3d. the same for K5, each call on its own clone of the input (K5 must
      equal K1 bit for bit), timed against K1 in turns, with its two
      launches (edge copy, step) timed apart, its layout and its occupancy;
@@ -68,12 +73,14 @@ Phases, each raising on failure (nothing is caught):
      K3's bound), each timed in turns;
   8. the probe's path: K6 against its plain version on the bench case's
      own Bouzidi box, float32 (1e-6) and bf16 (2e-3, decoded f), and
-     against K2 on the same S (under the same bounds; K2 runs over the
-     links, K6 sweeps the box after a snapshot); then
+     against K2 on the same S (under the same bounds; both run one launch
+     over their links), no byte allocated per call, timed against K2 in
+     turns eager and from a CUDA graph; then
      `open_ludwig_torch.tools.probe_bz_encoding` at its defaults (the bench
      case's finest box, K2 against K6 from one bf16 state, then interleaved
-     windows of 300 applications, CUDA events), which must launch each of
-     K2 and K6 once per application and nothing else.
+     windows of 300 applications, CUDA events, and each replayed from a
+     CUDA graph), whose windows must launch each of K2 and K6 once per
+     application and nothing else.
 Every check prints its bound beside its time: the bytes the call must
 move over the card's memory rate (or its operations over the float32
 rate, where larger; `checks.bound`).  Before the last lines, neither jax
@@ -87,6 +94,7 @@ import dataclasses
 import json
 import logging
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -112,8 +120,9 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--k1-reference", default=None, metavar="DIR",
-                    help="an earlier K1's source directory to compare with")
+    ap.add_argument("--reference", "--k1-reference", default=None, metavar="DIR",
+                    help="an earlier csrc/ directory: K1, K2, K4 and K6 are "
+                    "compared with its kernels")
     opts = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -176,13 +185,15 @@ def main(argv=None) -> int:
                 f"local, {a['smem_bytes']} B shared, {a['blocks_per_sm']} "
                 "block(s) per SM")
 
-    def print_k1_ref(label, bf16, r):
-        """K1 against the --k1-reference build on the same input."""
-        d = r["ref"]
-        print(f"[3 K1] {label} {'bf16' if bf16 else 'f32 '} vs the reference K1: "
-              f"{100 * d['diff_frac']:.5f}% stored f differ (max {d['max_abs_err']:.2e})"
-              f" | in turns K1, reference, reference, K1: "
-              + ", ".join(f"{t:.4f}" for t in r["turns_ms"]) + f" ms | card: {smi}",
+    def print_ref(tag, kname, label, bf16, r):
+        """A kernel against its --reference build on the same input."""
+        graph = ("" if "graph_turns_ms" not in r else " | from a CUDA graph: "
+                 + ", ".join(f"{t:.5f}" for t in r["graph_turns_ms"]) + " ms")
+        print(f"[{tag}] {label} {'bf16' if bf16 else 'f32 '} vs the reference "
+              f"{kname}: {100 * r['diff_frac']:.5f}% stored f differ (max "
+              f"{r['max_abs_err']:.2e}, every output equal: {r['equal']}) | in turns "
+              f"{kname}, reference, reference, {kname}: "
+              + ", ".join(f"{t:.5f}" for t in r["turns_ms"]) + f" ms{graph} | card: {smi}",
               flush=True)
 
     def print_k2(tag, plan, bf16, r):
@@ -229,11 +240,19 @@ def main(argv=None) -> int:
         for ln in res:
             print(f"[2 build]   {ln}")
     print(f"[2 build] all kernels in {time.time() - t0:.1f} s (parallel nvcc)")
-    k1_ref = None
-    if opts.k1_reference:
-        k1_ref = build.load("stream_collide", opts.k1_reference)
-        print(f"[2 build] K1 reference from {opts.k1_reference}: {k1_ref.seconds:.1f} s"
-              f" -> {k1_ref.path}", flush=True)
+    for fn in checks.ptxas_summary(build.load("stream_collide_flat").ptxas_log):
+        shape = "<" + ", ".join(re.findall(r"Li(\d+)E", fn["function"])) + ">"
+        print(f"[2 build] K4 {'bf16' if 'bfloat16' in fn['function'] else 'f32 '} "
+              f"{shape} (threads, min blocks a SM): {fn['registers']} registers, "
+              f"spill stores {fn['spill_stores']} B, spill loads "
+              f"{fn['spill_loads']} B", flush=True)
+    refs = {}  # kernel name -> its build from --reference DIR
+    if opts.reference:
+        for kname in knames:
+            if os.path.isfile(os.path.join(opts.reference, kname + ".cu")):
+                refs[kname] = build.load(kname, opts.reference)
+                print(f"[2 build] {kname} reference from {opts.reference}: "
+                      f"{refs[kname].seconds:.1f} s -> {refs[kname].path}", flush=True)
     for bf16 in (False, True):
         a = cuda_step.fused_pair_attrs(bf16)
         print(f"[2 build] fused_pair {'bf16' if bf16 else 'f32 '}: "
@@ -278,9 +297,10 @@ def main(argv=None) -> int:
                       f"{r['plain_ms']:.3f} ms", flush=True)
                 require(r["finite"] and r["max_abs_err"] < r["tol"],
                         ("K1", label, bf16, r["err"], r["finite"]))
-                if k1_ref is not None:
-                    print_k1_ref(label, bf16, checks.check_k1_against(
-                        k1_ref, patch, static, bf16, 17, kw, dev))
+                if "stream_collide" in refs:
+                    print_ref("3 K1", "K1", label, bf16, checks.check_step_against(
+                        refs["stream_collide"], "stream_collide", patch, static, bf16,
+                        17, kw, dev))
 
         # ---- 3b. K1 on the 10.8M-cell single-level sweep shape ----
         t0 = time.time()
@@ -301,9 +321,10 @@ def main(argv=None) -> int:
                   f" | plain {r['plain_ms']:.3f} ms", flush=True)
             require(r["finite"] and r["max_abs_err"] < r["tol"],
                     ("K1 sweep", bf16, r["err"], r["finite"]))
-            if k1_ref is not None:
-                print_k1_ref("sweep", bf16, checks.check_k1_against(
-                    k1_ref, sweep[0], sweep_static, bf16, 18, kw, dev, reps=5))
+            if "stream_collide" in refs:
+                print_ref("3 K1", "K1", "sweep", bf16, checks.check_step_against(
+                    refs["stream_collide"], "stream_collide", sweep[0], sweep_static,
+                    bf16, 18, kw, dev, reps=5))
         torch.cuda.empty_cache()
 
         # ---- 3c/3d. K4 and K5 against plain and against K1 ----
@@ -312,8 +333,9 @@ def main(argv=None) -> int:
             ("sweep", sweep[0], checks.with_sponge_ramp(sweep_static), 5, 1),
         )
         k4, k5 = {}, {}
-        for tag, check, out in (("3c K4", checks.check_flat, k4),
-                                ("3d K5", checks.check_inplace, k5)):
+        for tag, check, out, kname in (
+                ("3c K4", checks.check_flat, k4, "stream_collide_flat"),
+                ("3d K5", checks.check_inplace, k5, "stream_collide_inplace")):
             for label, patch, static, reps, plain_reps in k45_cases:
                 for bf16 in (False, True):
                     r = check(patch, static, bf16, seed=21, kw=kw, device=dev,
@@ -336,6 +358,27 @@ def main(argv=None) -> int:
                                 and r["k1"]["diff_frac"] == 0.0,
                                 (tag, label, bf16, "in-place contract", r["k1"]))
                         print(f"[{tag}]   {k5_detail(r)}", flush=True)
+                    else:
+                        require(r["k1"]["diff_frac"] == 0.0, (tag, label, bf16, r["k1"]))
+                        c = cuda_step.flat_choice(patch, bf16)
+                        want = cuda_step.flat_instantiation(n, bf16, c["resident"])
+                        require(want == {k: c[k] for k in want}, (tag, label, c, want))
+                        print(f"[{tag}]   {c['threads']} threads a block, launch "
+                              f"bounds for {c['min_blocks']} a SM ({-(-n // c['threads'])}"
+                              f" blocks; the one-wave shape holds {c['resident']})",
+                              flush=True)
+                        print(f"[{tag}]   in turns K4, K1, K1, K4: "
+                              + ", ".join(f"{t:.5f}" for t in r["turns_ms"])
+                              + " ms | from a CUDA graph (K4 into preallocated "
+                              "outputs): " + ", ".join(
+                                  f"{t:.5f}" for t in r["graph_turns_ms"])
+                              + f" ms -> K4 {r['graph_ms']:.5f} ms ("
+                              f"{100 * r['bound_ms'] / r['graph_ms']:.0f}% of its "
+                              f"bound), K1 {r['k1_graph_ms']:.5f} ms", flush=True)
+                    if kname in refs:
+                        print_ref(tag, tag[-2:], label, bf16, checks.check_step_against(
+                            refs[kname], kname, patch, static, bf16, 21, kw, dev,
+                            reps=reps))
         torch.cuda.empty_cache()
         # ---- 4. K2 against plain on the bench Bouzidi box ----
         plan = statics[2]["bouzidi"]
@@ -344,6 +387,9 @@ def main(argv=None) -> int:
             r = checks.check_bouzidi(levels[2], plan, bf16, seed=19, device=dev)
             k2[bf16] = r
             print_k2("4 K2", plan, bf16, r)
+            if "bouzidi" in refs:
+                print_ref("4 K2", "K2", "bench box", bf16, checks.check_bouzidi_against(
+                    refs["bouzidi"], "bouzidi", levels[2], plan, bf16, 19, dev))
 
         # ---- 4b. K3 (+ K2) against the plain pair and the unfused kernels ----
         k3 = {}
@@ -378,6 +424,10 @@ def main(argv=None) -> int:
                         ("K3 vs plain", label, bf16, r["err"]))
                 require(checks.within_k3_tol(u, bf16),
                         ("K3 vs unfused kernels", label, bf16, u))
+                if "fused_pair" in refs:
+                    print_ref("4b K3", "K3", label, bf16, checks.check_step_against(
+                        refs["fused_pair"], "fused_pair", patch, static, bf16, 23, kw,
+                        dev, reps=reps))
         del sweep, sweep_static
         torch.cuda.empty_cache()
 
@@ -599,25 +649,34 @@ def main(argv=None) -> int:
         for bf16 in (False, True):
             r = checks.check_bouzidi_ab(levels[2], plan, bf16, seed=43, device=dev)
             k6[bf16] = r
-            print(f"[8 K6] box {tuple(plan['dim'])} {'bf16' if bf16 else 'f32 '} | vs "
-                  f"plain: err {r['max_abs_err']:.2e} (tol {r['tol']:.0e}, "
-                  f"{r['changed']} slots changed) | vs K2 on the same S: "
-                  f"{r['k2_err']:.2e} | kernel+snapshot {r['ms']:.4f} ms, bound "
-                  f"{r['bound_ms']:.6f} ms ({r['bytes'] / 1e3:.1f} kB of links; the "
-                  f"box sweep's {r['box_bound_ms']:.6f}), K2 "
-                  f"{r['k2_ms']:.4f} ms | plain {r['plain_ms']:.3f} ms | card: {smi}",
-                  flush=True)
+            print(f"[8 K6] box {tuple(plan['dim'])} {'bf16' if bf16 else 'f32 '}, "
+                  f"{r['links']} links | vs plain: err {r['max_abs_err']:.2e} (tol "
+                  f"{r['tol']:.0e}, {r['changed']} slots changed) | vs K2 on the same "
+                  f"S: {r['k2_err']:.2e} | links {r['ms']:.5f} ms (from a CUDA graph "
+                  f"{r['graph_ms']:.5f} ms), bound {r['bound_ms']:.6f} ms "
+                  f"({r['bytes'] / 1e3:.1f} kB of links; the box sweep's "
+                  f"{r['box_bound_ms']:.6f}), K2 {r['k2_ms']:.5f} ms (graph "
+                  f"{r['k2_graph_ms']:.5f}); in turns K6, K2, K2, K6: "
+                  + ", ".join(f"{t:.5f}" for t in r["turns_ms"]) + " ms, graph "
+                  + ", ".join(f"{t:.5f}" for t in r["graph_turns_ms"])
+                  + f" ms | allocated per call {r['peak_bytes']} B | plain "
+                  f"{r['plain_ms']:.3f} ms | card: {smi}", flush=True)
             require(r["changed"] > 0 and r["max_abs_err"] < r["tol"]
-                    and r["k2_err"] < r["tol"], ("K6", bf16, r))
+                    and r["k2_err"] < r["tol"] and r["peak_bytes"] == 0, ("K6", bf16, r))
+            if "bouzidi_ab" in refs:
+                print_ref("8 K6", "K6", "bench box", bf16, checks.check_bouzidi_against(
+                    refs["bouzidi_ab"], "bouzidi_ab", levels[2], plan, bf16, 43, dev))
         cuda_step.reset_launches()
         probe = probe_bz_encoding.main([])
-        got8 = dict(cuda_step.LAUNCHES)
+        got8 = probe["launches"]  # at the end of its windows, before its graphs
         apps = 2 + probe["reps"] * probe["n"]  # check, warm-up, windows
+        gr = probe["graph_ms"]
         print(f"[8 probe] launches {got8} | K2 {probe['ms_min']['S']:.5f}, K6 "
               f"{probe['ms_min']['AB']:.5f} ms per application (best of "
               f"{probe['reps']} windows of {probe['n']}) -> K6 / K2 "
-              f"{probe['ms_min']['AB'] / probe['ms_min']['S']:.3f} | card: {smi}",
-              flush=True)
+              f"{probe['ms_min']['AB'] / probe['ms_min']['S']:.3f} | from a CUDA "
+              f"graph K2 {gr['S']:.5f}, K6 {gr['AB']:.5f} ms -> K6 / K2 "
+              f"{gr['AB'] / gr['S']:.3f} | card: {smi}", flush=True)
         require(got8 == {**{k: 0 for k in got8}, "bouzidi": apps, "bouzidi_ab": apps},
                 ("probe launches", got8, apps))
         require(probe["dim"] == tuple(plan["dim"]) and probe["max_abs_err"] < 2e-3,

@@ -8,9 +8,10 @@ same layers (`tests/test_patch_pallas.py:114, :400, :439`):
 
   K1 stream-collide: float32 < 1e-5; bf16 g-storage < 2e-3 (decoded f)
   K2 Bouzidi:        float32 < 1e-6; bf16 g-storage < 2e-3 (decoded f)
-  K6 two-array Bouzidi: the same as K2, against its plain version; against
-                     K2 on the same S (A and B in the storage dtype) < 2e-3
-                     in bf16, the probe's bound
+  K6 two-array Bouzidi: the same as K2, against its plain version
+                     (float32 < 1e-6, bf16 < 2e-3); against K2 on the same
+                     S (A and B in the storage dtype) the same, the probe's
+                     bound in bf16
   K4 flat step, K5 in-place step: float32 < 1e-5; bf16 g-storage < 2e-3
                      (decoded f), against their plain versions (the
                      reference's flat and 2-D kernels are held to the XLA
@@ -37,8 +38,10 @@ is larger (`bound`), from the card's published peaks (`CARD_PEAKS`).
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
-from typing import Callable, Dict, List, Tuple
+import re
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -71,7 +74,7 @@ from .ops.cuda_step import (
     stream_collide_inplace,
 )
 from .ops.dense_step import (
-    apply_bouzidi_ab_plain,
+    apply_bouzidi_ab_links,
     apply_bouzidi_dense,
     apply_bouzidi_links,
     bouzidi_ab_plan,
@@ -147,7 +150,7 @@ def link_work(plan: Dict, store_bf16: bool, coef_bytes: int = 4
     its value written in the storage type, and its coefficient(s) of
     `coef_bytes` read; the rest of the box is not touched."""
     fb = 2 if store_bf16 else 4
-    n = len(plan["links"]["a"])
+    n = len(plan["links"]["cell"])
     return n * (3 * fb + coef_bytes), LINK_OPS * n
 
 
@@ -195,8 +198,9 @@ def time_cuda(fn: Callable[[], object], reps: int, warmup: int = 1) -> float:
 def graph_ms(fn: Callable[[], object], reps: int, calls: int = 20) -> float:
     """Milliseconds per call of `fn` replayed from a CUDA graph of `calls`
     calls, between CUDA events over `reps` replays: the device's time with
-    no host launch overhead between the calls.  `fn` must allocate nothing
-    that outlives the capture (an in-place kernel)."""
+    no host launch overhead between the calls.  What `fn` allocates comes
+    from the graph's pool and must not outlive the call (an in-place
+    kernel, preallocated outputs, or outputs dropped at once)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -309,32 +313,143 @@ def check_stream_collide(patch: PatchLevel, static: Dict, store_bf16: bool,
     return out
 
 
-def check_k1_against(ref: build.Built, patch: PatchLevel, static: Dict,
-                     store_bf16: bool, seed: int, kw: Dict, device,
-                     reps: int = 20) -> Dict:
-    """K1 against `ref`, another build of it with the same C interface (K1
-    of an earlier source, `build.load("stream_collide", csrc=DIR)`), on one
-    input: "ref" holds the differences (`state_diff`: the share of stored f
-    entries that differ, max-abs errors), "turns_ms" both times in turns
-    (K1, ref, ref, K1), "ms" and "ref_ms" the better of each pair."""
-    inp = random_level_inputs(patch, store_bf16, seed, device)
-
-    def k1():
-        return stream_collide(inp["f"], inp["vel"], 0.04, 9, static, patch,
-                              iface=inp["iface"], **kw)
-
-    def other():
-        with build.substituted("stream_collide", ref):
-            return k1()
-
-    a, b = k1(), other()
-    torch.cuda.synchronize()
-    out = {"ref": state_diff(*a, *b)}
-    del a, b
-    turns = [time_cuda(fn, reps) for fn in (k1, other, other, k1)]
-    out.update(turns_ms=turns, ms=min(turns[0], turns[3]),
-               ref_ms=min(turns[1], turns[2]))
+def ptxas_summary(log: str) -> List[Dict]:
+    """Registers and spills per kernel function from an `nvcc -Xptxas -v`
+    log (`build.Built.ptxas_log`): [{"function", "registers",
+    "spill_stores", "spill_loads"}] in the log's order."""
+    out, fn, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            out.append({"function": fn, "registers": int(m.group(1)),
+                        "spill_stores": spills[0], "spill_loads": spills[1]})
+            fn, spills = None, (0, 0)
     return out
+
+
+def substituted_call(ref: build.Built, name: str, fn: Callable[[], object]
+                     ) -> Callable[[], object]:
+    """`fn` with the wrappers launching `ref` (another build of kernel
+    `name` with the same C interface, `build.load(name, csrc=DIR)`)."""
+    def inner():
+        with build.substituted(name, ref):
+            return fn()
+    return inner
+
+
+def check_against(now: Tuple[Callable, Callable], ref: Tuple[Callable, Callable],
+                  reps: int = 20, graph: bool = False) -> Dict:
+    """A kernel against its earlier version on one input: each side is
+    (run, call), `run()` giving the outputs compared (f first) and `call()`
+    timed, in turns (today's, ref, ref, today's).  Returns "diff_frac" (the
+    share of stored f entries that differ), "max_abs_err" (decoded f),
+    "equal" (every output bit for bit), "turns_ms", "ms" and "ref_ms" (the
+    better of each pair), and with `graph` the same replayed from a CUDA
+    graph ("graph_turns_ms", "graph_ms", "ref_graph_ms")."""
+    a, b = now[0](), ref[0]()
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    torch.cuda.synchronize()
+    out = {"diff_frac": float((a[0] != b[0]).float().mean()),
+           "max_abs_err": float((storage.decode_f(a[0]) - storage.decode_f(b[0])).abs().max()),
+           "equal": all(torch.equal(x, y) for x, y in zip(a, b))}
+    del a, b
+    turns = [time_cuda(fn, reps) for fn in (now[1], ref[1], ref[1], now[1])]
+    out.update(turns_ms=turns, ms=min(turns[0], turns[3]), ref_ms=min(turns[1], turns[2]))
+    if graph:
+        turns = [graph_ms(fn, reps) for fn in (now[1], ref[1], ref[1], now[1])]
+        out.update(graph_turns_ms=turns, graph_ms=min(turns[0], turns[3]),
+                   ref_graph_ms=min(turns[1], turns[2]))
+    return out
+
+
+def check_step_against(ref: build.Built, name: str, patch: PatchLevel,
+                       static: Dict, store_bf16: bool, seed: int, kw: Dict,
+                       device, reps: int = 20) -> Dict:
+    """A stream-collide kernel (`name`: "stream_collide" K1,
+    "stream_collide_flat" K4, "stream_collide_inplace" K5, or "fused_pair"
+    K3 with the level's Bouzidi plan) against `ref`, the same kernel built
+    from another source (`check_against`), on one random input of `patch`;
+    K4 also replayed from a CUDA graph into preallocated outputs.  K5
+    writes its f in place: each compared run takes a fresh copy, the timed
+    calls step one working copy."""
+    inp = random_level_inputs(patch, store_bf16, seed, device)
+    f, vel = inp["f"], inp["vel"]
+    args = (0.04, 9, static, patch)
+    graph = False
+    if name == "stream_collide":
+        run = call = lambda: stream_collide(f, vel, *args, iface=inp["iface"], **kw)
+    elif name == "stream_collide_flat":
+        bufs = (torch.empty_like(f), torch.empty(f.shape[1:], device=device),
+                torch.empty_like(vel))
+        run = lambda: stream_collide_flat(f, vel, *args, **kw)
+        call = lambda: stream_collide_flat(f, vel, *args, out=bufs, **kw)
+        graph = True
+    elif name == "stream_collide_inplace":
+        work = f.clone()
+        run = lambda: stream_collide_inplace(f.clone(), vel, *args, **kw)
+        call = lambda: stream_collide_inplace(work, vel, *args, **kw)
+    elif name == "fused_pair":
+        iface_b = random_level_inputs(patch, store_bf16, seed + 1, device)["iface"]
+        run = call = lambda: fused_pair(
+            f, vel, (0.04, 0.041), (9, 10), static, patch, static["bouzidi"],
+            iface_a=inp["iface"], iface_b=iface_b, **kw)
+    else:
+        raise ValueError(f"check_step_against: no stream-collide kernel {name!r}")
+    return check_against((run, call), (substituted_call(ref, name, run),
+                                       substituted_call(ref, name, call)), reps, graph)
+
+
+def _bouzidi_ab_box(ref: build.Built, f: torch.Tensor, pab: Dict) -> torch.Tensor:
+    """K6 as built before its link list (C entry `ol_bouzidi_ab`: the box
+    sweep after a snapshot of the box), in place on `f`: the earlier
+    version `check_bouzidi_against` compares K6 with."""
+    fn = ref.lib.ol_bouzidi_ab
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    (lx, ly, lz), (bx, by, bz) = pab["lo"], pab["dim"]
+    snap = f[:, lx:lx + bx, ly:ly + by, lz:lz + bz].contiguous()
+    rc = fn(int(f.dtype == torch.bfloat16), snap.data_ptr(), pab["A"].data_ptr(),
+            pab["B"].data_ptr(), f.data_ptr(), bx, by, bz, lx, ly, lz,
+            *f.shape[1:], torch.cuda.current_stream(f.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"bouzidi_ab (reference) launch failed: CUDA error {rc}")
+    return f
+
+
+def check_bouzidi_against(ref: build.Built, name: str, patch: PatchLevel, plan: Dict,
+                          store_bf16: bool, seed: int, device, reps: int = 50) -> Dict:
+    """K2 (`name` "bouzidi") or K6 ("bouzidi_ab", A and B in f's dtype)
+    against `ref`, the same kernel built from another source
+    (`check_against`, eager and from a CUDA graph), on one random f of
+    `patch`: each compared run from its own copy, the timed calls on one
+    working copy.  A K6 `ref` without today's C entry is K6 before its link
+    list, called as such (`_bouzidi_ab_box`)."""
+    f0 = random_level_inputs(patch, store_bf16, seed, device)["f"]
+    work = f0.clone()
+    if name == "bouzidi":
+        def apply(f):
+            return bouzidi(f, plan)
+    else:
+        pab = bouzidi_ab_plan(plan, f0.dtype)
+
+        def apply(f):
+            return bouzidi_ab(f, pab)
+    now = (lambda: apply(f0.clone()), lambda: apply(work))
+    if name == "bouzidi_ab" and not hasattr(ref.lib, "ol_bouzidi_ab_links"):
+        old = (lambda: _bouzidi_ab_box(ref, f0.clone(), pab),
+               lambda: _bouzidi_ab_box(ref, work, pab))
+    else:
+        old = tuple(substituted_call(ref, name, fn) for fn in now)
+    return check_against(now, old, reps, graph=True)
 
 
 def check_flat(patch: PatchLevel, static: Dict, store_bf16: bool, seed: int,
@@ -342,13 +457,18 @@ def check_flat(patch: PatchLevel, static: Dict, store_bf16: bool, seed: int,
     """K4 against stream_collide_flat_plain and against K1 on the card, from
     one input (A -> B: nothing is modified).  Returns max-abs errors against
     the plain version, the comparison with K1 ("k1": errors and the share
-    of stored f entries that differ), and ms per call of K4, K1 and plain."""
+    of stored f entries that differ), and ms per call of K4 and K1 in turns
+    (K4, K1, K1, K4: "turns_ms"; "ms" and "k1_ms" the better of each pair),
+    the same replayed from a CUDA graph ("graph_turns_ms", "graph_ms",
+    "k1_graph_ms"; K4 into preallocated outputs), and of the plain version."""
     inp = random_level_inputs(patch, store_bf16, seed, device)
     u, s = 0.04, 9
     f, vel = inp["f"], inp["vel"]
+    bufs = (torch.empty_like(f), torch.empty(f.shape[1:], device=device),
+            torch.empty_like(vel))
 
     def k4():
-        return stream_collide_flat(f, vel, u, s, static, patch, **kw)
+        return stream_collide_flat(f, vel, u, s, static, patch, out=bufs, **kw)
 
     def k1():
         return stream_collide(f, vel, u, s, static, patch, **kw)
@@ -360,14 +480,17 @@ def check_flat(patch: PatchLevel, static: Dict, store_bf16: bool, seed: int,
             fo = storage.encode_f(fo, storage.STORE_BF16)
         return fo, ro, vo
 
-    a, b, c = k4(), k1(), plain()
+    a, b, c = stream_collide_flat(f, vel, u, s, static, patch, **kw), k1(), plain()
     torch.cuda.synchronize()
     out = {**state_diff(*a, *c), "tol": K1_TOL[store_bf16],
            "k1": state_diff(*a, *b),
            **bound(*step_work(patch, store_bf16, kw["wall_model"]), device)}
     del a, b, c
-    out["ms"] = time_cuda(k4, reps)
-    out["k1_ms"] = time_cuda(k1, reps)
+    turns = [time_cuda(fn, reps) for fn in (k4, k1, k1, k4)]
+    out.update(turns_ms=turns, ms=min(turns[0], turns[3]), k1_ms=min(turns[1], turns[2]))
+    turns = [graph_ms(fn, reps) for fn in (k4, k1, k1, k4)]
+    out.update(graph_turns_ms=turns, graph_ms=min(turns[0], turns[3]),
+               k1_graph_ms=min(turns[1], turns[2]))
     out["plain_ms"] = time_cuda(plain, plain_reps)
     return out
 
@@ -474,32 +597,47 @@ def check_bouzidi(patch: PatchLevel, plan: Dict, store_bf16: bool, seed: int,
 
 def check_bouzidi_ab(patch: PatchLevel, plan: Dict, store_bf16: bool, seed: int,
                      device, reps: int = 50, plain_reps: int = 10) -> Dict:
-    """K6 (snapshot + box sweep, in place; A and B in the storage dtype)
-    against apply_bouzidi_ab_plain and against K2 on the same S, on the
-    card.  Returns the max-abs errors of decoded f against both, the links'
-    bound (two coefficients of the storage type each) beside the box
-    sweep's, and ms per call of K6, K2 and the plain version."""
+    """K6 (one launch over the two-array plan's links, in place; A and B in
+    the storage dtype) against its plain version `apply_bouzidi_ab_links`
+    and against K2 on the same S, on the card.  Returns the max-abs errors
+    of decoded f against both, the slots changed, the links' bound (two
+    coefficients of the storage type each) beside the box sweep's, the
+    bytes allocated at the peak of one call ("peak_bytes", 0 expected),
+    and ms per call of K6 and K2, eager in turns (K6, K2, K2, K6) and
+    replayed from a CUDA graph ("graph_ms", "k2_graph_ms"), and of the
+    plain version."""
     f0 = random_level_inputs(patch, store_bf16, seed, device)["f"]
     pab = bouzidi_ab_plan(plan, f0.dtype)
     fk = bouzidi_ab(f0.clone(), pab)
-    fp = apply_bouzidi_ab_plain(f0, pab)
+    fp = apply_bouzidi_ab_links(f0, pab)
     f2 = bouzidi(f0.clone(), plan)
     torch.cuda.synchronize()
     err = float((storage.decode_f(fk) - storage.decode_f(fp)).abs().max())
     err_k2 = float((storage.decode_f(fk) - storage.decode_f(f2)).abs().max())
     changed = int((fk != f0).sum())
     del fk, fp, f2
-    links = int(torch.count_nonzero(pab["A"]))
-    box = bound(*box_work(plan, 2 * pab["A"].numel() * pab["A"].element_size(),
-                          store_bf16, links), device)
+    elem = pab["A"].element_size()
+    box = bound(*box_work(plan, 2 * pab["A"].numel() * elem, store_bf16,
+                          len(pab["links"]["cell"])), device)
     out = {"max_abs_err": err, "k2_err": err_k2, "changed": changed,
-           "tol": K2_TOL[store_bf16], "box_bound_ms": box["bound_ms"],
-           **bound(*link_work(plan, store_bf16, 2 * pab["A"].element_size()),
-                   device)}
+           "tol": K2_TOL[store_bf16], "links": len(pab["links"]["cell"]),
+           "box_bound_ms": box["bound_ms"],
+           **bound(*link_work(pab, store_bf16, 2 * elem), device)}
     work = f0.clone()
-    out["ms"] = time_cuda(lambda: bouzidi_ab(work, pab), reps)
-    out["k2_ms"] = time_cuda(lambda: bouzidi(work, plan), reps)
-    out["plain_ms"] = time_cuda(lambda: apply_bouzidi_ab_plain(f0, pab), plain_reps)
+
+    def k6():
+        return bouzidi_ab(work, pab)
+
+    def k2():
+        return bouzidi(work, plan)
+
+    out["peak_bytes"] = step_peak_bytes(k6, device)
+    turns = [time_cuda(fn, reps) for fn in (k6, k2, k2, k6)]
+    out.update(turns_ms=turns, ms=min(turns[0], turns[3]), k2_ms=min(turns[1], turns[2]))
+    turns = [graph_ms(fn, reps) for fn in (k6, k2, k2, k6)]
+    out.update(graph_turns_ms=turns, graph_ms=min(turns[0], turns[3]),
+               k2_graph_ms=min(turns[1], turns[2]))
+    out["plain_ms"] = time_cuda(lambda: apply_bouzidi_ab_links(f0, pab), plain_reps)
     return out
 
 

@@ -1,6 +1,7 @@
-// Per-cell physics of one stream-collide sub-step, shared by K1
-// (stream_collide.cu), K3 (fused_pair.cu), K4 (stream_collide_flat.cu) and
-// K5 (stream_collide_inplace.cu) so that all compile the same device code:
+// Per-cell physics of one stream-collide sub-step, shared by K1 and K4
+// (stream_collide.cu, stream_collide_flat.cu, through the cell body of
+// stream_collide_body.cuh), K3 (fused_pair.cu) and K5
+// (stream_collide_inplace.cu) so that all compile the same device code:
 //   neighbours + apply_faces: pull streaming of the 27 populations with
 //     the boundary conditions of the level's six faces (face_value): every
 //     slot is loaded from its source clamped into the level (K1 leaves z
@@ -166,7 +167,9 @@ __device__ __forceinline__ float inlet_factor(const Step& p, int x, int y,
 // Population k of cell (x, y, z) where its pull source lies beyond `face`:
 // the face's boundary condition.  `mirror(km)` returns population km of
 // the cell itself.
-template <bool G, class Mirror>
+// With IFACE false (K4: a level without interface faces) the ghost-plane
+// tail is compiled out and a z-mirror face is the last case.
+template <bool G, bool IFACE = true, class Mirror>
 __device__ __forceinline__ float face_value(const Step& p, int k, int face,
                                             int x, int y, int z,
                                             float inlet_fac, Mirror mirror) {
@@ -180,7 +183,8 @@ __device__ __forceinline__ float face_value(const Step& p, int k, int face,
            ((G ? 0.0f : 1.0f) + 3.0f * cu + 4.5f * cu * cu - 1.5f * u_in * u_in);
   }
   if (bc == BC_MIRROR_Y) return mirror((cx + 1) + 3 * (1 - cy) + 9 * (cz + 1));
-  if (bc == BC_MIRROR_Z) return mirror((cx + 1) + 3 * (cy + 1) + 9 * (1 - cz));
+  if (!IFACE || bc == BC_MIRROR_Z)
+    return mirror((cx + 1) + 3 * (cy + 1) + 9 * (1 - cz));
   // BC_INTERFACE
   const int ax = face >> 1;
   const int a = ax == 0 ? y : x;
@@ -228,7 +232,7 @@ __device__ __forceinline__ Nbr neighbours(const Step& p, int x, int y, int z) {
   return n;
 }
 
-template <bool G, class Mirror>
+template <bool G, bool IFACE = true, class Mirror>
 __device__ __forceinline__ void apply_faces(const Step& p, int x, int y, int z,
                                             Mirror mirror, float f[27]) {
   const int X = p.X, Y = p.Y, Z = p.Z;
@@ -246,7 +250,7 @@ __device__ __forceinline__ void apply_faces(const Step& p, int x, int y, int z,
     else if (cz > 0 && z == 0) face = 4;
     else if (cz < 0 && z == Z - 1) face = 5;
     if (face >= 0)
-      f[k] = face_value<G>(p, k, face, x, y, z, inlet_fac, mirror);
+      f[k] = face_value<G, IFACE>(p, k, face, x, y, z, inlet_fac, mirror);
   }
 }
 

@@ -3,21 +3,9 @@
 // Replaces the Pallas kernel make_pallas_step
 // (open_ludwig_tpu/ops/pallas_step.py:247, pallas_call at :883).
 //
-// One thread per cell of the unpadded (X, Y, Z) box, z fastest, so a warp
-// reads 32 consecutive cells of each population row.  Per cell
-// (lbm_cell.cuh, shared with K3, K4 and K5):
-//   1. pull streaming: population k comes from cell - c_k of the A buffer
-//      (f_in), 27 loads back to back, x and y clamped into the level, z
-//      not: a z source beyond the level lies beyond a z face, whose
-//      condition then overwrites the slot (apply_faces), and its address
-//      stays inside f (one element past a plane's end or before its start,
-//      in a neighbouring plane);
-//   2. collision (collide_values): moments, sponge blend, wall model, WALE
-//      omega from the six face-neighbour velocities of vel_in, regularized
-//      BGK + Guo forcing;
-//   3. f, rho and vel go to the B buffer.  Concurrent CTAs run in no
-//      order, so the TPU kernel's in-place f (safe there only because its
-//      grid runs in order) does not carry over.
+// The cell body (pull, face conditions, collision, stores, on one flat
+// grid with z fastest) is stream_collide_body.cuh's, which K4 shares; K1
+// instantiates it with the interface faces' ghost planes.
 //
 // What bounds it on an H100.  A bf16 step moves ~145 bytes a cell (27*2
 // read f, 27*2 write f, 12 read vel, 16 write rho and vel, 9 statics);
@@ -25,21 +13,18 @@
 // ~3,000-3,150 static instructions a cell.  The sections probe
 // (tools/probe_k1_sections.py) finds the pull, the face test, the velocity
 // gradient and the moments (which wait for the loads) the longest; the
-// arithmetic of the collision is short.  What the design does:
-//   - the 27 slot addresses are one wide add each: the plane base pointers
-//     are kernel parameters and the offsets 32-bit (checked: N + 2 YZ <
-//     2^31), with the z offsets +-1 immediate;
-//   - the wall model's transcendental chain runs only where the wall
-//     distance is in (0, 10) (collide_values): bit-equal, 4-6% of K1's time;
-//   - the flat cell index is decoded without a division: a multiply-high
-//     and a shift by Z's and Y's round-up reciprocals (exact below 2^31).
+// arithmetic of the collision is short.  What the design does: the
+// addressing of the body (plane base pointers, 32-bit offsets, z
+// unclamped, the index decoded by reciprocals), and the wall model's
+// transcendental chain only where the wall distance is in (0, 10)
+// (collide_values): bit-equal, 4-6% of K1's time.
 // Measured and taken out (PERF.md): a grid over (z-tiles, y-tiles, x)
 // (idle lanes and row segments off the 128-byte lines on the 10.8M-cell
 // level: 0.80 against 0.70 ms) and two z-adjacent cells a thread with
 // paired accesses (96-128 registers, half the resident warps: 1.08 ms at
 // 10.8M cells, 4.59 at 63.7M against 4.05).
 
-#include "lbm_cell.cuh"
+#include "stream_collide_body.cuh"
 
 #ifdef OL_K1_SECTIONS
 // tools/probe_k1_sections.py builds K1 with -DOL_K1_SECTIONS: lane 0 of each
@@ -61,44 +46,8 @@ namespace {
 
 constexpr int THREADS = 128;
 
-// n / d for n < 2^31 without a division: q = umulhi(n, m) >> s with
-// m = ceil(2^(31 + L) / d), L = ceil(log2 d), s = L - 1 (Granlund and
-// Montgomery's round-up reciprocal; exact for 31-bit n); d = 1 has m = 0.
-struct Divisor {
-  unsigned m, s;
-};
-static Divisor make_divisor(unsigned d) {
-  if (d <= 1) return {0u, 0u};
-  unsigned L = 0;
-  while ((1ull << L) < d) ++L;
-  const unsigned long long m = ((1ull << (31 + L)) + d - 1) / d;
-  return {(unsigned)m, L - 1};
-}
-__device__ __forceinline__ unsigned divide(unsigned n, Divisor d) {
-  return d.m ? __umulhi(n, d.m) >> d.s : n;
-}
-
-struct Params {
-  const void* fin[27];  // plane k of the A buffer (storage type)
-  void* fout[27];       // plane k of the B buffer
-  const float* vel_in;
-  float* rho_out;
-  float* vel_out;
-  lbm::Fields fld;
-  lbm::Step s;
-  int N;  // cells of the level (N + 2 Y Z < 2^31)
-  Divisor byZ, byY;
-};
-
-__device__ __forceinline__ float ld1(const float* p, int i) { return __ldg(p + i); }
-__device__ __forceinline__ float ld1(const __nv_bfloat16* p, int i) {
-  return __uint_as_float(
-      (unsigned)__ldg(reinterpret_cast<const unsigned short*>(p) + i) << 16);
-}
-
 template <typename T>
-__global__ void __launch_bounds__(THREADS) stream_collide_kernel(const Params p) {
-  constexpr bool G = sizeof(T) == 2;  // bf16 g-space storage
+__global__ void __launch_bounds__(THREADS) stream_collide_kernel(const sc::Params p) {
 #ifdef OL_K1_SECTIONS
   long long t_mark = clock64();
   const SectionMark mark{t_mark};
@@ -111,59 +60,7 @@ __global__ void __launch_bounds__(THREADS) stream_collide_kernel(const Params p)
   const unsigned active = __activemask();
   if ((threadIdx.x & 31) == 0) atomicAdd(&ol_k1_cycles[7], (unsigned long long)__popc(active));
 #endif
-  const int Y = p.s.Y, Z = p.s.Z;
-  const unsigned r = divide(cell, p.byZ);
-  const int z = (int)(cell - r * (unsigned)Z);
-  const int x = (int)divide(r, p.byY);
-  const int y = (int)(r - (unsigned)x * (unsigned)Y);
-  const int c = (int)cell;
-  const int YZ = Y * Z;
-  // x and y neighbour offsets clamped into the level, at [c + 1] for the
-  // source x - c (lbm::neighbours)
-  const int dx[3] = {x + 1 < p.s.X ? YZ : 0, 0, x > 0 ? -YZ : 0};
-  const int dy[3] = {y + 1 < Y ? Z : 0, 0, y > 0 ? -Z : 0};
-
-  // ---- 1. pull: slots g, g + 9, g + 18 of (cx, cy) = (g % 3 - 1, g / 3 - 1) ----
-  float f[27];
-#pragma unroll
-  for (int g = 0; g < 9; ++g) {
-    const int o = c + dx[g % 3] + dy[g / 3];  // the source row at z
-    f[g] = ld1(static_cast<const T*>(p.fin[g]), o + 1);        // cz = -1
-    f[g + 9] = ld1(static_cast<const T*>(p.fin[g + 9]), o);    // cz = 0
-    f[g + 18] = ld1(static_cast<const T*>(p.fin[g + 18]), o - 1);  // cz = +1
-  }
-  mark(0);
-  lbm::apply_faces<G>(
-      p.s, x, y, z,
-      [&](int km) { return ld1(static_cast<const T*>(p.fin[km]), c); }, f);
-  mark(1);
-
-  // ---- 2. collision ----
-  const bool solid = __ldg(p.fld.obstacle + c) != 0;
-  const float sp = __ldg(p.fld.sponge + c);
-  const float wd = p.s.wall_model ? __ldg(p.fld.wall + c) : 0.0f;
-  float rho, u[3];
-  lbm::collide_values<G>(
-      p.s, solid, sp, wd,
-      [&](float g[3][3]) {
-        const int zp = z + 1 < Z ? 1 : 0, zm = z > 0 ? -1 : 0;
-#pragma unroll
-        for (int d = 0; d < 3; ++d) {
-          const float* V = p.vel_in + (long long)d * p.N + c;
-          g[d][0] = 0.5f * (__ldg(V + dx[0]) - __ldg(V + dx[2]));
-          g[d][1] = 0.5f * (__ldg(V + dy[0]) - __ldg(V + dy[2]));
-          g[d][2] = 0.5f * (__ldg(V + zp) - __ldg(V + zm));
-        }
-      },
-      f, rho, u, mark);
-
-  // ---- 3. stores ----
-#pragma unroll
-  for (int k = 0; k < 27; ++k) lbm::st(static_cast<T*>(p.fout[k]), c, f[k]);
-  p.rho_out[c] = rho;
-#pragma unroll
-  for (int d = 0; d < 3; ++d) p.vel_out[(long long)d * p.N + c] = u[d];
-  mark(6);
+  sc::update_cell<T, true>(p, cell, mark);
 }
 
 }  // namespace
@@ -180,31 +77,15 @@ extern "C" int ol_stream_collide(
     int bc1, int bc2, int bc3, int bc4, int bc5, float u_inlet, int seed,
     double tau, double c_wale, double nu_sgs, double inlet_turb,
     int wall_model, int sponge_blend, void* stream) {
-  const long long n = (long long)X * Y * Z;
-  // 32-bit offsets, the clamped neighbours' included
-  if (n <= 0 || n + 2LL * Y * Z >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-  Params p;
-  const size_t elem = store_bf16 ? 2 : 4;
-  for (int k = 0; k < 27; ++k) {
-    p.fin[k] = static_cast<const char*>(f_in) + (size_t)k * n * elem;
-    p.fout[k] = static_cast<char*>(f_out) + (size_t)k * n * elem;
-  }
-  p.vel_in = static_cast<const float*>(vel_in);
-  p.rho_out = static_cast<float*>(rho_out);
-  p.vel_out = static_cast<float*>(vel_out);
-  p.fld.obstacle = static_cast<const uint8_t*>(obstacle);
-  p.fld.sponge = static_cast<const float*>(sponge);
-  p.fld.wall = static_cast<const float*>(wall);
-  p.N = (int)n;
-  p.byZ = make_divisor((unsigned)Z);
-  p.byY = make_divisor((unsigned)Y);
+  sc::Params p;
   const void* planes[6] = {plane0, plane1, plane2, plane3, plane4, plane5};
   const int bcs[6] = {bc0, bc1, bc2, bc3, bc4, bc5};
-  if (!lbm::make_step(p.s, planes, bcs, X, Y, Z, lo_y, lo_z, u_inlet, seed,
-                      tau, c_wale, nu_sgs, inlet_turb, wall_model,
-                      sponge_blend))
+  if (!sc::make_params(p, store_bf16, f_in, vel_in, f_out, rho_out, vel_out,
+                       obstacle, sponge, wall, planes, X, Y, Z, lo_y, lo_z, bcs,
+                       u_inlet, seed, tau, c_wale, nu_sgs, inlet_turb,
+                       wall_model, sponge_blend))
     return (int)cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
+  const unsigned blocks = (unsigned)(((long long)p.N + THREADS - 1) / THREADS);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (store_bf16)
     stream_collide_kernel<__nv_bfloat16><<<blocks, THREADS, 0, s>>>(p);

@@ -46,9 +46,13 @@ K1's own (csrc/lbm_cell.cuh).
 
 K4 `stream_collide_flat` (csrc/stream_collide_flat.cu) replaces
 make_pallas_step_flat (pallas_step.py:2100) on interface-free levels the
-reference stores flat (level 1 of a multi-level case): K1's cell update
-with the flat-(y, z) shifts, branch-free loads overwritten by the face
-masks.  Bound by launch latency at the bench case's level 1 (0.2M cells).
+reference stores flat (level 1 of a multi-level case): K1's cell body
+(csrc/stream_collide_body.cuh), whose flat index with z offsets of +-1 is
+the reference's flat-(y, z) view, with the ghost-plane reads compiled out.
+Its eager time at the bench case's level 1 (0.2M cells) is the host's
+launch; `out=` takes preallocated outputs, so a CUDA graph can replay it.
+Its launch shape depends on the storage type and on whether the level fits
+the card in one wave (`flat_instantiation`, `flat_choice`).
 
 K5 `stream_collide_inplace` (csrc/stream_collide_inplace.cu) replaces the
 in-place make_pallas_step_2d (pallas_step.py:1575) on interface-free levels
@@ -63,10 +67,12 @@ lockstep of a block's warps; it saves the second f copy (3.4 GB at 63.7M
 cells in bf16).
 
 K6 `bouzidi_ab` (csrc/bouzidi_ab.cu) replaces the Pallas kernel of
-tools/probe_bz_encoding.py (:117): K2's sweep with the retired two-array
-coefficients (A, B) in the storage dtype, which the probe
-(`open_ludwig_torch.tools.probe_bz_encoding`) times against K2.  It shares
-K2's sweep (csrc/bouzidi_box.cuh) and reads one more coefficient array.
+tools/probe_bz_encoding.py (:117): the correction with the retired
+two-array coefficients (A, B) in the storage dtype, which the probe
+(`open_ludwig_torch.tools.probe_bz_encoding`) times against K2.  It runs
+K2's launch (csrc/bouzidi_links.cuh) over its own link list
+(`dense_step.bouzidi_ab_links`), so the two differ in their encoding alone;
+nothing is allocated per call.
 """
 
 from __future__ import annotations
@@ -80,7 +86,7 @@ from ..core.patch import BC_INTERFACE, PatchLevel
 from . import build, storage
 from . import inplace_layout as inplace_layout_mod
 from .dense_step import (
-    apply_bouzidi_ab_plain,
+    apply_bouzidi_ab_links,
     apply_bouzidi_links,
     dense_stream_collide,
     fused_pair_plain,
@@ -101,7 +107,7 @@ _SC_ARGTYPES = (
     + [_I, _I, _P]
 )
 _BZ_ARGTYPES = [_I] + [_P] * 6 + [_I] * 4 + [_P]
-_BZAB_ARGTYPES = [_I, _P, _P, _P, _P] + [_I] * 9 + [_P]
+_BZAB_ARGTYPES = [_I] + [_P] * 7 + [_I] * 4 + [_P]
 _FLAT_ARGTYPES = [_I] + [_P] * 8 + [_I] * 5 + [_I] * 6 + [_F, _I] + [_D] * 4 + [_I, _I, _P]
 _IP_ARGTYPES = (
     [_I] + [_P] * 8 + [_I] * 5 + [_I] * 6 + [_F, _I] + [_D] * 4
@@ -249,17 +255,22 @@ def stream_collide(
     return f_out, rho, vel_out
 
 
-def _check_links(plan: Dict, level_shape, device) -> Dict:
-    """The plan's link list (`dense_step.bouzidi_plan_to`) on `device`,
-    checked against the level; returns it."""
+_LINK_DTYPES = {"cell": torch.int32, "code": torch.uint8, "src": torch.int32,
+                "a": torch.float32, "j": torch.uint8, "far": torch.int32,
+                "scratch": torch.float32}
+
+
+def _check_links(plan: Dict, level_shape, device, keys, coef_dtype=None) -> Dict:
+    """The plan's link list on `device` (`dense_step.bouzidi_plan_to`,
+    `bouzidi_ab_plan`), its arrays `keys` checked against the level (A and
+    B in `coef_dtype`); returns it."""
     if tuple(plan["level"]) != tuple(level_shape):
         raise ValueError(f"Bouzidi plan of a level {tuple(plan['level'])}, f's "
                          f"level is {tuple(level_shape)}")
     links = plan["links"]
-    n = links["a"].shape[0]
-    for key, dtype in (("cell", torch.int32), ("code", torch.uint8),
-                       ("src", torch.int32), ("a", torch.float32),
-                       ("scratch", torch.float32)):
+    n = links["cell"].shape[0]
+    for key in keys:
+        dtype = coef_dtype if key in ("A", "B") else _LINK_DTYPES[key]
         _check(links[key], f"links[{key!r}]", (n,), (dtype,), device)
     if n == 0:
         raise ValueError("a Bouzidi plan without links (the plan is None then)")
@@ -281,7 +292,7 @@ def bouzidi(f: torch.Tensor, plan: Dict) -> torch.Tensor:
         return apply_bouzidi_links(f, plan)
     if dev.type != "cuda":
         raise ValueError(f"bouzidi: unsupported device {dev}")
-    links = _check_links(plan, (X, Y, Z), dev)
+    links = _check_links(plan, (X, Y, Z), dev, ("cell", "code", "src", "a", "scratch"))
     fn = _lib("bouzidi", "ol_bouzidi", _BZ_ARGTYPES)
     rc = fn(
         int(f.dtype == torch.bfloat16), f.data_ptr(),
@@ -295,29 +306,28 @@ def bouzidi(f: torch.Tensor, plan: Dict) -> torch.Tensor:
 
 def bouzidi_ab(f: torch.Tensor, plan: Dict) -> torch.Tensor:
     """K6: Bouzidi correction of (27, X, Y, Z) f (float32 f or bf16 g) with
-    the two-array coefficients: plan["A"] and plan["B"] are (27, bx, by, bz)
-    tensors in f's dtype on f's device (`dense_step.bouzidi_ab_plan`).
-    On CUDA the correction is written into `f` in place and `f` is
-    returned; on the CPU the plain version returns a new tensor."""
+    the two-array coefficients over the plan's link list
+    (`dense_step.bouzidi_ab_plan`: A and B boxes and per link in f's dtype,
+    on f's device).  On CUDA the correction is written into `f` in place by
+    one launch and `f` is returned; on the CPU the plain version returns a
+    new tensor."""
     dev = f.device
     if f.dim() != 4 or f.shape[0] != 27:
         raise ValueError(f"f shape {tuple(f.shape)}, expected (27, X, Y, Z)")
     _check(f, "f", f.shape, (torch.float32, torch.bfloat16), dev)
     _check_plan(plan, f.shape[1:], dev, (("A", (f.dtype,)), ("B", (f.dtype,))))
-    lx, ly, lz = plan["lo"]
-    bx, by, bz = plan["dim"]
     X, Y, Z = f.shape[1:]
+    keys = ("cell", "j", "far", "A", "B", "scratch")
+    links = _check_links(plan, (X, Y, Z), dev, keys, f.dtype)
     if dev.type == "cpu":
-        return apply_bouzidi_ab_plain(f, plan)
+        return apply_bouzidi_ab_links(f, plan)
     if dev.type != "cuda":
         raise ValueError(f"bouzidi_ab: unsupported device {dev}")
-    fn = _lib("bouzidi_ab", "ol_bouzidi_ab", _BZAB_ARGTYPES)
-    # uncorrected post-collision snapshot of the box (csrc/bouzidi_box.cuh)
-    snap = f[:, lx:lx + bx, ly:ly + by, lz:lz + bz].contiguous()
+    fn = _lib("bouzidi_ab", "ol_bouzidi_ab_links", _BZAB_ARGTYPES)
     rc = fn(
-        int(f.dtype == torch.bfloat16), snap.data_ptr(), plan["A"].data_ptr(),
-        plan["B"].data_ptr(), f.data_ptr(), bx, by, bz, lx, ly, lz, X, Y, Z,
-        torch.cuda.current_stream(dev).cuda_stream,
+        int(f.dtype == torch.bfloat16), f.data_ptr(),
+        *[links[key].data_ptr() for key in keys],
+        links["cell"].shape[0], X, Y, Z, torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, "bouzidi_ab")
     LAUNCHES["bouzidi_ab"] += 1
@@ -438,14 +448,24 @@ def stream_collide_flat(
     inlet_turbulence: float,
     wall_model: bool,
     sponge_blend: bool,
+    out: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
 ):
-    """K4: one sub-step of an interface-free level with the flat-(y, z)
-    shifts.  Returns new (f, rho, vel) in the storage dtype of `f` (A -> B
-    buffers; the inputs are not modified)."""
+    """K4: one sub-step of an interface-free level.  Returns new (f, rho,
+    vel) in the storage dtype of `f` (A -> B buffers; the inputs are not
+    modified).  `out=(f_out, rho, vel_out)` are preallocated outputs (f's
+    shape and dtype, (X, Y, Z) and (3, X, Y, Z) float32, on f's device),
+    written and returned; without it the outputs are allocated."""
     X, Y, Z = patch.interior
     dev = f.device
     _check_interface_free(patch, "stream_collide_flat")
     _check_level(f, vel, static, patch)
+    if out is not None:
+        for t, name, shape, dtype in zip(out, ("f_out", "rho", "vel_out"),
+                                         (f.shape, (X, Y, Z), vel.shape),
+                                         (f.dtype, torch.float32, torch.float32)):
+            _check(t, f"out {name}", shape, (dtype,), dev)
+        if out[0].data_ptr() == f.data_ptr() or out[2].data_ptr() == vel.data_ptr():
+            raise ValueError("stream_collide_flat: out aliases its input (A -> B buffers)")
     kw = dict(
         c_wale=c_wale, nu_sgs_background=nu_sgs_background,
         inlet_turbulence=inlet_turbulence, wall_model=wall_model,
@@ -456,18 +476,21 @@ def stream_collide_flat(
             storage.decode_f(f), vel, u_inlet, t_seed, static, patch, **kw)
         if f.dtype == torch.bfloat16:
             fo = storage.encode_f(fo, storage.STORE_BF16)
-        return fo, rho, vo
+        if out is None:
+            return fo, rho, vo
+        for t, v in zip(out, (fo, rho, vo)):
+            t.copy_(v)
+        return tuple(out)
     if dev.type != "cuda":
         raise ValueError(f"stream_collide_flat: unsupported device {dev}")
 
     fn = _lib("stream_collide_flat", "ol_stream_collide_flat", _FLAT_ARGTYPES)
-    f_out = torch.empty_like(f)
-    rho = torch.empty((X, Y, Z), dtype=torch.float32, device=dev)
-    vel_out = torch.empty_like(vel)
+    if out is None:
+        out = (torch.empty_like(f), torch.empty((X, Y, Z), dtype=torch.float32, device=dev),
+               torch.empty_like(vel))
     rc = fn(
         int(f.dtype == torch.bfloat16),
-        f.data_ptr(), vel.data_ptr(), f_out.data_ptr(), rho.data_ptr(),
-        vel_out.data_ptr(),
+        f.data_ptr(), vel.data_ptr(), *[t.data_ptr() for t in out],
         static["obstacle"].data_ptr(), static["sponge"].data_ptr(),
         static["wall_dist"].data_ptr(),
         *_step_scalars(patch, u_inlet, t_seed, **kw),
@@ -475,7 +498,34 @@ def stream_collide_flat(
     )
     _raise_on(rc, "stream_collide_flat")
     LAUNCHES["stream_collide_flat"] += 1
-    return f_out, rho, vel_out
+    return tuple(out)
+
+
+def flat_instantiation(n_cells: int, store_bf16: bool, one_wave_resident: int
+                       ) -> Dict[str, int]:
+    """K4's instantiation for a level of `n_cells` (the rule of `choose` in
+    csrc/stream_collide_flat.cu): "threads" per block and "min_blocks" per
+    SM of its launch bounds.  bf16 levels whose blocks of 256 all fit at
+    once (`one_wave_resident`: the blocks of that 40-register instantiation
+    the card holds) run in one wave; other bf16 levels take 128 threads at
+    10 blocks per SM, float32 levels 256 threads uncapped (PERF.md)."""
+    if not store_bf16:
+        return {"threads": 256, "min_blocks": 1}
+    if -(-n_cells // 256) <= one_wave_resident:
+        return {"threads": 256, "min_blocks": 6}
+    return {"threads": 128, "min_blocks": 10}
+
+
+def flat_choice(patch: PatchLevel, store_bf16: bool) -> Dict[str, int]:
+    """The instantiation K4 launches on `patch` on the current card, as
+    its C entry chooses it, with "resident": the blocks of the one-wave
+    instantiation the card holds at once."""
+    fn = _lib("stream_collide_flat", "ol_stream_collide_flat_choice",
+              [_I, _I, _I, _I] + [ctypes.POINTER(ctypes.c_int)] * 3)
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    rc = fn(int(store_bf16), *patch.interior, *[ctypes.byref(v) for v in vals])
+    _raise_on(rc, "stream_collide_flat instantiation query")
+    return dict(zip(("threads", "min_blocks", "resident"), (v.value for v in vals)))
 
 
 def inplace_layout(X: int, Y: int, Z: int, device, elem_bytes: int

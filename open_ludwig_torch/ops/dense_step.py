@@ -15,9 +15,10 @@ plain versions of the two CUDA kernels and the torch glue between them:
   - `build_bouzidi_dense_plan` / `apply_bouzidi_dense`: the Bouzidi
     sub-box correction (reference: src/bouzidi_kernel.jl:38-88), its link
     list (`bouzidi_links`) and `apply_bouzidi_links`, the same correction
-    over the links (K2's plain version), and `apply_bouzidi_ab_plain`, the
-    box sweep with the retired two-array coefficients (K6's plain
-    version);
+    over the links (K2's plain version); `apply_bouzidi_ab_plain`, the
+    box sweep with the retired two-array coefficients, and
+    `apply_bouzidi_ab_links`, the same over their link list
+    (`bouzidi_ab_links`, K6's plain version);
   - `fused_pair_plain`: two sub-steps with the correction of the first
     between them (K3's plain version);
   - `stream_collide_flat_plain`: the sub-step of an interface-free level
@@ -478,6 +479,37 @@ def build_bouzidi_dense_plan(patch: PatchLevel, q_min: float) -> Optional[Dict]:
 SELF_LINK = 0x80  # bit of a link's `code`: `other` is slot j of the cell itself
 
 
+def _box_links(linked: np.ndarray, lo, level):
+    """The linked slots of a (27, bx, by, bz) box at `lo` of an (X, Y, Z)
+    level, by slot j (ascending, 13 skipped), then by cell: yields (j,
+    (ix, iy, iz) box indices of link direction k = opp(j), cell, far) with
+    `far` the cell the box sweep's shifted read takes, cell - c_k wrapped
+    inside the box; cells and far cells are level indices.  A cell index
+    fits 32 bits; 27 N does not above 79.5M cells, so the kernels form
+    j N + cell in 64 bits."""
+    lx, ly, lz = lo
+    bx, by, bz = linked.shape[1:]
+    X, Y, Z = level
+    if X * Y * Z >= 2 ** 31:
+        raise ValueError(f"level {level}: cell indices exceed int32")
+    for j in range(27):
+        if j == 13:
+            continue
+        k = int(lat.OPP[j])  # the link direction writing into slot j
+        ix, iy, iz = np.nonzero(linked[k])  # lexicographic: ascending cells
+        cell = ((lx + ix) * Y + (ly + iy)) * Z + (lz + iz)
+        nx = (ix - int(lat.C_X[k])) % bx
+        ny = (iy - int(lat.C_Y[k])) % by
+        nz = (iz - int(lat.C_Z[k])) % bz
+        far = ((lx + nx) * Y + (ly + ny)) * Z + (lz + nz)
+        yield j, (k, ix, iy, iz), cell, far
+
+
+def _cat(parts, dtypes) -> List[np.ndarray]:
+    return [np.concatenate([p[i] for p in parts]).astype(dt) if parts
+            else np.zeros(0, dt) for i, dt in enumerate(dtypes)]
+
+
 def bouzidi_links(S: np.ndarray, lo, level) -> Dict[str, np.ndarray]:
     """K2's list of the linked slots of a plan's S box: one entry per
     (cell, slot j) with S[opp j](cell) != 0, sorted by slot, then by cell,
@@ -491,33 +523,37 @@ def bouzidi_links(S: np.ndarray, lo, level) -> Dict[str, np.ndarray]:
       a     float32  |S|
 
     so that  f_j(cell) = a f*_k(cell) + (1 - a) other  reads every value
-    the box sweep (`apply_bouzidi_dense`) reads.  A cell index fits 32 bits;
-    27 N does not above 79.5M cells, so the kernel forms j N + cell in 64
-    bits."""
-    lx, ly, lz = lo
-    bx, by, bz = S.shape[1:]
-    X, Y, Z = level
-    if X * Y * Z >= 2 ** 31:
-        raise ValueError(f"level {level}: cell indices exceed int32")
+    the box sweep (`apply_bouzidi_dense`) reads."""
     parts = []
-    for j in range(27):
-        if j == 13:
-            continue
-        k = int(lat.OPP[j])  # the link direction writing into slot j
-        ix, iy, iz = np.nonzero(S[k])  # lexicographic: ascending cells
-        s = S[k, ix, iy, iz]
-        cell = ((lx + ix) * Y + (ly + iy)) * Z + (lz + iz)
-        nx = (ix - int(lat.C_X[k])) % bx
-        ny = (iy - int(lat.C_Y[k])) % by
-        nz = (iz - int(lat.C_Z[k])) % bz
-        far = ((lx + nx) * Y + (ly + ny)) * Z + (lz + nz)
+    for j, idx, cell, far in _box_links(S != 0, lo, level):
+        s = S[idx]
         self_ = s < 0
         parts.append((cell, np.where(self_, SELF_LINK | j, j), np.where(self_, cell, far),
                       np.abs(s)))
-    cat = [np.concatenate([p[i] for p in parts]) if parts else np.zeros(0)
-           for i in range(4)]
-    return {"cell": cat[0].astype(np.int32), "code": cat[1].astype(np.uint8),
-            "src": cat[2].astype(np.int32), "a": cat[3].astype(np.float32)}
+    cat = _cat(parts, (np.int32, np.uint8, np.int32, np.float32))
+    return dict(zip(("cell", "code", "src", "a"), cat))
+
+
+def bouzidi_ab_links(A: np.ndarray, B: np.ndarray, lo, level) -> Dict[str, np.ndarray]:
+    """K6's list of the linked slots of the two-array encoding: one entry
+    per (cell, slot j) with A[opp j](cell) > 0, sorted by slot, then by
+    cell, as K2's (`bouzidi_links`).  numpy arrays:
+
+      cell  int32    the cell, an index into the (X, Y, Z) level
+      j     uint8    the slot written
+      far   int32    cell - c_k (k = opp j) wrapped inside the box, the cell
+                     the box sweep's shifted read takes; the sign of B
+                     chooses between it and slot j of the cell itself
+      A, B  float32  the link's coefficients as given (the wrapper's plan
+                     holds them in the storage dtype)
+
+    so that  f_j(cell) = A f*_k(cell) + |B| (f*_j(cell) if B < 0 else
+    f*_k(far))  reads every value the box sweep (`apply_bouzidi_ab_plain`)
+    reads."""
+    parts = [(cell, np.full(len(cell), j), far, A[idx], B[idx])
+             for j, idx, cell, far in _box_links(A > 0, lo, level)]
+    cat = _cat(parts, (np.int32, np.uint8, np.int32, np.float32, np.float32))
+    return dict(zip(("cell", "j", "far", "A", "B"), cat))
 
 
 def bouzidi_plan_to(plan: Optional[Dict], device) -> Optional[Dict]:
@@ -613,21 +649,33 @@ def bouzidi_ab_from_S(S) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def bouzidi_ab_plan(plan: Dict, dtype) -> Dict:
-    """The plan's box with its S (a float32 tensor) recoded as the two
-    arrays A and B, tensors of `dtype` on S's device."""
-    A, B = bouzidi_ab_from_S(plan["S"].cpu().numpy())
-    dev = plan["S"].device
-    return {"lo": plan["lo"], "dim": plan["dim"],
-            "A": torch.as_tensor(A).to(device=dev, dtype=dtype),
-            "B": torch.as_tensor(B).to(device=dev, dtype=dtype)}
+    """The plan's box with its S recoded as the two arrays A and B, boxes
+    of `dtype` on S's device, and K6's link list of them
+    (`bouzidi_ab_links`: cell, j and far as int32 / uint8 tensors, A and B
+    per link in `dtype`) with a float32 scratch, as K2's plan carries its
+    links (`bouzidi_plan_to`)."""
+    S = plan["S"]
+    dev = S.device if isinstance(S, torch.Tensor) else torch.device("cpu")
+    S = S.cpu().numpy() if isinstance(S, torch.Tensor) else np.asarray(S)
+    A, B = (torch.as_tensor(v).to(dtype) for v in bouzidi_ab_from_S(S))
+    # the link set and coefficients as the storage dtype holds them
+    links = bouzidi_ab_links(A.float().numpy(), B.float().numpy(), plan["lo"],
+                             plan["level"])
+    links = {key: torch.as_tensor(v).to(device=dev, dtype=dtype if key in ("A", "B") else None)
+             for key, v in links.items()}
+    links["scratch"] = torch.empty(links["cell"].shape, dtype=torch.float32, device=dev)
+    return {"lo": plan["lo"], "dim": plan["dim"], "level": plan["level"],
+            "A": A.to(dev), "B": B.to(dev), "links": links}
 
 
 def apply_bouzidi_ab_plain(f_out: torch.Tensor, plan: Dict) -> torch.Tensor:
     """Bouzidi correction of (27, X, Y, Z) with the two-array coefficients
-    (K6's plain version; the TPU kernel of tools/probe_bz_encoding.py:76-136),
-    returned as a new tensor.  plan["A"] and plan["B"] are (27, bx, by, bz)
-    tensors on f's device, in any float dtype (the probe passes the storage
-    dtype); per slot j with k = opp(j), where A_k > 0:
+    as the box sweep of the TPU kernel of tools/probe_bz_encoding.py:76-136
+    performs it, returned as a new tensor: the reference that
+    `apply_bouzidi_ab_links` (K6's plain version) is held to.  plan["A"]
+    and plan["B"] are (27, bx, by, bz) tensors on f's device, in any float
+    dtype (the probe passes the storage dtype); per slot j with k = opp(j),
+    where A_k > 0:
 
       f_j = A_k f*_k + |B_k| (f*_j if B_k < 0 else f*_k(cell + c_opp k))
 
@@ -638,6 +686,27 @@ def apply_bouzidi_ab_plain(f_out: torch.Tensor, plan: Dict) -> torch.Tensor:
         return a, b.abs(), b < 0, a > 0
 
     return _bouzidi_box(f_out, plan, link)
+
+
+def apply_bouzidi_ab_links(f_out: torch.Tensor, plan: Dict) -> torch.Tensor:
+    """Bouzidi correction of (27, X, Y, Z) f over the two-array plan's link
+    list (K6's plain version), returned as a new tensor: every link's
+    inputs gathered from the uncorrected f, then every value scattered.
+    Equal bit for bit to `apply_bouzidi_ab_plain` (the same float32
+    expression on the same values), on float32 f and bf16 g alike."""
+    links = plan["links"]
+    dev = f_out.device
+    cell, j, far = (torch.as_tensor(links[key], device=dev).long()
+                    for key in ("cell", "j", "far"))
+    a, b = (torch.as_tensor(links[key], device=dev).float() for key in ("A", "B"))
+    N = f_out[0].numel()
+    k = 26 - j
+    flat = f_out.reshape(-1)
+    other = torch.where(b < 0, flat[j * N + cell].float(), flat[k * N + far].float())
+    val = (a * flat[k * N + cell].float() + b.abs() * other).to(f_out.dtype)
+    out = f_out.clone()
+    out.view(-1)[j * N + cell] = val
+    return out
 
 
 def fused_pair_plain(

@@ -44,6 +44,7 @@ from .core.patch import BC_INTERFACE, PatchLevel
 from .ops import engine, storage
 from .ops.cuda_step import (
     bouzidi,
+    flat_choice,
     fused_pair,
     inplace_layout,
     stream_collide,
@@ -127,10 +128,15 @@ def kernel_log_lines(patches: List[PatchLevel], statics: List[Dict],
         else:
             k3 = (f"K3 fused_pair {route} on its {2 ** (p.level_id - 2)} "
                   "sub-step pair(s), K2 after each pair")
+        shape = ""
+        if eng == "flat" and dev.type == "cuda":
+            c = flat_choice(p, storage.f_dtype(precision) == torch.bfloat16)
+            shape = (f" ({c['threads']} threads a block, launch bounds for "
+                     f"{c['min_blocks']} a SM)")
         lines.append(
             f"  [engine] level {p.level_id}: {'x'.join(map(str, p.interior))} "
             f"cells, {2 ** (p.level_id - 1)} sub-step(s)/coarse step | "
-            f"{names[eng]} {route}, {store}, {n_if} interface face(s): "
+            f"{names[eng]}{shape} {route}, {store}, {n_if} interface face(s): "
             f"{st['engine_why']}"
             + (f" | K2 bouzidi {route}, box {tuple(bz['dim'])} at {bz['lo']}"
                if bz is not None else "")

@@ -1,22 +1,25 @@
 """Interleaved A/B of the two Bouzidi coefficient encodings on the bench
 case's finest-level box: K2 (the signed single array S, production)
-against K6 (the retired two arrays A and B).  K2 runs over the plan's link
-list in one launch and K6 sweeps the box after a snapshot, so the ratio
-measures the two designs as well as the two encodings.
+against K6 (the retired two arrays A and B).  Both run the same launch, one
+cooperative kernel over their link list (csrc/bouzidi_links.cuh), so the
+ratio measures the encoding alone.
 
 The port's counterpart of tools/probe_bz_encoding.py.  A and B are exactly
 recoverable from S (A = |S|, B = sign(S)(1 - |S|)), so both kernels run on
 identical data in one process: one application of each from the same
 random bf16 state is checked (decoded f within 2e-3), then each kernel
 steps its own copy of that state in interleaved timed windows of --n
-applications (CUDA events).  With --device cpu the wrappers run their
-plain versions, timed on the host clock.
+applications (CUDA events; the eager time holds the host's launch), and
+on the card each is also replayed from a CUDA graph (`checks.graph_ms`:
+the device's time).  With --device cpu the wrappers run their plain
+versions, timed on the host clock, and there is no graph time.
 
     python -m open_ludwig_torch.tools.probe_bz_encoding [--res 25] [--levels 3]
         [--n 300] [--reps 6] [--device cuda|cpu]
 
 The default device is cuda, which raises without a GPU.  `main(argv)`
-returns the numbers it prints.
+returns the numbers it prints, and the kernels' launch counts
+(`cuda_step.LAUNCHES`) as they stood when the last window ended.
 """
 
 from __future__ import annotations
@@ -30,10 +33,12 @@ import numpy as np
 import torch
 
 from ..cases import make_case_sphere
+from ..checks import graph_ms
 from ..config import load_case_config
 from ..core.patch import PatchLevel, build_patches
 from ..geometry import load_mesh
 from ..ops import engine
+from ..ops import cuda_step
 from ..ops.cuda_step import bouzidi, bouzidi_ab
 from ..ops.dense_step import bouzidi_ab_plan, bouzidi_plan_to, build_bouzidi_dense_plan
 from ..ops.storage import decode_f
@@ -136,15 +141,29 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     for _ in range(args.reps):
         for m, fn in apply.items():
             ms[m].append(_window(fn, states, m, args.n, dev))
+    # the launch counts so far: the graphs' captures below add their own
+    launches = dict(cuda_step.LAUNCHES)
+    graph: Dict[str, Optional[float]] = {m: None for m in apply}
+    if dev.type == "cuda":  # interleaved as the windows are
+        for m in ("S", "AB", "AB", "S"):
+            t = graph_ms(lambda: apply[m](states[m]), args.reps)
+            graph[m] = t if graph[m] is None else min(graph[m], t)
     clock = "CUDA events" if dev.type == "cuda" else "host clock, plain versions"
     for m in apply:
+        g = "not on the CPU" if graph[m] is None else f"{graph[m]:.5f} ms"
         print(f"bz[{m:2s}] {min(ms[m]):.5f} ms per application ({clock}; reps "
-              + ",".join(f"{v:.5f}" for v in ms[m]) + ")", flush=True)
+              + ",".join(f"{v:.5f}" for v in ms[m]) + f") | from a CUDA graph {g}",
+              flush=True)
+    ratio = min(ms["AB"]) / min(ms["S"])
+    g = "" if graph["S"] is None else f", from a CUDA graph {graph['AB'] / graph['S']:.3f}"
+    print(f"K6 / K2 {ratio:.3f} eager{g} (one launch over the links each: the "
+          "encoding alone)", flush=True)
     return {"device": name, "n": args.n, "reps": args.reps,
             "dim": tuple(plan["dim"]), "lo": tuple(plan["lo"]),
             "ref_dim": ref_box_dim(level), "level": tuple(level.interior),
             "links": links, "max_abs_err": err, "ms": ms,
-            "ms_min": {m: min(v) for m, v in ms.items()}}
+            "ms_min": {m: min(v) for m, v in ms.items()}, "graph_ms": graph,
+            "launches": launches}
 
 
 if __name__ == "__main__":

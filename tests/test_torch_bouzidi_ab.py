@@ -1,7 +1,9 @@
 """K6 (the two-array Bouzidi encoding) of the PyTorch port against the JAX
 package.
 
-`apply_bouzidi_ab_plain` (the CPU path of `cuda_step.bouzidi_ab`) is held:
+The CPU path of `cuda_step.bouzidi_ab` (`apply_bouzidi_ab_links`, over
+the plan's link list; `tests/test_torch_bouzidi_links.py` holds it bit for
+bit to the box sweep `apply_bouzidi_ab_plain`) is held:
   - with A and B in float32 on float32 f, to `make_bouzidi_pallas` in
     interpret mode on the same S: < 1e-6 (A = |S| and B = +-(1 - A) recover
     S exactly and sum to 1 within one ulp);
@@ -82,9 +84,8 @@ def _f(jp, rng, store_bf16):
 
 
 def _ab_plan(plan, dtype):
-    A, B = ds.bouzidi_ab_from_S(plan["S"])
-    return {"lo": plan["lo"], "dim": plan["dim"],
-            "A": torch.as_tensor(A).to(dtype), "B": torch.as_tensor(B).to(dtype)}
+    """The two-array plan of a port plan (numpy S), with its link list."""
+    return ds.bouzidi_ab_plan(plan, dtype)
 
 
 @pytest.mark.parametrize("edge_cells", [False, True])
@@ -183,6 +184,10 @@ def test_bouzidi_ab_checks_its_inputs():
     bad["B"] = bad["B"][:, :-1]
     with pytest.raises(ValueError, match="shape"):
         cuda_step.bouzidi_ab(f, bad)
+    bad = _ab_plan(pt, torch.bfloat16)
+    bad["links"] = {**bad["links"], "far": bad["links"]["far"].long()}
+    with pytest.raises(ValueError, match="far"):
+        cuda_step.bouzidi_ab(f, bad)
     cuda_step.reset_launches()
     cuda_step.bouzidi_ab(f, _ab_plan(pt, torch.bfloat16))
     assert cuda_step.LAUNCHES["bouzidi_ab"] == 0  # the CPU runs the plain version
@@ -193,9 +198,11 @@ def test_bouzidi_ab_plan_matches_encoding():
     pt = ds.build_bouzidi_dense_plan(tp, 0.001)
     plan = {**pt, "S": torch.as_tensor(pt["S"])}
     got = ds.bouzidi_ab_plan(plan, torch.bfloat16)
-    want = _ab_plan(pt, torch.bfloat16)
+    A, B = ds.bouzidi_ab_from_S(pt["S"])
     assert got["A"].dtype == torch.bfloat16
-    assert torch.equal(got["A"], want["A"]) and torch.equal(got["B"], want["B"])
+    assert torch.equal(got["A"], torch.as_tensor(A).to(torch.bfloat16))
+    assert torch.equal(got["B"], torch.as_tensor(B).to(torch.bfloat16))
+    assert got["links"]["A"].dtype == got["links"]["B"].dtype == torch.bfloat16
 
 
 def test_probe_runs_on_cpu_and_reports_the_jax_box(tmp_path):

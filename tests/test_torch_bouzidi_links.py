@@ -1,6 +1,9 @@
 """K2's link list (`dense_step.bouzidi_links`) and its plain version
 (`apply_bouzidi_links`) against the box sweep the JAX package's kernel
-performs (`apply_bouzidi_dense`).
+performs (`apply_bouzidi_dense`); K6's link list of the two-array encoding
+(`bouzidi_ab_links`, carried by `bouzidi_ab_plan`) and its plain version
+(`apply_bouzidi_ab_links`) against its box sweep (`apply_bouzidi_ab_plain`)
+the same way.
 
 The list must hold exactly the plan's S (one entry per linked slot, sorted
 by slot, then by cell, every read where the box sweep reads it, the wrap
@@ -20,7 +23,7 @@ from open_ludwig_torch import checks
 from open_ludwig_torch import lattice as lat
 from open_ludwig_torch.ops import dense_step as ds
 from open_ludwig_torch.ops import storage
-from open_ludwig_torch.ops.cuda_step import bouzidi
+from open_ludwig_torch.ops.cuda_step import bouzidi, bouzidi_ab
 
 torch.set_num_threads(1)
 
@@ -165,3 +168,67 @@ def test_plan_without_links_is_none(bench_plan):
     no link: no plan, as for a level without boundary cells."""
     level, _ = bench_plan
     assert ds.build_bouzidi_dense_plan(level, q_min=2.0) is None
+
+
+# ---- K6: the two-array encoding over its own link list ----
+
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def expand_ab(plan):
+    """The A and B boxes rebuilt from K6's link list, and each link's far
+    read checked (cell - c_k wrapped inside the box, whatever B's sign)."""
+    links = {key: np.asarray(plan["links"][key]) for key in ("cell", "j", "far")}
+    X, Y, Z = plan["level"]
+    lx, ly, lz = plan["lo"]
+    bx, by, bz = plan["dim"]
+    A = np.zeros((27,) + tuple(plan["dim"]), np.float32)
+    B = np.zeros_like(A)
+    cell = links["cell"].astype(np.int64)
+    x, r = np.divmod(cell, Y * Z)
+    y, z = np.divmod(r, Z)
+    k = 26 - links["j"].astype(np.int64)
+    A[k, x - lx, y - ly, z - lz] = torch.as_tensor(plan["links"]["A"]).float().numpy()
+    B[k, x - lx, y - ly, z - lz] = torch.as_tensor(plan["links"]["B"]).float().numpy()
+    fx = (x - lx - lat.C_X[k]) % bx + lx
+    fy = (y - ly - lat.C_Y[k]) % by + ly
+    fz = (z - lz - lat.C_Z[k]) % bz + lz
+    assert np.array_equal(links["far"], (fx * Y + fy) * Z + fz)
+    order = np.lexsort((links["cell"], links["j"]))
+    assert np.array_equal(order, np.arange(len(order)))
+    return A, B
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("which", ["synthetic", "bench"])
+def test_ab_links_expand_to_A_and_B(bench_plan, which, dtype):
+    plan = ds.bouzidi_ab_plan(_plans(bench_plan)[which], DTYPES[dtype])
+    links = plan["links"]
+    assert links["cell"].dtype == links["far"].dtype == torch.int32
+    assert links["j"].dtype == torch.uint8
+    assert links["A"].dtype == links["B"].dtype == DTYPES[dtype]
+    assert links["scratch"].dtype == torch.float32
+    A, B = expand_ab(plan)
+    assert np.array_equal(A, plan["A"].float().numpy())
+    assert np.array_equal(B, plan["B"].float().numpy())
+    # one link per linked slot: the slots of S, A > 0 in the storage dtype
+    assert len(links["cell"]) == np.count_nonzero(_plans(bench_plan)[which]["S"])
+    assert (links["A"].float() > 0).all()
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("which", ["synthetic", "bench"])
+def test_ab_links_plain_equals_box_sweep(bench_plan, which, dtype):
+    plan = ds.bouzidi_ab_plan(_plans(bench_plan)[which], DTYPES[dtype])
+    rng = np.random.default_rng(5)
+    f = torch.as_tensor((lat.W[:, None, None, None] * (1 + 0.05 * rng.standard_normal(
+        (27,) + tuple(plan["level"])))).astype(np.float32))
+    if dtype == "bf16":
+        f = storage.encode_f(f, storage.STORE_BF16)
+    want = ds.apply_bouzidi_ab_plain(f, plan)
+    got = ds.apply_bouzidi_ab_links(f, plan)
+    assert got.dtype == f.dtype
+    assert torch.equal(got, want)
+    assert not torch.equal(got, f)
+    # the wrapper's CPU path is the link version
+    assert torch.equal(bouzidi_ab(f.clone(), plan), want)

@@ -5,8 +5,9 @@ chip_smoke.py: the bench case's levels (sphere Re~1M, N=25, 3 levels) with
 every face type, the 10.8M-cell single-level sweep shape, and the bench
 Bouzidi box; K3 + K2 on the bench's finest level and on the single-level
 shape, also against K1 -> K2 -> K1 -> K2; K4 and K5 on the bench's level 1
-and the single-level shape, also against K1 (equal); K6 also against K2 on
-the same S.
+and the single-level shape, also against K1 (equal), K4 also into
+preallocated outputs; K6 over its links, also against K2 on the same S,
+allocating nothing.
 
 Every test here needs an NVIDIA GPU and nvcc, and skips without them.  On
 the card:  python -m pytest tests/test_torch_*.py -q
@@ -82,6 +83,36 @@ def test_bouzidi_ab_kernel_matches_plain(bench, cuda_device, store_bf16):
     assert r["changed"] > 0
     assert r["max_abs_err"] < r["tol"], r
     assert r["k2_err"] < r["tol"], r
+    assert r["peak_bytes"] == 0, r  # one launch over the links, no snapshot
+    assert r["graph_ms"] > 0, r  # so a CUDA graph captures it
+
+
+@pytest.mark.parametrize("store_bf16", [False, True], ids=["f32", "bf16"])
+def test_flat_kernel_into_preallocated_outputs(bench, sweep, cuda_device, store_bf16):
+    """K4 with `out=` on the bench's level 1 and the 10.8M-cell level:
+    the outputs given are written and returned, equal bit for bit to K4
+    without `out=`, and within K1's tolerance of the plain version."""
+    from open_ludwig_torch.ops import storage
+    from open_ludwig_torch.ops.cuda_step import stream_collide_flat
+    from open_ludwig_torch.ops.dense_step import stream_collide_flat_plain
+
+    _, levels, statics, kw = bench
+    for patch, static in ((levels[0], statics[0]), sweep):
+        inp = checks.random_level_inputs(patch, store_bf16, 47, cuda_device)
+        f, vel = inp["f"], inp["vel"]
+        out = (torch.empty_like(f), torch.empty(f.shape[1:], device=cuda_device),
+               torch.empty_like(vel))
+        got = stream_collide_flat(f, vel, 0.04, 9, static, patch, out=out, **kw)
+        want = stream_collide_flat(f, vel, 0.04, 9, static, patch, **kw)
+        fp, rp, vp = stream_collide_flat_plain(storage.decode_f(f), vel, 0.04, 9,
+                                               static, patch, **kw)
+        if store_bf16:
+            fp = storage.encode_f(fp, storage.STORE_BF16)
+        torch.cuda.synchronize()
+        assert all(g is o for g, o in zip(got, out))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        d = checks.state_diff(*got, fp, rp, vp)
+        assert d["finite"] and d["max_abs_err"] < checks.K1_TOL[store_bf16], d
 
 
 @pytest.fixture(scope="module")

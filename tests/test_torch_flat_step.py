@@ -17,7 +17,10 @@ kernel choice of the PyTorch port against the JAX package.
   through the port and through the JAX package's Pallas path in interpret
   mode, 2 coarse steps, per level < 2e-5 (float32) and < 2e-3 (bf16);
 - `convert` carries a JAX flat level's state and statics across, and a
-  flat state back bit for bit.
+  flat state back bit for bit;
+- the wrapper's preallocated outputs (`out=`): the same values, written
+  into and returned, and outputs of the wrong shape, dtype or aliasing the
+  inputs refused.
 """
 
 import contextlib
@@ -376,3 +379,60 @@ def test_flat_step_rejects_interface_levels():
         stream_collide_flat(f, torch.zeros((3, 4, 3, 5)), 0.04, 1,
                             _port_static(tp), tp, **KW)
     assert cuda_step.LAUNCHES["stream_collide_flat"] == 0
+
+
+def _small_flat_inputs(store_bf16):
+    rng = np.random.default_rng(13)
+    X, Y, Z = 6, 5, 7
+    tp = convert.level_from_jax(_jax_level((X, Y, Z)))
+    tp.wall_dist[1, 1, 2] = 1.5
+    f = torch.as_tensor((lat.W[:, None, None, None] * (1 + 0.05 * rng.standard_normal(
+        (27, X, Y, Z)))).astype(np.float32))
+    if store_bf16:
+        f = storage.encode_f(f, "bfloat16")
+    vel = torch.as_tensor((0.02 * rng.standard_normal((3, X, Y, Z))).astype(np.float32))
+    return f, vel, _port_static(tp), tp
+
+
+@pytest.mark.parametrize("store_bf16", [False, True], ids=["f32", "bf16"])
+def test_flat_step_out_returns_the_same_values(store_bf16):
+    f, vel, st, tp = _small_flat_inputs(store_bf16)
+    want = stream_collide_flat(f, vel, 0.035, 4, st, tp, **KW)
+    out = (torch.full_like(f, 7.0), torch.full(tp.interior, 7.0), torch.full_like(vel, 7.0))
+    got = stream_collide_flat(f, vel, 0.035, 4, st, tp, out=out, **KW)
+    assert all(g is o for g, o in zip(got, out))
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_flat_step_out_refuses_wrong_outputs():
+    f, vel, st, tp = _small_flat_inputs(True)
+    good = (torch.empty_like(f), torch.empty(tp.interior), torch.empty_like(vel))
+    bad = {
+        "shape": (good[0], torch.empty(tp.interior[:2]), good[2]),
+        "dtype": (torch.empty(f.shape), good[1], good[2]),
+        "aliases": (f, good[1], good[2]),
+    }
+    for match, out in bad.items():
+        with pytest.raises(ValueError, match=match):
+            stream_collide_flat(f, vel, 0.035, 4, st, tp, out=out, **KW)
+
+
+@pytest.mark.parametrize("resident", [792, 660], ids=["6-per-SM", "5-per-SM"])
+def test_flat_instantiation_by_size(resident):
+    """K4's launch shape (`cuda_step.flat_instantiation`, the rule its C
+    entry applies): the bench's 64x56x56 level in bf16 fits 132 SMs x 6
+    blocks of 256 in one wave (784 blocks); at 5 a SM it does not, and
+    neither does the 10.8M-cell 232x216x216 level; float32 takes one
+    shape at every size."""
+    one_wave = {"threads": 256, "min_blocks": 6}
+    stream = {"threads": 128, "min_blocks": 10}
+    f32 = {"threads": 256, "min_blocks": 1}
+    l1, row = 64 * 56 * 56, 232 * 216 * 216
+    assert cuda_step.flat_instantiation(l1, True, resident) == (
+        one_wave if resident == 792 else stream)
+    assert cuda_step.flat_instantiation(row, True, resident) == stream
+    assert cuda_step.flat_instantiation(resident * 256, True, resident) == one_wave
+    assert cuda_step.flat_instantiation(resident * 256 + 1, True, resident) == stream
+    for n in (l1, row):
+        assert cuda_step.flat_instantiation(n, False, resident) == f32

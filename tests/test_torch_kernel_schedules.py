@@ -564,11 +564,25 @@ def test_wall_model_off_its_range_is_no_wall_model(rng):
 # ---- K2: one launch over the links, a barrier between reads and writes ----
 
 
+def _two_phase(flat, n, value, dst, order_rng, barrier):
+    """The schedule of K2's and K6's launch (csrc/bouzidi_links.cuh) on one
+    float32 numpy buffer: with the barrier, every link's value computed
+    (phase 1, links in a shuffled order) before any is stored (phase 2,
+    another order); without it, each link computed and stored in turn, as
+    a launch with no barrier may run them."""
+    order = order_rng.permutation(n)
+    if barrier:
+        vals = {i: value(i) for i in order}
+        for i in order_rng.permutation(n):
+            flat[dst(i)] = vals[i]
+    else:
+        for i in order:
+            flat[dst(i)] = value(i)
+    return flat
+
+
 def _k2_model(f, plan, order_rng, barrier=True):
-    """K2's schedule on one float32 numpy buffer: with the barrier, every
-    link's value computed (phase 1, links in a shuffled order) before any
-    is stored (phase 2, another order); without it, each link computed and
-    stored in turn, as a launch with no barrier may run them."""
+    """K2's links (signed S: a, 1 - a, the self bit) through `_two_phase`."""
     links = plan["links"]
     flat = f.reshape(-1).copy()
     N = f[0].size
@@ -581,15 +595,27 @@ def _k2_model(f, plan, order_rng, barrier=True):
     def value(i):
         return a[i] * flat[k[i] * N + links["cell"][i]] + b[i] * flat[oslot[i] * N + links["src"][i]]
 
-    order = order_rng.permutation(len(a))
-    if barrier:
-        vals = {i: value(i) for i in order}
-        for i in order_rng.permutation(len(a)):
-            flat[j[i] * N + links["cell"][i]] = vals[i]
-    else:
-        for i in order:
-            flat[j[i] * N + links["cell"][i]] = value(i)
-    return flat.reshape(f.shape)
+    return _two_phase(flat, len(a), value, lambda i: j[i] * N + links["cell"][i],
+                      order_rng, barrier).reshape(f.shape)
+
+
+def _k6_model(f, plan, order_rng, barrier=True):
+    """K6's links (two arrays: A, |B|, B's sign choosing the self slot or
+    the far cell) through `_two_phase`."""
+    links = {key: np.asarray(v.float() if key in ("A", "B") else v)
+             for key, v in plan["links"].items()}
+    flat = f.reshape(-1).copy()
+    N = f[0].size
+    j = links["j"].astype(np.int64)
+    k = 26 - j
+    cell, far, a, b = links["cell"], links["far"], links["A"], links["B"]
+
+    def value(i):
+        other = flat[j[i] * N + cell[i]] if b[i] < 0 else flat[k[i] * N + far[i]]
+        return a[i] * flat[k[i] * N + cell[i]] + np.abs(b[i]) * other
+
+    return _two_phase(flat, len(a), value, lambda i: j[i] * N + cell[i],
+                      order_rng, barrier).reshape(f.shape)
 
 
 def test_k2_schedule_equals_plain_and_needs_its_barrier():
@@ -604,6 +630,24 @@ def test_k2_schedule_equals_plain_and_needs_its_barrier():
         got = _k2_model(f, plan, np.random.default_rng(seed))
         assert np.array_equal(got, want)
     bad = [_k2_model(f, plan, np.random.default_rng(seed), barrier=False)
+           for seed in range(5)]
+    assert any(not np.array_equal(b, want) for b in bad)
+
+
+def test_k6_schedule_equals_plain_and_needs_its_barrier():
+    """K6's launch over its link list (shuffled, in two phases) equals its
+    plain version, and fails without the barrier."""
+    from test_torch_bouzidi_links import synthetic_plan
+
+    plan = ds.bouzidi_ab_plan(synthetic_plan(), torch.float32)
+    rng = np.random.default_rng(6)
+    f = (lat.W[:, None, None, None] * (1 + 0.05 * rng.standard_normal(
+        (27,) + tuple(plan["level"])))).astype(np.float32)
+    want = ds.apply_bouzidi_ab_links(torch.as_tensor(f), plan).numpy()
+    for seed in range(5):
+        got = _k6_model(f, plan, np.random.default_rng(seed))
+        assert np.array_equal(got, want)
+    bad = [_k6_model(f, plan, np.random.default_rng(seed), barrier=False)
            for seed in range(5)]
     assert any(not np.array_equal(b, want) for b in bad)
 
@@ -629,6 +673,23 @@ def test_build_variants_and_substitution(tmp_path):
     with build.substituted("stream_collide", fake):
         assert build.load("stream_collide") is fake
     assert build._LOADED.get(key) is before
+
+
+def test_k4_shape_builds_are_distinct():
+    """tools.probe_k4_shapes builds K4 once per fixed launch shape through
+    the source's measurement hook: each shape gets its own library, and
+    the hook and the shapes K4 chooses from are in the source."""
+    from open_ludwig_torch.tools import probe_k4_shapes
+
+    paths = {build._paths("stream_collide_flat", None, probe_k4_shapes._shape_flags(t, m))[1]
+             for t, m in probe_k4_shapes.SHAPES}
+    paths.add(build._paths("stream_collide_flat", None, ())[1])
+    assert len(paths) == len(probe_k4_shapes.SHAPES) + 1
+    with open(os.path.join(build.CSRC, "stream_collide_flat.cu")) as fh:
+        src = fh.read()
+    assert "#ifdef OL_K4_THREADS" in src
+    for t, m in ((256, 1), (256, 6), (128, 10)):
+        assert (t, m) in probe_k4_shapes.SHAPES and f"{t}, {m}>(p, s)" in src
 
 
 def test_sass_counts_parses_a_listing():
