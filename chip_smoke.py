@@ -22,8 +22,17 @@ Phases, each raising on failure (nothing is caught):
      prints registers, spills and K3's and K5's shared memory and occupancy
      (K5's at the 63.7M-cell row's layout);
   3. K1 against its plain PyTorch version on the card, on the bench case's
-     levels (wall model, sponge blend, inlet noise 0.02, every face type)
+     levels (wall model, sponge blend, inlet noise 0.02, every face type;
+     interface faces read pre-shifted (27, A, B) ghost planes in the
+     storage type, bf16 g-space on bf16, `checks.random_level_inputs`)
      and on a 10.8M-cell single-level sweep shape, float32 and bf16;
+  3b. the ghost planes of the bench case's level-2 and level-3 children
+     (the einsum plan, the endpoint slabs, `interface_planes_pair_mm`)
+     against the endpoint path + `shift_planes` on the card, float32 and
+     bf16 parents: float32 planes < 2e-6, the storage-type planes within
+     2e-3 of the endpoint path's cast alike; one child build timed
+     eagerly (ms, and its device operations by torch.profiler) beside the
+     endpoint path's;
   3c. K4 against its plain version and against K1 (share of stored f
      entries that differ, expected 0), float32 and bf16, on the bench
      case's level 1 (64x56x56, which the bench runs on K4) and on the
@@ -38,7 +47,8 @@ Phases, each raising on failure (nothing is caught):
      the box sweep's, and no byte allocated per call;
   4b. K3 (+ K2) against the plain pair and against K1 -> K2 -> K1 (+ K2),
      float32 and bf16, on the bench's finest level (six interface faces,
-     distinct ghost planes per sub-step, box 29x28x28) and on the 10.8M-cell
+     distinct ghost planes per sub-step: plane[0] and plane[1] of each
+     face's (2, 27, A, B) storage-type tensor, box 29x28x28) and on the 10.8M-cell
      single level (inlet, outlet, mirrors, inlet noise, wall model, sponge
      ramp, the sphere's box); times K3 against the unfused kernels in turns,
      and the plain pair; prints K3's registers and occupancy;
@@ -50,7 +60,12 @@ Phases, each raising on failure (nothing is caught):
      g-storage) for 400 coarse steps, fused by default: finite CSVs,
      rho_min in (0.5, 1.5), launch counts per coarse step K4 = 1 (level
      1), K1 = 2 (level 2), K3 = 2 and K2 = 2 (level 3), and MLUPS-su /
-     MLUPS-ref from CUDA events over the post-warm-up intervals;
+     MLUPS-ref from CUDA events over the post-warm-up intervals; then 10
+     coarse steps after 20 of warm-up, one batch-runner call each, timed
+     with CUDA events and then profiled (`tools/profile_slice.py`): every
+     CUDA kernel, memcpy and memset per coarse step beside the port's own
+     launches, the device time of the port's kernels and of the rest, and
+     the device-busy share of the profiled window;
   6. the single-level path: `solve_case` on the 10.8M-cell case (bf16,
      75 coarse steps in batches of 25, so each batch takes one plain step
      and 12 pairs): finite CSVs, rho_min in (0.5, 1.5), per batch of n
@@ -137,9 +152,10 @@ def main(argv=None) -> int:
     from open_ludwig_torch.runner import solve_case
     from open_ludwig_torch.solver_dense import (
         build_patch_statics,
+        init_patch_state,
         make_batch_runner_dense,
     )
-    from open_ludwig_torch.tools import probe_bz_encoding
+    from open_ludwig_torch.tools import probe_bz_encoding, profile_slice
 
     def check_run_outputs(res, cfg) -> None:
         """Finite CSV rows and a stable final state of a solve_case run."""
@@ -302,7 +318,25 @@ def main(argv=None) -> int:
                         refs["stream_collide"], "stream_collide", patch, static, bf16,
                         17, kw, dev))
 
-        # ---- 3b. K1 on the 10.8M-cell single-level sweep shape ----
+        # ---- 3b. the ghost planes of the bench's children ----
+        for li in (1, 2):
+            child, parent = levels[li], levels[li - 1]
+            for bf16 in (False, True):
+                r = checks.check_iface_planes(child, parent, statics[li]["iface_mm"],
+                                              bf16, seed=53 + li, device=dev)
+                print(f"[3b planes] L{child.level_id} {child.interior} from L"
+                      f"{parent.level_id} {'bf16' if bf16 else 'f32 '}: {r['faces']}"
+                      f" faces in {r['groups']} groups | vs endpoint path + "
+                      f"shift_planes: f32 planes {r['max_abs_err']:.2e} (tol "
+                      f"{r['tol']:.0e}), {'bf16 g' if bf16 else 'f32 f'}-space "
+                      f"planes {r['store_err']:.2e} | one child build "
+                      f"{r['ms']:.4f} ms eager, {r['device_ops']:.0f} device ops, "
+                      f"{r['device_ms']:.4f} ms device | endpoint path "
+                      f"{r['endpoint_ms']:.4f} ms | card: {smi}", flush=True)
+                require(r["max_abs_err"] < r["tol"] and r["store_err"] < r["store_tol"],
+                        ("ghost planes", li, bf16, r))
+
+        # ---- 3 (continued). K1 on the 10.8M-cell single-level sweep shape ----
         t0 = time.time()
         _, _, _, sweep = checks.bench_case(
             os.path.join(tmp, "sweep"), surface_resolution=25, num_levels=1,
@@ -474,6 +508,27 @@ def main(argv=None) -> int:
               f"{su:.1f} MLUPS-su, {ref:.1f} MLUPS-ref | {sec / n_steps * 1e3:.3f} "
               f"ms/coarse step | rho_min {res.final_stats.rho_min:.4f} | Cd "
               f"{res.final_forces.Cd:.4f} | card: {smi}", flush=True)
+        # every CUDA launch of a coarse step, after warm-up
+        run5 = make_batch_runner_dense(cfg, params, levels, statics)
+        states5 = run5([init_patch_state(p, cfg.precision, dev) for p in levels], 1, 20)
+        p5, states5 = profile_slice.profile_steps(run5, states5, 21, 10,
+                                                  res.updates_per_coarse)
+        print(f"[5 slice] 10 coarse steps after 20 of warm-up, one call each: "
+              f"{p5['ms']:.3f} ms/coarse step ({p5['mlups_su']:.1f} MLUPS-su; CUDA "
+              f"events) | under torch.profiler: {p5['device_ops']:.1f} CUDA device "
+              f"operations per coarse step, the port's launches "
+              f"{p5['port_launches']} ({p5['port_kernels']:.1f} of its kernels "
+              f"seen), device time {p5['port_device_ms']:.3f} ms in the port's "
+              f"kernels + {p5['other_device_ms']:.3f} ms in the rest, device busy "
+              + (f"{100 * p5['busy_share']:.1f}%" if p5["busy_share"] is not None
+                 else "not measured")
+              + f" of {p5['window_ms'] / 10:.3f} ms per profiled step | card: {smi}",
+              flush=True)
+        print("[5 slice] most launched: " + "; ".join(
+            f"{t['per_call']:.0f} x {t['name']}" for t in p5["top"]), flush=True)
+        require(all(bool(torch.isfinite(s["rho"]).all()) for s in states5),
+                "profiled slice states")
+        del run5, states5
 
         # ---- 6. the single-level path: pairs of coarse steps ----
         t0 = time.time()

@@ -19,6 +19,12 @@ same layers (`tests/test_patch_pallas.py:114, :400, :439`):
                      against K1, which runs the same per-cell code, the
                      share of stored f entries that differ is reported
                      (expected 0)
+  ghost planes (interface_planes_pair_mm, no kernel of its own): against
+                     the endpoint path + shift_planes on the same parent
+                     states, float32 planes < 2e-6 (tests/test_dense.py:222's
+                     bound for the reference's pair); the storage-type planes
+                     against the endpoint path's cast the same way, within
+                     the bf16 bound 2e-3
   K3 fused pair (+ K2 after it): against the plain pair, float32 < 1e-5,
                      bf16 g-storage < 2e-3 (decoded f); against the unfused
                      kernels K1 -> K2 -> K1 (+ K2), the same and, in bf16,
@@ -79,12 +85,18 @@ from .ops.dense_step import (
     apply_bouzidi_links,
     bouzidi_ab_plan,
     dense_stream_collide,
+    extract_endpoint_slabs,
     fused_pair_plain,
+    interface_endpoints_pair,
+    interface_from_endpoints,
+    interface_planes_pair_mm,
+    shift_planes,
     stream_collide_flat_plain,
     stream_collide_inplace_plain,
 )
 
 K1_TOL = {False: 1e-5, True: 2e-3}  # keyed by store_bf16
+PLANE_TOL = 2e-6  # float32 planes; the storage-type planes take K1_TOL
 K2_TOL = {False: 1e-6, True: 2e-3}
 K3_TOL = {False: 1e-5, True: 2e-3}
 K3_MAX_DIFF_FRAC = 0.01  # bf16: share of stored f entries that may differ
@@ -121,14 +133,15 @@ def step_work(patch: PatchLevel, store_bf16: bool, wall_model: bool,
     """(bytes, float32 operations) of `sub_steps` fused stream-collide
     sub-steps of `patch`: f, vel, obstacle, sponge and (with the wall
     model) the wall distance read once, f, rho and vel written once, and
-    each sub-step's interface ghost planes (float32) read once."""
+    each sub-step's interface ghost planes, pre-shifted (27, A, B) in the
+    storage type, read once."""
     fb = 2 if store_bf16 else 4
     per_cell = 27 * fb + 12 + 1 + 4 + (4 if wall_model else 0) + 27 * fb + 4 + 12
     planes = 0
     for fc in range(6):
         if patch.face_bc[fc] == BC_INTERFACE:
             a, b = (patch.interior[t] for t in range(3) if t != fc // 2)
-            planes += 27 * (a + 2) * (b + 2) * 4
+            planes += 27 * a * b * fb
     return (patch.n_cells * per_cell + sub_steps * planes,
             sub_steps * CELL_OPS * patch.n_cells)
 
@@ -215,9 +228,12 @@ def graph_ms(fn: Callable[[], object], reps: int, calls: int = 20) -> float:
 
 def random_level_inputs(patch: PatchLevel, store_bf16: bool, seed: int,
                         device) -> Dict:
-    """f (storage dtype), vel and float32 f-space ghost planes for every
-    interface face of `patch`, perturbed around rest; drawn on `device` from
-    `seed` (a 63.7M-cell level takes no host round trip)."""
+    """f (storage dtype), vel and the ghost planes of both sub-steps of a
+    pair for every interface face of `patch`, perturbed around rest; drawn
+    on `device` from `seed` (a 63.7M-cell level takes no host round trip).
+    "iface" maps face -> (2, 27, A, B), pre-shifted planes in the storage
+    space (bf16 g = f - w, or float32 f) as `interface_planes_pair_mm`
+    makes them; sub-step n reads plane[n] (`sub_step_planes`)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     sh = tuple(patch.interior)
     w = torch.as_tensor(lat.W, dtype=torch.float32, device=device)
@@ -234,9 +250,14 @@ def random_level_inputs(patch: PatchLevel, store_bf16: bool, seed: int,
         if patch.face_bc[fc] != BC_INTERFACE:
             continue
         t = [a for a in range(3) if a != fc // 2]
-        shp = (27, sh[t[0]] + 2, sh[t[1]] + 2)
-        planes[fc] = w.view(27, 1, 1) * (1 + 0.03 * randn(shp))
+        pl = w.view(27, 1, 1) * (1 + 0.03 * randn((2, 27, sh[t[0]], sh[t[1]])))
+        planes[fc] = (pl - w.view(27, 1, 1)).to(torch.bfloat16) if store_bf16 else pl
     return {"f": f, "vel": vel, "iface": planes}
+
+
+def sub_step_planes(iface: Dict[int, torch.Tensor], n: int) -> Dict[int, torch.Tensor]:
+    """Sub-step n's planes of a pair's (nw, 27, A, B) plane tensors."""
+    return {fc: pl[n] for fc, pl in iface.items()}
 
 
 def bench_k1_cases(levels: List[PatchLevel], statics: List[Dict]
@@ -282,6 +303,67 @@ def state_diff(fa: torch.Tensor, ra: torch.Tensor, va: torch.Tensor,
             "finite": bool(torch.isfinite(storage.decode_f(fa)).all())}
 
 
+def check_iface_planes(child: PatchLevel, parent: PatchLevel, plan: Dict,
+                       store_bf16: bool, seed: int, device, reps: int = 20) -> Dict:
+    """The main path's ghost planes of `child` (device plan `plan`,
+    statics[l]["iface_mm"]) from two random parent states, old and new
+    (`extract_endpoint_slabs` of each, `interface_planes_pair_mm` at the
+    temporal weights 0.0 and 0.5, g-space on bf16 as the scheduler makes
+    them), against the endpoint path (`interface_endpoints_pair` +
+    `interface_from_endpoints`) + `shift_planes` on the card: "max_abs_err"
+    of the planes computed in float32, "store_err" of the storage-type
+    planes against the endpoint path's cast alike.  Then one child build
+    as the scheduler runs it (the new state's slabs, then the planes from
+    the carried old ones): "ms" per build eager (CUDA events over `reps`;
+    the host's pace), its device operations and their device time per
+    build ("device_ops", "device_ms"; torch.profiler), and the endpoint
+    path's ms per build without the shift ("endpoint_ms": the build before
+    the einsum plan)."""
+    from .tools.profile_slice import profile_calls
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    sh = tuple(parent.interior)
+    dt = torch.bfloat16 if store_bf16 else torch.float32
+    w = torch.as_tensor(lat.W, dtype=torch.float32, device=device).view(27, 1, 1, 1)
+
+    def state():
+        f = w * (1 + 0.05 * torch.randn((27,) + sh, generator=gen, device=device))
+        return {"f": storage.encode_f(f, storage.STORE_BF16) if store_bf16 else f,
+                "rho": 1 + 0.02 * torch.randn(sh, generator=gen, device=device),
+                "vel": 0.03 * torch.randn((3,) + sh, generator=gen, device=device)}
+
+    old, new = state(), state()
+    sl_old = extract_endpoint_slabs(plan, old)
+
+    def build(out_dtype=dt):
+        return interface_planes_pair_mm(plan, child, parent, sl_old,
+                                        extract_endpoint_slabs(plan, new), True,
+                                        g_shifted=store_bf16, out_dtype=out_dtype)
+
+    def endpoint():
+        ep_old, ep_new = interface_endpoints_pair(child, parent, old, new)
+        return [interface_from_endpoints(ep_new, ep_old, child, parent, tw, True)
+                for tw in (0.0, 0.5)]
+
+    got32, got = build(torch.float32), build()
+    raw = endpoint()
+    err = store_err = 0.0
+    for n in (0, 1):
+        want = shift_planes(raw[n], child, store_bf16, torch.float32)
+        for fc, pl in want.items():
+            err = max(err, float((got32[fc][n] - pl).abs().max()))
+            store_err = max(store_err, float(
+                (got[fc][n].float() - pl.to(dt).float()).abs().max()))
+    torch.cuda.synchronize()
+    prof = profile_calls(build, 5)
+    return {"max_abs_err": err, "tol": PLANE_TOL, "store_err": store_err,
+            "store_tol": K1_TOL[store_bf16],
+            "faces": len(got), "groups": len(plan["groups"]),
+            "device_ops": prof["device_ops"],
+            "device_ms": prof["port_device_ms"] + prof["other_device_ms"],
+            "ms": time_cuda(build, reps), "endpoint_ms": time_cuda(endpoint, reps)}
+
+
 def check_stream_collide(patch: PatchLevel, static: Dict, store_bf16: bool,
                          seed: int, kw: Dict, device, reps: int = 20,
                          plain_reps: int = 3) -> Dict:
@@ -289,15 +371,16 @@ def check_stream_collide(patch: PatchLevel, static: Dict, store_bf16: bool,
     of f (decoded), rho and vel, and ms per call of both."""
     inp = random_level_inputs(patch, store_bf16, seed, device)
     u, s = 0.04, 9
+    iface = sub_step_planes(inp["iface"], 0)
 
     def kernel():
         return stream_collide(inp["f"], inp["vel"], u, s, static, patch,
-                              iface=inp["iface"], **kw)
+                              iface=iface, **kw)
 
     def plain():
         fo, ro, vo = dense_stream_collide(
             storage.decode_f(inp["f"]), inp["vel"], u, s, static, patch,
-            iface=inp["iface"], **kw)
+            iface=iface, **kw)
         if store_bf16:
             fo = storage.encode_f(fo, storage.STORE_BF16)
         return fo, ro, vo
@@ -385,8 +468,9 @@ def check_step_against(ref: build.Built, name: str, patch: PatchLevel,
     f, vel = inp["f"], inp["vel"]
     args = (0.04, 9, static, patch)
     graph = False
+    if_a, if_b = (sub_step_planes(inp["iface"], n) for n in (0, 1))
     if name == "stream_collide":
-        run = call = lambda: stream_collide(f, vel, *args, iface=inp["iface"], **kw)
+        run = call = lambda: stream_collide(f, vel, *args, iface=if_a, **kw)
     elif name == "stream_collide_flat":
         bufs = (torch.empty_like(f), torch.empty(f.shape[1:], device=device),
                 torch.empty_like(vel))
@@ -398,10 +482,9 @@ def check_step_against(ref: build.Built, name: str, patch: PatchLevel,
         run = lambda: stream_collide_inplace(f.clone(), vel, *args, **kw)
         call = lambda: stream_collide_inplace(work, vel, *args, **kw)
     elif name == "fused_pair":
-        iface_b = random_level_inputs(patch, store_bf16, seed + 1, device)["iface"]
         run = call = lambda: fused_pair(
             f, vel, (0.04, 0.041), (9, 10), static, patch, static["bouzidi"],
-            iface_a=inp["iface"], iface_b=iface_b, **kw)
+            iface_a=if_a, iface_b=if_b, **kw)
     else:
         raise ValueError(f"check_step_against: no stream-collide kernel {name!r}")
     return check_against((run, call), (substituted_call(ref, name, run),
@@ -651,14 +734,14 @@ def check_fused_pair(patch: PatchLevel, static: Dict, plan, store_bf16: bool,
                      plain_reps: int = 3) -> Dict:
     """K3 + K2 against fused_pair_plain + the plain correction on the card.
     `iface` is (iface_a, iface_b) or None for random, distinct ghost planes
-    of the two sub-steps.  Returns the max-abs errors of f (decoded), rho
-    and vel, the share of stored f entries that differ, ms per call of K3
-    alone, of the unfused kernels K1 -> K2 -> K1 (timed in turns in this
-    call) and of the plain pair, and K3's "attrs"."""
+    of the two sub-steps (`random_level_inputs`).  Returns the max-abs
+    errors of f (decoded), rho and vel, the share of stored f entries that
+    differ, ms per call of K3 alone, of the unfused kernels K1 -> K2 -> K1
+    (timed in turns in this call) and of the plain pair, and K3's
+    "attrs"."""
     inp = random_level_inputs(patch, store_bf16, seed, device)
     if iface is None:
-        iface = (inp["iface"],
-                 random_level_inputs(patch, store_bf16, seed + 1, device)["iface"])
+        iface = tuple(sub_step_planes(inp["iface"], n) for n in (0, 1))
     if_a, if_b = iface
     u, s = (0.04, 0.041), (9, 10)
     f, vel = inp["f"], inp["vel"]

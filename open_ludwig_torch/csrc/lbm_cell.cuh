@@ -10,10 +10,12 @@
 //     of the plain version (ops/dense_step.py): x faces over y faces over z
 //     faces, i.e. inlet > outlet > y-mirror > z-mirror.  Mirror faces read
 //     the destination cell's own mirrored row (unshifted); interface faces
-//     read the raw per-face ghost plane (27, A+2, B+2) at transverse offset
-//     1 - c_t, float32 in f-space.  Where the source is a cell of the level
-//     the caller's accessor supplies it, so K1 reads device memory, K3's
-//     second sub-step shared memory and K5 whichever holds the old value;
+//     read the per-face ghost plane (27, A, B) at the destination cell's
+//     own transverse position: the planes arrive pre-shifted, in the
+//     storage type (ops/dense_step.py: interface_planes_pair_mm).  Where
+//     the source is a cell of the level the caller's accessor supplies
+//     it, so K1 reads device memory, K3's second sub-step shared memory
+//     and K5 whichever holds the old value;
 //   collide: the per-cell factorized form of the JAX package's
 //     collide_unrolled_v2 (ops/collide_math.py:404): column partial sums
 //     give all ten moments, sponge blend, log-law wall-model force, WALE
@@ -25,7 +27,7 @@
 // Storage: T = float (f-space) or __nv_bfloat16 (g = f - w).  In g-space
 // the weight shift folds into constants: rho_raw += 1, diagonal raw second
 // moments += 1/3, t0 -= 1; the inlet/outlet equilibria drop their 1;
-// ghost planes (f-space) subtract w; outputs round to nearest even.
+// ghost planes arrive in g already (bf16); outputs round to nearest even.
 //
 // No fast math: powf/logf of the wall model and the WALE square roots
 // match the plain PyTorch version to 1e-5.
@@ -47,7 +49,9 @@ constexpr int BC_INTERFACE = 4;
 
 // The constants of one sub-step of one level.
 struct Step {
-  const float* plane[6];  // interface ghost planes, f32 f-space (27, A+2, B+2)
+  // interface ghost planes (27, A, B), pre-shifted, in the storage type T:
+  // float f-space, or __nv_bfloat16 g = f - w (read as T by face_value<G>)
+  const void* plane[6];
   int bc[6];
   int X, Y, Z;
   int lo_y, lo_z;
@@ -73,7 +77,7 @@ static inline bool make_step(Step& s, const void* const planes[6],
                              double c_wale, double nu_sgs, double inlet_turb,
                              int wall_model, int sponge_blend) {
   for (int i = 0; i < 6; ++i) {
-    s.plane[i] = static_cast<const float*>(planes[i]);
+    s.plane[i] = planes[i];
     s.bc[i] = bcs[i];
     if (bcs[i] == BC_INTERFACE && planes[i] == nullptr) return false;
   }
@@ -185,19 +189,16 @@ __device__ __forceinline__ float face_value(const Step& p, int k, int face,
   if (bc == BC_MIRROR_Y) return mirror((cx + 1) + 3 * (1 - cy) + 9 * (cz + 1));
   if (!IFACE || bc == BC_MIRROR_Z)
     return mirror((cx + 1) + 3 * (cy + 1) + 9 * (1 - cz));
-  // BC_INTERFACE
+  // BC_INTERFACE: the plane's value for this cell (pre-shifted), in the
+  // storage type's space
   const int ax = face >> 1;
   const int a = ax == 0 ? y : x;
   const int b = ax == 2 ? y : z;
-  const int ca = ax == 0 ? cy : cx;
-  const int cb = ax == 2 ? cy : cz;
   const int A = ax == 0 ? p.Y : p.X;
   const int B = ax == 2 ? p.Y : p.Z;
-  const long long i =
-      ((long long)k * (A + 2) + (a + 1 - ca)) * (B + 2) + (b + 1 - cb);
-  float v = __ldg(p.plane[face] + i);
-  if (G) v -= weight(k);
-  return v;
+  const long long i = ((long long)k * A + a) * B + b;
+  if (G) return ld(static_cast<const __nv_bfloat16*>(p.plane[face]), i);
+  return ld(static_cast<const float*>(p.plane[face]), i);
 }
 
 // Pull streaming into f[27] for cell (x, y, z), in two phases, so that the

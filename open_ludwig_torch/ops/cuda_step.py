@@ -20,7 +20,10 @@ cache, the 27 loads back to back off the level's plane base pointers with
 32-bit offsets (the face slots overwritten afterwards), the wall model's
 transcendental chain only where the wall distance is in (0, 10), A->B
 buffers (no in-place hazard between concurrent CTAs), and g-space math on
-bf16 storage so decode/encode are bare casts.  `tools/probe_k1_sections.py`
+bf16 storage so decode/encode are bare casts.  Its interface faces read
+ghost planes pre-shifted (27, A, B) in the storage type (bf16 g or float32
+f, as the reference's g-native step reads them), so a face slot is one
+load at the cell's own plane position.  `tools/probe_k1_sections.py`
 times its sections on the card.
 
 K2 `bouzidi` (csrc/bouzidi.cu) replaces make_bouzidi_pallas
@@ -160,10 +163,13 @@ def _check_level(f, vel, static: Dict, patch: PatchLevel) -> None:
     _check(static["wall_dist"], "wall_dist", (X, Y, Z), (torch.float32,), dev)
 
 
-def _iface_planes(patch: PatchLevel, iface: Optional[Dict], device,
+def _iface_planes(patch: PatchLevel, iface: Optional[Dict], device, dtype,
                   name: str = "iface") -> List[Optional[torch.Tensor]]:
     """The ghost plane of each face (None where the face is no interface),
-    checked against the level."""
+    checked against the level: pre-shifted (27, A, B) in the storage type
+    `dtype` (float32 f, or bf16 g = f - w), contiguous.  A scheduler's
+    sub-step n of an (nw, 27, A, B) pair tensor is `plane[n]`, a
+    contiguous view (`dense_step.interface_planes_pair_mm`)."""
     iface = iface or {}
     planes = []
     for face in range(6):
@@ -173,8 +179,8 @@ def _iface_planes(patch: PatchLevel, iface: Optional[Dict], device,
         if face not in iface:
             raise ValueError(f"interface face {face} has no ghost plane in {name}")
         t = [a for a in range(3) if a != face // 2]
-        shape = (27, patch.interior[t[0]] + 2, patch.interior[t[1]] + 2)
-        _check(iface[face], f"{name}[{face}]", shape, (torch.float32,), device)
+        shape = (27, patch.interior[t[0]], patch.interior[t[1]])
+        _check(iface[face], f"{name}[{face}]", shape, (dtype,), device)
         planes.append(iface[face])
     return planes
 
@@ -207,14 +213,16 @@ def stream_collide(
     inlet_turbulence: float,
     wall_model: bool,
     sponge_blend: bool,
-    iface: Optional[Dict[int, torch.Tensor]] = None,  # face -> f32 (27, A+2, B+2)
+    iface: Optional[Dict[int, torch.Tensor]] = None,  # face -> (27, A, B), f's dtype
 ):
     """K1: one stream-collide sub-step.  Returns new (f, rho, vel) in the
-    storage dtype of `f` (A -> B buffers; the inputs are not modified)."""
+    storage dtype of `f` (A -> B buffers; the inputs are not modified).
+    `iface` holds the pre-shifted ghost plane of each interface face in
+    f's storage type (`_iface_planes`)."""
     X, Y, Z = patch.interior
     dev = f.device
     _check_level(f, vel, static, patch)
-    planes = _iface_planes(patch, iface, dev)
+    planes = _iface_planes(patch, iface, dev, f.dtype)
     kw = dict(
         c_wale=c_wale, nu_sgs_background=nu_sgs_background,
         inlet_turbulence=inlet_turbulence, wall_model=wall_model,
@@ -354,12 +362,13 @@ def fused_pair(
     """K3: two sub-steps of a childless level with step A's Bouzidi
     correction between them.  Returns step B's new (f, rho, vel) in the
     storage dtype of `f`, B's f uncorrected (A -> B buffers; the inputs are
-    not modified)."""
+    not modified).  `iface_a` / `iface_b` hold each sub-step's pre-shifted
+    ghost planes in f's storage type (`_iface_planes`)."""
     X, Y, Z = patch.interior
     dev = f.device
     _check_level(f, vel, static, patch)
-    planes_a = _iface_planes(patch, iface_a, dev, "iface_a")
-    planes_b = _iface_planes(patch, iface_b, dev, "iface_b")
+    planes_a = _iface_planes(patch, iface_a, dev, f.dtype, "iface_a")
+    planes_b = _iface_planes(patch, iface_b, dev, f.dtype, "iface_b")
     if plan is not None:
         _check_plan(plan, (X, Y, Z), dev)
     (u_a, u_b), (seed_a, seed_b) = u, seed

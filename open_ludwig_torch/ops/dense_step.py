@@ -8,10 +8,18 @@ plain versions of the two CUDA kernels and the torch glue between them:
     masked select on the destination face row, in the reference precedence
     inlet > outlet > y-mirror > z-mirror, with interface faces read from
     per-face ghost planes (reference: src/physics_kernels.jl:99-120);
-  - `interface_endpoints[_pair]` / `interface_from_endpoints`: the ghost
-    planes, trilinearly and temporally interpolated from the parent with
-    the reference's parity-biased corner rule and f_neq rescaling
-    (reference: src/physics_interpolation.jl:16-138);
+  - the ghost planes, trilinearly and temporally interpolated from the
+    parent with the reference's parity-biased corner rule and f_neq
+    rescaling (reference: src/physics_interpolation.jl:16-138), two ways:
+    the main path's `build_iface_mm_plan` / `extract_endpoint_slabs` /
+    `interface_planes_pair_mm` (the reference's Pallas-path pipeline: a
+    static plan of small matrices, endpoint slabs the scheduler carries
+    across parent steps, two batched matmuls per field and one elementwise
+    tail per axis group), and the endpoint path
+    `interface_endpoints[_pair]` / `interface_from_endpoints` +
+    `shift_planes` (the reference's XLA path), the plain reference the
+    main path's planes are held to.  Both give planes pre-shifted (27, A,
+    B) per face, in the level's storage type, as K1 and K3 read them;
   - `build_bouzidi_dense_plan` / `apply_bouzidi_dense`: the Bouzidi
     sub-box correction (reference: src/bouzidi_kernel.jl:38-88), its link
     list (`bouzidi_links`) and `apply_bouzidi_links`, the same correction
@@ -178,10 +186,9 @@ def interface_from_endpoints(
 ) -> Dict[int, torch.Tensor]:
     """Temporal lerp of endpoint planes + equilibrium split + f_neq rescale
     clamped to [0.01, 100] (reference: src/physics_interpolation.jl:69-138).
-    Returns face -> float32 f-space plane (27, A+2, B+2)."""
-    tau_c = parent.tau - 0.5
-    tau_f = patch.tau - 0.5
-    scale = float(np.clip(tau_f / tau_c, 0.01, 100.0)) if tau_c > 1e-6 else 1.0
+    Returns face -> float32 f-space plane (27, A+2, B+2), which
+    `shift_planes` turns into the form the steps read."""
+    scale = _fneq_scale(patch, parent)
     blend = use_temporal and ep_old is not None and temporal_weight < 0.99
     out = {}
     for face, new in ep_new.items():
@@ -204,6 +211,344 @@ def interface_from_endpoints(
         )
         out[face] = feq + (f_int - feq) * scale
     return out
+
+
+def _fneq_scale(patch: PatchLevel, parent: PatchLevel) -> float:
+    tau_c = parent.tau - 0.5
+    tau_f = patch.tau - 0.5
+    return float(np.clip(tau_f / tau_c, 0.01, 100.0)) if tau_c > 1e-6 else 1.0
+
+
+def shift_planes(raw: Dict[int, torch.Tensor], patch: PatchLevel, g_shifted: bool,
+                 dtype) -> Dict[int, torch.Tensor]:
+    """Raw ghost planes ([nw,] 27, A+2, B+2), float32 f-space (the endpoint
+    path's `interface_from_endpoints`), in the form K1 and K3 read: per
+    direction k the window at transverse offset (1 - c_t), so that
+    plane[k, a, b] is the value for destination cell (a, b) of the face,
+    minus w_k first with `g_shifted`, then cast to `dtype`: ([nw,] 27, A, B)
+    contiguous (reference: prep_iface_pallas + _shift_planes,
+    pallas_step.py:215-240, dense_step.py:254-280)."""
+    out = {}
+    for face, pl in raw.items():
+        if g_shifted:
+            pl = pl - lat.tables(str(pl.device))["W"].view(27, 1, 1)
+        t = [a for a in range(3) if a != face // 2]
+        A, B = patch.interior[t[0]], patch.interior[t[1]]
+        rows = []
+        for k in range(27):
+            c = (int(lat.C_X[k]), int(lat.C_Y[k]), int(lat.C_Z[k]))
+            s0, s1 = 1 - c[t[0]], 1 - c[t[1]]
+            rows.append(pl[..., k, s0:s0 + A, s1:s1 + B])
+        out[face] = torch.stack(rows, dim=-3).to(dtype)
+    return out
+
+
+def _slab_geom(face: int, patch: PatchLevel, parent: PatchLevel) -> Dict:
+    """Slice/pad geometry of one interface face's parent slab (the index
+    math of interface_endpoints' slab), against the parent's interior."""
+    axis, t_axes, g_face = _face_geom(face, patch)
+    A, B = patch.interior[t_axes[0]], patch.interior[t_axes[1]]
+    p0 = g_face // 2 - 1
+    gA0 = patch.lo[t_axes[0]] - 1
+    gB0 = patch.lo[t_axes[1]] - 1
+    rng, pads = {}, {}
+    for ax in range(3):
+        if ax == axis:
+            lo_l = p0 - parent.lo[ax]
+            want = (lo_l, lo_l + 2)
+        else:
+            g0 = gA0 if ax == t_axes[0] else gB0
+            ln = A + 2 if ax == t_axes[0] else B + 2
+            want = (g0 // 2 - 1 - parent.lo[ax], (g0 + ln - 1) // 2 - parent.lo[ax] + 1)
+        hi_cap = parent.interior[ax]
+        got = (max(want[0], 0), min(want[1], hi_cap))
+        if got[1] <= got[0]:
+            raise ValueError(f"interface slab empty: face {face} axis {ax} wants "
+                             f"{want}, parent extent {hi_cap}")
+        rng[ax] = got
+        pads[ax] = (got[0] - want[0], want[1] - got[1])
+    return {"axis": axis, "t_axes": t_axes, "A": A, "B": B, "gA0": gA0,
+            "gB0": gB0, "w_face": 0.25 + 0.5 * (g_face % 2), "rng": rng,
+            "pads": pads}
+
+
+def _clamped_matrix_cols(weights_by_parent: list, start: int, width: int,
+                         lo_cap: int, hi_cap: int) -> np.ndarray:
+    """Rows of [(parent_cell, weight), ...] -> (n_rows, width) matrix over
+    slab columns [start, start + width), parent cells outside [lo_cap,
+    hi_cap) clamped to the nearest one inside (the edge-pad of the
+    reference's slab extraction)."""
+    M = np.zeros((len(weights_by_parent), width), np.float32)
+    for i, pairs in enumerate(weights_by_parent):
+        for cell, wt in pairs:
+            cell = min(max(cell, lo_cap), hi_cap - 1)
+            M[i, cell - start] += wt
+    return M
+
+
+def build_iface_mm_plan(patch: PatchLevel, parent: PatchLevel) -> Optional[Dict]:
+    """Static plan of interface_planes_pair_mm for child level `patch` (numpy;
+    `iface_mm_plan_to` adds its device tensors), or None without an
+    interface face.  Per interface-face axis group: the parent slab's
+    window (per-face starts, common sizes), the normal lerp's two slab
+    planes and weight per face ("lerp_idx"; also as the 2-hot matrix UN2
+    (nf, wn)), and UA3 (3, A, wa) / UB3 (3, B, wb): the 2x upsample
+    (parity-biased corner rule), the edge clamp and the per-direction
+    (1 - c) window shift along each transverse axis, one matrix per class
+    c + 1 of the direction's component along that axis.  The reference's
+    plan (open_ludwig_tpu/ops/dense_step.py:415-562) for a parent whose
+    alignment is 1 on every axis (flat-(y, z)); the port's parents are
+    (27, X, Y, Z) over their interior, so the caps are the interior."""
+    need = [f for f in range(6) if patch.face_bc[f] == BC_INTERFACE]
+    if not need:
+        return None
+    caps = tuple(parent.interior)
+
+    def wide_range(want_lo: int, want_hi: int, ax: int, width: Optional[int] = None):
+        """Slice [start, start + width) covering want within [0, cap)."""
+        cap = caps[ax]
+        start = max(want_lo, 0)
+        w = min(want_hi, cap) - start
+        if width is not None:
+            w = max(w, width)
+        w = min(w, cap)
+        return min(start, cap - w), w
+
+    groups = []
+    for ax in range(3):
+        faces = [f for f in need if f // 2 == ax]
+        if not faces:
+            continue
+        geoms = [_slab_geom(f, patch, parent) for f in faces]
+        g0 = geoms[0]
+        t0, t1 = g0["t_axes"]
+        A, B = g0["A"], g0["B"]
+
+        def t_want(t_ax, g_t0, ln):
+            # parent-LOCAL cell range (child coordinates are global at the
+            # child level; the slab slices the parent's own array)
+            return (g_t0 // 2 - 1 - parent.lo[t_ax],
+                    (g_t0 + ln - 1) // 2 - parent.lo[t_ax] + 1)
+
+        wA = t_want(t0, g0["gA0"], A + 2)
+        wB = t_want(t1, g0["gB0"], B + 2)
+        sA, wa = wide_range(wA[0], wA[1], t0)
+        sB, wb = wide_range(wB[0], wB[1], t1)
+        # normal ranges differ per face; one common width
+        n_wants = []
+        for g in geoms:
+            lo_l = g["rng"][ax][0] - g["pads"][ax][0]
+            n_wants.append((lo_l, lo_l + 2))
+        wn = max(wide_range(w0, w1, ax)[1] for w0, w1 in n_wants)
+        n_ranges = [wide_range(w0, w1, ax, width=wn) for w0, w1 in n_wants]
+
+        lerp_idx = []
+        for g, (w0, _), (st, _) in zip(geoms, n_wants, n_ranges):
+            i0 = min(max(w0, 0), caps[ax] - 1) - st
+            i1 = min(max(w0 + 1, 0), caps[ax] - 1) - st
+            lerp_idx.append((i0, i1, g["w_face"]))
+
+        def u_class(g_t0, ln_out, t_ax, want, start, width):
+            rows = []
+            for i in range(ln_out):
+                g = g_t0 + i
+                jlo = g // 2 - 1 - parent.lo[t_ax]  # parent-LOCAL cell
+                w_hi = 0.25 + 0.5 * (g % 2)
+                rows.append([(jlo, 1.0 - w_hi), (jlo + 1, w_hi)])
+            # clamp to the CLIPPED want range (edge-pad replicates its ends)
+            Mfull = _clamped_matrix_cols(rows, start, width, max(want[0], 0),
+                                         min(want[1], caps[t_ax]))
+            ln_win = ln_out - 2
+            return np.stack([Mfull[2 - ci:2 - ci + ln_win] for ci in range(3)])
+
+        starts = []
+        for st, _ in n_ranges:
+            s3 = [0, 0, 0]
+            s3[ax], s3[t0], s3[t1] = st, sA, sB
+            starts.append(tuple(s3))
+        size3 = [0, 0, 0]
+        size3[ax], size3[t0], size3[t1] = wn, wa, wb
+        UN2 = np.zeros((len(faces), wn), np.float32)
+        for fi, (i0, i1, wf) in enumerate(lerp_idx):
+            UN2[fi, i0] += 1.0 - wf
+            UN2[fi, i1] += wf
+        groups.append({
+            "axis": ax, "faces": faces, "A": A, "B": B, "starts": starts,
+            "sizes": tuple(size3), "lerp_idx": lerp_idx,
+            "UA3": u_class(g0["gA0"], A + 2, t0, wA, sA, wa),
+            "UB3": u_class(g0["gB0"], B + 2, t1, wB, sB, wb),
+            "UN2": UN2,
+        })
+    return {"groups": groups}
+
+
+def _class_of(axis: int) -> np.ndarray:
+    """Per direction k, the class c + 1 of its component along `axis`."""
+    return np.asarray([(lat.C_X, lat.C_Y, lat.C_Z)[axis][k] + 1 for k in range(27)])
+
+
+def iface_mm_plan_to(plan: Optional[Dict], device) -> Optional[Dict]:
+    """The plan with, per group, the device tensors interface_planes_pair_mm
+    and extract_endpoint_slabs use:
+
+      "idx"        int64 (2 nf,)      the slab planes of each face's normal
+                                      lerp, as parent indices along the normal
+      "w_lo/w_hi"  float32 (nf,)      their weights
+      "UA", "UBt"  float32 (27, A, wa), (27, wb, B): UA3 and UB3 transposed,
+                                      picked per direction k by its classes
+      "UA_class", "UBt_class" the same per class, (3, A, wa) and (3, wb,
+                                      B), for rho and vel
+
+    beside the numpy arrays of build_iface_mm_plan, and the direction
+    components and weights on the (cz, cy, cx, A, B) axes of the planes'
+    tail ("cx", "cy", "cz", "W")."""
+    if plan is None:
+        return None
+    cv = torch.tensor([-1.0, 0.0, 1.0], device=device)
+    tail = {"cx": cv.view(3, 1, 1), "cy": cv.view(3, 1, 1, 1),
+            "cz": cv.view(3, 1, 1, 1, 1),
+            "W": torch.as_tensor(lat.W, device=device).view(3, 3, 3, 1, 1)}
+    groups = []
+    for grp in plan["groups"]:
+        ax = grp["axis"]
+        t0, t1 = [a for a in range(3) if a != ax]
+        idx = [st3[ax] + i for st3, (i0, i1, _) in zip(grp["starts"], grp["lerp_idx"])
+               for i in (i0, i1)]
+        wf = np.asarray([w for _, _, w in grp["lerp_idx"]], np.float32)
+        UA3 = torch.as_tensor(grp["UA3"], device=device)
+        UB3t = torch.as_tensor(grp["UB3"], device=device).transpose(1, 2).contiguous()
+        groups.append({
+            **grp,
+            "idx": torch.as_tensor(idx, dtype=torch.int64, device=device),
+            "w_lo": torch.as_tensor(1.0 - wf, device=device),
+            "w_hi": torch.as_tensor(wf, device=device),
+            "UA": UA3[torch.as_tensor(_class_of(t0), device=device)].contiguous(),
+            "UBt": UB3t[torch.as_tensor(_class_of(t1), device=device)].contiguous(),
+            "UA_class": UA3, "UBt_class": UB3t,
+        })
+    return {**plan, "groups": groups, **tail}
+
+
+def extract_endpoint_slabs(plan: Dict, state: Dict) -> List[Dict]:
+    """The endpoint slabs of ONE parent state for interface_planes_pair_mm,
+    per group of the device plan (`iface_mm_plan_to`): the parent window
+    of each face, normal-lerped, float32:
+
+      {"f": (nf, 27, wa, wb), "rho": (nf, wa, wb), "vel": (nf, 3, wa, wb),
+       "g": whether f holds bf16 storage's g = f - w}
+
+    A bf16 state's slabs hold g: the decode +w commutes with every
+    row-sum-1 operator after it, so interface_planes_pair_mm applies it once
+    after its contraction.  The scheduler carries one parent step's slabs
+    as the next step's old ones (reference: dense_step.py:577-627,
+    solver_dense.py:478-497)."""
+    g = state["f"].dtype == torch.bfloat16
+    out = []
+    for grp in plan["groups"]:
+        ax = grp["axis"]
+        t0, t1 = [a for a in range(3) if a != ax]
+        sA, sB = grp["starts"][0][t0], grp["starts"][0][t1]
+        wa, wb = grp["sizes"][t0], grp["sizes"][t1]
+        nf = len(grp["faces"])
+
+        def one(key, lead, _ax=ax, _t=(t0, t1)):
+            a = state[key].narrow(lead + _t[0], sA, wa).narrow(lead + _t[1], sB, wb)
+            # (2 nf) planes along the normal, moved in front: (nf, 2, ..., wa, wb)
+            a = a.index_select(lead + _ax, grp["idx"]).movedim(lead + _ax, 0)
+            a = a.unflatten(0, (nf, 2))
+            wsh = (nf,) + (1,) * (a.dim() - 2)
+            # float32 weights promote a bf16 slab to float32 exactly
+            return a[:, 0] * grp["w_lo"].view(wsh) + a[:, 1] * grp["w_hi"].view(wsh)
+
+        out.append({"f": one("f", 1), "rho": one("rho", 0), "vel": one("vel", 1),
+                    "g": g})
+    return out
+
+
+def interface_planes_pair_mm(
+    plan: Dict,
+    patch: PatchLevel,
+    parent: PatchLevel,
+    slabs_old: Optional[List[Dict]],
+    slabs_new: List[Dict],
+    use_temporal: bool,
+    g_shifted: bool = False,
+    out_dtype=torch.float32,
+) -> Dict[int, torch.Tensor]:
+    """Ghost planes of both child sub-steps of one parent step from the
+    parent's endpoint slabs (extract_endpoint_slabs) and the device plan
+    (iface_mm_plan_to): temporal blend at weights (0.0, 0.5), 2x upsample
+    with the edge clamp and the per-direction window shift (two batched
+    matmuls per field), then equilibrium split and f_neq rescale clamped
+    to [0.01, 100] (reference: interface_planes_pair_mm,
+    open_ludwig_tpu/ops/dense_step.py:630-858; src/physics_interpolation.jl:
+    16-138).  Returns face -> (nw, 27, A, B) contiguous, nw = 2 with
+    temporal interpolation (sub-step n reads plane[n]) else 1: pre-shifted
+    (plane[n, k, a, b] is the value for destination cell (a, b)), in g =
+    f - w space with `g_shifted`, else f-space, cast to `out_dtype`.  The
+    contraction runs slab -> UB -> UA, so no intermediate exceeds 4/3 of
+    the output planes (`_check_intermediate`)."""
+    scale = _fneq_scale(patch, parent)
+    blend = use_temporal and slabs_old is not None
+    out = {}
+    for gi, grp in enumerate(plan["groups"]):
+        ax = grp["axis"]
+        nf = len(grp["faces"])
+        A, B = grp["A"], grp["B"]
+        new = slabs_new[gi]
+
+        def pair(key, _gi=gi, _new=new):
+            n = _new[key]
+            if not blend:
+                return n.unsqueeze(1)
+            o = slabs_old[_gi][key]
+            return torch.stack([o, (o + n) * 0.5], dim=1)
+
+        f_sl = pair("f")  # (nf, nw, 27, wa, wb)
+        rv = torch.cat([pair("vel"), pair("rho").unsqueeze(2)], dim=2)  # (nf, nw, 4, wa, wb)
+        nw = f_sl.shape[1]
+        # f: per direction k, UA3[c_a(k)] @ slab_k @ UB3[c_b(k)]^T
+        t = torch.matmul(f_sl, grp["UBt"])  # (nf, nw, 27, wa, B)
+        f_up = torch.matmul(grp["UA"], t)  # (nf, nw, 27, A, B)
+        # rho and vel: every (c_a, c_b) class pair
+        trv = torch.matmul(rv.unsqueeze(3), grp["UBt_class"])  # (nf, nw, 4, 3 [c_b], wa, B)
+        # (nf, nw, 4, 3 [c_a], 3 [c_b], A, B)
+        rv_w = torch.matmul(grp["UA_class"].unsqueeze(1), trv.unsqueeze(3))
+        _check_intermediate((f_sl, t, f_up, rv, trv, rv_w), 36 * nf * nw * A * B)
+        # onto the direction classes (cz, cy, cx) of k = (cx+1) + 3(cy+1) + 9(cz+1):
+        # c_b's axis before c_a's, a unit axis for the normal's component
+        rv_w = rv_w.transpose(3, 4).unsqueeze(5 - ax)  # (nf, nw, 4, z, y, x, A, B)
+        ux, uy, uz, rho = rv_w.unbind(2)
+        W_b = plan["W"]
+        cu = plan["cx"] * ux + plan["cy"] * uy + plan["cz"] * uz
+        usq = ux * ux + uy * uy + uz * uz
+        expr = rho * (1.0 + 3.0 * cu + 4.5 * cu * cu - 1.5 * usq)
+        f_up = f_up.view(nf, nw, 3, 3, 3, A, B)
+        g_store = new["g"]
+        if g_shifted:
+            # plane_g = feq_g + (g_up - feq_g) * scale, feq_g = w (expr - 1)
+            feq = W_b * (expr - 1.0)
+            up = f_up if g_store else f_up - W_b
+        else:
+            feq = W_b * expr
+            up = f_up + W_b if g_store else f_up
+        plane = (feq + (up - feq) * scale).to(out_dtype).reshape(nf, nw, 27, A, B)
+        for i, face in enumerate(grp["faces"]):
+            out[face] = plane[i]
+    return out
+
+
+def _check_intermediate(parts, bound: int) -> None:
+    """The contraction's tensors stay within `bound` values: its rho and vel
+    output, 4 fields x 9 class pairs x A x B per face and weight, 4/3 of
+    the f planes.  Contracted slab -> UB -> UA they do; the reference's
+    three-operand einsum specs (dense_step.py:565-575) contracted left to
+    right, as torch.einsum does without opt_einsum, would first form the
+    outer product of UA3 and UB3: 9 A wa B wb values."""
+    big = max(p.numel() for p in parts)
+    if big > bound:
+        raise AssertionError(f"interface contraction: a tensor of {big} values "
+                             f"exceeds its bound of {bound}")
 
 
 def _u32(u_inlet, device) -> torch.Tensor:
@@ -250,9 +595,12 @@ def dense_stream_collide(
     inlet_turbulence: float,
     wall_model: bool,
     sponge_blend: bool,
-    iface: Optional[Dict[int, torch.Tensor]] = None,  # face -> (27, A+2, B+2)
+    iface: Optional[Dict[int, torch.Tensor]] = None,  # face -> (27, A, B)
 ):
-    """One stream-collide sub-step; returns (f, rho, vel) of the level."""
+    """One stream-collide sub-step; returns (f, rho, vel) of the level.
+    `iface` holds each interface face's pre-shifted ghost plane (27, A, B)
+    in its level's storage type (`interface_planes_pair_mm`,
+    `shift_planes`): float32 f, or bf16 g = f - w, decoded here."""
     return _stream_collide(
         _roll3, f, vel, u_inlet, t_seed, static, patch, c_wale=c_wale,
         nu_sgs_background=nu_sgs_background, inlet_turbulence=inlet_turbulence,
@@ -295,14 +643,10 @@ def _stream_collide(shift, f, vel, u_inlet, t_seed, static, patch, *, c_wale,
         cx, cy, cz = int(lat.C_X[k]), int(lat.C_Y[k]), int(lat.C_Z[k])
         bc = fb[face]
         if bc == BC_INTERFACE:
-            pl = iface[face][k]  # (A+2, B+2)
-            ax = face // 2
-            t_axes = [a for a in range(3) if a != ax]
-            c = (cx, cy, cz)
-            s0, s1 = 1 - c[t_axes[0]], 1 - c[t_axes[1]]
-            d0, d1 = patch.interior[t_axes[0]], patch.interior[t_axes[1]]
-            v = pl[s0:s0 + d0, s1:s1 + d1]
-            return v.unsqueeze(ax)
+            v = iface[face][k]  # (A, B), pre-shifted
+            if v.dtype == torch.bfloat16:
+                v = v.float() + W[k]
+            return v.unsqueeze(face // 2)
         if bc == BC_INLET:
             return (W[k] * inlet_factor)[None, :, :]
         if bc == BC_OUTLET:

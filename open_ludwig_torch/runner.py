@@ -154,6 +154,7 @@ def solve_case(cfg: CaseConfig, device="cuda") -> SolveResult:
             device=dev)
 
     run = make_batch_runner_dense(cfg, params, levels, statics)
+    states = run.seed_slabs(states)
     log.info("[Run] steps=%d ramp=%d diag=%d", cfg.steps, cfg.ramp_steps,
              cfg.diag_freq)
     log.info("%8s | %12s | %10s | %7s | %7s | %7s | %8s | %8s", "Step",

@@ -4,9 +4,17 @@ Port of the single-device schedule of
 `open_ludwig_tpu/solver_dense.py:make_coarse_step_dense` (the "real"
 interface path, :426-631) and of its batch runner (:660-704): level l
 advances 2^(l-1) sub-steps per coarse step (reference:
-src/solver_control.jl:21-143).  After each parent step the (old, new)
-parent states give endpoint ghost planes for the child's two sub-steps at
-temporal weights 0.0 and 0.5.
+src/solver_control.jl:21-143).  After each parent step the child's ghost
+planes for both of its sub-steps (temporal weights 0.0 and 0.5) come from
+the reference's Pallas-path pipeline (solver_dense.py:478-520 there): a
+static plan per child level (`dense_step.build_iface_mm_plan`, kept in
+statics[l]["iface_mm"]), the parent's endpoint slabs extracted once per
+parent step (`extract_endpoint_slabs`) and carried under the parent
+state's "_ifsl" key as the next step's old ones, and one batched
+contraction + elementwise tail per axis group
+(`interface_planes_pair_mm`): one (nw, 27, A, B) tensor per face,
+pre-shifted, in the child's storage type (bf16 g = f - w planes on bf16
+levels, float32 f planes otherwise), whose plane[n] sub-step n reads.
 
 Each level's kernel is the JAX package's choice (`ops.engine`, mirroring
 solver_dense.py:233-336 of the reference), recorded as
@@ -24,12 +32,14 @@ childless finest "k1" level runs each pair of sub-steps as one K3 launch
 one K2 launch after it; a single-level case runs pairs of coarse steps so
 (`coarse_step.pair_step`), an odd batch taking one plain step first.
 Every other sub-step is one launch of its level's kernel, followed on the
-finest level by one K2 launch (`ops.cuda_step.bouzidi`).  `fuse2=False`
-keeps the unfused schedule.  Ghost planes are plain torch.  States are
-{f: (27, X, Y, Z), rho, vel} in the storage dtype (float32 f or bf16
-g = f - w) on every level.  K1, K3 and K4 write fresh buffers (A -> B), and
-a parent's pre-step state lives until its child's ghost planes are built;
-on a K5 parent the old endpoint planes are taken before the launch.
+finest level by K2 (`ops.cuda_step.bouzidi`).  `fuse2=False` keeps the
+unfused schedule.  The ghost planes are plain torch (~170 small launches
+per child build).  States are {f: (27, X, Y, Z), rho, vel} in
+the storage dtype (float32 f or bf16 g = f - w) on every level, and a
+parent level's also "_ifsl", its carried slabs.  K1, K3 and K4 write
+fresh buffers (A -> B); a parent's pre-step state has no consumer after
+its launch (its old slabs are carried, or taken before the launch on an
+unseeded call, which a K5 parent, writing f in place, needs).
 """
 
 from __future__ import annotations
@@ -54,9 +64,10 @@ from .ops.cuda_step import (
 from .ops.dense_step import (
     bouzidi_plan_to,
     build_bouzidi_dense_plan,
-    interface_endpoints,
-    interface_endpoints_pair,
-    interface_from_endpoints,
+    build_iface_mm_plan,
+    extract_endpoint_slabs,
+    iface_mm_plan_to,
+    interface_planes_pair_mm,
 )
 from .scaling import DomainParams
 from .solver import ramp_velocity
@@ -81,18 +92,24 @@ def build_patch_statics(cfg: CaseConfig, patches: List[PatchLevel],
                         device="cpu") -> List[Dict]:
     """Per level: obstacle (bool), sponge, wall_dist as (X, Y, Z) device
     tensors, the Bouzidi plan (S, the link list and its scratch as device
-    tensors: `dense_step.bouzidi_plan_to`) or None, and
+    tensors: `dense_step.bouzidi_plan_to`) or None, the level's ghost-plane
+    plan against its parent ("iface_mm": `dense_step.build_iface_mm_plan`
+    with its device tensors, `iface_mm_plan_to`; None on level 1), and
     the level's kernel ("engine") with the reason for it ("engine_why")."""
     statics = []
-    for p, (eng, why) in zip(patches, engine.level_engines(cfg, patches)):
+    for li, (p, (eng, why)) in enumerate(zip(patches,
+                                             engine.level_engines(cfg, patches))):
         plan = bouzidi_plan_to(build_bouzidi_dense_plan(p, cfg.q_min_threshold),
                                device)
+        mm = (iface_mm_plan_to(build_iface_mm_plan(p, patches[li - 1]), device)
+              if li > 0 else None)
         statics.append({
             "obstacle": torch.as_tensor(p.obstacle, dtype=torch.bool, device=device),
             "sponge": torch.as_tensor(p.sponge, dtype=torch.float32, device=device),
             "wall_dist": torch.as_tensor(p.wall_dist, dtype=torch.float32,
                                          device=device),
             "bouzidi": plan,
+            "iface_mm": mm,
             "engine": eng,
             "engine_why": why,
         })
@@ -133,6 +150,10 @@ def kernel_log_lines(patches: List[PatchLevel], statics: List[Dict],
             c = flat_choice(p, storage.f_dtype(precision) == torch.bfloat16)
             shape = (f" ({c['threads']} threads a block, launch bounds for "
                      f"{c['min_blocks']} a SM)")
+        mm = st["iface_mm"]
+        ghost = (f" | ghost planes: einsum plan, {len(mm['groups'])} groups, "
+                 + ("bf16 g-space" if store.startswith("bf16") else "f32 f-space")
+                 if mm is not None else "")
         lines.append(
             f"  [engine] level {p.level_id}: {'x'.join(map(str, p.interior))} "
             f"cells, {2 ** (p.level_id - 1)} sub-step(s)/coarse step | "
@@ -140,7 +161,7 @@ def kernel_log_lines(patches: List[PatchLevel], statics: List[Dict],
             f"{st['engine_why']}"
             + (f" | K2 bouzidi {route}, box {tuple(bz['dim'])} at {bz['lo']}"
                if bz is not None else "")
-            + f" | {k3}"
+            + ghost + f" | {k3}"
         )
     return lines
 
@@ -154,10 +175,14 @@ def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
     followed on the finest level by K2.  With `fuse2` the sub-step pairs of a
     finest "k1" level are K3 launches instead.  `coarse_step.pair_step(
     states, t)` runs coarse steps t and t + 1 of such a single-level case
-    as one K3 + K2 (None otherwise)."""
+    as one K3 + K2 (None otherwise).  `coarse_step.seed_slabs(states)`
+    stores each parent level's endpoint slabs under "_ifsl" (idempotent);
+    a parent state without them has its old slabs extracted before its
+    launch."""
     n_levels = len(patches)
     last = n_levels - 1
     engs = [st["engine"] for st in statics]
+    plans = [st["iface_mm"] for st in statics]
     fuse_last = bool(fuse2) and engs[last] == "k1"
     use_temporal = cfg.temporal_interpolation
     kw = dict(
@@ -191,11 +216,13 @@ def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
             st = states[lvl]
             eng = engs[lvl]
             child = patches[lvl + 1] if lvl + 1 < n_levels else None
-            ep_old = None
-            if child is not None and use_temporal and eng == "inplace":
-                # K5 overwrites the pre-step f: take the old endpoint
-                # planes first
-                ep_old = interface_endpoints(child, patch, st)
+            old_sl = None
+            if child is not None and use_temporal:
+                old_sl = st.get("_ifsl")
+                if old_sl is None:
+                    # an unseeded call: the old slabs before the launch
+                    # (a K5 parent overwrites f)
+                    old_sl = extract_endpoint_slabs(plans[lvl + 1], st)
             if eng == "k1":
                 f_new, rho_new, vel_new = stream_collide(
                     st["f"], st["vel"], u_curr, t_sub % 1000000, statics[lvl],
@@ -206,37 +233,48 @@ def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
                     st["f"], st["vel"], u_curr, t_sub % 1000000, statics[lvl],
                     patch, **kw,
                 )
+            del st  # the pre-step state has no consumer after the launch
             plan = statics[lvl]["bouzidi"]
             if plan is not None:
                 f_new = bouzidi(f_new, plan)
             states[lvl] = {"f": f_new, "rho": rho_new, "vel": vel_new}
-            if child is not None:
-                if use_temporal and eng != "inplace":
-                    ep_old, ep_new = interface_endpoints_pair(
-                        child, patch, st, states[lvl]
-                    )
-                else:
-                    ep_new = interface_endpoints(child, patch, states[lvl])
-                del st  # the parent's pre-step state is no longer needed
-                if_a = interface_from_endpoints(
-                    ep_new, ep_old, child, patch, 0.0, use_temporal
-                )
-                if_b = interface_from_endpoints(
-                    ep_new, ep_old, child, patch, 0.5, use_temporal
-                )
-                if fuse_last and lvl + 1 == last:
-                    ts = 2 * t_sub
-                    fused(states, last, (u_curr, u_curr),
-                          (ts % 1000000, (ts + 1) % 1000000), if_a, if_b)
-                    return
-                visit(lvl + 1, 2 * t_sub, if_a)
-                visit(lvl + 1, 2 * t_sub + 1, if_b)
+            if child is None:
+                return
+            new_sl = extract_endpoint_slabs(plans[lvl + 1], states[lvl])
+            if use_temporal:
+                states[lvl]["_ifsl"] = new_sl
+            # the child's planes in its storage type: bf16 g, or float32 f
+            c_dtype = states[lvl + 1]["f"].dtype
+            planes = interface_planes_pair_mm(
+                plans[lvl + 1], child, patch, old_sl, new_sl, use_temporal,
+                g_shifted=c_dtype == torch.bfloat16, out_dtype=c_dtype)
+            if_a = {fc: pl[0] for fc, pl in planes.items()}
+            if_b = {fc: pl[-1] for fc, pl in planes.items()}
+            if fuse_last and lvl + 1 == last:
+                ts = 2 * t_sub
+                fused(states, last, (u_curr, u_curr),
+                      (ts % 1000000, (ts + 1) % 1000000), if_a, if_b)
+                return
+            visit(lvl + 1, 2 * t_sub, if_a)
+            visit(lvl + 1, 2 * t_sub + 1, if_b)
 
         visit(0, int(t), None)
         # visit refers to itself; clearing it breaks that cycle, which would
         # otherwise keep this step's states alive until the garbage
         # collector runs (up to a level's whole state per step)
         del visit
+        return states
+
+    def seed_slabs(states: List[Dict]) -> List[Dict]:
+        """The states with "_ifsl", the endpoint slabs of each parent level,
+        where it is missing (reference: solver_dense.py:573-590): the batch
+        runner and `runner.solve_case` run it on their first states."""
+        states = list(states)
+        if use_temporal:
+            for lvl in range(n_levels - 1):
+                if "_ifsl" not in states[lvl]:
+                    states[lvl] = {**states[lvl], "_ifsl": extract_endpoint_slabs(
+                        plans[lvl + 1], states[lvl])}
         return states
 
     pair_step = None
@@ -252,6 +290,7 @@ def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
                   (t % 1000000, (t + 1) % 1000000), None, None)
             return states
 
+    coarse_step.seed_slabs = seed_slabs
     coarse_step.pair_step = pair_step
     coarse_step.fused2 = fuse_last
     return coarse_step
@@ -264,14 +303,16 @@ def make_batch_runner_dense(cfg: CaseConfig, params: DomainParams,
     loop that only enqueues work (no host sync inside a batch).  A
     single-level case with a pair step runs pairs of coarse steps; an odd
     batch of n >= 3 takes one plain step first (the JAX runner's rule,
-    open_ludwig_tpu/solver_dense.py:690-700).  A level run in place (K5)
-    updates the f tensor of the states passed in."""
+    open_ludwig_tpu/solver_dense.py:690-700).  The states first get their
+    carried endpoint slabs (`run.seed_slabs`, idempotent).  A level run in
+    place (K5) updates the f tensor of the states passed in."""
     coarse_step = make_coarse_step_dense(cfg, params, patches, statics,
                                          fuse2=fuse2)
     pair = coarse_step.pair_step
 
     def run(states: List[Dict], t0: int, n: int) -> List[Dict]:
         t0, n = int(t0), int(n)
+        states = coarse_step.seed_slabs(states)
         if pair is not None and n >= 2:
             if n % 2:
                 states = coarse_step(states, t0)
@@ -284,6 +325,7 @@ def make_batch_runner_dense(cfg: CaseConfig, params: DomainParams,
         return states
 
     run.fused2 = coarse_step.fused2
+    run.seed_slabs = coarse_step.seed_slabs
     return run
 
 
@@ -295,21 +337,29 @@ def hbm_report_patches(patches: List[PatchLevel], statics: List[Dict],
     while the first is alive, and K3's step A stays in shared memory; a K5
     sub-step writes f in place and allocates only rho, vel and its edge
     buffer (sized by the card's layout; the plain CPU path has none).  The
-    transient counted is the largest level's."""
+    transient counted is the largest level's.  A parent level also holds
+    its child's carried endpoint slabs (float32, one set between steps, a
+    second while the child's planes are built; `extract_endpoint_slabs`),
+    and no longer its pre-step state until then: that state has no
+    consumer after the parent's launch."""
     f_bytes = 2 if storage.f_dtype(precision) == torch.bfloat16 else 4
     dev = torch.device(device)
     lines = [f"Device memory (dense patches, {precision} f-storage):"]
     total = 0
     trans = []
-    for p, st in zip(patches, statics):
+    for li, (p, st) in enumerate(zip(patches, statics)):
         n = p.n_cells
+        child_mm = statics[li + 1]["iface_mm"] if li + 1 < len(statics) else None
+        slab_b = sum(len(g["faces"]) * 31 * g["sizes"][t0] * g["sizes"][t1] * 4
+                     for g in (child_mm["groups"] if child_mm else ())
+                     for t0, t1 in [[a for a in range(3) if a != g["axis"]]])
         state_b = n * (27 * f_bytes + 4 * (1 + 3))
         field_b = n * (1 + 4 + 4)
         bz = st["bouzidi"]
         # S (float32, K3's) + K2's links (13 B each) and their scratch (4 B)
         bz_b = (bz["S"].numel() * 4 + bz["links"]["a"].numel() * 17
                 if bz is not None else 0)
-        total += state_b + field_b + bz_b
+        total += state_b + field_b + bz_b + slab_b
         if st["engine"] == "inplace":
             edge = (inplace_layout(*p.interior, dev, f_bytes)["edge_elems"] * f_bytes
                     if dev.type == "cuda" else 0)
@@ -323,6 +373,9 @@ def hbm_report_patches(patches: List[PatchLevel], statics: List[Dict],
             f"  level {p.level_id}: {n/1e6:7.2f}M cells | state "
             f"{state_b/1e6:8.1f} MB | fields {field_b/1e6:6.1f} MB | bouzidi "
             f"{bz_b/1e6:5.1f} MB | step {step}"
+            + (f" | carried ghost-plane slabs {slab_b/1e6:.2f} MB (x2 while the "
+               "child's planes are built; the pre-step state is not held)"
+               if child_mm else "")
         )
     if statics[-1]["engine"] == "k1":
         lines.append(

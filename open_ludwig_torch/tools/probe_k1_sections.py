@@ -102,10 +102,11 @@ def measure(patch, static, store_bf16: bool, kw: Dict, device,
     of about WINDOW_MS with the clock sampled beside it, and the marked K1's
     warp-cycles per cell by section."""
     inp = checks.random_level_inputs(patch, store_bf16, 17, device)
+    iface = checks.sub_step_planes(inp["iface"], 0)
 
     def k1():
         return cuda_step.stream_collide(inp["f"], inp["vel"], 0.04, 9, static, patch,
-                                        iface=inp["iface"], **kw)
+                                        iface=iface, **kw)
 
     plain_lib = build.load("stream_collide", csrc)
     marked_lib = build.load("stream_collide", csrc, (MARK_FLAG,))

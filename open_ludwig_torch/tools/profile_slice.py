@@ -1,0 +1,152 @@
+"""The bench slice's coarse steps on the card: time, and every CUDA launch.
+
+    python3 -m open_ludwig_torch.tools.profile_slice [--warmup 20] [--steps 10]
+
+Builds the bench case (`checks.bench_case`: sphere Re~1M, N=25, 3 levels +
+wake, bf16 g-storage), runs `--warmup` coarse steps of the batch runner
+from rest, then over the next `--steps` coarse steps, one at a time:
+
+  - ms per coarse step and MLUPS-su from CUDA events, without a profiler;
+  - the same steps once more under `torch.profiler`: every CUDA kernel,
+    memcpy and memset the device ran per coarse step ("device_ops"), the
+    port's own kernel launches per coarse step (`cuda_step.LAUNCHES`), the
+    device time of the port's kernels and of everything else, and the
+    share of the profiled window the device was busy (the union of its
+    operations' intervals over the window; the profiler's own host cost
+    lowers it).
+
+Prints one JSON line.  It imports only entry points that every version of
+the package since the bench slice has, so the same file run with another
+checkout first on PYTHONPATH (`PYTHONPATH=DIR python3
+open_ludwig_torch/tools/profile_slice.py`) measures that checkout.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import tempfile
+from typing import Callable, Dict, List, Optional, Sequence
+
+import torch
+
+# the port's kernels (csrc/*.cu): K1, K3, K4, K5's two, K2's and K6's
+PORT_KERNEL = re.compile(r"(stream_collide|fused_pair|stream_collide_flat|edge_copy|"
+                         r"inplace|link)_kernel")
+
+
+def device_ops(events) -> List:
+    """The operations the device ran among profiler events."""
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def busy_us(ops) -> float:
+    """Microseconds covered by the union of the operations' intervals."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in ops)
+    total, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def profile_calls(fn: Callable[[], object], calls: int) -> Dict:
+    """`fn` called `calls` times under torch.profiler (CPU and CUDA
+    activity), then synchronised: per call the device operations, and of
+    them the port's kernel launches; the device time of the port's
+    kernels and of the rest per call; the device-busy share of the window
+    (first to last event); and the ten most launched operations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    ops = device_ops(events)
+    port = [e for e in ops if PORT_KERNEL.search(e.name)]
+    window = (max(e.time_range.end for e in events)
+              - min(e.time_range.start for e in events)) if events else 0.0
+    by_name: Dict[str, int] = {}
+    for e in ops:
+        by_name[e.name] = by_name.get(e.name, 0) + 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {
+        "device_ops": len(ops) / calls,
+        "port_kernels": len(port) / calls,
+        "port_device_ms": sum(e.time_range.elapsed_us() for e in port) / calls / 1e3,
+        "other_device_ms": sum(e.time_range.elapsed_us() for e in ops
+                               if not PORT_KERNEL.search(e.name)) / calls / 1e3,
+        "busy_share": busy_us(ops) / window if window > 0 else None,
+        "window_ms": window / 1e3,
+        "top": [{"name": n[:80], "per_call": c / calls} for n, c in top],
+    }
+
+
+def profile_steps(run, states, t0: int, steps: int, updates: int) -> Dict:
+    """Coarse steps t0 .. t0 + steps - 1 of batch runner `run`, one call a
+    step: timed with CUDA events ("ms", "mlups_su" from `updates` site
+    updates a coarse step), then the next `steps` profiled
+    (`profile_calls`, with the port's launches a step from
+    `cuda_step.LAUNCHES`).  Returns the numbers and the last states."""
+    from open_ludwig_torch.ops import cuda_step
+
+    box = {"states": states, "t": t0}
+
+    def step():
+        box["states"] = run(box["states"], box["t"], 1)
+        box["t"] += 1
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(steps):
+        step()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / steps
+    cuda_step.reset_launches()
+    prof = profile_calls(step, steps)
+    launches = {k: v / steps for k, v in cuda_step.LAUNCHES.items() if v}
+    out = {"ms": ms, "mlups_su": updates / ms / 1e3, "port_launches": launches, **prof}
+    return out, box["states"]
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--warmup", type=int, default=20)
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--label", default="")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_slice: needs a GPU")
+    import open_ludwig_torch
+    from open_ludwig_torch import checks
+    from open_ludwig_torch.solver_dense import (
+        build_patch_statics,
+        init_patch_state,
+        make_batch_runner_dense,
+    )
+
+    dev = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, _, params, levels = checks.bench_case(tmp)
+    statics = build_patch_statics(cfg, levels, dev)
+    run = make_batch_runner_dense(cfg, params, levels, statics)
+    states = [init_patch_state(p, cfg.precision, dev) for p in levels]
+    states = run(states, 1, args.warmup)
+    updates = sum(p.n_cells * 2 ** (p.level_id - 1) for p in levels)
+    out, _ = profile_steps(run, states, args.warmup + 1, args.steps, updates)
+    out = {"label": args.label, "package": open_ludwig_torch.__file__,
+           "card": torch.cuda.get_device_name(dev), "warmup": args.warmup,
+           "steps": args.steps, **out}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -168,7 +168,9 @@ def test_fused_pair_plain_matches_pallas_fused2(store_bf16):
 def test_fused_pair_plain_matches_pallas_fused2_interface(store_bf16):
     """(b) All six faces interfaces, as on the bench case's finest level:
     the sub-steps read two different ghost-plane sets (the JAX pair layout
-    with nsub_ab=(0, 1))."""
+    with nsub_ab=(0, 1)), pre-shifted in the storage type on both sides
+    (bf16 g-space planes on bf16, as the reference's main path makes
+    them; the port's from `dense_step.shift_planes`)."""
     rng = np.random.default_rng(1234)
     X, Y, Z = 16, 8, 120
     jp = _patch((X, Y, Z), tau=0.53, lo=(10, 12, 14),
@@ -185,7 +187,8 @@ def test_fused_pair_plain_matches_pallas_fused2_interface(store_bf16):
             raw[w][fc] = (lat.W[:, None, None] * (1 + 0.03 * rng.standard_normal(
                 (27, A + 2, B + 2)))).astype(np.float32)
             planes_w.append(prep_iface_pallas({fc: jnp.asarray(raw[w][fc])}, jp,
-                                              g_shifted=store_bf16)[fc])
+                                              g_shifted=store_bf16)[fc]
+                            .astype(jnp.bfloat16 if store_bf16 else jnp.float32))
         pair[fc] = (jnp.stack(planes_w)[None], 0)  # (1, 2, ...), face index 0
     kw = dict(KW, inlet_turbulence=0.0, wall_model=False, sponge_blend=False)
     fstep = make_pallas_step_fused2(jp, planes_per_step=4, iface_pair=True,
@@ -198,11 +201,13 @@ def test_fused_pair_plain_matches_pallas_fused2_interface(store_bf16):
     tp = convert.level_from_jax(jp)
     ifaces = []
     for w in range(2):
-        ifaces.append({})
+        trimmed = {}
         for fc, pl in raw[w].items():
             t = [a for a in range(3) if a != fc // 2]
             A, B = tp.interior[t[0]], tp.interior[t[1]]
-            ifaces[w][fc] = torch.as_tensor(np.ascontiguousarray(pl[:, :A + 2, :B + 2]))
+            trimmed[fc] = torch.as_tensor(np.ascontiguousarray(pl[:, :A + 2, :B + 2]))
+        ifaces.append(ds.shift_planes(trimmed, tp, store_bf16,
+                                      torch.bfloat16 if store_bf16 else torch.float32))
     got = fused_pair(
         convert.to_tensor(convert.trim(np.asarray(fj), tp.interior)),
         torch.as_tensor(convert.trim(np.asarray(vj), tp.interior)).contiguous(),
@@ -363,10 +368,12 @@ def test_kernel_log_and_memory_report_name_k3(sphere2):
     assert f"K3 A->B output f/rho/vel {n * (27 * 2 + 16) / 1e6:.1f} MB" in report
 
 
-@pytest.mark.parametrize("bad", ["plane_missing_b", "plane_shape_a", "box",
-                                 "S_dtype", "device"])
+@pytest.mark.parametrize("bad", ["plane_missing_b", "plane_shape_a", "plane_raw_b",
+                                 "plane_dtype_a", "box", "S_dtype", "device"])
 def test_fused_pair_rejects_bad_inputs(bad):
-    """The wrapper validates what it would hand the kernel as raw pointers."""
+    """The wrapper validates what it would hand the kernel as raw pointers;
+    each sub-step's planes must be pre-shifted (27, A, B) in f's storage
+    type."""
     rng = np.random.default_rng(2)
     faces = (BC_INTERFACE, BC_OUTLET, BC_INTERFACE, BC_MIRROR_Y, BC_INTERFACE,
              BC_INTERFACE)
@@ -383,7 +390,7 @@ def test_fused_pair_rejects_bad_inputs(bad):
             t = [a for a in range(3) if a != fc // 2]
             iface[fc] = torch.as_tensor(np.tile(
                 lat.W[:, None, None],
-                (1, tp.interior[t[0]] + 2, tp.interior[t[1]] + 2)).astype(np.float32))
+                (1, tp.interior[t[0]], tp.interior[t[1]])).astype(np.float32))
         planes.append(iface)
     plan = {"lo": (1, 1, 1), "dim": (3, 3, 2),
             "S": torch.zeros((27, 3, 3, 2), dtype=torch.float32)}
@@ -391,6 +398,10 @@ def test_fused_pair_rejects_bad_inputs(bad):
         del planes[1][2]
     elif bad == "plane_shape_a":
         planes[0][0] = planes[0][0][:, :-1].contiguous()
+    elif bad == "plane_raw_b":  # the (27, A+2, B+2) form before pre-shifting
+        planes[1][0] = torch.nn.functional.pad(planes[1][0], (1, 1, 1, 1))
+    elif bad == "plane_dtype_a":
+        planes[0][2] = planes[0][2].to(torch.bfloat16)
     elif bad == "box":
         plan["lo"] = (4, 1, 1)
     elif bad == "S_dtype":

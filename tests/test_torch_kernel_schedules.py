@@ -74,12 +74,12 @@ def _inputs(patch, rng, store_bf16):
     if store_bf16:  # the values a bf16 g-buffer holds
         f = storage.decode_f(storage.encode_f(f, storage.STORE_BF16))
     vel = torch.as_tensor((0.02 * rng.standard_normal((3,) + sh)).astype(np.float32))
-    iface = {}
+    iface = {}  # pre-shifted float32 f-space planes, as the steps read them
     for fc in range(6):
         if patch.face_bc[fc] == BC_INTERFACE:
             a, b = (sh[t] for t in range(3) if t != fc // 2)
             iface[fc] = torch.as_tensor((lat.W[:, None, None] * (
-                1 + 0.03 * rng.standard_normal((27, a + 2, b + 2)))).astype(np.float32))
+                1 + 0.03 * rng.standard_normal((27, a, b)))).astype(np.float32))
     return f, vel, iface
 
 

@@ -4,8 +4,13 @@ Same inputs, made from a numpy seed, go through the JAX functions and the
 port: hash noise bit-exact; the plain sub-step (the CPU path of
 `open_ludwig_torch.ops.cuda_step.stream_collide`) against the XLA
 `dense_stream_collide` (< 1e-5 in float32, < 2e-3 on bf16 g-storage) and
-against the Pallas kernel in interpret mode; the ghost planes against
-`interface_from_endpoints` (< 2e-6).  The CUDA kernel against its plain
+against the Pallas kernel in interpret mode; the endpoint path's ghost
+planes against `interface_from_endpoints` (< 2e-6).  The port's steps read
+the planes pre-shifted (27, A, B) in the level's storage type: the raw
+(27, A+2, B+2) float32 planes the JAX XLA step reads go through
+`dense_step.shift_planes` (bf16 g-space on bf16 levels, as the reference's
+g-native Pallas step reads them), which `test_shift_planes_equal_raw_reads`
+holds to the raw reads bit for bit.  The CUDA kernel against its plain
 version at the bench case's shapes runs on the card only.
 """
 
@@ -98,13 +103,21 @@ def port_static(tp):
     }
 
 
-def port_planes(planes, tp):
+def raw_planes(planes, tp):
+    """The JAX test planes over the port level's extents: (27, A+2, B+2)."""
     out = {}
     for fc, pl in planes.items():
         t = [a for a in range(3) if a != fc // 2]
         A, B = tp.interior[t[0]], tp.interior[t[1]]
         out[fc] = torch.as_tensor(np.ascontiguousarray(pl[:, :A + 2, :B + 2]))
     return out
+
+
+def port_planes(planes, tp, store_bf16=False):
+    """The planes as the port's steps read them: pre-shifted (27, A, B) in
+    the storage type (bf16 g-space on bf16 levels)."""
+    return ds.shift_planes(raw_planes(planes, tp), tp, store_bf16,
+                           torch.bfloat16 if store_bf16 else torch.float32)
 
 
 def test_hash_noise_bit_exact():
@@ -147,7 +160,7 @@ def test_stream_collide_matches_jax_dense(wall_model, sponge_blend, inlet_turb,
             if store_bf16 else torch.as_tensor(convert.trim(f0, tp.interior)))
     f_out, r_out, v_out = stream_collide(
         f_in.contiguous(), torch.as_tensor(convert.trim(v0, tp.interior)).contiguous(),
-        0.04, 7, port_static(tp), tp, iface=port_planes(planes, tp), **kw)
+        0.04, 7, port_static(tp), tp, iface=port_planes(planes, tp, store_bf16), **kw)
     assert f_out.dtype == f_in.dtype
     tol = 2e-3 if store_bf16 else 1e-5
     got = ds.decode_f(f_out).numpy()
@@ -161,7 +174,8 @@ def test_stream_collide_matches_jax_dense(wall_model, sponge_blend, inlet_turb,
 def test_stream_collide_matches_pallas_interpret(store_bf16):
     """The 8x8x120 box of test_patch_pallas.py (f32, domain faces) and its
     g-native bf16 twin with interface faces, against make_pallas_step in
-    interpret mode."""
+    interpret mode; on bf16 both read the same bf16 g-space planes (the
+    reference's main path hands its g-native step bf16 planes)."""
     rng = np.random.default_rng(1234)
     faces = MIXED_A if store_bf16 else DOMAIN
     jp, tp = level_pair((8, 8, 120), faces, rng)
@@ -170,23 +184,61 @@ def test_stream_collide_matches_pallas_interpret(store_bf16):
     pstep = make_pallas_step(jp, interpret=True, store_bf16=store_bf16, **kw)
     f_in = storage_jax.encode_f(jnp.asarray(f0), "bfloat16") if store_bf16 \
         else jnp.asarray(f0)
+    iface_j = None
+    if planes:
+        iface_j = prep_iface_pallas({fc: jnp.asarray(p) for fc, p in planes.items()},
+                                    jp, g_shifted=store_bf16)
+        iface_j = {fc: v.astype(jnp.bfloat16 if store_bf16 else jnp.float32)
+                   for fc, v in iface_j.items()}
     f_pl, r_pl, v_pl = pstep(
         f_in, jnp.asarray(v0), jnp.float32(0.04), jnp.int32(9),
-        prepare_pallas_statics(jp),
-        prep_iface_pallas({fc: jnp.asarray(p) for fc, p in planes.items()}, jp,
-                          g_shifted=store_bf16) if planes else None)
+        prepare_pallas_statics(jp), iface_j)
     f_pl = storage_jax.decode_f(f_pl)
 
     f_t = convert.to_tensor(convert.trim(np.asarray(f_in), tp.interior))
     f_out, r_out, v_out = stream_collide(
         f_t, torch.as_tensor(convert.trim(v0, tp.interior)).contiguous(), 0.04, 9,
-        port_static(tp), tp, iface=port_planes(planes, tp), **kw)
+        port_static(tp), tp, iface=port_planes(planes, tp, store_bf16), **kw)
     tol = 2e-3 if store_bf16 else 1e-5
     d = np.abs(ds.decode_f(f_out).numpy()
                - convert.trim(np.asarray(f_pl), tp.interior)).max()
     assert d < tol, d
     dr = np.abs(r_out.numpy() - convert.trim(np.asarray(r_pl), tp.interior)).max()
     assert dr < tol, dr
+
+
+@pytest.mark.parametrize("faces", [IFACE, MIXED_B], ids=["iface", "mixedB"])
+def test_shift_planes_equal_raw_reads(faces):
+    """float32: shift_planes(raw) holds, per face and direction k, the raw
+    plane's window at transverse offset (1 - c_t), which the raw-plane step
+    read (the JAX XLA step's read, dense_step.py:296-305 before the planes
+    were pre-shifted), bit for bit; and the plain step over it equals, bit
+    for bit, the plain step over the same planes pre-shifted by the JAX
+    package's own `_shift_planes` (grouped slices and concatenations)."""
+    rng = np.random.default_rng(13)
+    jp, tp = level_pair((7, 6, 5), faces, rng)
+    f0, v0, planes = random_inputs(jp, rng)
+    raw = raw_planes(planes, tp)
+    got = ds.shift_planes(raw, tp, False, torch.float32)
+    theirs = {}
+    for fc, pl in raw.items():
+        ax = fc // 2
+        t = [a for a in range(3) if a != ax]
+        A, B = tp.interior[t[0]], tp.interior[t[1]]
+        assert got[fc].shape == (27, A, B) and got[fc].is_contiguous()
+        for k in range(27):
+            c = (lat.C_X[k], lat.C_Y[k], lat.C_Z[k])
+            s0, s1 = 1 - int(c[t[0]]), 1 - int(c[t[1]])
+            assert torch.equal(got[fc][k], pl[k, s0:s0 + A, s1:s1 + B]), (fc, k)
+        theirs[fc] = torch.as_tensor(np.array(ds_jax._shift_planes(
+            jnp.asarray(pl.numpy()), ax, A, B)))
+    kw = dict(KW, inlet_turbulence=0.05, wall_model=True, sponge_blend=True)
+    f = torch.as_tensor(convert.trim(f0, tp.interior)).contiguous()
+    v = torch.as_tensor(convert.trim(v0, tp.interior)).contiguous()
+    a = stream_collide(f, v, 0.04, 5, port_static(tp), tp, iface=got, **kw)
+    b = stream_collide(f, v, 0.04, 5, port_static(tp), tp, iface=theirs, **kw)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("parent_dtype", ["float32", "bfloat16"])
@@ -244,9 +296,12 @@ def test_ghost_planes_match_jax(parent_lo, use_temporal, parent_dtype):
 
 
 @pytest.mark.parametrize("bad", ["f_shape", "f_dtype", "vel_noncontig",
-                                 "plane_shape", "plane_missing", "device"])
+                                 "plane_shape", "plane_missing", "plane_raw",
+                                 "plane_dtype", "device"])
 def test_stream_collide_rejects_bad_inputs(bad):
-    """The wrapper validates what it would hand the kernel as raw pointers."""
+    """The wrapper validates what it would hand the kernel as raw pointers;
+    the planes must be pre-shifted (27, A, B) in f's storage type (the raw
+    (27, A+2, B+2) form, and bf16 planes on a float32 level, are refused)."""
     rng = np.random.default_rng(2)
     jp, tp = level_pair((6, 5, 4), MIXED_A, rng)
     f0, v0, planes = random_inputs(jp, rng)
@@ -263,6 +318,10 @@ def test_stream_collide_rejects_bad_inputs(bad):
         iface[0] = iface[0][:, :-1].contiguous()
     elif bad == "plane_missing":
         del iface[2]
+    elif bad == "plane_raw":
+        iface = raw_planes(planes, tp)
+    elif bad == "plane_dtype":
+        iface[0] = iface[0].to(torch.bfloat16)
     else:
         f = f.to("meta")
     with pytest.raises(ValueError):
