@@ -70,8 +70,11 @@ Phases, each raising on failure (nothing is caught):
      75 coarse steps in batches of 25, so each batch takes one plain step
      and 12 pairs): finite CSVs, rho_min in (0.5, 1.5), per batch of n
      steps K1 = n % 2, K3 = n // 2, K2 = n // 2 + n % 2, and MLUPS from CUDA
-     events over the batches after the first; then one 50-step batch of the
-     runner fused and unfused, in turns, timed with CUDA events;
+     events over the batches after the first; then one checkpoint of a
+     perturbed state of the level saved (the host fetch and the zip write
+     timed apart) and loaded back bit for bit, with its size; then one
+     50-step batch of the runner fused and unfused, in turns, timed with
+     CUDA events;
   7. the in-place path: `solve_case` on the 63.7M-cell single-level row
      (surface_resolution 45, bf16, domain_tile_snap; 20 coarse steps in
      batches of 10), whose level the reference runs with its in-place 2-D
@@ -95,7 +98,24 @@ Phases, each raising on failure (nothing is caught):
      case's finest box, K2 against K6 from one bf16 state, then interleaved
      windows of 300 applications, CUDA events, and each replayed from a
      CUDA graph), whose windows must launch each of K2 and K6 once per
-     application and nothing else.
+     application and nothing else;
+  9. the runner's outputs and restarts, on the bench case:
+     9b. `solve_case` with `forces.method: momentum_exchange`, `output_freq`
+     100, `checkpoint.freq` 100, 200 coarse steps: launch counts per coarse
+     step as phase 5's, two flow_*.vtu and two surface_*.vtu files that
+     decode (`io.vtk.read_vtu`) with finite Velocity, finite CSVs (MEM Cd),
+     each export's ms and MB, and one checkpoint of the final state saved
+     with the host fetch and the zip write timed apart;
+     9a. `make_mem_context` on the finest level (its link count) and MEM on
+     the card from 9b's final state against a float64 evaluation of the
+     same links on a host copy of f, within 1e-5 x the sum of |link
+     contribution| per component (`checks.mem_float64`); one MEM and one
+     stress-mapping evaluation timed eagerly with CUDA events;
+     9c. the run resumed from its step-100 checkpoint to step 200 (launch
+     counts for 100 coarse steps): its final f, rho and vel equal 9b's bit
+     for bit, and the CSVs hold each step once;
+     9d. `plan_case` on the bench case, with the capacity from the card's
+     own memory.
 Every check prints its bound beside its time: the bytes the call must
 move over the card's memory rate (or its operations over the float32
 rate, where larger; `checks.bound`).  Before the last lines, neither jax
@@ -146,10 +166,12 @@ def main(argv=None) -> int:
 
     import numpy as np
 
+    from open_ludwig_torch import checkpoint as ckpt
     from open_ludwig_torch import checks
     from open_ludwig_torch import lattice as lat
-    from open_ludwig_torch.ops import build, cuda_step, storage
-    from open_ludwig_torch.runner import solve_case
+    from open_ludwig_torch.io import vtk
+    from open_ludwig_torch.ops import build, cuda_step, forces, storage
+    from open_ludwig_torch.runner import plan_case, solve_case
     from open_ludwig_torch.solver_dense import (
         build_patch_statics,
         init_patch_state,
@@ -223,6 +245,14 @@ def main(argv=None) -> int:
               flush=True)
         require(r["changed"] > 0 and r["max_abs_err"] < r["tol"]
                 and r["peak_bytes"] == 0, (tag, bf16, r))
+
+    def states_equal(a, b) -> bool:
+        """Level states equal bit for bit (bf16 compared as its bits)."""
+        def bits(t):
+            return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+        return len(a) == len(b) and all(
+            torch.equal(bits(x[k]), bits(y[k]))
+            for x, y in zip(a, b) for k in ("f", "rho", "vel"))
 
     def cloned(states):
         """A copy of level states that an in-place (K5) run may overwrite."""
@@ -561,6 +591,26 @@ def main(argv=None) -> int:
         # the same batch fused and unfused, in turns, from one state
         statics1 = build_patch_statics(cfg1, levels1, dev)
         state1 = random_states(levels1, cfg1.precision, 31)
+        # one checkpoint of the level: host fetch, zip write, load back
+        t0 = time.time()
+        members = ckpt.fetch_members(75, state1)
+        t_fetch = time.time() - t0
+        path6 = os.path.join(tmp, "ckpt_single.npz")
+        t0 = time.time()
+        ckpt.write_members(path6, members)
+        t_write = time.time() - t0
+        del members
+        t0 = time.time()
+        _, loaded = ckpt.load_checkpoint(path6, device=dev)
+        torch.cuda.synchronize()
+        t_load = time.time() - t0
+        require(states_equal(state1, loaded), "10.8M checkpoint round trip")
+        print(f"[6 single] checkpoint of the {res1.total_cells / 1e6:.3f}M-cell "
+              f"{cfg1.precision} state: {os.path.getsize(path6) / 1e9:.3f} GB | host "
+              f"fetch {t_fetch:.3f} s, zip write {t_write:.3f} s, load to the card "
+              f"{t_load:.3f} s (bit-equal) | card: {smi}", flush=True)
+        os.remove(path6)
+        del loaded
         per_step = {True: [], False: []}
         for fuse2 in (True, False, False, True):
             run = make_batch_runner_dense(cfg1, params1, levels1, statics1,
@@ -736,6 +786,115 @@ def main(argv=None) -> int:
                 ("probe launches", got8, apps))
         require(probe["dim"] == tuple(plan["dim"]) and probe["max_abs_err"] < 2e-3,
                 ("probe box and K6 vs K2", probe["dim"], probe["max_abs_err"]))
+
+        # ---- 9. the runner's outputs and restarts on the bench case ----
+        per_step = {"stream_collide_flat": 1, "stream_collide": 2, "fused_pair": 2,
+                    "bouzidi": 2, "stream_collide_inplace": 0, "bouzidi_ab": 0}
+        cfg9 = checks.bench_config(
+            os.path.join(tmp, "outputs"), steps=200, output_freq=100,
+            diag_freq=100).with_overrides(force_method="momentum_exchange",
+                                          checkpoint_freq=100)
+        # 9b: a full solve with every output on
+        t0 = time.time()
+        cuda_step.reset_launches()
+        res9 = solve_case(cfg9, device="cuda")
+        got9 = dict(cuda_step.LAUNCHES)
+        print(f"[9b outputs] launches {got9} over {cfg9.steps} coarse steps | "
+              f"solve {time.time() - t0:.1f} s (set-up and outputs included)",
+              flush=True)
+        require(got9 == {k: n * cfg9.steps for k, n in per_step.items()},
+                ("outputs run launches", got9))
+        check_run_outputs(res9, cfg9)
+        require(res9.final_forces.force_map is not None, "MEM forces in the run")
+        out9 = cfg9.output_path
+        for kind, step, path, sec in res9.outputs:
+            print(f"[9b outputs] {kind} at step {step}: {os.path.basename(path)} "
+                  f"{os.path.getsize(path) / 1e6:.1f} MB in {1e3 * sec:.1f} ms"
+                  + (" (host fetch; the write runs on a thread)"
+                     if kind == "checkpoint" else "") + f" | card: {smi}", flush=True)
+        names = sorted(f for f in os.listdir(out9) if f.endswith(".vtu"))
+        require(names == ["flow_000100.vtu", "flow_000200.vtu",
+                          "surface_000100.vtu", "surface_000200.vtu"], names)
+        for fname in names:
+            arrs = vtk.read_vtu(os.path.join(out9, fname))
+            if fname.startswith("flow"):
+                n = len(arrs["Level"])
+                require(arrs["Velocity"].shape == (n, 3) and n > 0
+                        and bool(np.isfinite(arrs["Velocity"]).all()), (fname, n))
+            else:
+                require(len(arrs["Pressure_Pa"]) == mesh.n_triangles
+                        and bool(np.isfinite(arrs["Pressure_Pa"]).all()), fname)
+        ck_dir = os.path.join(out9, "checkpoints")
+        require(sorted(os.listdir(ck_dir)) == ["ckpt_00000100.npz",
+                                               "ckpt_00000200.npz"], "9b checkpoints")
+        path200 = os.path.join(ck_dir, "ckpt_00000200.npz")
+        _, final9 = ckpt.load_checkpoint(path200, cfg9.precision, dev)
+        t0 = time.time()
+        members = ckpt.fetch_members(200, final9)
+        t_fetch = time.time() - t0
+        t0 = time.time()
+        ckpt.write_members(os.path.join(tmp, "ckpt_bench.npz"), members)
+        t_write = time.time() - t0
+        nbytes = sum(a.nbytes for _, a in members)
+        del members
+        print(f"[9b outputs] one checkpoint of the {res9.total_cells / 1e6:.3f}M-cell "
+              f"state: {nbytes / 1e6:.1f} MB | host fetch {1e3 * t_fetch:.1f} ms, zip "
+              f"write {1e3 * t_write:.1f} ms | card: {smi}", flush=True)
+
+        # 9a: MEM on the card from 9b's final state against float64
+        ctx9 = forces.make_mem_context(levels[-1], params, mesh, g_storage=True,
+                                       device=dev)
+        fr9 = forces.compute_aerodynamics_mem(final9[-1], ctx9)
+        ref9 = checks.mem_float64(final9[-1]["f"], ctx9)
+        e9 = checks.mem_errors(fr9, ref9)
+        sctx9 = forces.make_force_context_dense(mesh, levels[-1], params, device=dev)
+        mem_ms = checks.time_cuda(
+            lambda: forces.compute_aerodynamics_mem(final9[-1], ctx9), reps=20)
+        stress_ms = checks.time_cuda(
+            lambda: forces.compute_aerodynamics(final9[-1], sctx9), reps=20)
+        print(f"[9a MEM] {ctx9.n_links} fluid/solid links on L{levels[-1].level_id} "
+              f"{levels[-1].interior} | vs float64 on a host copy: |error| / bound F "
+              f"{e9['F']:.3f}, M {e9['M']:.3f}, force map {e9['force_map']:.3f} "
+              f"(bound 1e-5 x sum |link contribution|) | Cd {fr9.Cd:.5f} (float64 "
+              f"{ref9['F'][0] / (ctx9.q_inf * ctx9.area_ref):.5f}) | one MEM "
+              f"evaluation {mem_ms:.4f} ms, one stress-mapping evaluation "
+              f"{stress_ms:.4f} ms (eager, CUDA events, host fetch included) | "
+              f"card: {smi}", flush=True)
+        require(e9["ok"] and np.isfinite(fr9.Cd), ("MEM on the card", e9))
+
+        # 9c: resume from step 100 to 200, bit-equal to 9b
+        os.remove(path200)
+        t0 = time.time()
+        cuda_step.reset_launches()
+        res9c = solve_case(cfg9.with_overrides(checkpoint_resume=True), device="cuda")
+        got9c = dict(cuda_step.LAUNCHES)
+        require(res9c.resume_step == 100 and got9c == {
+            k: n * 100 for k, n in per_step.items()}, ("resumed run", got9c))
+        _, resumed = ckpt.load_checkpoint(path200, cfg9.precision, dev)
+        diffs = [checks.state_diff(a["f"], a["rho"], a["vel"],
+                                   b["f"], b["rho"], b["vel"])
+                 for a, b in zip(final9, resumed)]
+        equal = states_equal(final9, resumed)
+        for fname in ("convergence.csv", "forces.csv"):
+            with open(os.path.join(out9, fname)) as fh:
+                steps9 = [int(r["Step"]) for r in csv.DictReader(fh)]
+            require(steps9 == [100, 200], (fname, steps9))
+        print(f"[9c resume] from step {res9c.resume_step} to {cfg9.steps} in "
+              f"{time.time() - t0:.1f} s: final state bit-equal to the "
+              f"uninterrupted run's: {equal} (per level max |diff| "
+              + ", ".join(f"{d['max_abs_err']:.2e}" for d in diffs)
+              + ") | CSVs hold each step once", flush=True)
+        require(equal, ("resumed run against the uninterrupted one", diffs))
+        del final9, resumed, ctx9, sctx9
+
+        # 9d: the plan, with the card's capacity
+        plan9 = plan_case(cfg9, device="cuda")
+        cap = plan9["capacity"]
+        print(f"[9d plan] {plan9['total_cells'] / 1e6:.3f}M cells | capacity of "
+              f"this card: {cap['k1'] / 1e6:.0f}M cells on A->B levels, "
+              f"{cap['inplace'] / 1e6:.0f}M in place | card: {smi}", flush=True)
+        require(plan9["total_cells"] == res9.total_cells
+                and cap["inplace"] > cap["k1"] > 100 * plan9["total_cells"], plan9)
 
     print(f"[done] {time.time() - t_run:.1f} s", flush=True)
 

@@ -785,3 +785,60 @@ def check_fused_pair(patch: PatchLevel, static: Dict, plan, store_bf16: bool,
     out["attrs"] = fused_pair_attrs(store_bf16)
     out["plain_ms"] = time_cuda(plain, plain_reps)
     return out
+
+
+# momentum exchange: a float32 sum against its float64 value, bound by the
+# summation order: |device - float64| <= MEM_REL * sum over the summed
+# links of |link contribution| (a plain relative bound is wrong for a sum
+# that cancels)
+MEM_REL = 1e-5
+
+
+def mem_float64(f: torch.Tensor, ctx) -> Dict[str, np.ndarray]:
+    """The momentum-exchange result of `ctx`'s links (`ops.forces.MEMContext`)
+    on a host copy of f, in float64: "F", "M" (3,) and "force_map"
+    (3, n_tri) in newtons as `compute_aerodynamics_mem` reports them
+    (rest flux added, half models doubled), and beside each its bound,
+    MEM_REL x the sum of its links' |contribution| (same scale)."""
+    fh = f.detach().cpu().double().numpy().reshape(-1)
+    vo = fh[ctx.idx_out.cpu().numpy()]
+    vi = fh[ctx.idx_in.cpu().numpy()]
+    if not ctx.g_storage:
+        w = ctx.w_k.cpu().double().numpy()
+        vo, vi = vo - w, vi - w
+    c = ctx.c.cpu().double().numpy()
+    r = ctx.r.cpu().double().numpy()
+    tri = ctx.tri.cpu().numpy()
+    dF = (vo + vi)[None, :] * c
+    dM = np.cross(r.T, dF.T).T
+    F_tri = np.zeros((3, ctx.n_tri))
+    abs_tri = np.zeros((3, ctx.n_tri))
+    np.add.at(F_tri.T, tri, dF.T)
+    np.add.at(abs_tri.T, tri, np.abs(dF).T)
+    s = ctx.force_scale
+    F = (dF.sum(axis=1) + ctx.rest_F) * s
+    M = (dM.sum(axis=1) + ctx.rest_M) * s
+    F_bound = MEM_REL * np.abs(dF).sum(axis=1) * s
+    M_bound = MEM_REL * np.abs(dM).sum(axis=1) * s
+    if ctx.symmetric:
+        F, F_bound = (np.array([2 * F[0], 0.0, 2 * F[2]]),
+                      np.array([2 * F_bound[0], 0.0, 2 * F_bound[2]]))
+        M, M_bound = np.array([0.0, 2 * M[1], 0.0]), np.array([0.0, 2 * M_bound[1], 0.0])
+    return {"F": F, "M": M, "force_map": (F_tri + ctx.rest_F_tri) * s,
+            "F_bound": F_bound, "M_bound": M_bound,
+            "map_bound": MEM_REL * abs_tri * s}
+
+
+def mem_errors(res, ref: Dict[str, np.ndarray]) -> Dict[str, float]:
+    """A ForceResult's F, M and force map against `mem_float64`: the largest
+    |difference| / bound of each ("ok" when all are at most 1)."""
+    tiny = 1e-300  # a component whose bound is 0 (a zeroed half-model one)
+
+    def ratio(got, want, bnd):
+        return float(np.max(np.abs(np.asarray(got) - want) / np.maximum(bnd, tiny)))
+
+    out = {"F": ratio([res.Fx, res.Fy, res.Fz], ref["F"], ref["F_bound"]),
+           "M": ratio([res.Mx, res.My, res.Mz], ref["M"], ref["M_bound"]),
+           "force_map": ratio(res.force_map, ref["force_map"], ref["map_bound"])}
+    out["ok"] = max(out.values()) <= 1.0
+    return out

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass, field, replace
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import yaml
 
@@ -319,3 +319,10 @@ def parse_config(cfg: Dict, case_dir: str = "") -> CaseConfig:
             _get(cfg, "advanced", "engine", "domain_tile_snap", default=False)
         ),
     )
+
+
+def load_batch_list(path: str) -> List[str]:
+    """Read the root cases_to_run.yaml batch list (reference: main.jl:251-257)."""
+    with open(path) as f:
+        cfg = yaml.safe_load(f)
+    return list(cfg["case_folders"])

@@ -11,7 +11,8 @@ crosses bit-exactly through a 16-bit integer view.
 `patch` below is always a JAX package level: its attributes (`interior`,
 `padded`, `flat_yz`, `flat_m`, ...) are read by name, and nothing here
 imports the JAX package or jax.  `level_from_jax` gives the port's level
-for one.
+for one.  `checkpoint_from_jax` / `checkpoint_to_jax` rewrite a format-1
+checkpoint file for the other package, so a run resumes across them.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from . import checkpoint as ckpt
 from . import lattice as lat
 from .core.patch import PatchLevel
 
@@ -184,3 +186,32 @@ def cell_index_from_jax(idx: np.ndarray, padded: Sequence[int],
     unpadded (X, Y, Z) strides."""
     x, y, z = np.unravel_index(np.asarray(idx, np.int64), tuple(padded))
     return np.ravel_multi_index((x, y, z), tuple(interior)).astype(np.int32)
+
+
+def checkpoint_from_jax(path: str, jax_levels: Sequence, out_dir: str) -> str:
+    """A JAX package checkpoint (padded or flat-(y, z) arrays) -> a port
+    checkpoint of the same step in `out_dir` (its path): each level's
+    arrays cut to the interior as `state_from_jax` cuts them, bf16 bits
+    kept."""
+    step, levels = ckpt.read_members(path)
+    if len(levels) != len(jax_levels):
+        raise ValueError(f"{path} holds {len(levels)} levels, not {len(jax_levels)}")
+    states = [{key: ckpt.from_host(from_jax_layout(arr, p), bf16)
+               for key, (arr, bf16) in lv.items()}
+              for lv, p in zip(levels, jax_levels)]
+    return ckpt.save_checkpoint(out_dir, step, states)
+
+
+def checkpoint_to_jax(path: str, jax_levels: Sequence, out_dir: str) -> str:
+    """A port checkpoint -> a JAX package checkpoint of the same step in
+    `out_dir` (its path), each level in its JAX layout with pads at the
+    JAX rest state (`state_to_jax`), bf16 g re-cast exactly."""
+    step, states = ckpt.load_checkpoint(path)
+    if len(states) != len(jax_levels):
+        raise ValueError(f"{path} holds {len(states)} levels, not {len(jax_levels)}")
+    out = []
+    for st, p in zip(states, jax_levels):
+        arrs = state_to_jax(st, p)
+        out.append({key: torch.from_numpy(arrs[key]).to(st[key].dtype)
+                    for key in ("f", "rho", "vel")})
+    return ckpt.save_checkpoint(out_dir, step, out)

@@ -1,12 +1,15 @@
-"""Flow statistics and stability checks (port of
-`open_ludwig_tpu/diagnostics.py`: FlowStats, compute_flow_stats,
-check_stability; reference: src/diagnostics.jl:56-125)."""
+"""Flow statistics, stability checks and the control-volume force (port
+of `open_ludwig_tpu/diagnostics.py`: FlowStats, compute_flow_stats,
+check_stability, control_volume_force; reference:
+src/diagnostics.jl:56-125).  The blocks layout's `vorticity_blocks_host`
+waits for that layout (ROADMAP.md Queue 1, item 9)."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Dict, List
 
+import numpy as np
 import torch
 
 
@@ -48,3 +51,48 @@ def check_stability(stats: FlowStats, step: int) -> List[str]:
     if stats.rho_max > 1.5:
         warnings.append(f"High density: {stats.rho_max:.4f}")
     return warnings
+
+
+def control_volume_force(
+    state: Dict, patch, params, rho_phys: float, margin: int = 2
+) -> np.ndarray:
+    """Steady control-volume momentum balance over one level's interior:
+    F_on_body = -oint[rho u (u.n) + p n] dA over the box faces `margin`
+    cells inside the interior, in PHYSICAL newtons (p = (rho-1)/3 lattice
+    pressure, momentum flux scaled by rho_phys * velocity_scale^2 * dx^2).
+
+    An independent cross-check of the surface force paths (stress mapping
+    and momentum exchange, ops/forces.py): it samples only the far field,
+    so it cannot share their near-wall error modes.  Valid when the flow is
+    quasi-steady and the body's voxelization lies entirely inside the box
+    (VALIDATION.md).  `state` holds rho (X, Y, Z) and vel (3, X, Y, Z),
+    tensors or arrays; anything else raises (the reference assumes it).
+    """
+    rho, vel = (state[k].detach().float().cpu().numpy()
+                if isinstance(state[k], torch.Tensor)
+                else np.asarray(state[k], np.float32) for k in ("rho", "vel"))
+    X, Y, Z = patch.interior
+    if rho.shape != (X, Y, Z) or vel.shape != (3, X, Y, Z):
+        raise ValueError(
+            f"control_volume_force needs rho (X, Y, Z) = {(X, Y, Z)} and vel "
+            f"(3, X, Y, Z); got {rho.shape} and {vel.shape}")
+    m = margin
+    vs = params.velocity_scale
+    dx = params.dx_levels[patch.level_id - 1]
+
+    def face_flux(axis: int, side: int) -> np.ndarray:
+        idx = m if side == 0 else ([X, Y, Z][axis] - 1 - m)
+        sl = [slice(m, X - m), slice(m, Y - m), slice(m, Z - m)]
+        sl[axis] = idx
+        sl = tuple(sl)
+        r = rho[sl]
+        u = vel[(slice(None),) + sl]
+        n_ax = -1.0 if side == 0 else 1.0
+        un = u[axis] * n_ax
+        pres = (r - 1.0) / 3.0
+        F = np.empty(3)
+        for i in range(3):
+            F[i] = -np.sum(r * u[i] * un + (pres * n_ax if i == axis else 0.0))
+        return F * (rho_phys * vs * vs * dx * dx)
+
+    return sum(face_flux(a, s) for a in range(3) for s in (0, 1))

@@ -1,11 +1,14 @@
 """CSV time histories with the JAX runner's (and the reference's) schemas
 (convergence.csv: reference main.jl:82; forces.csv: reference
-forces/io.jl:91).  Port of `open_ludwig_tpu/io/csv_out.py`, whose
-ForceResult import reaches jax."""
+forces/io.jl:91) and the per-triangle surface-load table
+(`export_surface_loads_csv`).  Port of `open_ludwig_tpu/io/csv_out.py`,
+whose ForceResult import reaches jax."""
 
 from __future__ import annotations
 
 import time
+
+import numpy as np
 
 from ..ops.forces import ForceResult
 
@@ -67,3 +70,24 @@ def print_force_summary(fr: ForceResult, rho_ref, u_ref, area_ref, chord_ref) ->
         "=" * 60,
     ]
     return "\n".join(lines)
+
+
+def export_surface_loads_csv(
+    path: str, centers, normals, areas, pressure, shear, mesh_offset
+) -> None:
+    """Per-triangle surface loads for external FEA tools
+    (reference: src/forces/io.jl:167-190; same column schema)."""
+    c = np.asarray(centers) + np.asarray(mesh_offset)[None, :]
+    n = np.asarray(normals)
+    with open(path, "w") as f:
+        f.write(
+            "triangle_id,cx,cy,cz,nx,ny,nz,area_m2,pressure_Pa,"
+            "shear_x_Pa,shear_y_Pa,shear_z_Pa\n"
+        )
+        for i in range(len(areas)):
+            f.write(
+                f"{i + 1},{c[i,0]:.6e},{c[i,1]:.6e},{c[i,2]:.6e},"
+                f"{n[i,0]:.6f},{n[i,1]:.6f},{n[i,2]:.6f},{areas[i]:.6e},"
+                f"{pressure[i]:.6e},{shear[0,i]:.6e},{shear[1,i]:.6e},"
+                f"{shear[2,i]:.6e}\n"
+            )

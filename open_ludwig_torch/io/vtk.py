@@ -1,0 +1,275 @@
+"""Minimal VTK XML (.vtu) writer + the patch layout's flow-field and
+surface exporters.
+
+The port's own copy of `open_ludwig_tpu/io/vtk.py` (`_b64`, `COMPRESS`,
+`write_vtu`, `_scrub`, `export_surface_vtu`, `export_flow_vtu_patches`),
+which writes the same bytes (`tests/test_torch_outputs.py`).  It replaces
+the reference's WriteVTK.jl usage (reference: src/io_vtk.jl,
+src/forces/io.jl:26-82): inline base64 binary DataArrays, VTK_VOXEL cells
+for the flow field, VTK_TRIANGLE cells for the surface; cells of a level
+covered by the next-finer patch are skipped (reference:
+src/io_vtk.jl:27-47); NaN/Inf are scrubbed before writing (reference:
+src/io_vtk.jl:112-113).  `read_vtu` decodes what `write_vtu` writes (the
+port's tests and chip smoke read the files back with it).  The blocks
+layout's `export_flow_vtu` waits for that layout (ROADMAP.md Queue 1,
+item 9).
+"""
+
+from __future__ import annotations
+
+import base64
+import logging
+import struct
+import zlib
+import xml.etree.ElementTree as ET
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from ..config import OutputFields
+
+log = logging.getLogger("open_ludwig_torch")
+
+VTK_VOXEL = 11
+VTK_TRIANGLE = 5
+
+#: zlib-compressed appended blocks, matching the reference's WriteVTK default
+#: (reference: src/io_vtk.jl:123 writes compressed .vtu); flow fields at
+#: production resolution are multi-GB uncompressed.  Set False for plain
+#: base64 (useful when diffing outputs byte-wise in tests).
+COMPRESS = True
+
+
+def _b64(arr: np.ndarray) -> str:
+    raw = np.ascontiguousarray(arr).tobytes()
+    if COMPRESS:
+        # VTK XML compressed format: one block; the UInt32[4] block header
+        # [nblocks, blocksize, last_blocksize, compressed_size] is base64
+        # encoded SEPARATELY from the compressed payload
+        comp = zlib.compress(raw, 6)
+        head = struct.pack("<4I", 1, len(raw), len(raw), len(comp))
+        return (base64.b64encode(head) + base64.b64encode(comp)).decode()
+    return base64.b64encode(struct.pack("<I", len(raw)) + raw).decode()
+
+
+_VTK_TYPE = {
+    np.dtype(np.float32): "Float32",
+    np.dtype(np.float64): "Float64",
+    np.dtype(np.int32): "Int32",
+    np.dtype(np.int64): "Int64",
+    np.dtype(np.uint8): "UInt8",
+}
+
+
+def write_vtu(
+    path: str,
+    points: np.ndarray,  # (n_pts, 3) float32
+    connectivity: np.ndarray,  # (n_cells, verts_per_cell) int
+    cell_type: int,
+    cell_data: Dict[str, np.ndarray],
+) -> None:
+    n_pts = len(points)
+    n_cells = len(connectivity)
+    vpc = connectivity.shape[1]
+    offsets = (np.arange(1, n_cells + 1, dtype=np.int32)) * vpc
+    types = np.full(n_cells, cell_type, np.uint8)
+
+    compressor = (
+        ' compressor="vtkZLibDataCompressor"' if COMPRESS else ""
+    )
+    parts = [
+        '<?xml version="1.0"?>',
+        '<VTKFile type="UnstructuredGrid" version="0.1" '
+        f'byte_order="LittleEndian" header_type="UInt32"{compressor}>',
+        "<UnstructuredGrid>",
+        f'<Piece NumberOfPoints="{n_pts}" NumberOfCells="{n_cells}">',
+        "<Points>",
+        '<DataArray type="Float32" NumberOfComponents="3" format="binary">',
+        _b64(points.astype(np.float32)),
+        "</DataArray>",
+        "</Points>",
+        "<Cells>",
+        '<DataArray type="Int32" Name="connectivity" format="binary">',
+        _b64(connectivity.astype(np.int32)),
+        "</DataArray>",
+        '<DataArray type="Int32" Name="offsets" format="binary">',
+        _b64(offsets),
+        "</DataArray>",
+        '<DataArray type="UInt8" Name="types" format="binary">',
+        _b64(types),
+        "</DataArray>",
+        "</Cells>",
+        "<CellData>",
+    ]
+    for name, arr in cell_data.items():
+        arr = np.asarray(arr)
+        ncomp = 1 if arr.ndim == 1 else arr.shape[1]
+        vtype = _VTK_TYPE[arr.dtype]
+        parts.append(
+            f'<DataArray type="{vtype}" Name="{name}" '
+            f'NumberOfComponents="{ncomp}" format="binary">'
+        )
+        parts.append(_b64(arr))
+        parts.append("</DataArray>")
+    parts += ["</CellData>", "</Piece>", "</UnstructuredGrid>", "</VTKFile>"]
+    with open(path, "w") as f:
+        f.write("\n".join(parts))
+
+
+def read_vtu(path: str) -> Dict[str, np.ndarray]:
+    """The DataArrays of a .vtu written by `write_vtu`, compressed or not,
+    by name ("Points" for the points), each (n,) or (n, components)."""
+    root = ET.parse(path).getroot()
+    compressed = "compressor" in root.attrib
+    dtypes = {v: k for k, v in _VTK_TYPE.items()}
+    out = {}
+    for da in root.iter("DataArray"):
+        text = da.text.strip()
+        if compressed:
+            head = base64.b64decode(text[:24])  # 16 B header, base64 alone
+            nblocks, size = struct.unpack("<4I", head)[:2]
+            if nblocks != 1:
+                raise ValueError(f"{path}: {nblocks} compressed blocks")
+            raw = zlib.decompress(base64.b64decode(text[24:]))
+            if len(raw) != size:
+                raise ValueError(f"{path}: block of {len(raw)} B, header says {size}")
+        else:
+            blob = base64.b64decode(text)
+            size = struct.unpack("<I", blob[:4])[0]
+            raw = blob[4:4 + size]
+        arr = np.frombuffer(raw, dtypes[da.attrib["type"]])
+        ncomp = int(da.attrib.get("NumberOfComponents", 1))
+        out[da.attrib.get("Name", "Points")] = (
+            arr.reshape(-1, ncomp) if ncomp > 1 else arr)
+    return out
+
+
+def _scrub(a: np.ndarray) -> np.ndarray:
+    a = np.asarray(a, np.float32)
+    return np.nan_to_num(a, nan=0.0, posinf=0.0, neginf=0.0)
+
+
+def _host(a) -> np.ndarray:
+    """A state field as a float32 host array (one device fetch)."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().float().cpu().numpy()
+    return np.asarray(a, np.float32)
+
+
+def export_surface_vtu(
+    path: str,
+    vertices: np.ndarray,  # (n_tri, 3, 3) in STL coords
+    normals: np.ndarray,  # (n_tri, 3)
+    areas: np.ndarray,  # (n_tri,)
+    pressure: np.ndarray,  # (n_tri,) Pa
+    shear: np.ndarray,  # (3, n_tri) Pa
+) -> None:
+    """Per-triangle surface loads (reference: src/forces/io.jl:26-82)."""
+    n = len(vertices)
+    pts = vertices.reshape(-1, 3).astype(np.float32)
+    conn = np.arange(3 * n, dtype=np.int32).reshape(n, 3)
+    shear_mag = np.sqrt((shear**2).sum(axis=0))
+    quality = ((np.abs(pressure) > 1e-10) | (np.abs(shear[0]) > 1e-10)).astype(
+        np.float32
+    )
+    write_vtu(
+        path,
+        pts,
+        conn,
+        VTK_TRIANGLE,
+        {
+            "Pressure_Pa": _scrub(pressure),
+            "ShearX_Pa": _scrub(shear[0]),
+            "ShearY_Pa": _scrub(shear[1]),
+            "ShearZ_Pa": _scrub(shear[2]),
+            "ShearMagnitude_Pa": _scrub(shear_mag),
+            "Normal": normals.astype(np.float32),
+            "Area_m2": areas.astype(np.float32),
+            "MappingQuality": quality,
+        },
+    )
+
+
+def export_flow_vtu_patches(path: str, patches: List, states: List[Dict],
+                            fields: OutputFields) -> None:
+    """Merged multi-level flow field for the dense-patch layout.  Cells of a
+    level covered by the next-finer patch are skipped (the dense analogue of
+    the reference's fully-refined-block filter, reference: src/io_vtk.jl:27-47).
+    Points are shared per patch grid.  `states` hold rho (X, Y, Z) and vel
+    (3, X, Y, Z), tensors on any device or arrays: each level's are fetched
+    to the host once."""
+    pt_chunks, conn_chunks = [], []
+    data = {n: [] for n in ("Density", "Velocity", "VelocityMagnitude",
+                            "Vorticity", "Obstacle", "Level")}
+    pt_base = 0
+    for li, p in enumerate(patches):
+        X, Y, Z = p.interior
+        lo = np.asarray(p.lo)
+        # cell mask: keep cells not covered by the child patch
+        keep = np.ones((X, Y, Z), bool)
+        if li + 1 < len(patches):
+            c = patches[li + 1]
+            clo = np.asarray(c.lo) // 2 - lo
+            chi = (np.asarray(c.lo) + np.asarray(c.interior)) // 2 - lo
+            clo = np.clip(clo, 0, [X, Y, Z])
+            chi = np.clip(chi, 0, [X, Y, Z])
+            keep[clo[0]:chi[0], clo[1]:chi[1], clo[2]:chi[2]] = False
+        idx = np.nonzero(keep)
+        if len(idx[0]) == 0:
+            continue
+        # point grid (X+1)(Y+1)(Z+1), shared by all cells of this patch
+        px, py, pz = np.meshgrid(
+            np.arange(X + 1), np.arange(Y + 1), np.arange(Z + 1), indexing="ij"
+        )
+        pts = (np.stack([px, py, pz], axis=-1).reshape(-1, 3) + lo) * np.float32(p.dx)
+        pt_chunks.append(pts.astype(np.float32))
+        sy, sz = (Y + 1) * (Z + 1), Z + 1
+        base = idx[0] * sy + idx[1] * sz + idx[2] + pt_base
+        conn = np.stack(
+            [base, base + sy, base + sz, base + sy + sz,
+             base + 1, base + sy + 1, base + sz + 1, base + sy + sz + 1],
+            axis=1,
+        )
+        # VTK_VOXEL corner order is x-fastest: (0,0,0),(1,0,0),(0,1,0),(1,1,0),
+        # then +z; our axes are (x,y,z) so offsets above are arranged to match
+        conn_chunks.append(conn.astype(np.int64))
+        pt_base += (X + 1) * (Y + 1) * (Z + 1)
+
+        st = states[li]
+        vel3d = _host(st["vel"])
+        rho = _host(st["rho"])[keep]
+        vel = vel3d[:, keep]
+        obs = np.asarray(p.obstacle)[:X, :Y, :Z][keep]
+        data["Density"].append(rho)
+        data["Velocity"].append(vel.T)
+        data["VelocityMagnitude"].append(np.sqrt((vel**2).sum(axis=0)))
+        if fields.vorticity:
+            # central-difference curl in lattice units (the reference defines
+            # but never writes this field, reference: src/diagnostics.jl:12-51)
+            g = [np.gradient(vel3d[c], axis=(0, 1, 2)) for c in range(3)]
+            wx = g[2][1] - g[1][2]
+            wy = g[0][2] - g[2][0]
+            wz = g[1][0] - g[0][1]
+            data["Vorticity"].append(np.sqrt(wx**2 + wy**2 + wz**2)[keep])
+        data["Obstacle"].append(obs.astype(np.uint8))
+        data["Level"].append(np.full(len(rho), p.level_id, np.int32))
+
+    if not pt_chunks:
+        return
+    cell_data = {}
+    if fields.density:
+        cell_data["Density"] = _scrub(np.concatenate(data["Density"]))
+    if fields.velocity:
+        cell_data["Velocity"] = _scrub(np.concatenate(data["Velocity"]))
+    if fields.velocity_magnitude:
+        cell_data["VelocityMagnitude"] = _scrub(np.concatenate(data["VelocityMagnitude"]))
+    if fields.vorticity and data["Vorticity"]:
+        cell_data["Vorticity"] = _scrub(np.concatenate(data["Vorticity"]))
+    if fields.obstacle:
+        cell_data["Obstacle"] = np.concatenate(data["Obstacle"])
+    if fields.level:
+        cell_data["Level"] = np.concatenate(data["Level"])
+    write_vtu(path, np.concatenate(pt_chunks), np.concatenate(conn_chunks),
+              VTK_VOXEL, cell_data)
+    log.info("[VTK] wrote %s (%d cells)", path, len(cell_data.get("Level", [])))

@@ -5,7 +5,7 @@ The port's own copy of the tables of `open_ludwig_tpu/lattice.py:22-90`
 k = (cx+1) + 3(cy+1) + 9(cz+1), cx fastest; `tests/test_torch_host_modules.py`
 holds them equal.  Weights by |c|^2: 8/27 (0), 2/27 (1), 1/54 (2),
 1/216 (3); cs^2 = 1/3.  `tables` builds per-device float32 tensor copies
-on demand.
+on demand; `equilibrium_np` is the reference's float64 equilibrium (:134).
 """
 
 from __future__ import annotations
@@ -88,3 +88,24 @@ def w_view(device, ndim: int, k_axis: int = 0) -> torch.Tensor:
     shape = [1] * ndim
     shape[k_axis] = Q
     return tables(str(device))["W"].reshape(shape)
+
+
+def equilibrium_np(rho, ux, uy, uz):
+    """Second-order Maxwell-Boltzmann equilibrium, numpy reference (a copy
+    of `open_ludwig_tpu/lattice.py:134`; reference:
+    src/physics_utils.jl:34-39).
+
+    Shapes: rho/ux/uy/uz broadcastable; returns (..., 27) float64.
+    """
+    rho = np.asarray(rho, np.float64)[..., None]
+    cu = (
+        np.asarray(ux, np.float64)[..., None] * C_X
+        + np.asarray(uy, np.float64)[..., None] * C_Y
+        + np.asarray(uz, np.float64)[..., None] * C_Z
+    )
+    usq = (
+        np.asarray(ux, np.float64) ** 2
+        + np.asarray(uy, np.float64) ** 2
+        + np.asarray(uz, np.float64) ** 2
+    )[..., None]
+    return rho * W64 * (1.0 + 3.0 * cu + 4.5 * cu * cu - 1.5 * usq)

@@ -1,20 +1,38 @@
 """Case runner for the PyTorch/CUDA port.
 
     python -m open_ludwig_torch.runner <case_dir> [<case_dir> ...] [--device cuda|cpu]
+    python -m open_ludwig_torch.runner --plan <case_dir> [...] [--device cuda|cpu]
+    python -m open_ludwig_torch.runner --batch <cases_to_run.yaml> [<cases_root>] [--device ...]
 
-Port of `open_ludwig_tpu/runner.py:solve_case` for `layout: patch` on one
-device: build the nested patches and statics, step the multi-level
-schedule between diagnostics boundaries with no host sync (temporal
-blocking on, as in the JAX runner: the finest level's sub-step pairs, or a
-single-level case's coarse-step pairs, run as one fused kernel), and at each
-boundary log flow statistics, MLUPS-ref and Cd/Cl, append
-convergence.csv / forces.csv (the JAX runner's schemas) and check
-stability.  The default device is `cuda`, which raises when CUDA is
-missing; `cpu` runs the plain PyTorch path.
+Port of `open_ludwig_tpu/runner.py` (`solve_case`, `run_all_cases`,
+`plan_case`, the CLI) for `layout: patch` on one device: build the nested
+patches and statics, step the multi-level schedule between event
+boundaries with no host sync (temporal blocking on, as in the JAX runner:
+the finest level's sub-step pairs, or a single-level case's coarse-step
+pairs, run as one fused kernel), and at each boundary:
+  - forces (stress mapping, or momentum exchange over the finest level's
+    fluid/solid links with the stress maps kept for the surface file)
+    into forces.csv at the force cadence;
+  - flow statistics, MLUPS-ref and Cd/Cl into convergence.csv and the
+    stability check (`stability_action: abort` saves a checkpoint, then
+    raises) at the diagnostics cadence;
+  - `flow_{step:06d}.vtu` and, with forces on, `surface_{step:06d}.vtu`
+    at `output_freq`;
+  - a checkpoint (npz format 1, written on a background thread) at
+    `checkpoint.freq`.
+`checkpoint.resume` continues from the latest checkpoint of the output
+directory, dropping CSV rows past its step.  `OPEN_LUDWIG_PROFILE=<dir>`
+writes a torch.profiler trace of the second batch.  `--batch` runs the
+listed cases, a failing case logged and skipped; `--plan` prints the
+set-up and device-memory report with the card's capacity.  The default
+device is `cuda`, which raises when CUDA is missing; `cpu` runs the plain
+PyTorch path.
 
-Not ported yet, and refused with the ROADMAP.md Queue 1 item that ports
-it: several devices, the blocks layout, momentum-exchange forces,
-checkpoints.  VTK output is not written yet (one log line says so).
+Not ported, and refused with the ROADMAP.md Queue 1 item that ports it:
+several devices, the blocks layout.  `async_depth` is read and not
+applied: the eager loop already queues a whole batch without a host sync,
+and splitting batches would change the single-level pair runner's odd
+batches (ROADMAP.md Queue 1, item 3).
 """
 
 from __future__ import annotations
@@ -27,12 +45,13 @@ import shutil
 import sys
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .config import CaseConfig, load_case_config
+from . import checkpoint as ckpt
+from .config import CaseConfig, load_batch_list, load_case_config
 from .core.patch import build_patches
 from .diagnostics import FlowStats, check_stability, compute_flow_stats
 from .geometry import load_mesh
@@ -44,10 +63,19 @@ from .io.csv_out import (
     write_convergence_header,
     write_forces_header,
 )
-from .ops.forces import ForceResult, compute_aerodynamics, make_force_context_dense
+from .io.vtk import export_flow_vtu_patches, export_surface_vtu
+from .ops import storage
+from .ops.forces import (
+    ForceResult,
+    compute_aerodynamics,
+    compute_aerodynamics_mem,
+    make_force_context_dense,
+    make_mem_context,
+)
 from .scaling import compute_domain_params
 from .solver_dense import (
     build_patch_statics,
+    estimate_capacity,
     hbm_report_patches,
     init_patch_state,
     kernel_log_lines,
@@ -66,9 +94,13 @@ class SolveResult:
     mlups: float  # MLUPS-ref end to end (cells x coarse steps / wall)
     final_stats: Optional[FlowStats]
     final_forces: Optional[ForceResult]
-    # per diagnostics interval on CUDA: (first step, last step, device ms
-    # between CUDA events around the interval's batch of coarse steps)
+    # per batch on CUDA: (first step, last step, device ms between CUDA
+    # events around the batch of coarse steps)
     windows: List[Tuple[int, int, float]] = field(default_factory=list)
+    resume_step: int = 0
+    # per file written: (kind "flow" / "surface" / "checkpoint", step, path,
+    # host seconds; a checkpoint's are its fetch, its write is async)
+    outputs: List[Tuple[str, int, str, float]] = field(default_factory=list)
 
 
 def check_supported(cfg: CaseConfig) -> None:
@@ -76,19 +108,11 @@ def check_supported(cfg: CaseConfig) -> None:
     if cfg.layout != "patch":
         raise NotImplementedError(
             f"layout: {cfg.layout} is not ported (ROADMAP.md Queue 1: "
-            "'Blocks layout'); use layout: patch")
+            "'Blocks layout, last'); use layout: patch")
     if cfg.devices > 1:
         raise NotImplementedError(
             f"devices: {cfg.devices} is not ported (ROADMAP.md Queue 1: "
             "'Multi-GPU'); the port runs on one device")
-    if cfg.forces_enabled and cfg.force_method != "stress":
-        raise NotImplementedError(
-            f"forces.method: {cfg.force_method} is not ported (ROADMAP.md "
-            "Queue 1: 'MEM forces, VTK, checkpoint'); use stress")
-    if cfg.checkpoint_freq > 0 or cfg.checkpoint_resume:
-        raise NotImplementedError(
-            "checkpoints are not ported (ROADMAP.md Queue 1: 'MEM forces, "
-            "VTK, checkpoint'); set checkpoint.freq: 0 and resume: false")
 
 
 def resolve_device(device) -> torch.device:
@@ -107,6 +131,43 @@ def _ramp_host(t: int, cfg: CaseConfig) -> float:
     return float(cfg.u_lattice)
 
 
+def _truncate_csv_after_step(path: str, resume_step: int) -> None:
+    """Keep only the header and rows with Step <= resume_step."""
+    if not os.path.isfile(path):
+        return
+    with open(path) as f:
+        lines = f.readlines()
+    if not lines:
+        return
+    kept = [lines[0]]
+    for ln in lines[1:]:
+        try:
+            if int(ln.split(",", 1)[0]) <= resume_step:
+                kept.append(ln)
+        except ValueError:
+            kept.append(ln)
+    if len(kept) != len(lines):
+        with open(path, "w") as f:
+            f.writelines(kept)
+        log.info("[Checkpoint] truncated %s to step %d (%d rows dropped)",
+                 os.path.basename(path), resume_step, len(lines) - len(kept))
+
+
+def _check_resumed(states: List[Dict], levels, precision: str, path: str) -> None:
+    """The loaded states must be the case's levels, in its storage type."""
+    want_dt = storage.f_dtype(precision)
+    if len(states) != len(levels):
+        raise ValueError(f"{path}: {len(states)} levels, the case has {len(levels)}")
+    for st, p in zip(states, levels):
+        sh = tuple(p.interior)
+        if (tuple(st["f"].shape) != (27,) + sh or tuple(st["rho"].shape) != sh
+                or tuple(st["vel"].shape) != (3,) + sh or st["f"].dtype != want_dt):
+            raise ValueError(
+                f"{path}: level {p.level_id} holds f {tuple(st['f'].shape)} "
+                f"{st['f'].dtype}, the case needs {(27,) + sh} {want_dt} (a JAX "
+                "package checkpoint needs convert.checkpoint_from_jax)")
+
+
 def solve_case(cfg: CaseConfig, device="cuda") -> SolveResult:
     check_supported(cfg)
     dev = resolve_device(device)
@@ -122,9 +183,24 @@ def solve_case(cfg: CaseConfig, device="cuda") -> SolveResult:
     params = compute_domain_params(cfg, mesh.min_bounds, mesh.max_bounds)
     levels = build_patches(cfg, mesh, params)
     statics = build_patch_statics(cfg, levels, dev)
-    states = [init_patch_state(p, cfg.precision, dev) for p in levels]
     total_cells = sum(p.n_cells for p in levels)
     updates = sum(p.n_cells * 2 ** (p.level_id - 1) for p in levels)
+
+    out_dir = cfg.output_path
+    ckpt_dir = os.path.join(out_dir, "checkpoints")
+    resume_step = 0
+    latest = ckpt.latest_checkpoint(ckpt_dir) if cfg.checkpoint_resume else None
+    if latest:
+        resume_step, states = ckpt.load_checkpoint(latest, cfg.precision, dev)
+        _check_resumed(states, levels, cfg.precision, latest)
+        log.info("[Checkpoint] resumed from %s at step %d", latest, resume_step)
+    else:
+        states = [init_patch_state(p, cfg.precision, dev) for p in levels]
+        if os.path.isdir(out_dir):
+            for f in os.listdir(out_dir):
+                p = os.path.join(out_dir, f)
+                shutil.rmtree(p) if os.path.isdir(p) else os.remove(p)
+        os.makedirs(out_dir, exist_ok=True)
     log.info(hbm_report_patches(levels, statics, cfg.precision, dev))
     for line in kernel_log_lines(levels, statics, cfg.precision, dev):
         log.info(line)
@@ -133,54 +209,94 @@ def solve_case(cfg: CaseConfig, device="cuda") -> SolveResult:
     log.info("[Info] total cells: %.2f M (layout=patch) | %.2f M site updates "
              "per coarse step | host setup %.1f s", total_cells / 1e6,
              updates / 1e6, time.time() - t_start)
-    log.info("[Output] VTK export is not ported yet (ROADMAP.md Queue 1: "
-             "'MEM forces, VTK, checkpoint'); output_freq=%d writes nothing",
-             cfg.output_freq)
 
-    out_dir = cfg.output_path
-    if os.path.isdir(out_dir):
-        for f in os.listdir(out_dir):
-            p = os.path.join(out_dir, f)
-            shutil.rmtree(p) if os.path.isdir(p) else os.remove(p)
-    os.makedirs(out_dir, exist_ok=True)
     conv_csv = os.path.join(out_dir, "convergence.csv")
     force_csv = os.path.join(out_dir, "forces.csv")
-    write_convergence_header(conv_csv)
-    force_ctx = None
+    if resume_step == 0:
+        write_convergence_header(conv_csv)
+        if cfg.forces_enabled:
+            write_forces_header(force_csv)
+    else:
+        # drop rows past the resume step so a re-run after a late crash
+        # doesn't duplicate Step entries in the histories
+        _truncate_csv_after_step(conv_csv, resume_step)
+        _truncate_csv_after_step(force_csv, resume_step)
+
+    force_ctx = mem_ctx = None
     if cfg.forces_enabled:
-        write_forces_header(force_csv)
         force_ctx = make_force_context_dense(
             mesh, levels[-1], params, extrapolate=cfg.force_extrapolate,
             device=dev)
+        if cfg.force_method == "momentum_exchange":
+            mem_ctx = make_mem_context(
+                levels[-1], params, mesh,
+                g_storage=storage.f_dtype(cfg.precision) == torch.bfloat16,
+                device=dev)
+            if mem_ctx is None:
+                log.warning(
+                    "[Forces] method=momentum_exchange needs obstacle cells on "
+                    "the finest level of the patch layout; falling back to "
+                    "stress mapping")
+            else:
+                log.info("[Forces] momentum-exchange integration over %d "
+                         "fluid/solid interface links", mem_ctx.n_links)
+
+    def _forces(st: List[Dict]) -> ForceResult:
+        """Integrated aerodynamics at the configured method.  The stress
+        mapping always runs (its per-triangle pressure/shear maps feed the
+        surface VTK); momentum exchange replaces the integrals and
+        coefficients (the reference's dead method, src/forces/global.jl:
+        15-148, live here: VALIDATION.md)."""
+        base = compute_aerodynamics(st[-1], force_ctx)
+        if mem_ctx is None:
+            return base
+        return compute_aerodynamics_mem(st[-1], mem_ctx, base=base)
 
     run = make_batch_runner_dense(cfg, params, levels, statics)
     states = run.seed_slabs(states)
-    log.info("[Run] steps=%d ramp=%d diag=%d", cfg.steps, cfg.ramp_steps,
-             cfg.diag_freq)
+    log.info("[Run] steps=%d ramp=%d diag=%d vtk=%d checkpoint=%d%s", cfg.steps,
+             cfg.ramp_steps, cfg.diag_freq, cfg.output_freq, cfg.checkpoint_freq,
+             f" (resumed at {resume_step})" if resume_step else "")
     log.info("%8s | %12s | %10s | %7s | %7s | %7s | %8s | %8s", "Step",
              "Walltime", "Time[s]", "U_lat", "rho_min", "MLUPS-ref", "Cd", "Cl")
 
+    # event boundaries: diagnostics, VTK, forces, checkpoint
     fof = cfg.effective_force_output_freq if cfg.forces_enabled else 0
-    freqs = [cfg.diag_freq] + ([fof] if fof > 0 else [])
+    freqs = [f for f in (cfg.diag_freq, cfg.output_freq, fof, cfg.checkpoint_freq)
+             if f > 0]
+    profile_dir = os.environ.get("OPEN_LUDWIG_PROFILE")
+    prof = None
     events = []
-    t = 1
+    outputs = []
+    t = resume_step + 1
     last_diag_time = time.time()
     last_forces = None
     final_stats = None
     while t <= cfg.steps:
+        # one torch.profiler trace of the second batch (after the first
+        # batch's warm-up), the reference's jax.profiler trace
+        if profile_dir and prof is None and t > cfg.diag_freq:
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU]
+                + ([torch.profiler.ProfilerActivity.CUDA] if cuda else []))
+            prof.start()
         batch_end = min(min(((t - 1) // f + 1) * f for f in freqs), cfg.steps)
         if cuda:
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
             ev[0].record()
+        # the whole batch is queued without a host sync; async_depth is not
+        # applied (module docstring)
         states = run(states, t, batch_end - t + 1)
         if cuda:
             ev[1].record()
             events.append((t, batch_end, ev))
         t_done = batch_end
 
+        # force-CSV cadence independent of diagnostics (reference:
+        # FORCE_OUTPUT_FREQ falling back to DIAG_FREQ, config_loader.jl:192)
         if force_ctx is not None and fof > 0 and t_done % fof == 0:
-            last_forces = compute_aerodynamics(states[-1], force_ctx)
+            last_forces = _forces(states)
             append_forces(force_csv, t_done, t_done * params.time_scale,
                           last_forces, _ramp_host(t_done, cfg))
 
@@ -196,8 +312,9 @@ def solve_case(cfg: CaseConfig, device="cuda") -> SolveResult:
             u_curr = _ramp_host(t_done, cfg)
             cd_str = cl_str = "N/A"
             if force_ctx is not None:
+                # display only: forces.csv rows come at the force cadence
                 if last_forces is None or t_done % fof != 0:
-                    last_forces = compute_aerodynamics(states[-1], force_ctx)
+                    last_forces = _forces(states)
                 cd_str, cl_str = f"{last_forces.Cd:.4f}", f"{last_forces.Cl:.4f}"
             wall = walltime_str(t_start)
             log.info("%8d | %12s | %10.4f | %.4f | %.4f | %7.1f | %8s | %8s",
@@ -212,10 +329,48 @@ def solve_case(cfg: CaseConfig, device="cuda") -> SolveResult:
                 diverged = not np.isfinite(stats.rho_min) or stats.rho_min < 0.5 \
                     or stats.rho_max > 1.5 or not np.isfinite(stats.v_max)
                 if warns and cfg.stability_action == "abort" and diverged:
+                    # checkpoint the state and end the case (the batch runner
+                    # isolates per-case failures, so later cases still run)
+                    path = ckpt.save_checkpoint(ckpt_dir, t_done, states)
+                    log.error("[Stability] step %d: divergence detected "
+                              "(stability_action=abort); state saved to %s",
+                              t_done, path)
                     raise RuntimeError(
                         f"simulation diverged at step {t_done}: {warns[0]}")
+
+        if cfg.output_freq > 0 and t_done % cfg.output_freq == 0:
+            path = os.path.join(out_dir, f"flow_{t_done:06d}.vtu")
+            t0 = time.time()
+            export_flow_vtu_patches(path, levels, states, cfg.output_fields)
+            outputs.append(("flow", t_done, path, time.time() - t0))
+            if force_ctx is not None:
+                if last_forces is None or t_done % cfg.diag_freq != 0:
+                    last_forces = _forces(states)
+                path = os.path.join(out_dir, f"surface_{t_done:06d}.vtu")
+                t0 = time.time()
+                export_surface_vtu(path, mesh.vertices, mesh.normals, mesh.areas,
+                                   last_forces.pressure_map, last_forces.shear_map)
+                outputs.append(("surface", t_done, path, time.time() - t0))
+
+        if cfg.checkpoint_freq > 0 and t_done % cfg.checkpoint_freq == 0:
+            # the host fetch is synchronous (the next launches write the
+            # buffers); the zip/disk write overlaps the next steps
+            t0 = time.time()
+            path = ckpt.save_checkpoint(ckpt_dir, t_done, states, async_write=True)
+            outputs.append(("checkpoint", t_done, path, time.time() - t0))
+            log.info("[Checkpoint] saved %s (fetch %.2f s; write async)", path,
+                     outputs[-1][3])
+
+        if prof is not None and profile_dir:
+            prof.stop()
+            os.makedirs(profile_dir, exist_ok=True)
+            trace = os.path.join(profile_dir, f"trace_{t}_{t_done}.json")
+            prof.export_chrome_trace(trace)
+            log.info("[Profile] trace of steps %d-%d written to %s", t, t_done, trace)
+            profile_dir = None
         t = t_done + 1
 
+    ckpt.wait_pending()  # a checkpoint write may still be in flight
     if cuda:
         torch.cuda.synchronize(dev)
     windows = [(a, b, float(ev[0].elapsed_time(ev[1]))) for a, b, ev in events]
@@ -223,7 +378,8 @@ def solve_case(cfg: CaseConfig, device="cuda") -> SolveResult:
     # MLUPS-ref = total cells x COARSE steps / wall (the reference's
     # convention, main.jl:188-190); MLUPS-su counts site updates
     # (cells x 2^(level-1)) and is what the chip smoke reports beside it
-    mlups_total = total_cells * cfg.steps / max(wall_total, 1e-9) / 1e6
+    mlups_total = (total_cells * (cfg.steps - resume_step) / max(wall_total, 1e-9)
+                   / 1e6)
     log.info("=" * 70)
     log.info("  COMPLETE | wall %.1f s | %.1f MLUPS-ref end-to-end (cells x "
              "coarse-steps, set-up included)", wall_total, mlups_total)
@@ -231,6 +387,8 @@ def solve_case(cfg: CaseConfig, device="cuda") -> SolveResult:
         log.info("\n%s", print_force_summary(
             last_forces, params.rho_physical, params.u_physical,
             params.reference_area, params.reference_chord))
+        # time-averaged coefficients over the final third of the run, the
+        # meaningful number for unsteady (vortex-shedding) flows
         with open(force_csv) as fh:
             rows = list(csv.DictReader(fh))
         cut = cfg.steps - max(cfg.steps // 3, 1)
@@ -243,18 +401,94 @@ def solve_case(cfg: CaseConfig, device="cuda") -> SolveResult:
     return SolveResult(
         total_cells=total_cells, updates_per_coarse=updates, steps=cfg.steps,
         wall_time=wall_total, mlups=mlups_total, final_stats=final_stats,
-        final_forces=last_forces, windows=windows,
+        final_forces=last_forces, windows=windows, resume_step=resume_step,
+        outputs=outputs,
     )
+
+
+def run_all_cases(cases_root: str, batch_file: str, device="cuda") -> List[str]:
+    """Iterate case folders with per-case error isolation (reference:
+    main.jl:251-274); returns the names of the cases that failed."""
+    resolve_device(device)  # no CUDA: raise once, not once per case
+    cases = load_batch_list(batch_file)
+    log.info("MULTI-CASE EXECUTION: %d cases", len(cases))
+    failed = []
+    for i, name in enumerate(cases):
+        log.info(">>> CASE %d/%d: %s", i + 1, len(cases), name)
+        try:
+            solve_case(load_case_config(os.path.join(cases_root, name)), device=device)
+        except Exception:
+            log.exception("!!! case %s failed", name)
+            failed.append(name)
+    log.info("ALL CASES COMPLETED (%d failed)", len(failed))
+    return failed
+
+
+def plan_case(cfg: CaseConfig, device="cuda") -> Dict:
+    """Build the domain and the statics on `device` and print the set-up
+    and device-memory report without running: the reference's domain
+    summary and capacity planning (reference: physics_scaling.jl:178-187,
+    diagnostics_vram.jl).  The capacity comes from the card's own memory
+    (`estimate_capacity`); on the CPU it is not estimated."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    mesh = load_mesh(cfg.stl_path, scale=cfg.stl_scale)
+    params = compute_domain_params(cfg, mesh.min_bounds, mesh.max_bounds)
+    log.info("Case: %s | %d triangles", os.path.basename(cfg.case_dir),
+             mesh.n_triangles)
+    log.info("Re = %.3e | levels = %d | dx_fine = %.5g m | tau = %s",
+             params.re_number, params.num_levels, params.dx_fine,
+             ", ".join(f"{t:.6f}" for t in params.tau_levels))
+    log.info("domain = %.2f x %.2f x %.2f m | coarse grid %dx%dx%d",
+             *params.domain_size, params.nx_coarse, params.ny_coarse,
+             params.nz_coarse)
+    patches = build_patches(cfg, mesh, params)
+    statics = build_patch_statics(cfg, patches, dev)
+    log.info(hbm_report_patches(patches, statics, cfg.precision, dev))
+    for line in kernel_log_lines(patches, statics, cfg.precision, dev):
+        log.info(line)
+    total = sum(p.n_cells for p in patches)
+    upd = sum(p.n_cells * 2 ** (p.level_id - 1) for p in patches)
+    log.info("total %.2fM cells | %.2fM site-updates per coarse step | %d steps",
+             total / 1e6, upd / 1e6, cfg.steps)
+    cap = None
+    if dev.type == "cuda":
+        cap = {eng: estimate_capacity(precision=cfg.precision, engine=eng, device=dev)
+               for eng in ("k1", "inplace")}
+        log.info("capacity: ~%.0fM cells on A->B levels (~%.0fM in place) fit "
+                 "this card (%.1f GB) -> this case uses %.1f%%", cap["k1"] / 1e6,
+                 cap["inplace"] / 1e6, torch.cuda.mem_get_info(dev)[1] / 1e9,
+                 100.0 * total / cap["k1"])
+    else:
+        log.info("capacity: not estimated on the CPU (the card's memory sets it)")
+    return {"total_cells": total, "updates_per_coarse": upd, "capacity": cap}
 
 
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, format="%(message)s", stream=sys.stdout)
     ap = argparse.ArgumentParser(prog="python -m open_ludwig_torch.runner")
-    ap.add_argument("case_dirs", nargs="+", help="case directories (config.yaml + STL)")
+    ap.add_argument("case_dirs", nargs="*", help="case directories (config.yaml + STL)")
+    ap.add_argument("--plan", action="store_true",
+                    help="print the set-up and memory report of each case; no run")
+    ap.add_argument("--batch", metavar="CASES_YAML",
+                    help="run the case folders listed in CASES_YAML under the "
+                    "root given as the one positional argument (default CASES)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
+    if args.batch:
+        if len(args.case_dirs) > 1:
+            ap.error("--batch takes at most one cases root")
+        run_all_cases(args.case_dirs[0] if args.case_dirs else "CASES", args.batch,
+                      device=args.device)
+        return 0
+    if not args.case_dirs:
+        ap.error("give at least one case directory")
     for case_dir in args.case_dirs:
-        solve_case(load_case_config(case_dir), device=args.device)
+        cfg = load_case_config(case_dir)
+        if args.plan:
+            plan_case(cfg, device=args.device)
+        else:
+            solve_case(cfg, device=args.device)
     return 0
 
 

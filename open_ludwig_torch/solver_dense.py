@@ -355,6 +355,9 @@ def hbm_report_patches(patches: List[PatchLevel], statics: List[Dict],
                      for t0, t1 in [[a for a in range(3) if a != g["axis"]]])
         state_b = n * (27 * f_bytes + 4 * (1 + 3))
         field_b = n * (1 + 4 + 4)
+        # the resident split of hbm_bytes_per_cell (shared with
+        # estimate_capacity, so the planner and the report agree)
+        assert state_b + field_b == n * hbm_bytes_per_cell(precision, transient=False)
         bz = st["bouzidi"]
         # S (float32, K3's) + K2's links (13 B each) and their scratch (4 B)
         bz_b = (bz["S"].numel() * 4 + bz["links"]["a"].numel() * 17
@@ -392,3 +395,38 @@ def hbm_report_patches(patches: List[PatchLevel], statics: List[Dict],
                      f"{cap/1e9:.1f} GB (estimate/live = "
                      f"{total/max(live, 1):.2f})")
     return "\n".join(lines)
+
+
+def hbm_bytes_per_cell(precision: str, transient: bool = True,
+                       engine: str = "k1") -> int:
+    """Device bytes per cell, shared by `hbm_report_patches` and
+    `estimate_capacity` (the reference's `solver_dense.py:707`, for this
+    card; reference analogue: src/diagnostics_vram.jl:17-133): 27 f entries
+    + rho + vel, the static fields once (obstacle u8 + sponge f32 + wall
+    distance f32 = 9 B), and with `transient` the step's second buffers:
+    an A -> B level ("k1", "flat") writes a second f, rho and vel while
+    the first is alive; an in-place level ("inplace", K5) writes only rho
+    and vel (its edge buffer, at most a quarter of one f, is left out)."""
+    f_bytes = 2 if storage.f_dtype(precision) == torch.bfloat16 else 4
+    per = 27 * f_bytes + 4 * (1 + 3) + (1 + 4 + 4)
+    if transient:
+        per += 4 * (1 + 3) + (0 if engine == "inplace" else 27 * f_bytes)
+    return per
+
+
+def estimate_capacity(device_gb: float = 0.0, precision: str = "float32",
+                      engine: str = "k1", device="cuda") -> int:
+    """Cells of one level that fit in `device_gb` of device memory (0 =
+    the card's own total, from `torch.cuda.mem_get_info`), the reference's
+    capacity planner (`solver_dense.py:796`; reference:
+    src/diagnostics_vram.jl estimate_mesh_capacity) by
+    `hbm_bytes_per_cell(precision, transient=True, engine=engine)`."""
+    if device_gb <= 0.0:
+        dev = torch.device(device)
+        if dev.type != "cuda" or not torch.cuda.is_available():
+            raise RuntimeError("estimate_capacity reads the card's memory; "
+                               "without CUDA pass device_gb")
+        total = torch.cuda.mem_get_info(dev)[1]
+    else:
+        total = device_gb * 1e9
+    return int(total / hbm_bytes_per_cell(precision, transient=True, engine=engine))

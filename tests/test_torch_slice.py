@@ -152,10 +152,11 @@ def test_solve_case_writes_jax_csv_columns(sphere2, tmp_path):
 
 
 def test_runner_refuses_unported_configs(sphere2):
+    """Several devices and the blocks layout are refused with their ROADMAP
+    item; momentum exchange and checkpoints run
+    (tests/test_torch_checkpoint_runner.py)."""
     cfg = sphere2[0]
-    for over in (dict(devices=2), dict(layout="blocks"),
-                 dict(force_method="momentum_exchange"),
-                 dict(checkpoint_freq=10), dict(checkpoint_resume=True)):
+    for over in (dict(devices=2), dict(layout="blocks")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             runner.check_supported(dataclasses.replace(cfg, **over))
 
