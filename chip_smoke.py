@@ -116,6 +116,33 @@ Phases, each raising on failure (nothing is caught):
      for bit, and the CSVs hold each step once;
      9d. `plan_case` on the bench case, with the capacity from the card's
      own memory.
+  10. the x-slab multi-device path (`parallel.patch_shard`) on virtual
+     meshes of slabs on the one card:
+     10a. the sharded forms against their plain versions on the same slab
+     inputs (K1/K4/K5 1e-5 / 2e-3, K2 1e-6 / 2e-3) and against the
+     unsharded kernel on the whole level (the slab's stored f entries
+     equal, 0 differing), at the slabs 10b and 10c run them, float32 and
+     bf16: K1 on the first of 2 slabs of the bench's level 3, the middle
+     of 3 of level 2, and the first (inlet) and last (outlet) of 3 of level
+     1; K4 on the first (inlet) and last (outlet) of 2 of level 1; K5 on
+     both slabs of the 63.7M-cell row (bf16, its storage type; float32 on
+     the first of 2 slabs of the 10.8M-cell shape); K2 at the bench's
+     2- and 3-slab bounds (both cut its box: every slab reads a halo) and
+     at the row's 2-slab bounds (bf16);
+     10b. the bench case with momentum-exchange forces through
+     `solve_case(cfg, x_mesh=...)` on 2 and 3 slabs (3 uneven), 100 coarse
+     steps with a checkpoint at 100: launch counts per coarse step from the
+     sharded statics (no unsharded kernel), f, rho and vel of every level
+     bit-equal to the single-device unfused batch runner's, the run's
+     final forces equal to one device's on that state (which are within
+     1e-5 x the sum of |link contribution| of float64,
+     `checks.mem_float64`); then 50 coarse steps timed with CUDA events for
+     n = 1 (unfused), 2, 3 in turns;
+     10c. the 63.7M-cell row on 2 slabs (K5 + K2), 10 steps from phase 7's
+     perturbed state, bit-equal to the unsharded K5 run, with the peak
+     allocation of one sharded coarse step;
+     10d. `solve_case` with `devices: 2` and no mesh raises on a one-card
+     machine.
 Every check prints its bound beside its time: the bytes the call must
 move over the card's memory rate (or its operations over the float32
 rate, where larger; `checks.bound`).  Before the last lines, neither jax
@@ -147,6 +174,239 @@ def require(ok: bool, what) -> None:
     """Fail the phase: raises (not assert, which -O would strip)."""
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def phase_10(dev, smi, kw, tmp, trimesh, params, levels, statics, sweep, row7):
+    """Phase 10, the x-slab path on virtual meshes of the one card (module
+    docstring).  `sweep` is the 10.8M-cell level and its statics, `row7`
+    phase 7's (cfg, params, levels, unsharded statics, perturbed state) of
+    the 63.7M-cell row.  Returns the sharded kernels' check results by
+    kernel and their launches on the main path's runs."""
+    import numpy as np
+    import torch
+
+    from open_ludwig_torch import checkpoint as ckpt
+    from open_ludwig_torch import checks
+    from open_ludwig_torch.ops import cuda_step, forces
+    from open_ludwig_torch.parallel.patch_shard import (
+        XMesh, gather_states, shard_states, slab_bounds)
+    from open_ludwig_torch.runner import solve_case
+    from open_ludwig_torch.solver_dense import (
+        build_patch_statics, init_patch_state, make_batch_runner_dense)
+
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+    def states_equal(a, b):
+        return all(torch.equal(bits(x[k]), bits(y[k]))
+                   for x, y in zip(a, b) for k in ("f", "rho", "vel"))
+
+    def vmesh(n):
+        return XMesh([dev] * n)
+
+    res = {"stream_collide_shard": [], "stream_collide_flat_shard": [],
+           "stream_collide_inplace_shard": [], "bouzidi_shard": []}
+    t_phase = time.time()
+
+    # ---- 10a. each sharded form against its plain version ----
+    # at the slabs the main path's runs give it: K1 on the bench's levels at
+    # 2 and 3 slabs (level 1, inlet and outlet, on 3), K4 on level 1's two
+    # slabs (inlet, outlet), K5 on the 63.7M-cell row's two slabs (bf16, as
+    # 10c runs it); K5's float32 form, which no path runs, on a slab of the
+    # 10.8M-cell shape
+    sweep_level, sweep_static = sweep
+    _, _, levels7, statics7, _ = row7
+    both, bf_only, f32_only = (False, True), (True,), (False,)
+    cases = (
+        ("stream_collide_shard", "k1", "L3 first of 2", levels[2], statics[2], 2, 0, both),
+        ("stream_collide_shard", "k1", "L2 middle of 3", levels[1], statics[1], 3, 1, both),
+        ("stream_collide_shard", "k1", "L1 first of 3 (inlet)", levels[0], statics[0], 3, 0,
+         both),
+        ("stream_collide_shard", "k1", "L1 last of 3 (outlet)", levels[0], statics[0], 3, 2,
+         both),
+        ("stream_collide_flat_shard", "flat", "L1 first of 2 (inlet)", levels[0], statics[0],
+         2, 0, both),
+        ("stream_collide_flat_shard", "flat", "L1 last of 2 (outlet)", levels[0], statics[0],
+         2, 1, both),
+        ("stream_collide_inplace_shard", "inplace", "row first of 2 (inlet)", levels7[0],
+         statics7[0], 2, 0, bf_only),
+        ("stream_collide_inplace_shard", "inplace", "row last of 2 (outlet)", levels7[0],
+         statics7[0], 2, 1, bf_only),
+        ("stream_collide_inplace_shard", "inplace", "sweep first of 2", sweep_level,
+         sweep_static, 2, 0, f32_only),
+    )
+    for kname, kind, label, patch, static, n, i, dtypes in cases:
+        for bf16 in dtypes:
+            big = patch.n_cells > 20e6
+            r = checks.check_shard_step(kind, patch, checks.with_sponge_ramp(static),
+                                        bf16, seed=61, kw=kw, device=dev, n=n, i=i,
+                                        reps=5 if big else 20, plain_reps=1)
+            res[kname].append((bf16, r))
+            x0, x1 = r["slab"]
+            print(f"[10a shard] {kname} {label} {patch.interior} x [{x0},{x1}) "
+                  f"{'bf16' if bf16 else 'f32 '} | vs plain: err f/rho/vel "
+                  f"{r['err']['f']:.2e}/{r['err']['rho']:.2e}/{r['err']['vel']:.2e} "
+                  f"(tol {r['tol']:.0e}) | vs the unsharded kernel's rows: "
+                  f"{100 * r['whole']['diff_frac']:.4f}% stored f differ, max "
+                  f"{r['whole']['max_abs_err']:.2e} | kernel {r['ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms | card: {smi}",
+                  flush=True)
+            require(r["finite"] and r["max_abs_err"] < r["tol"]
+                    and r["whole"]["diff_frac"] == 0.0, (kname, label, bf16, r["err"],
+                                                         r["whole"]))
+            if big:
+                torch.cuda.empty_cache()
+    # K2 at the bench's slab bounds of 2 and 3 slabs (10b: both cut its box,
+    # so slabs read halos) and of the row's 2 (10c, bf16)
+    plan = statics[2]["bouzidi"]
+    X3 = levels[2].interior[0]
+    k2_cases = (
+        ("bench, 2 slabs", levels[2], plan, slab_bounds(X3, 2), both),
+        ("bench, 3 slabs", levels[2], plan, slab_bounds(X3, 3), both),
+        ("row, 2 slabs", levels7[0], statics7[0]["bouzidi"],
+         slab_bounds(levels7[0].interior[0], 2), bf_only),
+    )
+    for label, patch, bplan, cut, dtypes in k2_cases:
+        for bf16 in dtypes:
+            r = checks.check_bouzidi_shard(patch, bplan, bf16, seed=63, bounds=cut,
+                                           device=dev)
+            res["bouzidi_shard"].append((bf16, r))
+            print(f"[10a shard] bouzidi_shard {label}: box {tuple(bplan['dim'])} at x "
+                  f"{bplan['lo'][0]}, slabs at x {cut} {'bf16' if bf16 else 'f32 '} | "
+                  f"links per slab {r['links']}, halo values {r['halo']} | vs plain: "
+                  f"err {r['max_abs_err']:.2e} (tol {r['tol']:.0e}, {r['changed']} "
+                  f"slots changed) | vs the unsharded K2: "
+                  f"{100 * r['whole']['diff_frac']:.4f}% stored f differ | halos + "
+                  f"every slab {r['ms']:.5f} ms, bound {r['bound_ms']:.6f} ms, plain "
+                  f"{r['plain_ms']:.3f} ms | card: {smi}", flush=True)
+            require(r["changed"] > 0 and r["max_abs_err"] < r["tol"]
+                    and r["whole"]["diff_frac"] == 0.0
+                    and (min(r["halo"]) > 0 or not label.startswith("bench")),
+                    ("bouzidi_shard", label, bf16, r))
+    torch.cuda.empty_cache()
+
+    # ---- 10b. the bench case on 2 and 3 virtual slabs ----
+    steps = 100
+    cfg10 = checks.bench_config(os.path.join(tmp, "shard"), steps=steps,
+                                diag_freq=50).with_overrides(
+        checkpoint_freq=steps, force_method="momentum_exchange")
+    stat1 = build_patch_statics(cfg10, levels, dev)
+    single = make_batch_runner_dense(cfg10, params, levels, stat1, fuse2=False)
+    ref = single([init_patch_state(p, cfg10.precision, dev) for p in levels], 1, steps)
+    # one device's forces of the final state, computed as solve_case does
+    ctx = forces.make_mem_context(levels[-1], params, trimesh, g_storage=True,
+                                  device=dev)
+    sctx = forces.make_force_context_dense(trimesh, levels[-1], params,
+                                           extrapolate=cfg10.force_extrapolate,
+                                           device=dev)
+    want_forces = forces.compute_aerodynamics_mem(
+        ref[-1], ctx, base=forces.compute_aerodynamics(ref[-1], sctx))
+    f64 = checks.mem_float64(ref[-1]["f"], ctx)
+    e = checks.mem_errors(want_forces, f64)
+    launches = {}
+    for n in (2, 3):
+        mesh = vmesh(n)
+        stat_n = build_patch_statics(cfg10, levels, dev, x_mesh=mesh)
+        want = {k: 0 for k in cuda_step.LAUNCHES}
+        for li, st in enumerate(stat_n):
+            sub = 2 ** li * steps
+            want[{"k1": "stream_collide_shard", "flat": "stream_collide_flat_shard",
+                  "inplace": "stream_collide_inplace_shard"}[st["engine"]]] += n * sub
+            want["bouzidi_shard"] += sub * sum(sh["bouzidi"] is not None
+                                               for sh in st["shards"])
+        out_dir = f"RESULTS_{n}"
+        cuda_step.reset_launches()
+        t0 = time.time()
+        r = solve_case(cfg10.with_overrides(output_dir=out_dir), device="cuda",
+                       x_mesh=mesh)
+        got = dict(cuda_step.LAUNCHES)
+        sec = time.time() - t0
+        require(got == want, (f"sharded launches on {n} slabs", got, want))
+        if n == 2:
+            launches = got
+        path = os.path.join(cfg10.with_overrides(output_dir=out_dir).output_path,
+                            "checkpoints", f"ckpt_{steps:08d}.npz")
+        _, final = ckpt.load_checkpoint(path, cfg10.precision, dev)
+        equal = states_equal(final, ref)
+        same_forces = all(getattr(r.final_forces, k) == getattr(want_forces, k)
+                          for k in ("Fx", "Fy", "Fz", "Mx", "My", "Mz", "Cd", "Cl"))
+        print(f"[10b shard] bench on {n} virtual slabs ("
+              + ", ".join(f"L{p.level_id} {st['engine']} x {st['bounds']}"
+                          for p, st in zip(levels, stat_n))
+              + f"): solve_case {steps} steps in {sec:.1f} s (set-up included) | "
+              f"launches {dict((k, v) for k, v in got.items() if v)} | every level's "
+              f"f, rho, vel bit-equal to one device unfused: {equal} | final MEM "
+              f"forces equal to one device's on that state: {same_forces} (their "
+              f"|error| / bound against float64: F {e['F']:.3f}, M {e['M']:.3f}) | "
+              f"Cd {r.final_forces.Cd:.5f}, rho_min {r.final_stats.rho_min:.4f} | "
+              f"card: {smi}", flush=True)
+        require(equal and same_forces and e["ok"] and np.isfinite(r.final_forces.Cd)
+                and 0.5 < r.final_stats.rho_min < 1.5, (f"bench on {n} slabs", e))
+        del final
+    runs = {1: single}
+    for n in (2, 3):
+        mesh = vmesh(n)
+        runs[n] = make_batch_runner_dense(
+            cfg10, params, levels, build_patch_statics(cfg10, levels, dev, x_mesh=mesh),
+            x_mesh=mesh)
+    turns = []
+    for n in (1, 2, 3, 3, 2, 1):
+        st = ref if n == 1 else shard_states(ref, vmesh(n))
+        runs[n](st, steps + 1, 2)  # seeds the slabs, warms up
+        turns.append((n, checks.time_cuda(lambda: runs[n](st, steps + 1, 50), reps=1,
+                                          warmup=0) / 50))
+        del st
+    print("[10b shard] 50 coarse steps of the bench, ms per coarse step in turns "
+          "(n slabs; n = 1 one device unfused; virtual mesh: every slab on this "
+          "one card, one stream): " + ", ".join(f"n={n} {ms:.3f}" for n, ms in turns)
+          + f" | card: {smi}", flush=True)
+    del ref, runs, stat1, single
+    torch.cuda.empty_cache()
+
+    # ---- 10c. the 63.7M-cell row on 2 slabs ----
+    cfg7, params7, levels7, statics7, state7 = row7
+    mesh = vmesh(2)
+    stat_r = build_patch_statics(cfg7, levels7, dev, x_mesh=mesh)
+    require(stat_r[0]["engine"] == "inplace", ("row engine on 2 slabs", stat_r[0]["engine"]))
+    one = make_batch_runner_dense(cfg7, params7, levels7, statics7)
+    two = make_batch_runner_dense(cfg7, params7, levels7, stat_r, x_mesh=mesh)
+    want_ref = one([{**s, "f": s["f"].clone()} for s in state7], 1, 10)
+    sh = shard_states(state7, mesh)
+    cuda_step.reset_launches()
+    sh = two(sh, 1, 10)
+    got = dict(cuda_step.LAUNCHES)
+    nbz = sum(s["bouzidi"] is not None for s in stat_r[0]["shards"])
+    require(got == {**{k: 0 for k in got}, "stream_collide_inplace_shard": 20,
+                    "bouzidi_shard": 10 * nbz}, ("row launches on 2 slabs", got))
+    launches["stream_collide_inplace_shard"] = got["stream_collide_inplace_shard"]
+    equal = states_equal(gather_states(sh, dev), want_ref)
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated(dev)
+    peak = checks.step_peak_bytes(lambda: two(sh, 11, 1), dev)
+    n_cells = levels7[0].n_cells
+    b = slab_bounds(levels7[0].interior[0], 2)
+    print(f"[10c shard] the {n_cells / 1e6:.1f}M-cell row on 2 virtual slabs x {b} "
+          f"(K5 + K2 sharded): 10 steps bit-equal to one device's K5 run: {equal} | "
+          f"launches {dict((k, v) for k, v in got.items() if v)} | one sharded "
+          f"coarse step's peak above the live {live / 1e9:.2f} GB: {peak / 1e9:.3f} "
+          f"GB, {peak / 2 / 1e9:.3f} GB per slab (a slab's rho + vel "
+          f"{n_cells / 2 * 16 / 1e9:.3f} GB) | card: {smi}", flush=True)
+    require(equal, "63.7M row on 2 slabs against one device")
+    del want_ref, sh, one, two, stat_r
+
+    # ---- 10d. devices: 2 with no mesh on this machine ----
+    if torch.cuda.device_count() == 1:
+        try:
+            solve_case(cfg10.with_overrides(devices=2, output_dir="RESULTS_d2"),
+                       device="cuda")
+            raised = ""
+        except RuntimeError as exc:
+            raised = str(exc)
+        print(f"[10d shard] devices: 2 on one visible card raises: {raised!r}",
+              flush=True)
+        require("2 CUDA devices, 1 visible" in raised, ("devices: 2", raised))
+    print(f"[10 shard] phase {time.time() - t_phase:.1f} s", flush=True)
+    return res, launches
 
 
 def main(argv=None) -> int:
@@ -260,6 +520,7 @@ def main(argv=None) -> int:
 
     logging.basicConfig(level=logging.INFO, format="%(message)s", stream=sys.stdout)
     dev = torch.device("cuda", 0)
+    none = {k: 0 for k in cuda_step.LAUNCHES}  # every launch counter at zero
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi()
@@ -492,7 +753,6 @@ def main(argv=None) -> int:
                     print_ref("4b K3", "K3", label, bf16, checks.check_step_against(
                         refs["fused_pair"], "fused_pair", patch, static, bf16, 23, kw,
                         dev, reps=reps))
-        del sweep, sweep_static
         torch.cuda.empty_cache()
 
         # ---- 4c. fused against unfused on the card: 4 coarse steps ----
@@ -522,9 +782,9 @@ def main(argv=None) -> int:
         launches = dict(cuda_step.LAUNCHES)
         steps = cfg.steps
         print(f"[5 slice] launches {launches} over {steps} coarse steps", flush=True)
-        require(launches == {"stream_collide_flat": steps, "stream_collide": 2 * steps,
-                             "fused_pair": 2 * steps, "bouzidi": 2 * steps,
-                             "stream_collide_inplace": 0, "bouzidi_ab": 0},
+        require(launches == {**none, "stream_collide_flat": steps,
+                             "stream_collide": 2 * steps, "fused_pair": 2 * steps,
+                             "bouzidi": 2 * steps},
                 ("slice launches", launches))
         check_run_outputs(res, cfg)
         win = res.windows[1:]  # the first interval carries the warm-up
@@ -570,11 +830,9 @@ def main(argv=None) -> int:
         res1 = solve_case(cfg1, device="cuda")
         got = dict(cuda_step.LAUNCHES)
         sizes = [b - a + 1 for a, b, _ in res1.windows]
-        want = {"stream_collide": sum(n % 2 for n in sizes),
+        want = {**none, "stream_collide": sum(n % 2 for n in sizes),
                 "fused_pair": sum(n // 2 for n in sizes),
-                "bouzidi": sum(n // 2 + n % 2 for n in sizes),
-                "stream_collide_flat": 0, "stream_collide_inplace": 0,
-                "bouzidi_ab": 0}
+                "bouzidi": sum(n // 2 + n % 2 for n in sizes)}
         print(f"[6 single] batches {sizes} | launches {got}", flush=True)
         require(sum(sizes) == cfg1.steps and got == want,
                 ("single-level launches", sizes, got, want))
@@ -639,9 +897,7 @@ def main(argv=None) -> int:
         got7 = dict(cuda_step.LAUNCHES)
         steps7 = cfg7.steps
         print(f"[7 in place] launches {got7} over {steps7} coarse steps", flush=True)
-        require(got7 == {"stream_collide_inplace": steps7, "bouzidi": steps7,
-                         "stream_collide": 0, "fused_pair": 0,
-                         "stream_collide_flat": 0, "bouzidi_ab": 0},
+        require(got7 == {**none, "stream_collide_inplace": steps7, "bouzidi": steps7},
                 ("63.7M launches", got7))
         check_run_outputs(res7, cfg7)
         win = res7.windows[1:]
@@ -746,7 +1002,8 @@ def main(argv=None) -> int:
               + " -> " + ", ".join(
                   f"{k} {res7.total_cells / min(per7[k]) / 1e3:.0f} MLUPS"
                   for k in runs7) + f" | card: {smi}", flush=True)
-        del state7, runs7, statics7, levels7, row, st7
+        row7 = (cfg7, params7, levels7, statics7, state7)
+        del runs7, row, st7
         torch.cuda.empty_cache()
 
         # ---- 8. the probe's path: K6, the two-array Bouzidi ----
@@ -788,8 +1045,8 @@ def main(argv=None) -> int:
                 ("probe box and K6 vs K2", probe["dim"], probe["max_abs_err"]))
 
         # ---- 9. the runner's outputs and restarts on the bench case ----
-        per_step = {"stream_collide_flat": 1, "stream_collide": 2, "fused_pair": 2,
-                    "bouzidi": 2, "stream_collide_inplace": 0, "bouzidi_ab": 0}
+        per_step = {**none, "stream_collide_flat": 1, "stream_collide": 2,
+                    "fused_pair": 2, "bouzidi": 2}
         cfg9 = checks.bench_config(
             os.path.join(tmp, "outputs"), steps=200, output_freq=100,
             diag_freq=100).with_overrides(force_method="momentum_exchange",
@@ -896,6 +1153,11 @@ def main(argv=None) -> int:
         require(plan9["total_cells"] == res9.total_cells
                 and cap["inplace"] > cap["k1"] > 100 * plan9["total_cells"], plan9)
 
+        # ---- 10. the x-slab multi-device path ----
+        k10, launches10 = phase_10(dev, smi, kw, tmp, mesh, params, levels, statics,
+                                   (sweep[0], sweep_static), row7)
+        del row7, sweep, sweep_static
+
     print(f"[done] {time.time() - t_run:.1f} s", flush=True)
 
     def kernel_line(kname, source, replaces, n, r, max_abs_err):
@@ -926,6 +1188,17 @@ def main(argv=None) -> int:
                     got8["bouzidi_ab"], k6[True],
                     max(r["max_abs_err"] for r in k6.values())),
     ]
+    # the sharded forms: launches from phase 10's runs (K1, K4 and K2 on the
+    # bench's 2 slabs, K5 on the row's), times from 10a's first bf16 check
+    for kname, source, replaces in (
+            ("stream_collide_shard", "stream_collide.cu", "769"),
+            ("stream_collide_flat_shard", "stream_collide_flat.cu", "2134"),
+            ("stream_collide_inplace_shard", "stream_collide_inplace.cu", "1647"),
+            ("bouzidi_shard", "bouzidi.cu", "62")):
+        rs = [r for bf, r in k10[kname] if bf]
+        kernels.append(kernel_line(kname, csrc + source, pallas + replaces,
+                                   launches10[kname], rs[0],
+                                   max(r["max_abs_err"] for r in rs)))
     # the port's independence from the JAX package, where jax is installed
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "open_ludwig_tpu"))

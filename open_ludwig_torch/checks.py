@@ -678,6 +678,140 @@ def check_bouzidi(patch: PatchLevel, plan: Dict, store_bf16: bool, seed: int,
     return out
 
 
+def slab_inputs(patch: PatchLevel, inp: Dict, static: Dict, bounds: List[int],
+                i: int) -> Dict:
+    """Slab i of `bounds` cut from whole-level inputs (`random_level_inputs`)
+    as the sharded path holds it: f, vel and the statics' x slab, the edge
+    planes (27, 2, Y, Z) and (3, 2, Y, Z) from the neighbour slabs' planes
+    (zero at the domain ends), and sub-step 0's ghost planes of the slab
+    (`parallel.patch_shard.slab_planes`)."""
+    from .parallel.patch_shard import slab_planes
+
+    x0, x1 = bounds[i], bounds[i + 1]
+    f, vel = inp["f"], inp["vel"]
+    _, Y, Z = patch.interior
+    fe = torch.zeros((27, 2, Y, Z), dtype=f.dtype, device=f.device)
+    ve = torch.zeros((3, 2, Y, Z), dtype=torch.float32, device=f.device)
+    if x0 > 0:
+        fe[:, 0], ve[:, 0] = f[:, x0 - 1], vel[:, x0 - 1]
+    if x1 < patch.interior[0]:
+        fe[:, 1], ve[:, 1] = f[:, x1], vel[:, x1]
+    planes = slab_planes(inp["iface"], patch, bounds, [f.device] * (len(bounds) - 1))[i]
+    return {"f": f[:, x0:x1].contiguous(), "vel": vel[:, x0:x1].contiguous(),
+            "static": {k: static[k][x0:x1].contiguous()
+                       for k in ("obstacle", "sponge", "wall_dist")},
+            "edges": (fe, ve), "x_off": x0, "iface": sub_step_planes(planes, 0)}
+
+
+def check_shard_step(kind: str, patch: PatchLevel, static: Dict, store_bf16: bool,
+                     seed: int, kw: Dict, device, n: int, i: int, reps: int = 20,
+                     plain_reps: int = 3) -> Dict:
+    """The sharded form of K1 ("k1"), K4 ("flat") or K5 ("inplace") on slab
+    i of n of `patch` (`slab_bounds`), against its plain version on the
+    same slab inputs (`slab_inputs`; the kernel's tolerance) and against
+    the unsharded kernel on the whole level ("whole": the slab's rows, the
+    share of stored f entries that differ, 0 expected), on the card.  K5 and
+    its plain version each run on their own clone.  Returns what
+    check_stream_collide returns, the slab ("slab": (x0, x1)), and the
+    bound of the slab's work with its edge planes read."""
+    from .parallel.patch_shard import slab_bounds
+
+    b = slab_bounds(patch.interior[0], n)
+    x0, x1 = b[i], b[i + 1]
+    inp = random_level_inputs(patch, store_bf16, seed, device)
+    sl = slab_inputs(patch, inp, static, b, i)
+    u, s = 0.04, 9
+    fn = {"k1": stream_collide, "flat": stream_collide_flat,
+          "inplace": stream_collide_inplace}[kind]
+    plain_fn = {"k1": dense_stream_collide, "flat": stream_collide_flat_plain}.get(kind)
+    ifk = {"iface": sl["iface"]} if kind == "k1" else {}
+    shard = dict(edges=sl["edges"], x_off=x0)
+
+    def kernel(f):
+        return fn(f, sl["vel"], u, s, sl["static"], patch, **shard, **ifk, **kw)
+
+    def plain():
+        if kind == "inplace":  # K5's plain version, on a clone it overwrites
+            return stream_collide_inplace_plain(sl["f"].clone(), sl["vel"], u, s,
+                                                sl["static"], patch, **shard, **kw)
+        fo, ro, vo = plain_fn(storage.decode_f(sl["f"]), sl["vel"], u, s, sl["static"],
+                              patch, edges=(storage.decode_f(sl["edges"][0]),
+                                            sl["edges"][1]), x_off=x0, **ifk, **kw)
+        if store_bf16:
+            fo = storage.encode_f(fo, storage.STORE_BF16)
+        return fo, ro, vo
+
+    a = kernel(sl["f"].clone())
+    c = plain()
+    ifw = {"iface": sub_step_planes(inp["iface"], 0)} if kind == "k1" else {}
+    w = fn(inp["f"].clone(), inp["vel"], u, s, static, patch, **ifw, **kw)
+    torch.cuda.synchronize()
+    nb, ops = step_work(dataclasses.replace(patch, interior=(x1 - x0,) + tuple(
+        patch.interior[1:])), store_bf16, kw["wall_model"])
+    Y, Z = patch.interior[1:]
+    nb += 2 * Y * Z * (27 * (2 if store_bf16 else 4) + 12)
+    out = {**state_diff(*a, *c), "tol": K1_TOL[store_bf16], "slab": (x0, x1),
+           "whole": state_diff(a[0], a[1], a[2], w[0][:, x0:x1], w[1][x0:x1],
+                               w[2][:, x0:x1]),
+           **bound(nb, ops, device)}
+    del a, c, w
+    work = sl["f"].clone()
+    out["ms"] = time_cuda(lambda: kernel(work if kind == "inplace" else sl["f"]), reps)
+    out["plain_ms"] = time_cuda(plain, plain_reps)
+    return out
+
+
+def check_bouzidi_shard(patch: PatchLevel, plan: Dict, store_bf16: bool, seed: int,
+                        bounds: List[int], device, reps: int = 50,
+                        plain_reps: int = 10) -> Dict:
+    """K2's sharded form over the slabs of `bounds` (every slab's halo
+    gathered, then K2 per slab over the links it owns) against its plain
+    version per slab (the kernel's tolerance) and against the unsharded K2
+    on the whole level ("whole": the slabs joined, the share of stored f
+    entries that differ, 0 expected), on the card.  Returns the errors, the
+    links and halo values per slab, the bound of the links' work, and ms
+    per correction of the whole level (halos and every slab's launch) and
+    of the plain version."""
+    from .parallel.patch_shard import bouzidi_halos, shard_bouzidi_plan
+
+    f0 = random_level_inputs(patch, store_bf16, seed, device)["f"]
+    n = len(bounds) - 1
+    shards = [{"bouzidi": sp} for sp in shard_bouzidi_plan(plan, bounds, [device] * n)]
+    parts0 = [f0[:, bounds[i]:bounds[i + 1]].contiguous() for i in range(n)]
+
+    def sharded(parts):
+        halos = bouzidi_halos(shards, parts)
+        return [bouzidi(p, sh["bouzidi"], h) if sh["bouzidi"] is not None else p
+                for p, sh, h in zip(parts, shards, halos)]
+
+    got = sharded([p.clone() for p in parts0])
+    halos = bouzidi_halos(shards, parts0)
+    plain = [apply_bouzidi_links(p, sh["bouzidi"], h) if sh["bouzidi"] is not None
+             else p for p, sh, h in zip(parts0, shards, halos)]
+    whole = bouzidi(f0.clone(), plan)
+    torch.cuda.synchronize()
+    g = torch.cat(got, dim=1)
+    err = float((storage.decode_f(g) - storage.decode_f(torch.cat(plain, dim=1)))
+                .abs().max())
+    out = {"max_abs_err": err, "tol": K2_TOL[store_bf16],
+           "changed": int((g != f0).sum()),
+           "whole": {"diff_frac": float((g != whole).float().mean()),
+                     "max_abs_err": float((storage.decode_f(g) - storage.decode_f(whole))
+                                          .abs().max())},
+           "links": [0 if sh["bouzidi"] is None else len(sh["bouzidi"]["links"]["a"])
+                     for sh in shards],
+           "halo": [0 if sh["bouzidi"] is None else sh["bouzidi"]["n_halo"]
+                    for sh in shards],
+           **bound(*link_work(plan, store_bf16), device)}
+    del got, plain, whole, g
+    work = [p.clone() for p in parts0]
+    out["ms"] = time_cuda(lambda: sharded(work), reps)
+    out["plain_ms"] = time_cuda(
+        lambda: [apply_bouzidi_links(p, sh["bouzidi"], h) for p, sh, h in
+                 zip(parts0, shards, halos) if sh["bouzidi"] is not None], plain_reps)
+    return out
+
+
 def check_bouzidi_ab(patch: PatchLevel, plan: Dict, store_bf16: bool, seed: int,
                      device, reps: int = 50, plain_reps: int = 10) -> Dict:
     """K6 (one launch over the two-array plan's links, in place; A and B in

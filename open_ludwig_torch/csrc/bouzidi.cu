@@ -24,12 +24,18 @@ namespace {
 
 constexpr unsigned SELF = 0x80;
 
+// HALO = true is the form for one x slab of a sharded level: a link whose
+// `other` lies in another slab has src = -1 - h and reads entry h of
+// `halo`, that value gathered from its slab before any slab's launch
+// (parallel/patch_shard.py); every other read is of the slab's own f.
+template <bool HALO = false>
 struct SignedLink {
   const int* cell;
   const uint8_t* code;
   const int* src;
   const float* a;
   long long N;  // cells of the level
+  const void* halo;
 
   template <typename T>
   __device__ __forceinline__ float value(const T* f, int i) const {
@@ -37,7 +43,11 @@ struct SignedLink {
     const unsigned cd = code[i];
     const int j = cd & 31u, k = 26 - j;
     const float av = a[i];
-    const float other = bzlinks::ld(f, (long long)((cd & SELF) ? j : k) * N + src[i]);
+    const int s = src[i];
+    const float other =
+        HALO && s < 0
+            ? bzlinks::ld(static_cast<const T*>(halo), (long long)(-1 - s))
+            : bzlinks::ld(f, (long long)((cd & SELF) ? j : k) * N + s);
     const float b = 1.0f - av;
     return av * bzlinks::ld(f, (long long)k * N + c) + b * other;
   }
@@ -55,10 +65,29 @@ extern "C" int ol_bouzidi(int store_bf16, void* f, const void* cell,
                           const void* code, const void* src, const void* a,
                           void* scratch, int n, int X, int Y, int Z,
                           void* stream) {
-  const SignedLink link{static_cast<const int*>(cell),
-                        static_cast<const uint8_t*>(code),
-                        static_cast<const int*>(src), static_cast<const float*>(a),
-                        (long long)X * Y * Z};
+  const SignedLink<> link{static_cast<const int*>(cell),
+                          static_cast<const uint8_t*>(code),
+                          static_cast<const int*>(src), static_cast<const float*>(a),
+                          (long long)X * Y * Z, nullptr};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return store_bf16 ? bzlinks::launch<__nv_bfloat16>(link, f, scratch, n, s)
+                    : bzlinks::launch<float>(link, f, scratch, n, s);
+}
+
+// The sharded form: the links of one x slab (X, Y, Z) of a level, cells and
+// sources slab-local, sources in another slab read from `halo` (storage
+// type, one value per such link, gathered before any slab's launch).  Every
+// link of every slab is read before any is written only if no slab's launch
+// starts before all halos are gathered: the caller's order.
+extern "C" int ol_bouzidi_shard(int store_bf16, void* f, const void* cell,
+                                const void* code, const void* src, const void* a,
+                                void* scratch, const void* halo, int n, int X,
+                                int Y, int Z, void* stream) {
+  const SignedLink<true> link{static_cast<const int*>(cell),
+                              static_cast<const uint8_t*>(code),
+                              static_cast<const int*>(src),
+                              static_cast<const float*>(a), (long long)X * Y * Z,
+                              halo};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return store_bf16 ? bzlinks::launch<__nv_bfloat16>(link, f, scratch, n, s)
                     : bzlinks::launch<float>(link, f, scratch, n, s);

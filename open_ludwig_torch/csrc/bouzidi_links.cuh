@@ -80,20 +80,23 @@ link_kernel(const Link link, T* f, float* scratch, int n) {
     st(f, link.dst(i), scratch[i]);
 }
 
-// The blocks of link_kernel<T, Link> the card holds at once (every block of
-// a cooperative launch must be resident).  Asked once.
+// The blocks of link_kernel<T, Link> the current card holds at once (every
+// block of a cooperative launch must be resident).  Asked once per card (a
+// sharded level's slabs may lie on several).
 template <typename T, class Link>
 int resident_blocks() {
-  static int cached = 0;
-  if (!cached) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
+  static int cached[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int& c = cached[dev & 63];
+  if (!c) {
+    int sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, link_kernel<T, Link>,
                                                   THREADS, 0);
-    cached = sms * per_sm;
+    c = sms * per_sm;
   }
-  return cached;
+  return c;
 }
 
 // One cooperative launch over the n links on `stream`: never synchronises,

@@ -54,6 +54,10 @@ struct Step {
   const void* plane[6];
   int bc[6];
   int X, Y, Z;
+  // the level's global x extent and this array's first global plane: an
+  // x slab of a sharded level (x_off > 0 or X < gX) takes its x faces at
+  // global x = 0 and gX - 1 only; one device has x_off = 0, gX = X
+  int x_off, gX;
   int lo_y, lo_z;
   float u_inlet;
   int seed;
@@ -84,6 +88,8 @@ static inline bool make_step(Step& s, const void* const planes[6],
   s.X = X;
   s.Y = Y;
   s.Z = Z;
+  s.x_off = 0;
+  s.gX = X;
   s.lo_y = lo_y;
   s.lo_z = lo_z;
   s.u_inlet = u_inlet;
@@ -151,13 +157,13 @@ __device__ __forceinline__ float hash_noise(int gy, int gz, int seed) {
   return (float)(int)(h & 0xFFFFu) / 32768.0f - 1.0f;
 }
 
-// The inlet factor of cell (x, y, z): 1 (f) or 0 (g) + the inlet
+// The inlet factor of cell (gx, y, z), gx its global x: 1 (f) or 0 (g) + the inlet
 // equilibrium's velocity terms on the cells of an inlet x-min face, with
 // the hash noise of the cell's global (y, z); 0 elsewhere.
 template <bool G>
-__device__ __forceinline__ float inlet_factor(const Step& p, int x, int y,
+__device__ __forceinline__ float inlet_factor(const Step& p, int gx, int y,
                                               int z) {
-  if (p.bc[0] != BC_INLET || x != 0) return 0.0f;
+  if (p.bc[0] != BC_INLET || gx != 0) return 0.0f;
   const float u_in = p.u_inlet;
   float u_inst = u_in;
   if (p.inlet_turb > 0.0f) {
@@ -215,6 +221,11 @@ __device__ __forceinline__ float face_value(const Step& p, int k, int face,
 //     faces (the plain version applies its masks z -> y -> x, later ones
 //     winning: the same precedence).  `mirror(km)` returns population km
 //     of the cell itself.  Cells off every face, nearly all, skip the phase.
+//     With SHARD (an x slab of a sharded level, Step::x_off and gX) the x
+//     faces are tested at the cell's global x: a slab's inner x ends are
+//     no face, their slots come from the neighbour slabs' edge planes,
+//     which the caller puts in before this phase (the y and z faces then
+//     win over them, as over any pulled value).
 struct Nbr {
   int dx[3], dy[3], dz[3];  // offset of the cell - c, clamped, at [c + 1]
 };
@@ -233,19 +244,21 @@ __device__ __forceinline__ Nbr neighbours(const Step& p, int x, int y, int z) {
   return n;
 }
 
-template <bool G, bool IFACE = true, class Mirror>
+template <bool G, bool IFACE = true, bool SHARD = false, class Mirror>
 __device__ __forceinline__ void apply_faces(const Step& p, int x, int y, int z,
                                             Mirror mirror, float f[27]) {
-  const int X = p.X, Y = p.Y, Z = p.Z;
-  if (x != 0 && x != X - 1 && y != 0 && y != Y - 1 && z != 0 && z != Z - 1)
+  const int Y = p.Y, Z = p.Z;
+  const int gx = SHARD ? x + p.x_off : x;
+  const int last = SHARD ? p.gX - 1 : p.X - 1;
+  if (gx != 0 && gx != last && y != 0 && y != Y - 1 && z != 0 && z != Z - 1)
     return;
-  const float inlet_fac = inlet_factor<G>(p, x, y, z);
+  const float inlet_fac = inlet_factor<G>(p, gx, y, z);
 #pragma unroll
   for (int k = 0; k < 27; ++k) {
     const int cx = k % 3 - 1, cy = (k / 3) % 3 - 1, cz = k / 9 - 1;
     int face = -1;
-    if (cx > 0 && x == 0) face = 0;
-    else if (cx < 0 && x == X - 1) face = 1;
+    if (cx > 0 && gx == 0) face = 0;
+    else if (cx < 0 && gx == last) face = 1;
     else if (cy > 0 && y == 0) face = 2;
     else if (cy < 0 && y == Y - 1) face = 3;
     else if (cz > 0 && z == 0) face = 4;
@@ -496,6 +509,30 @@ __device__ __forceinline__ void vel_grad_global(const float* V, long long N,
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     g[c][0] = 0.5f * (__ldg(V + nb.dx[0]) - __ldg(V + nb.dx[2]));
+    g[c][1] = 0.5f * (__ldg(V + nb.dy[0]) - __ldg(V + nb.dy[2]));
+    g[c][2] = 0.5f * (__ldg(V + nb.dz[0]) - __ldg(V + nb.dz[2]));
+    V += N;
+  }
+}
+
+// vel_grad_global for a cell of an x slab (SHARD): where the +x or -x
+// neighbour lies in the next or previous slab it comes from the slab's
+// velocity edge planes `VE` (3, 2, Y, Z) at the cell's (y, z) offset `yz`
+// ([:, 0] the previous slab's last plane, [:, 1] the next one's first); at
+// the level's global x ends the cell itself stands in, as on one device.
+__device__ __forceinline__ void vel_grad_slab(const Step& p, const float* V,
+                                              long long N, const Nbr& nb,
+                                              int x, const float* VE, int yz,
+                                              float g[3][3]) {
+  const int YZ = p.Y * p.Z;
+  const int gx = x + p.x_off;
+  const bool from_next = x == p.X - 1 && gx != p.gX - 1;
+  const bool from_prev = x == 0 && gx != 0;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float vp = from_next ? __ldg(VE + (2 * c + 1) * YZ + yz) : __ldg(V + nb.dx[0]);
+    const float vm = from_prev ? __ldg(VE + (2 * c) * YZ + yz) : __ldg(V + nb.dx[2]);
+    g[c][0] = 0.5f * (vp - vm);
     g[c][1] = 0.5f * (__ldg(V + nb.dy[0]) - __ldg(V + nb.dy[2]));
     g[c][2] = 0.5f * (__ldg(V + nb.dz[0]) - __ldg(V + nb.dz[2]));
     V += N;

@@ -46,7 +46,7 @@ namespace {
 
 constexpr int THREADS = 128;
 
-template <typename T>
+template <typename T, bool SHARD>
 __global__ void __launch_bounds__(THREADS) stream_collide_kernel(const sc::Params p) {
 #ifdef OL_K1_SECTIONS
   long long t_mark = clock64();
@@ -60,7 +60,18 @@ __global__ void __launch_bounds__(THREADS) stream_collide_kernel(const sc::Param
   const unsigned active = __activemask();
   if ((threadIdx.x & 31) == 0) atomicAdd(&ol_k1_cycles[7], (unsigned long long)__popc(active));
 #endif
-  sc::update_cell<T, true>(p, cell, mark);
+  sc::update_cell<T, true, SHARD>(p, cell, mark);
+}
+
+template <bool SHARD>
+int launch(int store_bf16, const sc::Params& p, void* stream) {
+  const unsigned blocks = (unsigned)(((long long)p.N + THREADS - 1) / THREADS);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (store_bf16)
+    stream_collide_kernel<__nv_bfloat16, SHARD><<<blocks, THREADS, 0, s>>>(p);
+  else
+    stream_collide_kernel<float, SHARD><<<blocks, THREADS, 0, s>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -85,13 +96,38 @@ extern "C" int ol_stream_collide(
                        u_inlet, seed, tau, c_wale, nu_sgs, inlet_turb,
                        wall_model, sponge_blend))
     return (int)cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)(((long long)p.N + THREADS - 1) / THREADS);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (store_bf16)
-    stream_collide_kernel<__nv_bfloat16><<<blocks, THREADS, 0, s>>>(p);
-  else
-    stream_collide_kernel<float><<<blocks, THREADS, 0, s>>>(p);
-  return (int)cudaGetLastError();
+  return launch<false>(store_bf16, p, stream);
+}
+
+// The sharded form: one x slab (27, X, Y, Z) of a level of gX planes whose
+// first plane is global x_off, with the neighbour slabs' edge planes f_edges
+// (27, 2, Y, Z, storage type) and v_edges (3, 2, Y, Z, float32); y and z
+// faces' ghost planes are the slab's own x range (27, X, B), x faces' whole
+// planes (read only by the slabs holding x = 0 or gX - 1).  The JAX
+// package's shard_nx form of make_pallas_step (pallas_step.py:769-781).
+extern "C" int ol_stream_collide_shard(
+    int store_bf16, const void* f_in, const void* vel_in, void* f_out,
+    void* rho_out, void* vel_out, const void* obstacle, const void* sponge,
+    const void* wall, const void* plane0, const void* plane1,
+    const void* plane2, const void* plane3, const void* plane4,
+    const void* plane5, const void* f_edges, const void* v_edges, int x_off,
+    int gX, int X, int Y, int Z, int lo_y, int lo_z, int bc0, int bc1,
+    int bc2, int bc3, int bc4, int bc5, float u_inlet, int seed, double tau,
+    double c_wale, double nu_sgs, double inlet_turb, int wall_model,
+    int sponge_blend, void* stream) {
+  sc::Params p;
+  const void* planes[6] = {plane0, plane1, plane2, plane3, plane4, plane5};
+  int bcs[6] = {bc0, bc1, bc2, bc3, bc4, bc5};
+  // an x face this slab does not hold needs no plane here
+  if (x_off != 0) bcs[0] = bc0 == lbm::BC_INTERFACE ? lbm::BC_OUTLET : bc0;
+  if (x_off + X != gX) bcs[1] = bc1 == lbm::BC_INTERFACE ? lbm::BC_OUTLET : bc1;
+  if (!sc::make_params(p, store_bf16, f_in, vel_in, f_out, rho_out, vel_out,
+                       obstacle, sponge, wall, planes, X, Y, Z, lo_y, lo_z, bcs,
+                       u_inlet, seed, tau, c_wale, nu_sgs, inlet_turb,
+                       wall_model, sponge_blend) ||
+      !sc::make_slab(p, f_edges, v_edges, x_off, gX))
+    return (int)cudaErrorInvalidValue;
+  return launch<true>(store_bf16, p, stream);
 }
 
 #ifdef OL_K1_SECTIONS

@@ -23,6 +23,15 @@
 //     and a shift by Z's and Y's round-up reciprocals (exact below 2^31).
 // IFACE = false (K4) compiles the interface faces' ghost-plane reads out of
 // the face conditions; the Step's six plane pointers are then never read.
+// SHARD = true is the form for one x slab of a sharded level (the JAX
+// package's shard_nx > 1, ops/pallas_step.py:562-611): the array is the
+// slab's (27, XL, Y, Z), and the slots pulled across its x ends come from
+// the neighbour slabs' edge planes `fedge` (27, 2, Y, Z), storage type,
+// [:, 0] the previous slab's last plane and [:, 1] the next one's first,
+// shifted in y and z like any source (the clamped rows lie on y or z faces,
+// which overwrite them); then the faces, x faces only at the level's global
+// ends (lbm::apply_faces<..., SHARD>); velocity neighbours across the ends
+// from `vedge` (3, 2, Y, Z) float32.  SHARD = false compiles all of this out.
 
 #pragma once
 
@@ -57,6 +66,8 @@ struct Params {
   lbm::Step s;
   int N;  // cells of the level (N + 2 Y Z < 2^31)
   Divisor byZ, byY;
+  const void* fedge;   // SHARD: (27, 2, Y, Z) edge planes, storage type
+  const float* vedge;  // SHARD: (3, 2, Y, Z) velocity edge planes
 };
 
 // Host side: fills p for an (X, Y, Z) level; returns false where the level
@@ -85,9 +96,24 @@ static inline bool make_params(
   p.N = (int)n;
   p.byZ = make_divisor((unsigned)Z);
   p.byY = make_divisor((unsigned)Y);
+  p.fedge = nullptr;
+  p.vedge = nullptr;
   return lbm::make_step(p.s, planes, bcs, X, Y, Z, lo_y, lo_z, u_inlet, seed,
                         tau, c_wale, nu_sgs, inlet_turb, wall_model,
                         sponge_blend);
+}
+
+// Host side: makes p the form for the x slab [x_off, x_off + X) of a level
+// of gX planes with the given edge planes; false where they are missing or
+// the slab does not lie inside the level.
+static inline bool make_slab(Params& p, const void* fedge, const void* vedge,
+                             int x_off, int gX) {
+  if (!fedge || !vedge || x_off < 0 || x_off + p.s.X > gX) return false;
+  p.fedge = fedge;
+  p.vedge = static_cast<const float*>(vedge);
+  p.s.x_off = x_off;
+  p.s.gX = gX;
+  return true;
 }
 
 __device__ __forceinline__ float ld1(const float* p, int i) { return __ldg(p + i); }
@@ -98,7 +124,7 @@ __device__ __forceinline__ float ld1(const __nv_bfloat16* p, int i) {
 
 // The sub-step of cell `cell` (< p.N).  `mark(s)` ends section s of the
 // update (lbm::NoMark in every normal build; K1's section probe times them).
-template <typename T, bool IFACE, class Mark>
+template <typename T, bool IFACE, bool SHARD, class Mark>
 __device__ __forceinline__ void update_cell(const Params& p, unsigned cell,
                                             Mark mark) {
   constexpr bool G = sizeof(T) == 2;  // bf16 g-space storage
@@ -123,8 +149,27 @@ __device__ __forceinline__ void update_cell(const Params& p, unsigned cell,
     f[g + 9] = ld1(static_cast<const T*>(p.fin[g + 9]), o);    // cz = 0
     f[g + 18] = ld1(static_cast<const T*>(p.fin[g + 18]), o - 1);  // cz = +1
   }
+  const int yz = y * Z + z;
+  if (SHARD && (x == 0 || x == p.s.X - 1)) {
+    // slots pulled across the slab's ends: the neighbour slabs' edge
+    // planes, side 0 (cx = +1) at x = 0, side 1 (cx = -1) at x = XL - 1
+    const int zp = z + 1 < Z ? 1 : 0, zm = z > 0 ? -1 : 0;
+    const T* fe = static_cast<const T*>(p.fedge);
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+#pragma unroll
+      for (int side = 0; side < 2; ++side) {
+        if (side == 0 ? x != 0 : x != p.s.X - 1) continue;
+        const int g = 3 * b + (side == 0 ? 2 : 0);
+        const T* e = fe + (2 * g + side) * YZ + yz + dy[b];
+        f[g] = ld1(e, zp);
+        f[g + 9] = ld1(e + 18 * YZ, 0);
+        f[g + 18] = ld1(e + 36 * YZ, zm);
+      }
+    }
+  }
   mark(0);
-  lbm::apply_faces<G, IFACE>(
+  lbm::apply_faces<G, IFACE, SHARD>(
       p.s, x, y, z,
       [&](int km) { return ld1(static_cast<const T*>(p.fin[km]), c); }, f);
   mark(1);
@@ -138,10 +183,19 @@ __device__ __forceinline__ void update_cell(const Params& p, unsigned cell,
       p.s, solid, sp, wd,
       [&](float g[3][3]) {
         const int zp = z + 1 < Z ? 1 : 0, zm = z > 0 ? -1 : 0;
+        // SHARD: the +-x neighbours across the slab's ends (not the
+        // level's) from the velocity edge planes
+        const int gx = x + p.s.x_off;
+        const bool from_next = SHARD && x == p.s.X - 1 && gx != p.s.gX - 1;
+        const bool from_prev = SHARD && x == 0 && gx != 0;
 #pragma unroll
         for (int d = 0; d < 3; ++d) {
           const float* V = p.vel_in + (long long)d * p.N + c;
-          g[d][0] = 0.5f * (__ldg(V + dx[0]) - __ldg(V + dx[2]));
+          const float vp = from_next ? __ldg(p.vedge + (2 * d + 1) * YZ + yz)
+                                     : __ldg(V + dx[0]);
+          const float vm = from_prev ? __ldg(p.vedge + 2 * d * YZ + yz)
+                                     : __ldg(V + dx[2]);
+          g[d][0] = 0.5f * (vp - vm);
           g[d][1] = 0.5f * (__ldg(V + dy[0]) - __ldg(V + dy[2]));
           g[d][2] = 0.5f * (__ldg(V + zp) - __ldg(V + zm));
         }

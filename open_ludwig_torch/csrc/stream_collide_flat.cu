@@ -42,27 +42,29 @@
 
 namespace {
 
-template <typename T, int THREADS, int MIN_BLOCKS>
+template <typename T, int THREADS, int MIN_BLOCKS, bool SHARD = false>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 stream_collide_flat_kernel(const sc::Params p) {
   const unsigned cell = blockIdx.x * THREADS + threadIdx.x;
   if (cell >= (unsigned)p.N) return;
-  sc::update_cell<T, false>(p, cell, lbm::NoMark());
+  sc::update_cell<T, false, SHARD>(p, cell, lbm::NoMark());
 }
 
-// The blocks of the one-wave instantiation the card holds at once.  Asked
-// once.
+// The blocks of the one-wave instantiation the current card holds at once.
+// Asked once per card (a sharded level's slabs may lie on several).
 int one_wave_resident() {
-  static int cached = 0;
-  if (!cached) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
+  static int cached[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int& c = cached[dev & 63];
+  if (!c) {
+    int sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, stream_collide_flat_kernel<__nv_bfloat16, 256, 6>, 256, 0);
-    cached = sms * per_sm;
+    c = sms * per_sm;
   }
-  return cached;
+  return c;
 }
 
 // The instantiation a level of n cells takes: (threads, min blocks per SM).
@@ -77,10 +79,24 @@ void choose(int store_bf16, long long n, int& threads, int& min_blocks) {
   }
 }
 
-template <typename T, int THREADS, int MIN_BLOCKS>
+template <bool SHARD, typename T, int THREADS, int MIN_BLOCKS>
 void launch(const sc::Params& p, cudaStream_t s) {
   const unsigned blocks = (unsigned)(((long long)p.N + THREADS - 1) / THREADS);
-  stream_collide_flat_kernel<T, THREADS, MIN_BLOCKS><<<blocks, THREADS, 0, s>>>(p);
+  stream_collide_flat_kernel<T, THREADS, MIN_BLOCKS, SHARD><<<blocks, THREADS, 0, s>>>(p);
+}
+
+// The launch of `choose`'s instantiation for p's N cells.
+template <bool SHARD>
+int launch_chosen(int store_bf16, const sc::Params& p, cudaStream_t s) {
+  int threads, min_blocks;
+  choose(store_bf16, p.N, threads, min_blocks);
+  if (!store_bf16)
+    launch<SHARD, float, 256, 1>(p, s);
+  else if (min_blocks == 6)
+    launch<SHARD, __nv_bfloat16, 256, 6>(p, s);
+  else
+    launch<SHARD, __nv_bfloat16, 128, 10>(p, s);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -110,20 +126,39 @@ extern "C" int ol_stream_collide_flat(
 #ifdef OL_K4_THREADS
   // a measurement build (tools/probe_k4_shapes.py): every level at one shape
   if (store_bf16)
-    launch<__nv_bfloat16, OL_K4_THREADS, OL_K4_MIN_BLOCKS>(p, s);
+    launch<false, __nv_bfloat16, OL_K4_THREADS, OL_K4_MIN_BLOCKS>(p, s);
   else
-    launch<float, OL_K4_THREADS, OL_K4_MIN_BLOCKS>(p, s);
+    launch<false, float, OL_K4_THREADS, OL_K4_MIN_BLOCKS>(p, s);
   return (int)cudaGetLastError();
 #endif
-  int threads, min_blocks;
-  choose(store_bf16, p.N, threads, min_blocks);
-  if (!store_bf16)
-    launch<float, 256, 1>(p, s);
-  else if (min_blocks == 6)
-    launch<__nv_bfloat16, 256, 6>(p, s);
-  else
-    launch<__nv_bfloat16, 128, 10>(p, s);
-  return (int)cudaGetLastError();
+  return launch_chosen<false>(store_bf16, p, s);
+}
+
+// The sharded form (the JAX package's make_pallas_step_flat with shard_nx,
+// pallas_step.py:2134-2181): one x slab (27, X, Y, Z) of a level of gX
+// planes from global plane x_off, the neighbour slabs' edge planes f_edges
+// (27, 2, Y, Z, storage type) and v_edges (3, 2, Y, Z, float32).  The
+// instantiation is `choose`'s for the slab's own cell count.
+extern "C" int ol_stream_collide_flat_shard(
+    int store_bf16, const void* f_in, const void* vel_in, void* f_out,
+    void* rho_out, void* vel_out, const void* obstacle, const void* sponge,
+    const void* wall, const void* f_edges, const void* v_edges, int x_off,
+    int gX, int X, int Y, int Z, int lo_y, int lo_z, int bc0, int bc1,
+    int bc2, int bc3, int bc4, int bc5, float u_inlet, int seed, double tau,
+    double c_wale, double nu_sgs, double inlet_turb, int wall_model,
+    int sponge_blend, void* stream) {
+  const void* planes[6] = {nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
+  const int bcs[6] = {bc0, bc1, bc2, bc3, bc4, bc5};
+  for (int i = 0; i < 6; ++i)
+    if (bcs[i] == lbm::BC_INTERFACE) return (int)cudaErrorInvalidValue;
+  sc::Params p;
+  if (!sc::make_params(p, store_bf16, f_in, vel_in, f_out, rho_out, vel_out,
+                       obstacle, sponge, wall, planes, X, Y, Z, lo_y, lo_z, bcs,
+                       u_inlet, seed, tau, c_wale, nu_sgs, inlet_turb,
+                       wall_model, sponge_blend) ||
+      !sc::make_slab(p, f_edges, v_edges, x_off, gX))
+    return (int)cudaErrorInvalidValue;
+  return launch_chosen<true>(store_bf16, p, static_cast<cudaStream_t>(stream));
 }
 
 // The instantiation ol_stream_collide_flat launches on an (X, Y, Z) level,

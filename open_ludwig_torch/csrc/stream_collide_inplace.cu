@@ -161,6 +161,10 @@ struct Params {
   lbm::Fields fld;
   lbm::Step s;
   Layout L;
+  // SHARD: the neighbour slabs' edge planes, (27, 2, Y, Z) in the storage
+  // type and (3, 2, Y, Z) float32, copied before any slab's launch
+  const void* fedge;
+  const float* vedge;
 };
 
 template <typename T>
@@ -182,7 +186,11 @@ size_t smem_bytes(int XR) {
 // block of 16 warps with 100-108 registers and no spill was slower (12.1
 // against 9.0 ms at 63.7M cells, bf16, with 32-cell chunks): the warps of a
 // block move in step, so the second block is what fills their stalls.
-template <typename T>
+// SHARD = true: the level is one x slab (Step::x_off, gX) of a sharded
+// level; the slots pulled across its x ends come from p.fedge (side 0 for
+// cx = +1 at x = 0, side 1 for cx = -1 at x = X - 1), chosen first, over
+// the run and tile edges, and the x faces hold only at the global ends.
+template <typename T, bool SHARD = false>
 __global__ void __launch_bounds__(NT, 2) inplace_kernel(const Params p) {
   constexpr bool G = sizeof(T) == 2;  // bf16 g-space storage
   constexpr int CZ = chunk_cells<T>(), TY = tile_rows<T>();
@@ -225,6 +233,10 @@ __global__ void __launch_bounds__(NT, 2) inplace_kernel(const Params p) {
         // planes this block pulls from the x edge buffer (block-uniform)
         const bool ex_lo = xb == x0 && x0 > 0;       // cx = +1: run r - 1
         const bool ex_hi = xb == x1 - 1 && x1 < X;   // cx = -1: run r + 1
+        // SHARD: the slab's own ends, whose sources lie in the neighbour
+        // slabs (block-uniform)
+        const bool sx_lo = SHARD && xb == 0;
+        const bool sx_hi = SHARD && xb == X - 1;
         const T* pc = f + cell;
         const int yz = y * Z + z;
         // the source plane of cx, clamped, as an x index, at [cx + 1]
@@ -238,7 +250,14 @@ __global__ void __launch_bounds__(NT, 2) inplace_kernel(const Params p) {
           for (int b = 0; b < 3; ++b) {
             const int cx = a - 1, cy = b - 1;
             const int k0 = a + 3 * b;  // the pair's slots: k0, k0 + 9, k0 + 18
-            if ((cx == 1 && ex_lo) || (cx == -1 && ex_hi)) {
+            if ((cx == 1 && sx_lo) || (cx == -1 && sx_hi)) {
+              const int side = cx == 1 ? 0 : 1;
+              const T* q = static_cast<const T*>(p.fedge) +
+                           (long long)(2 * k0 + side) * YZ + (yz + nb.dy[b]);
+#pragma unroll
+              for (int d = 0; d < 3; ++d)
+                fv[k0 + 9 * d] = lbm::ld(q + (long long)(18 * d) * YZ, nb.dz[d]);
+            } else if ((cx == 1 && ex_lo) || (cx == -1 && ex_hi)) {
               const int e = cx == 1 ? 2 * (r - 1) : 2 * r + 1;
               const T* q = ex + (long long)(e * 9 + b) * YZ + (yz + nb.dy[b]);
 #pragma unroll
@@ -274,7 +293,8 @@ __global__ void __launch_bounds__(NT, 2) inplace_kernel(const Params p) {
 #pragma unroll
             for (int b = 0; b < 3; ++b) {
               const int cx = a - 1, cy = b - 1;
-              const bool edge = (cx == 1 && ex_lo) || (cx == -1 && ex_hi) ||
+              const bool edge = (cx == 1 && (ex_lo || sx_lo)) ||
+                                (cx == -1 && (ex_hi || sx_hi)) ||
                                 (cy == 1 && ey_lo) || (cy == -1 && ey_hi);
               if (!edge)
                 fv[18 + a + 3 * b] =
@@ -282,7 +302,7 @@ __global__ void __launch_bounds__(NT, 2) inplace_kernel(const Params p) {
             }
           }
         }
-        if (lane_hi && !ex_lo) {
+        if (lane_hi && !ex_lo && !sx_lo) {
           // cx = +1, cz = -1 sources in chunk c + 1: not written yet
 #pragma unroll
           for (int b = 0; b < 3; ++b) {
@@ -292,7 +312,7 @@ __global__ void __launch_bounds__(NT, 2) inplace_kernel(const Params p) {
                   lbm::ld_plain(pc + (2 + 3 * b) * N, nb.dx[2] + nb.dy[b] + 1);
           }
         }
-        lbm::apply_faces<G>(
+        lbm::apply_faces<G, true, SHARD>(
             p.s, xb, y, z,
             [&](int km) { return lbm::ld_plain(pc + km * N, 0); }, fv);
         // the old values of this cell that later pulls need: its cx = +1
@@ -314,7 +334,10 @@ __global__ void __launch_bounds__(NT, 2) inplace_kernel(const Params p) {
         lbm::collide<G>(
             p.s, p.fld, cell,
             [&](float g[3][3]) {
-              lbm::vel_grad_global(p.vel_in + cell, N, nb, g);
+              if (SHARD)
+                lbm::vel_grad_slab(p.s, p.vel_in + cell, N, nb, xb, p.vedge, yz, g);
+              else
+                lbm::vel_grad_global(p.vel_in + cell, N, nb, g);
             },
             fv, rho, u);
       }
@@ -329,19 +352,23 @@ __global__ void __launch_bounds__(NT, 2) inplace_kernel(const Params p) {
   }
 }
 
-// Dynamic shared memory above 48 KB needs an opt-in; the largest request
-// seen is kept per storage type.
-template <typename T>
+// Dynamic shared memory above 48 KB needs an opt-in, which holds on the
+// current card; the largest request seen is kept per instantiation and card.
+template <typename T, bool SHARD = false>
 cudaError_t opt_in_smem(size_t bytes) {
-  static size_t granted = 48 * 1024;
-  if (bytes <= granted) return cudaSuccess;
+  static size_t granted[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  size_t& g = granted[dev & 63];
+  if (bytes <= (g ? g : 48 * 1024)) return cudaSuccess;
   const cudaError_t e = cudaFuncSetAttribute(
-      inplace_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e == cudaSuccess) granted = bytes;
+      inplace_kernel<T, SHARD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (e == cudaSuccess) g = bytes;
   return e;
 }
 
-template <typename T>
+template <typename T, bool SHARD = false>
 int launch(const Params& p, int parts, cudaStream_t s) {
   const long long lines = (p.L.nx + p.L.ny) / p.L.Z;
   if ((parts & 1) && lines > 0) {
@@ -352,10 +379,10 @@ int launch(const Params& p, int parts, cudaStream_t s) {
   }
   if (parts & 2) {
     const size_t bytes = smem_bytes<T>(p.L.XR);
-    const cudaError_t e = opt_in_smem<T>(bytes);
+    const cudaError_t e = opt_in_smem<T, SHARD>(bytes);
     if (e != cudaSuccess) return (int)e;
     const dim3 grid(p.L.NTY, p.L.NR);
-    inplace_kernel<T><<<grid, NT, bytes, s>>>(p);
+    inplace_kernel<T, SHARD><<<grid, NT, bytes, s>>>(p);
     return (int)cudaGetLastError();
   }
   return 0;
@@ -379,6 +406,43 @@ int attrs(int xr, int* regs, int* local_bytes, int* smem, int* blocks_per_sm) {
 
 }  // namespace
 
+namespace {
+
+// Host side: fills p; false for a level with an interface face or a tile
+// height `ty` that is not the storage type's.
+bool make_params(
+    Params& p, int store_bf16, void* f, const void* vel_in, void* rho_out,
+    void* vel_out, void* edge, const void* obstacle, const void* sponge,
+    const void* wall, int X, int Y, int Z, int lo_y, int lo_z, int bc0,
+    int bc1, int bc2, int bc3, int bc4, int bc5, float u_inlet, int seed,
+    double tau, double c_wale, double nu_sgs, double inlet_turb,
+    int wall_model, int sponge_blend, int ty, int xr, int parts) {
+  p.f = f;
+  p.vel_in = static_cast<const float*>(vel_in);
+  p.rho_out = static_cast<float*>(rho_out);
+  p.vel_out = static_cast<float*>(vel_out);
+  p.edge = edge;
+  p.fld.obstacle = static_cast<const uint8_t*>(obstacle);
+  p.fld.sponge = static_cast<const float*>(sponge);
+  p.fld.wall = static_cast<const float*>(wall);
+  const void* planes[6] = {nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
+  const int bcs[6] = {bc0, bc1, bc2, bc3, bc4, bc5};
+  p.fedge = nullptr;
+  p.vedge = nullptr;
+  for (int i = 0; i < 6; ++i)
+    if (bcs[i] == lbm::BC_INTERFACE) return false;
+  const int rows = store_bf16 ? tile_rows<__nv_bfloat16>() : tile_rows<float>();
+  if (xr < 1 || ty != rows || parts < 1 || parts > 3 ||
+      !lbm::make_step(p.s, planes, bcs, X, Y, Z, lo_y, lo_z, u_inlet, seed,
+                      tau, c_wale, nu_sgs, inlet_turb, wall_model,
+                      sponge_blend))
+    return false;
+  p.L = make_layout(X, Y, Z, ty, xr);
+  return true;
+}
+
+}  // namespace
+
 // C entry point (bound with ctypes in ops/cuda_step.py).  Launches the edge
 // copy (parts & 1) and the in-place step (parts & 2) on `stream`, never
 // synchronises, allocates nothing: `edge` holds the layout's element count
@@ -396,28 +460,45 @@ extern "C" int ol_stream_collide_inplace(
     double c_wale, double nu_sgs, double inlet_turb, int wall_model,
     int sponge_blend, int ty, int xr, int parts, void* stream) {
   Params p;
-  p.f = f;
-  p.vel_in = static_cast<const float*>(vel_in);
-  p.rho_out = static_cast<float*>(rho_out);
-  p.vel_out = static_cast<float*>(vel_out);
-  p.edge = edge;
-  p.fld.obstacle = static_cast<const uint8_t*>(obstacle);
-  p.fld.sponge = static_cast<const float*>(sponge);
-  p.fld.wall = static_cast<const float*>(wall);
-  const void* planes[6] = {nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
-  const int bcs[6] = {bc0, bc1, bc2, bc3, bc4, bc5};
-  for (int i = 0; i < 6; ++i)
-    if (bcs[i] == lbm::BC_INTERFACE) return (int)cudaErrorInvalidValue;
-  const int rows = store_bf16 ? tile_rows<__nv_bfloat16>() : tile_rows<float>();
-  if (xr < 1 || ty != rows || parts < 1 || parts > 3 ||
-      !lbm::make_step(p.s, planes, bcs, X, Y, Z, lo_y, lo_z, u_inlet, seed,
-                      tau, c_wale, nu_sgs, inlet_turb, wall_model,
-                      sponge_blend))
+  if (!make_params(p, store_bf16, f, vel_in, rho_out, vel_out, edge, obstacle,
+                   sponge, wall, X, Y, Z, lo_y, lo_z, bc0, bc1, bc2, bc3, bc4,
+                   bc5, u_inlet, seed, tau, c_wale, nu_sgs, inlet_turb,
+                   wall_model, sponge_blend, ty, xr, parts))
     return (int)cudaErrorInvalidValue;
-  p.L = make_layout(X, Y, Z, ty, xr);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return store_bf16 ? launch<__nv_bfloat16>(p, parts, s)
                     : launch<float>(p, parts, s);
+}
+
+// The sharded form (the JAX package's make_pallas_step_2d with shard_nx,
+// pallas_step.py:1647-1694): one x slab (27, X, Y, Z) of a level of gX
+// planes from global plane x_off, written in place, with the neighbour
+// slabs' edge planes f_edges (27, 2, Y, Z, storage type) and v_edges
+// (3, 2, Y, Z, float32) beside the slab's own edge buffer.  Every slab's
+// edge planes are copied before any slab's launch (a slab's launch
+// overwrites the planes its neighbours read).
+extern "C" int ol_stream_collide_inplace_shard(
+    int store_bf16, void* f, const void* vel_in, void* rho_out, void* vel_out,
+    void* edge, const void* f_edges, const void* v_edges, int x_off, int gX,
+    const void* obstacle, const void* sponge, const void* wall,
+    int X, int Y, int Z, int lo_y, int lo_z, int bc0, int bc1, int bc2,
+    int bc3, int bc4, int bc5, float u_inlet, int seed, double tau,
+    double c_wale, double nu_sgs, double inlet_turb, int wall_model,
+    int sponge_blend, int ty, int xr, int parts, void* stream) {
+  Params p;
+  if (!make_params(p, store_bf16, f, vel_in, rho_out, vel_out, edge, obstacle,
+                   sponge, wall, X, Y, Z, lo_y, lo_z, bc0, bc1, bc2, bc3, bc4,
+                   bc5, u_inlet, seed, tau, c_wale, nu_sgs, inlet_turb,
+                   wall_model, sponge_blend, ty, xr, parts) ||
+      !f_edges || !v_edges || x_off < 0 || x_off + X > gX)
+    return (int)cudaErrorInvalidValue;
+  p.fedge = f_edges;
+  p.vedge = static_cast<const float*>(v_edges);
+  p.s.x_off = x_off;
+  p.s.gX = gX;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return store_bf16 ? launch<__nv_bfloat16, true>(p, parts, s)
+                    : launch<float, true>(p, parts, s);
 }
 
 // Registers and local memory per thread, dynamic shared memory per block

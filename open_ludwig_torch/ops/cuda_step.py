@@ -69,6 +69,17 @@ kept in shared memory.  Bound like K1, plus its edge traffic and the
 lockstep of a block's warps; it saves the second f copy (3.4 GB at 63.7M
 cells in bf16).
 
+K1, K4, K5 and K2 also have a sharded form, for one x slab of a level
+cut along x over several devices (`parallel/patch_shard.py`; the JAX
+package's `shard_nx` kernels, run under shard_map): `edges=(f_edges,
+v_edges)` and `x_off=` on the steps, the neighbour slabs' edge planes
+(27, 2, Y, Z) in the storage type and (3, 2, Y, Z) float32 and the slab's
+first global plane, `halo=` on K2, the values its links read in other
+slabs.  Each is the same kernel source with the slab's ends read from
+the edges, instantiated apart (the single-device code is unchanged), and
+counts its launches under its own name ("..._shard").  Every wrapper
+launches on its tensors' card (`torch.cuda.device`).
+
 K6 `bouzidi_ab` (csrc/bouzidi_ab.cu) replaces the Pallas kernel of
 tools/probe_bz_encoding.py (:117): the correction with the retired
 two-array coefficients (A, B) in the storage dtype, which the probe
@@ -80,6 +91,7 @@ nothing is allocated per call.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Dict, List, Optional, Tuple
 
@@ -99,7 +111,9 @@ from .dense_step import (
 
 LAUNCHES: Dict[str, int] = {"stream_collide": 0, "bouzidi": 0, "fused_pair": 0,
                             "stream_collide_flat": 0, "stream_collide_inplace": 0,
-                            "bouzidi_ab": 0}
+                            "bouzidi_ab": 0, "stream_collide_shard": 0,
+                            "bouzidi_shard": 0, "stream_collide_flat_shard": 0,
+                            "stream_collide_inplace_shard": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -116,6 +130,19 @@ _IP_ARGTYPES = (
     [_I] + [_P] * 8 + [_I] * 5 + [_I] * 6 + [_F, _I] + [_D] * 4
     + [_I, _I, _I, _I, _I, _P]
 )
+_SC_SHARD_ARGTYPES = (
+    [_I] + [_P] * 16 + [_I] * 2 + [_I] * 5 + [_I] * 6 + [_F, _I] + [_D] * 4
+    + [_I, _I, _P]
+)
+_FLAT_SHARD_ARGTYPES = (
+    [_I] + [_P] * 10 + [_I] * 2 + [_I] * 5 + [_I] * 6 + [_F, _I] + [_D] * 4
+    + [_I, _I, _P]
+)
+_IP_SHARD_ARGTYPES = (
+    [_I] + [_P] * 7 + [_I] * 2 + [_P] * 3 + [_I] * 5 + [_I] * 6 + [_F, _I]
+    + [_D] * 4 + [_I, _I, _I, _I, _I, _P]
+)
+_BZ_SHARD_ARGTYPES = [_I] + [_P] * 7 + [_I] * 4 + [_P]
 _FP_ARGTYPES = (
     [_I] + [_P] * 21 + [_I] * 5 + [_I] * 6 + [_F, _F, _I, _I] + [_D] * 4
     + [_I, _I] + [_I] * 6 + [_P]
@@ -142,6 +169,14 @@ def _raise_on(rc: int, what: str) -> None:
         )
 
 
+def _on_card(dev: torch.device):
+    """The context in which a launch on `dev` runs: its card current (a
+    stream of another card than the current one cannot take the launch)."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
 def _check(t: torch.Tensor, name: str, shape, dtypes, device) -> None:
     if t.device != device:
         raise ValueError(f"{name} on {t.device}, expected {device}")
@@ -153,9 +188,22 @@ def _check(t: torch.Tensor, name: str, shape, dtypes, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_level(f, vel, static: Dict, patch: PatchLevel) -> None:
+def _check_level(f, vel, static: Dict, patch: PatchLevel, edges=None,
+                 x_off: int = 0) -> None:
+    """f, vel and the statics over the level, or over the x slab of f's
+    planes from global plane `x_off` with its edge planes `edges`."""
     X, Y, Z = patch.interior
     dev = f.device
+    if edges is not None:
+        XL = f.shape[1] if f.dim() == 4 else -1
+        if not 0 < XL <= X or not 0 <= x_off <= X - XL:
+            raise ValueError(f"slab of {XL} planes from {x_off} outside the "
+                             f"level's {X}")
+        _check(edges[0], "f_edges", (27, 2, Y, Z), (f.dtype,), dev)
+        _check(edges[1], "v_edges", (3, 2, Y, Z), (torch.float32,), dev)
+        X = XL
+    elif x_off != 0:
+        raise ValueError("x_off without edges")
     _check(f, "f", (27, X, Y, Z), (torch.float32, torch.bfloat16), dev)
     _check(vel, "vel", (3, X, Y, Z), (torch.float32,), dev)
     _check(static["obstacle"], "obstacle", (X, Y, Z), (torch.bool,), dev)
@@ -164,22 +212,31 @@ def _check_level(f, vel, static: Dict, patch: PatchLevel) -> None:
 
 
 def _iface_planes(patch: PatchLevel, iface: Optional[Dict], device, dtype,
-                  name: str = "iface") -> List[Optional[torch.Tensor]]:
+                  name: str = "iface", slab: Optional[Tuple[int, int]] = None
+                  ) -> List[Optional[torch.Tensor]]:
     """The ghost plane of each face (None where the face is no interface),
     checked against the level: pre-shifted (27, A, B) in the storage type
     `dtype` (float32 f, or bf16 g = f - w), contiguous.  A scheduler's
     sub-step n of an (nw, 27, A, B) pair tensor is `plane[n]`, a
-    contiguous view (`dense_step.interface_planes_pair_mm`)."""
+    contiguous view (`dense_step.interface_planes_pair_mm`).  For the x
+    slab `slab` = (x_off, XL) of the level, the y and z faces' planes are
+    the slab's (27, XL, B), and an x face's plane is needed (and given to
+    the kernel) only by the slab that holds it."""
     iface = iface or {}
+    dims = list(patch.interior)
+    held = (True, True)
+    if slab is not None:
+        x_off, dims[0] = slab
+        held = (x_off == 0, x_off + dims[0] == patch.interior[0])
     planes = []
     for face in range(6):
-        if patch.face_bc[face] != BC_INTERFACE:
+        if patch.face_bc[face] != BC_INTERFACE or (face < 2 and not held[face]):
             planes.append(None)
             continue
         if face not in iface:
             raise ValueError(f"interface face {face} has no ghost plane in {name}")
         t = [a for a in range(3) if a != face // 2]
-        shape = (27, patch.interior[t[0]], patch.interior[t[1]])
+        shape = (27, dims[t[0]], dims[t[1]])
         _check(iface[face], f"{name}[{face}]", shape, (dtype,), device)
         planes.append(iface[face])
     return planes
@@ -214,15 +271,22 @@ def stream_collide(
     wall_model: bool,
     sponge_blend: bool,
     iface: Optional[Dict[int, torch.Tensor]] = None,  # face -> (27, A, B), f's dtype
+    edges: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    x_off: int = 0,
 ):
     """K1: one stream-collide sub-step.  Returns new (f, rho, vel) in the
     storage dtype of `f` (A -> B buffers; the inputs are not modified).
     `iface` holds the pre-shifted ghost plane of each interface face in
-    f's storage type (`_iface_planes`)."""
+    f's storage type (`_iface_planes`).  With `edges` = (f_edges (27, 2, Y,
+    Z) in f's dtype, v_edges (3, 2, Y, Z) float32), f, vel and the statics
+    are the x slab of f's planes from the level's global plane `x_off`
+    (K1's sharded form, `dense_step.dense_stream_collide`)."""
     X, Y, Z = patch.interior
     dev = f.device
-    _check_level(f, vel, static, patch)
-    planes = _iface_planes(patch, iface, dev, f.dtype)
+    _check_level(f, vel, static, patch, edges, x_off)
+    XL = f.shape[1]
+    planes = _iface_planes(patch, iface, dev, f.dtype,
+                           slab=None if edges is None else (x_off, XL))
     kw = dict(
         c_wale=c_wale, nu_sgs_background=nu_sgs_background,
         inlet_turbulence=inlet_turbulence, wall_model=wall_model,
@@ -231,7 +295,7 @@ def stream_collide(
     if dev.type == "cpu":
         fo, rho, vo = dense_stream_collide(
             storage.decode_f(f), vel, u_inlet, t_seed, static, patch,
-            iface=iface, **kw,
+            iface=iface, edges=_decoded(edges), x_off=x_off, **kw,
         )
         if f.dtype == torch.bfloat16:
             fo = storage.encode_f(fo, storage.STORE_BF16)
@@ -239,28 +303,42 @@ def stream_collide(
     if dev.type != "cuda":
         raise ValueError(f"stream_collide: unsupported device {dev}")
 
-    fn = _lib("stream_collide", "ol_stream_collide", _SC_ARGTYPES)
     f_out = torch.empty_like(f)
-    rho = torch.empty((X, Y, Z), dtype=torch.float32, device=dev)
+    rho = torch.empty((XL, Y, Z), dtype=torch.float32, device=dev)
     vel_out = torch.empty_like(vel)
-    rc = fn(
-        int(f.dtype == torch.bfloat16),
-        f.data_ptr(), vel.data_ptr(), f_out.data_ptr(), rho.data_ptr(),
-        vel_out.data_ptr(),
-        static["obstacle"].data_ptr(), static["sponge"].data_ptr(),
-        static["wall_dist"].data_ptr(),
-        *[_ptr(p) for p in planes],
-        X, Y, Z, int(patch.lo[1]), int(patch.lo[2]),
-        *[int(b) for b in patch.face_bc],
-        float(u_inlet), int(t_seed),
-        float(patch.tau), float(c_wale), float(nu_sgs_background),
-        float(inlet_turbulence),
-        int(bool(wall_model)), int(bool(sponge_blend)),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _raise_on(rc, "stream_collide")
-    LAUNCHES["stream_collide"] += 1
+    head = [int(f.dtype == torch.bfloat16),
+            f.data_ptr(), vel.data_ptr(), f_out.data_ptr(), rho.data_ptr(),
+            vel_out.data_ptr(),
+            static["obstacle"].data_ptr(), static["sponge"].data_ptr(),
+            static["wall_dist"].data_ptr(),
+            *[_ptr(p) for p in planes]]
+    tail = [XL, Y, Z, int(patch.lo[1]), int(patch.lo[2]),
+            *[int(b) for b in patch.face_bc],
+            float(u_inlet), int(t_seed),
+            float(patch.tau), float(c_wale), float(nu_sgs_background),
+            float(inlet_turbulence),
+            int(bool(wall_model)), int(bool(sponge_blend))]
+    with _on_card(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if edges is None:
+            fn = _lib("stream_collide", "ol_stream_collide", _SC_ARGTYPES)
+            rc = fn(*head, *tail, stream)
+            name = "stream_collide"
+        else:
+            fn = _lib("stream_collide", "ol_stream_collide_shard",
+                      _SC_SHARD_ARGTYPES)
+            rc = fn(*head, edges[0].data_ptr(), edges[1].data_ptr(), int(x_off), X,
+                    *tail, stream)
+            name = "stream_collide_shard"
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     return f_out, rho, vel_out
+
+
+def _decoded(edges):
+    """Edge planes with f_edges decoded to float32 f-space (the plain
+    steps' input), or None."""
+    return None if edges is None else (storage.decode_f(edges[0]), edges[1])
 
 
 _LINK_DTYPES = {"cell": torch.int32, "code": torch.uint8, "src": torch.int32,
@@ -285,30 +363,44 @@ def _check_links(plan: Dict, level_shape, device, keys, coef_dtype=None) -> Dict
     return links
 
 
-def bouzidi(f: torch.Tensor, plan: Dict) -> torch.Tensor:
+def bouzidi(f: torch.Tensor, plan: Dict, halo: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
     """K2: Bouzidi correction of (27, X, Y, Z) f (float32 f or bf16 g) over
     the plan's link list.  On CUDA the links (and their scratch) are
     tensors on f's device (`dense_step.bouzidi_plan_to`), the correction is
     written into `f` in place by one launch and `f` is returned; on the CPU
-    the plain version returns a new tensor."""
+    the plain version returns a new tensor.  With `halo` (1-D, f's dtype,
+    on f's device) f is one x slab of a level and the plan its links
+    (`parallel.patch_shard.shard_statics`): a link with src = -1 - h reads
+    halo[h], gathered from another slab before any slab's correction (K2's
+    sharded form)."""
     dev = f.device
     if f.dim() != 4 or f.shape[0] != 27:
         raise ValueError(f"f shape {tuple(f.shape)}, expected (27, X, Y, Z)")
     _check(f, "f", f.shape, (torch.float32, torch.bfloat16), dev)
+    if halo is not None:
+        _check(halo, "halo", (halo.numel(),), (f.dtype,), dev)
     X, Y, Z = f.shape[1:]
     if dev.type == "cpu":
-        return apply_bouzidi_links(f, plan)
+        return apply_bouzidi_links(f, plan, halo)
     if dev.type != "cuda":
         raise ValueError(f"bouzidi: unsupported device {dev}")
     links = _check_links(plan, (X, Y, Z), dev, ("cell", "code", "src", "a", "scratch"))
-    fn = _lib("bouzidi", "ol_bouzidi", _BZ_ARGTYPES)
-    rc = fn(
-        int(f.dtype == torch.bfloat16), f.data_ptr(),
-        *[links[key].data_ptr() for key in ("cell", "code", "src", "a", "scratch")],
-        links["a"].shape[0], X, Y, Z, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _raise_on(rc, "bouzidi")
-    LAUNCHES["bouzidi"] += 1
+    ptrs = [links[key].data_ptr() for key in ("cell", "code", "src", "a", "scratch")]
+    with _on_card(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if halo is None:
+            fn = _lib("bouzidi", "ol_bouzidi", _BZ_ARGTYPES)
+            rc = fn(int(f.dtype == torch.bfloat16), f.data_ptr(), *ptrs,
+                    links["a"].shape[0], X, Y, Z, stream)
+            name = "bouzidi"
+        else:
+            fn = _lib("bouzidi", "ol_bouzidi_shard", _BZ_SHARD_ARGTYPES)
+            rc = fn(int(f.dtype == torch.bfloat16), f.data_ptr(), *ptrs,
+                    halo.data_ptr(), links["a"].shape[0], X, Y, Z, stream)
+            name = "bouzidi_shard"
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     return f
 
 
@@ -431,12 +523,13 @@ def _check_interface_free(patch: PatchLevel, what: str) -> None:
 
 
 def _step_scalars(patch: PatchLevel, u_inlet, t_seed, c_wale, nu_sgs_background,
-                  inlet_turbulence, wall_model, sponge_blend) -> list:
+                  inlet_turbulence, wall_model, sponge_blend, XL=None) -> list:
     """The (X, Y, Z, lo_y, lo_z, bc0..5, u, seed, tau, c_wale, nu_sgs,
-    inlet_turb, wall_model, sponge_blend) arguments of K4 and K5."""
+    inlet_turb, wall_model, sponge_blend) arguments of K4 and K5, X the
+    slab's `XL` where given."""
     X, Y, Z = patch.interior
     return [
-        X, Y, Z, int(patch.lo[1]), int(patch.lo[2]),
+        X if XL is None else XL, Y, Z, int(patch.lo[1]), int(patch.lo[2]),
         *[int(b) for b in patch.face_bc],
         float(u_inlet), int(t_seed),
         float(patch.tau), float(c_wale), float(nu_sgs_background),
@@ -458,19 +551,24 @@ def stream_collide_flat(
     wall_model: bool,
     sponge_blend: bool,
     out: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+    edges: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    x_off: int = 0,
 ):
     """K4: one sub-step of an interface-free level.  Returns new (f, rho,
     vel) in the storage dtype of `f` (A -> B buffers; the inputs are not
     modified).  `out=(f_out, rho, vel_out)` are preallocated outputs (f's
     shape and dtype, (X, Y, Z) and (3, X, Y, Z) float32, on f's device),
-    written and returned; without it the outputs are allocated."""
+    written and returned; without it the outputs are allocated.  `edges`
+    and `x_off`: the sharded form, as in `stream_collide`; the launch shape
+    is chosen for the slab's cells."""
     X, Y, Z = patch.interior
     dev = f.device
     _check_interface_free(patch, "stream_collide_flat")
-    _check_level(f, vel, static, patch)
+    _check_level(f, vel, static, patch, edges, x_off)
+    XL = f.shape[1]
     if out is not None:
         for t, name, shape, dtype in zip(out, ("f_out", "rho", "vel_out"),
-                                         (f.shape, (X, Y, Z), vel.shape),
+                                         (f.shape, (XL, Y, Z), vel.shape),
                                          (f.dtype, torch.float32, torch.float32)):
             _check(t, f"out {name}", shape, (dtype,), dev)
         if out[0].data_ptr() == f.data_ptr() or out[2].data_ptr() == vel.data_ptr():
@@ -482,7 +580,8 @@ def stream_collide_flat(
     )
     if dev.type == "cpu":
         fo, rho, vo = stream_collide_flat_plain(
-            storage.decode_f(f), vel, u_inlet, t_seed, static, patch, **kw)
+            storage.decode_f(f), vel, u_inlet, t_seed, static, patch,
+            edges=_decoded(edges), x_off=x_off, **kw)
         if f.dtype == torch.bfloat16:
             fo = storage.encode_f(fo, storage.STORE_BF16)
         if out is None:
@@ -493,20 +592,29 @@ def stream_collide_flat(
     if dev.type != "cuda":
         raise ValueError(f"stream_collide_flat: unsupported device {dev}")
 
-    fn = _lib("stream_collide_flat", "ol_stream_collide_flat", _FLAT_ARGTYPES)
     if out is None:
-        out = (torch.empty_like(f), torch.empty((X, Y, Z), dtype=torch.float32, device=dev),
+        out = (torch.empty_like(f), torch.empty((XL, Y, Z), dtype=torch.float32,
+                                                device=dev),
                torch.empty_like(vel))
-    rc = fn(
-        int(f.dtype == torch.bfloat16),
-        f.data_ptr(), vel.data_ptr(), *[t.data_ptr() for t in out],
-        static["obstacle"].data_ptr(), static["sponge"].data_ptr(),
-        static["wall_dist"].data_ptr(),
-        *_step_scalars(patch, u_inlet, t_seed, **kw),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _raise_on(rc, "stream_collide_flat")
-    LAUNCHES["stream_collide_flat"] += 1
+    head = [int(f.dtype == torch.bfloat16),
+            f.data_ptr(), vel.data_ptr(), *[t.data_ptr() for t in out],
+            static["obstacle"].data_ptr(), static["sponge"].data_ptr(),
+            static["wall_dist"].data_ptr()]
+    scalars = _step_scalars(patch, u_inlet, t_seed, **kw, XL=XL)
+    with _on_card(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if edges is None:
+            fn = _lib("stream_collide_flat", "ol_stream_collide_flat", _FLAT_ARGTYPES)
+            rc = fn(*head, *scalars, stream)
+            name = "stream_collide_flat"
+        else:
+            fn = _lib("stream_collide_flat", "ol_stream_collide_flat_shard",
+                      _FLAT_SHARD_ARGTYPES)
+            rc = fn(*head, edges[0].data_ptr(), edges[1].data_ptr(), int(x_off), X,
+                    *scalars, stream)
+            name = "stream_collide_flat_shard"
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     return tuple(out)
 
 
@@ -546,20 +654,27 @@ def inplace_layout(X: int, Y: int, Z: int, device, elem_bytes: int
 
 
 def _inplace_launch(f, vel, rho, vel_out, edge, static, patch, lay, scalars,
-                    parts: int) -> None:
+                    parts: int, edges=None, x_off: int = 0) -> None:
     """Launch K5's edge copy (parts & 1) and its in-place step (parts & 2)
-    on the current stream; raises if a launch fails."""
-    fn = _lib("stream_collide_inplace", "ol_stream_collide_inplace",
-              _IP_ARGTYPES)
-    rc = fn(
-        int(f.dtype == torch.bfloat16),
-        f.data_ptr(), vel.data_ptr(), rho.data_ptr(), vel_out.data_ptr(),
-        edge.data_ptr(),
-        static["obstacle"].data_ptr(), static["sponge"].data_ptr(),
-        static["wall_dist"].data_ptr(),
-        *scalars, lay["ty"], lay["xr"], parts,
-        torch.cuda.current_stream(f.device).cuda_stream,
-    )
+    on f's card, its sharded form with `edges`; raises if a launch
+    fails."""
+    head = [int(f.dtype == torch.bfloat16),
+            f.data_ptr(), vel.data_ptr(), rho.data_ptr(), vel_out.data_ptr(),
+            edge.data_ptr()]
+    fields = [static["obstacle"].data_ptr(), static["sponge"].data_ptr(),
+              static["wall_dist"].data_ptr()]
+    with _on_card(f.device):
+        stream = torch.cuda.current_stream(f.device).cuda_stream
+        if edges is None:
+            fn = _lib("stream_collide_inplace", "ol_stream_collide_inplace",
+                      _IP_ARGTYPES)
+            rc = fn(*head, *fields, *scalars, lay["ty"], lay["xr"], parts, stream)
+        else:
+            fn = _lib("stream_collide_inplace", "ol_stream_collide_inplace_shard",
+                      _IP_SHARD_ARGTYPES)
+            rc = fn(*head, edges[0].data_ptr(), edges[1].data_ptr(), int(x_off),
+                    int(patch.interior[0]), *fields, *scalars, lay["ty"],
+                    lay["xr"], parts, stream)
     _raise_on(rc, "stream_collide_inplace")
 
 
@@ -576,14 +691,20 @@ def stream_collide_inplace(
     inlet_turbulence: float,
     wall_model: bool,
     sponge_blend: bool,
+    edges: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    x_off: int = 0,
 ):
     """K5: one sub-step of an interface-free level written into `f` itself.
     Returns (f, rho, vel): `f` updated in place, rho and vel fresh (the
-    input vel is not modified)."""
+    input vel is not modified).  `edges` and `x_off`: the sharded form, as
+    in `stream_collide`, with the layout the slab's own; every slab's
+    edges must be copied before any slab's launch, which overwrites the
+    planes its neighbours read."""
     X, Y, Z = patch.interior
     dev = f.device
     _check_interface_free(patch, "stream_collide_inplace")
-    _check_level(f, vel, static, patch)
+    _check_level(f, vel, static, patch, edges, x_off)
+    XL = f.shape[1]
     kw = dict(
         c_wale=c_wale, nu_sgs_background=nu_sgs_background,
         inlet_turbulence=inlet_turbulence, wall_model=wall_model,
@@ -591,17 +712,19 @@ def stream_collide_inplace(
     )
     if dev.type == "cpu":
         return stream_collide_inplace_plain(f, vel, u_inlet, t_seed, static,
-                                            patch, **kw)
+                                            patch, edges=edges, x_off=x_off, **kw)
     if dev.type != "cuda":
         raise ValueError(f"stream_collide_inplace: unsupported device {dev}")
 
-    lay = inplace_layout(X, Y, Z, dev, f.element_size())
+    lay = inplace_layout(XL, Y, Z, dev, f.element_size())
     edge = torch.empty((max(lay["edge_elems"], 1),), dtype=f.dtype, device=dev)
-    rho = torch.empty((X, Y, Z), dtype=torch.float32, device=dev)
+    rho = torch.empty((XL, Y, Z), dtype=torch.float32, device=dev)
     vel_out = torch.empty_like(vel)
     _inplace_launch(f, vel, rho, vel_out, edge, static, patch, lay,
-                    _step_scalars(patch, u_inlet, t_seed, **kw), parts=3)
-    LAUNCHES["stream_collide_inplace"] += 1
+                    _step_scalars(patch, u_inlet, t_seed, **kw, XL=XL), parts=3,
+                    edges=edges, x_off=x_off)
+    name = "stream_collide_inplace" if edges is None else "stream_collide_inplace_shard"
+    LAUNCHES[name] += 1
     return f, rho, vel_out
 
 

@@ -419,6 +419,7 @@ def iface_mm_plan_to(plan: Optional[Dict], device) -> Optional[Dict]:
         UB3t = torch.as_tensor(grp["UB3"], device=device).transpose(1, 2).contiguous()
         groups.append({
             **grp,
+            "idx_list": tuple(int(i) for i in idx),
             "idx": torch.as_tensor(idx, dtype=torch.int64, device=device),
             "w_lo": torch.as_tensor(1.0 - wf, device=device),
             "w_hi": torch.as_tensor(wf, device=device),
@@ -442,23 +443,36 @@ def extract_endpoint_slabs(plan: Dict, state: Dict) -> List[Dict]:
     after its contraction.  The scheduler carries one parent step's slabs
     as the next step's old ones (reference: dense_step.py:577-627,
     solver_dense.py:478-497)."""
-    g = state["f"].dtype == torch.bfloat16
+    def window(grp, key, lead):
+        ax = grp["axis"]
+        t0, t1 = [a for a in range(3) if a != ax]
+        a = state[key].narrow(lead + t0, grp["starts"][0][t0], grp["sizes"][t0])
+        a = a.narrow(lead + t1, grp["starts"][0][t1], grp["sizes"][t1])
+        return a.index_select(lead + ax, grp["idx"])
+
+    return endpoint_slabs_from(plan, window, state["f"].dtype == torch.bfloat16)
+
+
+def endpoint_slabs_from(plan: Dict, window, g: bool) -> List[Dict]:
+    """extract_endpoint_slabs with the parent's window given:
+    window(grp, key, lead) is the parent field `key` (`lead` leading axes)
+    narrowed to the group's transverse window and index-selected along its
+    normal at grp["idx"], a contiguous tensor; `g` says whether f holds
+    bf16 storage's g.  A sharded parent assembles the window from its slabs
+    (parallel.patch_shard.endpoint_slabs_sharded): the same values in the
+    same shape, so the same slabs bit for bit."""
     out = []
     for grp in plan["groups"]:
         ax = grp["axis"]
-        t0, t1 = [a for a in range(3) if a != ax]
-        sA, sB = grp["starts"][0][t0], grp["starts"][0][t1]
-        wa, wb = grp["sizes"][t0], grp["sizes"][t1]
         nf = len(grp["faces"])
 
-        def one(key, lead, _ax=ax, _t=(t0, t1)):
-            a = state[key].narrow(lead + _t[0], sA, wa).narrow(lead + _t[1], sB, wb)
+        def one(key, lead, _ax=ax, _grp=grp):
             # (2 nf) planes along the normal, moved in front: (nf, 2, ..., wa, wb)
-            a = a.index_select(lead + _ax, grp["idx"]).movedim(lead + _ax, 0)
+            a = window(_grp, key, lead).movedim(lead + _ax, 0)
             a = a.unflatten(0, (nf, 2))
             wsh = (nf,) + (1,) * (a.dim() - 2)
             # float32 weights promote a bf16 slab to float32 exactly
-            return a[:, 0] * grp["w_lo"].view(wsh) + a[:, 1] * grp["w_hi"].view(wsh)
+            return a[:, 0] * _grp["w_lo"].view(wsh) + a[:, 1] * _grp["w_hi"].view(wsh)
 
         out.append({"f": one("f", 1), "rho": one("rho", 0), "vel": one("vel", 1),
                     "g": g})
@@ -556,6 +570,13 @@ def _u32(u_inlet, device) -> torch.Tensor:
 
 
 _COLLIDE_CHUNK = 1 << 21  # cells per collide call of the plain step
+# The plain collision runs on whole blocks of this many cells: PyTorch's
+# CPU kernels compute a ragged tail of an array on a scalar path, whose
+# float32 results (log, pow, the 27-row sums) may differ from the
+# vector path's by a rounding, so a cell's result would depend on where
+# it lies in the array; padded to whole blocks it does not, and an x slab
+# of a level (its own array) steps bit for bit as the level does.
+_CELL_BLOCK = 128
 
 
 def _roll3(a: torch.Tensor, cx: int, cy: int, cz: int) -> torch.Tensor:
@@ -596,33 +617,66 @@ def dense_stream_collide(
     wall_model: bool,
     sponge_blend: bool,
     iface: Optional[Dict[int, torch.Tensor]] = None,  # face -> (27, A, B)
+    edges: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    x_off: int = 0,
 ):
     """One stream-collide sub-step; returns (f, rho, vel) of the level.
     `iface` holds each interface face's pre-shifted ghost plane (27, A, B)
     in its level's storage type (`interface_planes_pair_mm`,
-    `shift_planes`): float32 f, or bf16 g = f - w, decoded here."""
+    `shift_planes`): float32 f, or bf16 g = f - w, decoded here.
+
+    With `edges` = (f_edges (27, 2, Y, Z) float32 f-space, v_edges (3, 2,
+    Y, Z)), f, vel and the statics are one x slab (27, XL, Y, Z) of the
+    level `patch`, from its global plane `x_off` (the JAX package's
+    shard_nx step, ops/pallas_step.py:562-611): a slot pulled across the
+    slab's x ends comes from the neighbour slab's edge plane ([:, 0] the
+    previous slab's last plane, [:, 1] the next one's first), shifted in y
+    and z; the z faces, then the y faces win over it, and the x faces hold
+    at the level's global x = 0 and X - 1 only; velocity neighbours across
+    the ends come from v_edges, the cell itself standing in at the global
+    ends.  The y and z faces' planes are the slab's (27, XL, B); an x face's
+    whole plane is read only by the slab that holds it."""
     return _stream_collide(
         _roll3, f, vel, u_inlet, t_seed, static, patch, c_wale=c_wale,
         nu_sgs_background=nu_sgs_background, inlet_turbulence=inlet_turbulence,
-        wall_model=wall_model, sponge_blend=sponge_blend, iface=iface)
+        wall_model=wall_model, sponge_blend=sponge_blend, iface=iface,
+        edges=edges, x_off=x_off)
+
+
+def _with_edges(shift, edges_ax: torch.Tensor, lead: int):
+    """shift(a, ...) for an x slab `a` whose x ends continue into the edge
+    planes `edges_ax` ([..., 0, :, :] before the slab, [..., 1, :, :] after
+    it): the shift of [before | a | after] over the slab's planes."""
+    def slab_shift(a, cx, cy, cz):
+        ext = torch.cat([edges_ax.narrow(lead, 0, 1), a, edges_ax.narrow(lead, 1, 1)],
+                        dim=lead)
+        return shift(ext, cx, cy, cz).narrow(lead, 1, a.shape[lead])
+    return slab_shift
 
 
 def _stream_collide(shift, f, vel, u_inlet, t_seed, static, patch, *, c_wale,
                     nu_sgs_background, inlet_turbulence, wall_model,
-                    sponge_blend, iface=None):
+                    sponge_blend, iface=None, edges=None, x_off=0):
     """dense_stream_collide with the shift of a slot's source given:
     shift(a, cx, cy, cz)[..., x, y, z] = a[..., x - cx, y - cy, z - cz] on
-    every cell the boundary masks keep."""
+    every cell the boundary masks keep.  `edges` and `x_off`: the slab form
+    (dense_stream_collide)."""
     X, Y, Z = patch.interior
-    N = X * Y * Z
+    XL = f.shape[1]
+    if edges is None and (XL != X or x_off != 0):
+        raise ValueError(f"an x slab ({XL} of {X} planes from {x_off}) needs edges")
+    if x_off < 0 or x_off + XL > X:
+        raise ValueError(f"slab of {XL} planes from {x_off} outside {X}")
+    N = XL * Y * Z
     fb = patch.face_bc
     dev = f.device
     u_in = _u32(u_inlet, dev)
     W = lat.tables(str(dev))["W"]
 
-    ix = torch.arange(X, device=dev).view(X, 1, 1)
+    ix = torch.arange(x_off, x_off + XL, device=dev).view(XL, 1, 1)
     iy = torch.arange(Y, device=dev).view(1, Y, 1)
     iz = torch.arange(Z, device=dev).view(1, 1, Z)
+    v_shift = shift if edges is None else _with_edges(shift, edges[1], 1)
 
     # shared inlet factor plane over (Y, Z): cu = +u_inst for all cx=+1
     inlet_factor = None
@@ -660,7 +714,8 @@ def _stream_collide(shift, f, vel, u_inlet, t_seed, static, patch, *, c_wale,
     f_str = torch.empty((27, N), dtype=f.dtype, device=dev)
     for k in range(27):
         cx, cy, cz = int(lat.C_X[k]), int(lat.C_Y[k]), int(lat.C_Z[k])
-        val = shift(f[k], cx, cy, cz)
+        val = (shift(f[k], cx, cy, cz) if edges is None
+               else _with_edges(shift, edges[0][k], 0)(f[k], cx, cy, cz))
         # masked overrides in reverse precedence (inlet strongest, applied
         # last; reference precedence inlet > outlet > y-mirror > z-mirror)
         if cz > 0:
@@ -671,16 +726,17 @@ def _stream_collide(shift, f, vel, u_inlet, t_seed, static, patch, *, c_wale,
             val = torch.where(iy == 0, face_value(k, 2), val)
         elif cy < 0:
             val = torch.where(iy == Y - 1, face_value(k, 3), val)
-        if cx < 0:
+        # (an x face only on the slab that holds it)
+        if cx < 0 and x_off + XL == X:
             val = torch.where(ix == X - 1, face_value(k, 1), val)
-        elif cx > 0:
+        elif cx > 0 and x_off == 0:
             val = torch.where(ix == 0, face_value(k, 0), val)
         f_str[k] = val.reshape(N)
 
     # velocity face neighbours with self-fallback at every patch face
     # (reference: src/physics_utils.jl:45-70)
     def vel_nbr(dx, dy, dz):
-        r = shift(vel, -dx, -dy, -dz)
+        r = v_shift(vel, -dx, -dy, -dz)
         for d, idx, n in ((dx, ix, X), (dy, iy, Y), (dz, iz, Z)):
             if d > 0:
                 r = torch.where(idx == n - 1, vel, r)
@@ -702,12 +758,21 @@ def _stream_collide(shift, f, vel, u_inlet, t_seed, static, patch, *, c_wale,
     vel_out = torch.empty((3, N), dtype=torch.float32, device=dev)
     for a in range(0, N, _COLLIDE_CHUNK):
         c = slice(a, a + _COLLIDE_CHUNK)
-        f_out[:, c], rho_out[c], vel_out[:, c] = collide(
-            f_str[:, c],
-            tuple(nb[:, c] for nb in nbrs),
-            obstacle[c],
-            sponge[c],
-            wall_dist[c],
+        n_c = min(N - a, _COLLIDE_CHUNK)
+        pad = -n_c % _CELL_BLOCK
+
+        def blocks(t, fill):
+            """t's cells of this chunk, padded to whole blocks by `fill`."""
+            t = t[..., c]
+            return t if not pad else torch.cat(
+                [t, t.new_full(t.shape[:-1] + (pad,), fill)], dim=-1)
+
+        fo, ro, vo = collide(
+            blocks(f_str, 0.0),
+            tuple(blocks(nb, 0.0) for nb in nbrs),
+            blocks(obstacle, False),
+            blocks(sponge, 0.0),
+            blocks(wall_dist, 100.0),
             u_in,
             tau=patch.tau,
             c_wale=c_wale,
@@ -715,10 +780,11 @@ def _stream_collide(shift, f, vel, u_inlet, t_seed, static, patch, *, c_wale,
             wall_model=wall_model,
             sponge_blend=sponge_blend,
         )
+        f_out[:, c], rho_out[c], vel_out[:, c] = fo[:, :n_c], ro[:n_c], vo[:, :n_c]
     return (
-        f_out.reshape(27, X, Y, Z),
-        rho_out.reshape(X, Y, Z),
-        vel_out.reshape(3, X, Y, Z),
+        f_out.reshape(27, XL, Y, Z),
+        rho_out.reshape(XL, Y, Z),
+        vel_out.reshape(3, XL, Y, Z),
     )
 
 
@@ -736,7 +802,8 @@ def stream_collide_flat_plain(
     over the flattened (Y * Z) axis per slot, then the boundary masks in the
     order z -> y -> x, and velocity neighbours clamped to the cell itself at
     every face.  Only interface-free levels qualify: an interface ghost row
-    would not overwrite the wrapped values."""
+    would not overwrite the wrapped values.  `edges` and `x_off` in `kw`:
+    the slab form (dense_stream_collide)."""
     if BC_INTERFACE in patch.face_bc:
         raise ValueError("the flat step needs a level without interface faces")
     return _stream_collide(_roll_flat, f, vel, u_inlet, t_seed, static, patch,
@@ -753,11 +820,16 @@ def stream_collide_inplace_plain(
     **kw,
 ):
     """K5's plain version: dense_stream_collide, then the result copied
-    into `f` (storage dtype), which is returned with fresh rho and vel."""
+    into `f` (storage dtype), which is returned with fresh rho and vel.
+    `edges` (f_edges in f's storage type) and `x_off` in `kw`: the slab
+    form (dense_stream_collide)."""
     if BC_INTERFACE in patch.face_bc:
         raise ValueError("the in-place step needs a level without interface faces")
+    edges = kw.pop("edges", None)
+    if edges is not None:
+        edges = (decode_f(edges[0]), edges[1])
     fo, rho, vo = dense_stream_collide(decode_f(f), vel, u_inlet, t_seed,
-                                       static, patch, **kw)
+                                       static, patch, edges=edges, **kw)
     if f.dtype == torch.bfloat16:
         fo = encode_f(fo, STORE_BF16)
     f.copy_(fo)
@@ -956,12 +1028,15 @@ def apply_bouzidi_dense(f_out: torch.Tensor, plan: Dict) -> torch.Tensor:
     return _bouzidi_box(f_out, plan, link)
 
 
-def apply_bouzidi_links(f_out: torch.Tensor, plan: Dict) -> torch.Tensor:
+def apply_bouzidi_links(f_out: torch.Tensor, plan: Dict,
+                        halo: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Bouzidi correction of (27, X, Y, Z) f over the plan's link list (K2's
     plain version), returned as a new tensor: every link's inputs gathered
     from the uncorrected f, then every value scattered.  Equal bit for bit
     to `apply_bouzidi_dense` (the same float32 expression on the same
-    values), on float32 f and bf16 g alike."""
+    values), on float32 f and bf16 g alike.  With `halo` (f's dtype), f is
+    one x slab and a link with src = -1 - h reads its `other` from halo[h],
+    the uncorrected value gathered from another slab (K2's sharded form)."""
     links = plan["links"]
     dev = f_out.device
     cell, code, src = (torch.as_tensor(links[key], device=dev).long()
@@ -973,7 +1048,12 @@ def apply_bouzidi_links(f_out: torch.Tensor, plan: Dict) -> torch.Tensor:
     oslot = torch.where(code >= SELF_LINK, j, k)
     flat = f_out.reshape(-1)
     fk = flat[k * N + cell].float()
-    other = flat[oslot * N + src].float()
+    if halo is None or halo.numel() == 0:
+        other = flat[oslot * N + src].float()
+    else:
+        own = src >= 0
+        other = torch.where(own, flat[oslot * N + src.clamp(min=0)],
+                            halo[(-1 - src).clamp(min=0)]).float()
     val = (a * fk + (1.0 - a) * other).to(f_out.dtype)
     out = f_out.clone()
     out.view(-1)[j * N + cell] = val

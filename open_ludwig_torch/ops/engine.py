@@ -18,9 +18,13 @@ The gates are numpy ports of `_pallas_fits` (solver_dense.py:95-102),
 with alias_f=True as production passes it), `choose_flat_px`
 (:2079-2097) and the structural and shape gate of
 `core/patch._use_flat_yz` (core/patch.py:135-183).  They are evaluated on
-the reference's single-device padded dims (X, ceil(Y, 8), ceil(Z, 128))
-(core/patch.py:276-280) and never ask for a backend: the choice is the
-same on the CPU and the GPU, so the CPU tests run the card's schedule.
+the reference's padded dims (ceil(X, n), ceil(Y, 8), ceil(Z, 128)) for
+n = `shard_nx` devices (core/patch.py:276-280; x is padded to the device
+count there, `build_patches(x_multiple)`), each device's slab ceil(X, n)
+/ n planes, and never ask for a backend: the choice is the same on the
+CPU and the GPU, so the CPU tests run the card's schedule.  The port's
+own slabs are unpadded (`parallel.patch_shard.slab_bounds`); only the
+choice reads the reference's padded extent.
 """
 
 from __future__ import annotations
@@ -41,10 +45,11 @@ def _ceil(v: int, m: int) -> int:
     return -(-int(v) // m) * m
 
 
-def ref_padded(patch: PatchLevel) -> Tuple[int, int, int]:
-    """The JAX package's array dims of the level on one device."""
+def ref_padded(patch: PatchLevel, shard_nx: int = 1) -> Tuple[int, int, int]:
+    """The JAX package's array dims of the level cut over `shard_nx`
+    devices (x padded to a multiple of it)."""
     X, Y, Z = patch.interior
-    return int(X), _ceil(Y, 8), _ceil(Z, 128)
+    return _ceil(X, max(int(shard_nx), 1)), _ceil(Y, 8), _ceil(Z, 128)
 
 
 def flat_m(patch: PatchLevel) -> int:
@@ -78,15 +83,17 @@ def chunks_2d_vmem_est(PX: int, PY: int, ZS: int, f_bytes: int, YS: int = 0,
 
 
 def choose_2d_chunks(patch: PatchLevel, store_bf16: bool, alias_f: bool = True,
-                     px_c=(16, 8, 4), py_c=(32, 16, 8)) -> Optional[Tuple[int, int]]:
+                     px_c=(16, 8, 4), py_c=(32, 16, 8), shard_nx: int = 1
+                     ) -> Optional[Tuple[int, int]]:
     """(PX, PY) of the 2-D kernel, or None (pallas_step.py:1545), on a
-    level the reference stores in 3-D."""
-    XS, YS, ZS = ref_padded(patch)
+    level the reference stores in 3-D, PX dividing each device's slab."""
+    XS, YS, ZS = ref_padded(patch, shard_nx)
     if BC_INTERFACE in patch.face_bc:
         return None
+    XL = XS // max(int(shard_nx), 1)
     fbytes = 2 if store_bf16 else 4
     for PX in px_c:
-        if XS % PX:
+        if XL % PX:
             continue
         for PY in py_c:
             if YS % PY:
@@ -112,42 +119,48 @@ def choose_flat_px(XL: int, M: int, f_bytes: int) -> Optional[int]:
 
 
 def flat_gate(mode: str, patch: PatchLevel, is_finest: bool,
-              store_bf16: bool) -> Tuple[bool, str]:
-    """The reference's `_use_flat_yz` on one device without its backend
-    check: (whether the level runs flat, why)."""
+              store_bf16: bool, shard_nx: int = 1) -> Tuple[bool, str]:
+    """The reference's `_use_flat_yz` without its backend check, for
+    `shard_nx` devices (`cfg.devices`, core/patch.py:153-170): (whether the
+    level runs flat, why)."""
     if mode == "off":
         return False, "flat_coarse: off"
     if any(bc == BC_INTERFACE for bc in patch.face_bc):
         return False, "interface faces"
     if is_finest or patch.bouzidi is not None:
         return False, "finest level or Bouzidi level"
-    XS, YS, ZS = ref_padded(patch)
+    n = max(int(shard_nx), 1)
+    XS, YS, ZS = ref_padded(patch, n)
     M = flat_m(patch)
     if M >= YS * ZS:
         return False, f"flat M={M} removes no padding of the {YS}x{ZS} plane"
-    px = choose_flat_px(XS, M, 2 if store_bf16 else 4)
+    px = choose_flat_px(XS // n, M, 2 if store_bf16 else 4)
     if px is None:
         if mode == "on":
             log.warning(
                 "[Patch] level %d: flat_coarse=on but the Pallas flat step "
                 "is unavailable on this backend/shape; building the level "
                 "in 3-D layout instead", patch.level_id)
-        return False, f"no flat PX for x extent {patch.interior[0]} at M={M}"
+        return False, (f"no flat PX for x extent {patch.interior[0]}"
+                       + (f" (slabs of {XS // n} on {n} devices)" if n > 1 else "")
+                       + f" at M={M}")
     return True, (f"interface-free, flat M={M} < padded plane {YS}x{ZS}, "
                   f"PX={px} (flat_coarse: {mode})")
 
 
 def choose_engine(mode: str, patch: PatchLevel, is_finest: bool,
-                  store_bf16: bool) -> Tuple[str, str]:
+                  store_bf16: bool, shard_nx: int = 1) -> Tuple[str, str]:
     """(engine, reason) of one level: the reference's dispatch order,
-    solver_dense.py:233-336, single device, Pallas on."""
-    flat, why = flat_gate(mode, patch, is_finest, store_bf16)
+    solver_dense.py:233-336, Pallas on, the level cut over `shard_nx`
+    devices (its x padded to a multiple of them, so every gate's
+    divisibility holds but the per-slab PX)."""
+    flat, why = flat_gate(mode, patch, is_finest, store_bf16, shard_nx)
     if flat:
         return "flat", why
     _, YS, ZS = ref_padded(patch)
     if pallas_fits(patch, store_bf16):
         return "k1", f"1-D window fits; not flat: {why}"
-    chunks = choose_2d_chunks(patch, store_bf16, alias_f=True)
+    chunks = choose_2d_chunks(patch, store_bf16, alias_f=True, shard_nx=shard_nx)
     if chunks is not None:
         return "inplace", (f"plane {YS}x{ZS} exceeds the 1-D window budget; "
                            f"2-D chunks {chunks} fit (in place)")
@@ -155,10 +168,12 @@ def choose_engine(mode: str, patch: PatchLevel, is_finest: bool,
                   "falls back to XLA here")
 
 
-def level_engines(cfg, patches: List[PatchLevel]) -> List[Tuple[str, str]]:
-    """(engine, reason) per level for `cfg`'s precision and flat_coarse."""
+def level_engines(cfg, patches: List[PatchLevel], shard_nx: int = 1
+                  ) -> List[Tuple[str, str]]:
+    """(engine, reason) per level for `cfg`'s precision and flat_coarse on
+    `shard_nx` devices."""
     bf16 = storage.normalize_precision(cfg.precision) == storage.STORE_BF16
     mode = str(getattr(cfg, "flat_coarse", "auto"))
     last = len(patches) - 1
-    return [choose_engine(mode, p, li == last, bf16)
+    return [choose_engine(mode, p, li == last, bf16, shard_nx)
             for li, p in enumerate(patches)]

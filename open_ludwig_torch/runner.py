@@ -28,8 +28,20 @@ set-up and device-memory report with the card's capacity.  The default
 device is `cuda`, which raises when CUDA is missing; `cpu` runs the plain
 PyTorch path.
 
+`devices: n` (n > 1) cuts every level along x over n devices
+(`parallel.patch_shard`, the JAX package's x-slab mesh): the first n
+visible cards with `--device cuda` (fewer raise), n CPU slabs with
+`--device cpu`; `solve_case(cfg, x_mesh=...)` takes a mesh built by the
+caller instead (a virtual mesh of n slabs on one card,
+`XMesh([torch.device("cuda", 0)] * n)`).  The run is then unfused.  Its
+events read a level in the global layout, gathered from the slabs where
+the event needs it (`global_level`: forces and diagnostics on the first
+device, checkpoints and flow files on the host), so forces, statistics
+and files are one device's, and a sharded run resumes from a
+single-device checkpoint and the reverse.
+
 Not ported, and refused with the ROADMAP.md Queue 1 item that ports it:
-several devices, the blocks layout.  `async_depth` is read and not
+the blocks layout.  `async_depth` is read and not
 applied: the eager loop already queues a whole batch without a host sync,
 and splitting batches would change the single-level pair runner's odd
 batches (ROADMAP.md Queue 1, item 3).
@@ -65,6 +77,13 @@ from .io.csv_out import (
 )
 from .io.vtk import export_flow_vtu_patches, export_surface_vtu
 from .ops import storage
+from .parallel.patch_shard import (
+    XMesh,
+    gather_states,
+    init_states_sharded,
+    make_x_mesh,
+    shard_states,
+)
 from .ops.forces import (
     ForceResult,
     compute_aerodynamics,
@@ -109,10 +128,18 @@ def check_supported(cfg: CaseConfig) -> None:
         raise NotImplementedError(
             f"layout: {cfg.layout} is not ported (ROADMAP.md Queue 1: "
             "'Blocks layout, last'); use layout: patch")
-    if cfg.devices > 1:
-        raise NotImplementedError(
-            f"devices: {cfg.devices} is not ported (ROADMAP.md Queue 1: "
-            "'Multi-GPU'); the port runs on one device")
+
+
+def resolve_mesh(cfg: CaseConfig, dev: torch.device,
+                 x_mesh: Optional[XMesh]) -> Optional[XMesh]:
+    """The run's x mesh: the caller's, else `cfg.devices` slabs on `dev`'s
+    kind (`make_x_mesh`, which raises when fewer cards are visible), else
+    None (one device).  A mesh of one device is no mesh."""
+    if x_mesh is None and cfg.devices > 1:
+        x_mesh = make_x_mesh(cfg.devices, dev)
+    if x_mesh is not None and x_mesh.size == 1:
+        return None
+    return x_mesh
 
 
 def resolve_device(device) -> torch.device:
@@ -168,9 +195,17 @@ def _check_resumed(states: List[Dict], levels, precision: str, path: str) -> Non
                 "package checkpoint needs convert.checkpoint_from_jax)")
 
 
-def solve_case(cfg: CaseConfig, device="cuda") -> SolveResult:
+def solve_case(cfg: CaseConfig, device="cuda",
+               x_mesh: Optional[XMesh] = None) -> SolveResult:
+    """Run the case on `device`, or over the x slabs of `x_mesh` (built
+    from `cfg.devices` when it is above 1 and no mesh is given)."""
     check_supported(cfg)
     dev = resolve_device(device)
+    x_mesh = resolve_mesh(cfg, dev, x_mesh)
+    if x_mesh is not None:
+        dev = x_mesh.devices[0]
+        log.info("[Mesh] %d x slabs on %s", x_mesh.size,
+                 ", ".join(map(str, x_mesh.devices)))
     cuda = dev.type == "cuda"
     t_start = time.time()
     log.info("=" * 70)
@@ -182,7 +217,7 @@ def solve_case(cfg: CaseConfig, device="cuda") -> SolveResult:
     mesh = load_mesh(cfg.stl_path, scale=cfg.stl_scale)
     params = compute_domain_params(cfg, mesh.min_bounds, mesh.max_bounds)
     levels = build_patches(cfg, mesh, params)
-    statics = build_patch_statics(cfg, levels, dev)
+    statics = build_patch_statics(cfg, levels, dev, x_mesh=x_mesh)
     total_cells = sum(p.n_cells for p in levels)
     updates = sum(p.n_cells * 2 ** (p.level_id - 1) for p in levels)
 
@@ -191,18 +226,24 @@ def solve_case(cfg: CaseConfig, device="cuda") -> SolveResult:
     resume_step = 0
     latest = ckpt.latest_checkpoint(ckpt_dir) if cfg.checkpoint_resume else None
     if latest:
-        resume_step, states = ckpt.load_checkpoint(latest, cfg.precision, dev)
+        # a sharded run loads on the host and cuts the global arrays
+        resume_step, states = ckpt.load_checkpoint(
+            latest, cfg.precision, "cpu" if x_mesh is not None else dev)
         _check_resumed(states, levels, cfg.precision, latest)
+        if x_mesh is not None:
+            states = shard_states(states, x_mesh)
         log.info("[Checkpoint] resumed from %s at step %d", latest, resume_step)
     else:
-        states = [init_patch_state(p, cfg.precision, dev) for p in levels]
+        states = (init_states_sharded(levels, cfg.precision, x_mesh)
+                  if x_mesh is not None else
+                  [init_patch_state(p, cfg.precision, dev) for p in levels])
         if os.path.isdir(out_dir):
             for f in os.listdir(out_dir):
                 p = os.path.join(out_dir, f)
                 shutil.rmtree(p) if os.path.isdir(p) else os.remove(p)
         os.makedirs(out_dir, exist_ok=True)
-    log.info(hbm_report_patches(levels, statics, cfg.precision, dev))
-    for line in kernel_log_lines(levels, statics, cfg.precision, dev):
+    log.info(hbm_report_patches(levels, statics, cfg.precision, dev, x_mesh=x_mesh))
+    for line in kernel_log_lines(levels, statics, cfg.precision, dev, x_mesh=x_mesh):
         log.info(line)
     log.info("[Info] Re = %.0f, levels = %d, tau = %s", params.re_number,
              params.num_levels, ", ".join(f"{t:.6f}" for t in params.tau_levels))
@@ -241,19 +282,47 @@ def solve_case(cfg: CaseConfig, device="cuda") -> SolveResult:
                 log.info("[Forces] momentum-exchange integration over %d "
                          "fluid/solid interface links", mem_ctx.n_links)
 
-    def _forces(st: List[Dict]) -> ForceResult:
+    run = make_batch_runner_dense(cfg, params, levels, statics, x_mesh=x_mesh)
+    states = run.seed_slabs(states)
+    gathered: Dict = {}  # (level, device) -> the level gathered since the batch
+
+    def global_level(lvl: int, device=dev) -> Dict:
+        """states[lvl] in the global layout: a sharded run's slabs gathered
+        onto `device`, once per batch.  The events below read the states
+        only through it, so none of them meets the slabs."""
+        if x_mesh is None:
+            return states[lvl]
+        key = (lvl % len(levels), str(device))
+        if key not in gathered:
+            gathered[key] = gather_states([states[key[0]]], device)[0]
+        return gathered[key]
+
+    def host_states() -> List[Dict]:
+        """Every level in the global layout, for a checkpoint or flow file
+        (a sharded run's gathered onto the host, where they are written)."""
+        return [global_level(lvl, "cpu" if x_mesh is not None else dev)
+                for lvl in range(len(levels))]
+
+    def _forces() -> ForceResult:
         """Integrated aerodynamics at the configured method.  The stress
         mapping always runs (its per-triangle pressure/shear maps feed the
         surface VTK); momentum exchange replaces the integrals and
         coefficients (the reference's dead method, src/forces/global.jl:
         15-148, live here: VALIDATION.md)."""
-        base = compute_aerodynamics(st[-1], force_ctx)
+        base = compute_aerodynamics(global_level(-1), force_ctx)
         if mem_ctx is None:
             return base
-        return compute_aerodynamics_mem(st[-1], mem_ctx, base=base)
+        return compute_aerodynamics_mem(global_level(-1), mem_ctx, base=base)
 
-    run = make_batch_runner_dense(cfg, params, levels, statics)
-    states = run.seed_slabs(states)
+    obstacle0 = (statics[0]["obstacle"] if x_mesh is None else
+                 torch.as_tensor(levels[0].obstacle, dtype=torch.bool, device=dev))
+    cards = ([dev] if x_mesh is None else
+             list(dict.fromkeys(x_mesh.devices))) if cuda else []
+
+    def sync() -> None:
+        for d in cards:
+            torch.cuda.synchronize(d)
+
     log.info("[Run] steps=%d ramp=%d diag=%d vtk=%d checkpoint=%d%s", cfg.steps,
              cfg.ramp_steps, cfg.diag_freq, cfg.output_freq, cfg.checkpoint_freq,
              f" (resumed at {resume_step})" if resume_step else "")
@@ -288,6 +357,7 @@ def solve_case(cfg: CaseConfig, device="cuda") -> SolveResult:
         # the whole batch is queued without a host sync; async_depth is not
         # applied (module docstring)
         states = run(states, t, batch_end - t + 1)
+        gathered.clear()
         if cuda:
             ev[1].record()
             events.append((t, batch_end, ev))
@@ -296,25 +366,24 @@ def solve_case(cfg: CaseConfig, device="cuda") -> SolveResult:
         # force-CSV cadence independent of diagnostics (reference:
         # FORCE_OUTPUT_FREQ falling back to DIAG_FREQ, config_loader.jl:192)
         if force_ctx is not None and fof > 0 and t_done % fof == 0:
-            last_forces = _forces(states)
+            last_forces = _forces()
             append_forces(force_csv, t_done, t_done * params.time_scale,
                           last_forces, _ramp_host(t_done, cfg))
 
         if t_done % cfg.diag_freq == 0 or t_done == cfg.steps:
-            if cuda:
-                torch.cuda.synchronize(dev)
+            sync()
             now = time.time()
             # MLUPS-ref: cells x coarse steps (reference: main.jl:188-190)
             mlups = total_cells * cfg.diag_freq / max(now - last_diag_time, 1e-9) / 1e6
             last_diag_time = now
-            stats = compute_flow_stats(states[0], statics[0]["obstacle"])
+            stats = compute_flow_stats(global_level(0), obstacle0)
             final_stats = stats
             u_curr = _ramp_host(t_done, cfg)
             cd_str = cl_str = "N/A"
             if force_ctx is not None:
                 # display only: forces.csv rows come at the force cadence
                 if last_forces is None or t_done % fof != 0:
-                    last_forces = _forces(states)
+                    last_forces = _forces()
                 cd_str, cl_str = f"{last_forces.Cd:.4f}", f"{last_forces.Cl:.4f}"
             wall = walltime_str(t_start)
             log.info("%8d | %12s | %10.4f | %.4f | %.4f | %7.1f | %8s | %8s",
@@ -331,7 +400,7 @@ def solve_case(cfg: CaseConfig, device="cuda") -> SolveResult:
                 if warns and cfg.stability_action == "abort" and diverged:
                     # checkpoint the state and end the case (the batch runner
                     # isolates per-case failures, so later cases still run)
-                    path = ckpt.save_checkpoint(ckpt_dir, t_done, states)
+                    path = ckpt.save_checkpoint(ckpt_dir, t_done, host_states())
                     log.error("[Stability] step %d: divergence detected "
                               "(stability_action=abort); state saved to %s",
                               t_done, path)
@@ -341,11 +410,11 @@ def solve_case(cfg: CaseConfig, device="cuda") -> SolveResult:
         if cfg.output_freq > 0 and t_done % cfg.output_freq == 0:
             path = os.path.join(out_dir, f"flow_{t_done:06d}.vtu")
             t0 = time.time()
-            export_flow_vtu_patches(path, levels, states, cfg.output_fields)
+            export_flow_vtu_patches(path, levels, host_states(), cfg.output_fields)
             outputs.append(("flow", t_done, path, time.time() - t0))
             if force_ctx is not None:
                 if last_forces is None or t_done % cfg.diag_freq != 0:
-                    last_forces = _forces(states)
+                    last_forces = _forces()
                 path = os.path.join(out_dir, f"surface_{t_done:06d}.vtu")
                 t0 = time.time()
                 export_surface_vtu(path, mesh.vertices, mesh.normals, mesh.areas,
@@ -356,7 +425,8 @@ def solve_case(cfg: CaseConfig, device="cuda") -> SolveResult:
             # the host fetch is synchronous (the next launches write the
             # buffers); the zip/disk write overlaps the next steps
             t0 = time.time()
-            path = ckpt.save_checkpoint(ckpt_dir, t_done, states, async_write=True)
+            path = ckpt.save_checkpoint(ckpt_dir, t_done, host_states(),
+                                        async_write=True)
             outputs.append(("checkpoint", t_done, path, time.time() - t0))
             log.info("[Checkpoint] saved %s (fetch %.2f s; write async)", path,
                      outputs[-1][3])
@@ -371,8 +441,7 @@ def solve_case(cfg: CaseConfig, device="cuda") -> SolveResult:
         t = t_done + 1
 
     ckpt.wait_pending()  # a checkpoint write may still be in flight
-    if cuda:
-        torch.cuda.synchronize(dev)
+    sync()
     windows = [(a, b, float(ev[0].elapsed_time(ev[1]))) for a, b, ev in events]
     wall_total = time.time() - t_start
     # MLUPS-ref = total cells x COARSE steps / wall (the reference's
@@ -408,7 +477,8 @@ def solve_case(cfg: CaseConfig, device="cuda") -> SolveResult:
 
 def run_all_cases(cases_root: str, batch_file: str, device="cuda") -> List[str]:
     """Iterate case folders with per-case error isolation (reference:
-    main.jl:251-274); returns the names of the cases that failed."""
+    main.jl:251-274); returns the names of the cases that failed.  Each
+    case runs on its own `devices` (`solve_case`)."""
     resolve_device(device)  # no CUDA: raise once, not once per case
     cases = load_batch_list(batch_file)
     log.info("MULTI-CASE EXECUTION: %d cases", len(cases))
@@ -429,9 +499,15 @@ def plan_case(cfg: CaseConfig, device="cuda") -> Dict:
     and device-memory report without running: the reference's domain
     summary and capacity planning (reference: physics_scaling.jl:178-187,
     diagnostics_vram.jl).  The capacity comes from the card's own memory
-    (`estimate_capacity`); on the CPU it is not estimated."""
+    (`estimate_capacity`); on the CPU it is not estimated.  With `devices:
+    n` the statics are cut over n slabs (`make_x_mesh`, which raises when
+    fewer cards are visible) and the memory is reported per slab and card;
+    the capacity is one card's, times the mesh's cards."""
     check_supported(cfg)
     dev = resolve_device(device)
+    x_mesh = resolve_mesh(cfg, dev, None)
+    if x_mesh is not None:
+        dev = x_mesh.devices[0]
     mesh = load_mesh(cfg.stl_path, scale=cfg.stl_scale)
     params = compute_domain_params(cfg, mesh.min_bounds, mesh.max_bounds)
     log.info("Case: %s | %d triangles", os.path.basename(cfg.case_dir),
@@ -443,9 +519,9 @@ def plan_case(cfg: CaseConfig, device="cuda") -> Dict:
              *params.domain_size, params.nx_coarse, params.ny_coarse,
              params.nz_coarse)
     patches = build_patches(cfg, mesh, params)
-    statics = build_patch_statics(cfg, patches, dev)
-    log.info(hbm_report_patches(patches, statics, cfg.precision, dev))
-    for line in kernel_log_lines(patches, statics, cfg.precision, dev):
+    statics = build_patch_statics(cfg, patches, dev, x_mesh=x_mesh)
+    log.info(hbm_report_patches(patches, statics, cfg.precision, dev, x_mesh=x_mesh))
+    for line in kernel_log_lines(patches, statics, cfg.precision, dev, x_mesh=x_mesh):
         log.info(line)
     total = sum(p.n_cells for p in patches)
     upd = sum(p.n_cells * 2 ** (p.level_id - 1) for p in patches)
@@ -453,11 +529,13 @@ def plan_case(cfg: CaseConfig, device="cuda") -> Dict:
              total / 1e6, upd / 1e6, cfg.steps)
     cap = None
     if dev.type == "cuda":
-        cap = {eng: estimate_capacity(precision=cfg.precision, engine=eng, device=dev)
+        cards = 1 if x_mesh is None else len(set(x_mesh.devices))
+        cap = {eng: cards * estimate_capacity(precision=cfg.precision, engine=eng,
+                                              device=dev)
                for eng in ("k1", "inplace")}
         log.info("capacity: ~%.0fM cells on A->B levels (~%.0fM in place) fit "
-                 "this card (%.1f GB) -> this case uses %.1f%%", cap["k1"] / 1e6,
-                 cap["inplace"] / 1e6, torch.cuda.mem_get_info(dev)[1] / 1e9,
+                 "%d card(s) of %.1f GB -> this case uses %.1f%%", cap["k1"] / 1e6,
+                 cap["inplace"] / 1e6, cards, torch.cuda.mem_get_info(dev)[1] / 1e9,
                  100.0 * total / cap["k1"])
     else:
         log.info("capacity: not estimated on the CPU (the card's memory sets it)")

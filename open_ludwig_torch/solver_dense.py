@@ -40,6 +40,14 @@ parent level's also "_ifsl", its carried slabs.  K1, K3 and K4 write
 fresh buffers (A -> B); a parent's pre-step state has no consumer after
 its launch (its old slabs are carried, or taken before the launch on an
 unseeded call, which a K5 parent, writing f in place, needs).
+
+With `x_mesh` (`parallel.patch_shard.XMesh`) every level is cut along x
+over the mesh's devices, the JAX package's `mesh=` path: statics from
+`build_patch_statics(..., x_mesh=)` (per-slab, `shard_statics`), states
+per slab (`shard_states`), each sub-step the halo exchange and every
+slab's launch of its kernel's sharded form, fuse2 off; the schedule is
+the one above, with the parts that differ from `parallel.patch_shard.
+slab_schedule`.
 """
 
 from __future__ import annotations
@@ -89,13 +97,18 @@ def init_patch_state(patch: PatchLevel, precision: str = "float32",
 
 
 def build_patch_statics(cfg: CaseConfig, patches: List[PatchLevel],
-                        device="cpu") -> List[Dict]:
+                        device="cpu", x_mesh=None) -> List[Dict]:
     """Per level: obstacle (bool), sponge, wall_dist as (X, Y, Z) device
     tensors, the Bouzidi plan (S, the link list and its scratch as device
     tensors: `dense_step.bouzidi_plan_to`) or None, the level's ghost-plane
     plan against its parent ("iface_mm": `dense_step.build_iface_mm_plan`
     with its device tensors, `iface_mm_plan_to`; None on level 1), and
-    the level's kernel ("engine") with the reason for it ("engine_why")."""
+    the level's kernel ("engine") with the reason for it ("engine_why").
+    With `x_mesh`, the per-slab statics of its devices
+    (`parallel.patch_shard.shard_statics`; `device` is not read)."""
+    if x_mesh is not None:
+        from .parallel.patch_shard import shard_statics
+        return shard_statics(cfg, patches, x_mesh)
     statics = []
     for li, (p, (eng, why)) in enumerate(zip(patches,
                                              engine.level_engines(cfg, patches))):
@@ -117,10 +130,14 @@ def build_patch_statics(cfg: CaseConfig, patches: List[PatchLevel],
 
 
 def kernel_log_lines(patches: List[PatchLevel], statics: List[Dict],
-                     precision: str, device) -> List[str]:
+                     precision: str, device, x_mesh=None) -> List[str]:
     """Per level: the kernel its sub-steps run under the default (fused)
     schedule and why, and whether its sub-step pairs take K3 (and why
-    not)."""
+    not); with `x_mesh`, per slab
+    (`parallel.patch_shard.kernel_log_lines_sharded`)."""
+    if x_mesh is not None:
+        from .parallel.patch_shard import kernel_log_lines_sharded
+        return kernel_log_lines_sharded(patches, statics, precision, x_mesh)
     dev = torch.device(device)
     route = "CUDA" if dev.type == "cuda" else "plain torch (CPU)"
     store = ("bf16 g-native" if storage.f_dtype(precision) == torch.bfloat16
@@ -168,7 +185,7 @@ def kernel_log_lines(patches: List[PatchLevel], statics: List[Dict],
 
 def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
                            patches: List[PatchLevel], statics: List[Dict],
-                           fuse2: bool = True):
+                           fuse2: bool = True, x_mesh=None):
     """coarse_step(states, t) -> states advancing every level by one coarse
     step without any host synchronisation.  Each sub-step is one launch of
     its level's kernel (statics[l]["engine"]: "k1" / "flat" / "inplace"),
@@ -178,12 +195,14 @@ def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
     as one K3 + K2 (None otherwise).  `coarse_step.seed_slabs(states)`
     stores each parent level's endpoint slabs under "_ifsl" (idempotent);
     a parent state without them has its old slabs extracted before its
-    launch."""
+    launch.  With `x_mesh` the states and statics are per slab, and the
+    sub-step, the endpoint slabs and the child's planes are the slabs'
+    (`parallel.patch_shard.slab_schedule`), fuse2 off as in the JAX
+    package under a mesh; the schedule is the same."""
     n_levels = len(patches)
     last = n_levels - 1
     engs = [st["engine"] for st in statics]
     plans = [st["iface_mm"] for st in statics]
-    fuse_last = bool(fuse2) and engs[last] == "k1"
     use_temporal = cfg.temporal_interpolation
     kw = dict(
         c_wale=cfg.c_wale,
@@ -194,6 +213,37 @@ def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
     )
     iface_free_steps = {"flat": stream_collide_flat,
                         "inplace": stream_collide_inplace}
+
+    def level_step(st: Dict, lvl: int, u, seed: int, iface) -> Dict:
+        """One sub-step of level `lvl`: its kernel, then its K2."""
+        if engs[lvl] == "k1":
+            f_new, rho_new, vel_new = stream_collide(
+                st["f"], st["vel"], u, seed, statics[lvl], patches[lvl],
+                iface=iface, **kw)
+        else:
+            f_new, rho_new, vel_new = iface_free_steps[engs[lvl]](
+                st["f"], st["vel"], u, seed, statics[lvl], patches[lvl], **kw)
+        plan = statics[lvl]["bouzidi"]
+        if plan is not None:
+            f_new = bouzidi(f_new, plan)
+        return {"f": f_new, "rho": rho_new, "vel": vel_new}
+
+    def endpoint_slabs(lvl: int, st: Dict):
+        return extract_endpoint_slabs(plans[lvl + 1], st)
+
+    def cut_planes(lvl: int, planes: Dict):
+        return ({fc: pl[0] for fc, pl in planes.items()},
+                {fc: pl[-1] for fc, pl in planes.items()})
+
+    def f_dtype(st: Dict) -> torch.dtype:
+        return st["f"].dtype
+
+    if x_mesh is not None:
+        from .parallel.patch_shard import slab_schedule
+        level_step, endpoint_slabs, cut_planes, f_dtype = slab_schedule(
+            patches, statics, x_mesh, storage.f_dtype(cfg.precision), kw)
+        fuse2 = False
+    fuse_last = bool(fuse2) and engs[last] == "k1"
 
     def fused(states: List[Dict], lvl: int, u, seeds, if_a, if_b) -> None:
         """Sub-steps A and B of level `lvl` as one K3, then B's K2."""
@@ -213,43 +263,27 @@ def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
 
         def visit(lvl: int, t_sub: int, iface):
             patch = patches[lvl]
-            st = states[lvl]
-            eng = engs[lvl]
             child = patches[lvl + 1] if lvl + 1 < n_levels else None
             old_sl = None
             if child is not None and use_temporal:
-                old_sl = st.get("_ifsl")
+                old_sl = states[lvl].get("_ifsl")
                 if old_sl is None:
                     # an unseeded call: the old slabs before the launch
                     # (a K5 parent overwrites f)
-                    old_sl = extract_endpoint_slabs(plans[lvl + 1], st)
-            if eng == "k1":
-                f_new, rho_new, vel_new = stream_collide(
-                    st["f"], st["vel"], u_curr, t_sub % 1000000, statics[lvl],
-                    patch, iface=iface, **kw,
-                )
-            else:
-                f_new, rho_new, vel_new = iface_free_steps[eng](
-                    st["f"], st["vel"], u_curr, t_sub % 1000000, statics[lvl],
-                    patch, **kw,
-                )
-            del st  # the pre-step state has no consumer after the launch
-            plan = statics[lvl]["bouzidi"]
-            if plan is not None:
-                f_new = bouzidi(f_new, plan)
-            states[lvl] = {"f": f_new, "rho": rho_new, "vel": vel_new}
+                    old_sl = endpoint_slabs(lvl, states[lvl])
+            # the pre-step state has no consumer after the launch
+            states[lvl] = level_step(states[lvl], lvl, u_curr, t_sub % 1000000, iface)
             if child is None:
                 return
-            new_sl = extract_endpoint_slabs(plans[lvl + 1], states[lvl])
+            new_sl = endpoint_slabs(lvl, states[lvl])
             if use_temporal:
                 states[lvl]["_ifsl"] = new_sl
             # the child's planes in its storage type: bf16 g, or float32 f
-            c_dtype = states[lvl + 1]["f"].dtype
+            c_dtype = f_dtype(states[lvl + 1])
             planes = interface_planes_pair_mm(
                 plans[lvl + 1], child, patch, old_sl, new_sl, use_temporal,
                 g_shifted=c_dtype == torch.bfloat16, out_dtype=c_dtype)
-            if_a = {fc: pl[0] for fc, pl in planes.items()}
-            if_b = {fc: pl[-1] for fc, pl in planes.items()}
+            if_a, if_b = cut_planes(lvl + 1, planes)
             if fuse_last and lvl + 1 == last:
                 ts = 2 * t_sub
                 fused(states, last, (u_curr, u_curr),
@@ -273,8 +307,8 @@ def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
         if use_temporal:
             for lvl in range(n_levels - 1):
                 if "_ifsl" not in states[lvl]:
-                    states[lvl] = {**states[lvl], "_ifsl": extract_endpoint_slabs(
-                        plans[lvl + 1], states[lvl])}
+                    states[lvl] = {**states[lvl],
+                                   "_ifsl": endpoint_slabs(lvl, states[lvl])}
         return states
 
     pair_step = None
@@ -298,16 +332,18 @@ def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
 
 def make_batch_runner_dense(cfg: CaseConfig, params: DomainParams,
                             patches: List[PatchLevel], statics: List[Dict],
-                            fuse2: bool = True):
+                            fuse2: bool = True, x_mesh=None):
     """run(states, t0, n) -> states after coarse steps t0 .. t0+n-1: a plain
     loop that only enqueues work (no host sync inside a batch).  A
     single-level case with a pair step runs pairs of coarse steps; an odd
     batch of n >= 3 takes one plain step first (the JAX runner's rule,
     open_ludwig_tpu/solver_dense.py:690-700).  The states first get their
     carried endpoint slabs (`run.seed_slabs`, idempotent).  A level run in
-    place (K5) updates the f tensor of the states passed in."""
+    place (K5) updates the f tensor of the states passed in.  With `x_mesh`
+    the states are per slab (`parallel.patch_shard.shard_states`) and every
+    coarse step is unfused (`run.fused2` False)."""
     coarse_step = make_coarse_step_dense(cfg, params, patches, statics,
-                                         fuse2=fuse2)
+                                         fuse2=fuse2, x_mesh=x_mesh)
     pair = coarse_step.pair_step
 
     def run(states: List[Dict], t0: int, n: int) -> List[Dict]:
@@ -330,7 +366,7 @@ def make_batch_runner_dense(cfg: CaseConfig, params: DomainParams,
 
 
 def hbm_report_patches(patches: List[PatchLevel], statics: List[Dict],
-                       precision: str = "float32", device="cpu") -> str:
+                       precision: str = "float32", device="cpu", x_mesh=None) -> str:
     """Per-level device-memory accounting: resident state (f + rho + vel)
     and statics, plus the step's transient: every K1 / K4 sub-step, and
     every K3 pair on the finest level, writes a second f/rho/vel (A -> B)
@@ -341,7 +377,11 @@ def hbm_report_patches(patches: List[PatchLevel], statics: List[Dict],
     its child's carried endpoint slabs (float32, one set between steps, a
     second while the child's planes are built; `extract_endpoint_slabs`),
     and no longer its pre-step state until then: that state has no
-    consumer after the parent's launch."""
+    consumer after the parent's launch.  With `x_mesh`, per slab and
+    device (`parallel.patch_shard.hbm_report_sharded`)."""
+    if x_mesh is not None:
+        from .parallel.patch_shard import hbm_report_sharded
+        return hbm_report_sharded(patches, statics, precision, x_mesh)
     f_bytes = 2 if storage.f_dtype(precision) == torch.bfloat16 else 4
     dev = torch.device(device)
     lines = [f"Device memory (dense patches, {precision} f-storage):"]

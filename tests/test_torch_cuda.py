@@ -7,7 +7,9 @@ Bouzidi box; K3 + K2 on the bench's finest level and on the single-level
 shape, also against K1 -> K2 -> K1 -> K2; K4 and K5 on the bench's level 1
 and the single-level shape, also against K1 (equal), K4 also into
 preallocated outputs; K6 over its links, also against K2 on the same S,
-allocating nothing.
+allocating nothing; the sharded forms of K1, K4, K5 (one x slab with its
+neighbours' edge planes) and K2 (the box split between two slabs) against
+their plain versions and against the unsharded kernels (equal).
 
 Every test here needs an NVIDIA GPU and nvcc, and skips without them.  On
 the card:  python -m pytest tests/test_torch_*.py -q
@@ -163,3 +165,30 @@ def test_flat_and_inplace_kernels_match_plain(bench, sweep, cuda_device, kernel,
     assert r["k1"]["diff_frac"] == 0.0, r["k1"]
     if kernel == "inplace":
         assert r["same_ptr"] and r["vel_kept"]
+
+
+@pytest.mark.parametrize("store_bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind,level,n,i", [("k1", 1, 3, 1), ("k1", 1, 2, 0),
+                                            ("flat", 0, 3, 1), ("inplace", 0, 2, 1)])
+def test_shard_step_kernels_match_plain(bench, cuda_device, kind, level, n, i,
+                                        store_bf16):
+    """The sharded forms of K1, K4 and K5 on one x slab of a bench level:
+    within the plain version's tolerance, and the slab's stored f equal to
+    the unsharded kernel's rows."""
+    cfg, levels, statics, kw = bench
+    r = checks.check_shard_step(kind, levels[level], checks.with_sponge_ramp(
+        statics[level]), store_bf16, 61, kw, cuda_device, n, i, reps=1, plain_reps=1)
+    assert r["finite"] and r["max_abs_err"] < r["tol"], r["err"]
+    assert r["whole"]["diff_frac"] == 0.0, r["whole"]
+
+
+@pytest.mark.parametrize("store_bf16", [False, True], ids=["f32", "bf16"])
+def test_bouzidi_shard_kernel_matches_plain(bench, cuda_device, store_bf16):
+    """K2's sharded form on the bench box split through its middle: within
+    the plain version's tolerance, and equal to the unsharded K2."""
+    cfg, levels, statics, kw = bench
+    plan = statics[2]["bouzidi"]
+    cut = [0, plan["lo"][0] + plan["dim"][0] // 2, levels[2].interior[0]]
+    r = checks.check_bouzidi_shard(levels[2], plan, store_bf16, 63, cut, cuda_device,
+                                   reps=1, plain_reps=1)
+    assert r["max_abs_err"] < r["tol"] and r["whole"]["diff_frac"] == 0.0, r

@@ -152,13 +152,13 @@ def test_solve_case_writes_jax_csv_columns(sphere2, tmp_path):
 
 
 def test_runner_refuses_unported_configs(sphere2):
-    """Several devices and the blocks layout are refused with their ROADMAP
-    item; momentum exchange and checkpoints run
-    (tests/test_torch_checkpoint_runner.py)."""
+    """The blocks layout is refused with its ROADMAP item; several devices
+    pass (the x-slab path, tests/test_torch_shard_runner.py), as momentum
+    exchange and checkpoints do (tests/test_torch_checkpoint_runner.py)."""
     cfg = sphere2[0]
-    for over in (dict(devices=2), dict(layout="blocks")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            runner.check_supported(dataclasses.replace(cfg, **over))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        runner.check_supported(dataclasses.replace(cfg, layout="blocks"))
+    runner.check_supported(dataclasses.replace(cfg, devices=2))
 
 
 def test_cuda_request_without_cuda_raises():
@@ -181,4 +181,7 @@ def test_plain_path_counts_no_kernel_launches(sphere2):
     sd.make_batch_runner_dense(cfg, params, levels_t, statics)(states, 1, 1)
     assert cuda_step.LAUNCHES == {"stream_collide": 0, "bouzidi": 0,
                                   "fused_pair": 0, "stream_collide_flat": 0,
-                                  "stream_collide_inplace": 0, "bouzidi_ab": 0}
+                                  "stream_collide_inplace": 0, "bouzidi_ab": 0,
+                                  "stream_collide_shard": 0, "bouzidi_shard": 0,
+                                  "stream_collide_flat_shard": 0,
+                                  "stream_collide_inplace_shard": 0}

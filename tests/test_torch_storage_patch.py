@@ -124,6 +124,7 @@ def test_port_sources_never_import_jax():
     paths = sorted(glob.glob(os.path.join(REPO, "open_ludwig_torch", "**", "*.py"),
                              recursive=True)) + [os.path.join(REPO, "chip_smoke.py")]
     assert len(paths) > 25, paths
+    assert os.path.join(REPO, "open_ludwig_torch", "parallel", "patch_shard.py") in paths
     bad = []
     for path in paths:
         with open(path) as fh:
@@ -157,6 +158,7 @@ def test_port_never_imports_jax(tmp_path):
         for name in mods:
             importlib.import_module(name)
         assert "open_ludwig_torch.tools.probe_bz_encoding" in mods, mods
+        assert "open_ludwig_torch.parallel.patch_shard" in mods, mods
         from open_ludwig_torch.cases import make_case_sphere
         from open_ludwig_torch.config import load_case_config
         from open_ludwig_torch.runner import solve_case
