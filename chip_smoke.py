@@ -143,6 +143,22 @@ Phases, each raising on failure (nothing is caught):
      allocation of one sharded coarse step;
      10d. `solve_case` with `devices: 2` and no mesh raises on a one-card
      machine.
+  11. the blocks layout (the JAX package's sparse 8^3-block path, plain
+     PyTorch float32 with no kernel of its own, as in the JAX package) and
+     `async_depth`:
+     11a. the bench case with `layout: blocks`, float32, through
+     `solve_case` on the card, 200 coarse steps, diagnostics every 50: no
+     port kernel launched, finite CSVs, rho_min in (0.5, 1.5), a finite Cd;
+     the blocks of each level (392 / 1,000 / 1,728, 1.60M cells), the
+     `hbm_report` estimate beside `torch.cuda.max_memory_allocated`, ms per
+     coarse step, MLUPS-su and MLUPS-ref from CUDA events over the windows
+     after the first, and 10 coarse steps profiled (`tools/profile_slice`):
+     CUDA device operations per coarse step and the device-busy share;
+     11b. a single-level sphere on both layouts from rest, 4 coarse steps
+     on the card: the blocks step against the patch layout's plain step,
+     f and vel within 5e-6, and the difference from K1 printed;
+     11c. the bench case (patch, bf16) for 20 coarse steps with
+     `async_depth` 3 and 0: final states bit-equal, the same CSV steps.
 Every check prints its bound beside its time: the bytes the call must
 move over the card's memory rate (or its operations over the float32
 rate, where larger; `checks.bound`).  Before the last lines, neither jax
@@ -407,6 +423,188 @@ def phase_10(dev, smi, kw, tmp, trimesh, params, levels, statics, sweep, row7):
         require("2 CUDA devices, 1 visible" in raised, ("devices: 2", raised))
     print(f"[10 shard] phase {time.time() - t_phase:.1f} s", flush=True)
     return res, launches
+
+
+# the bench case on the blocks layout (bench.py:67-104 with layout: blocks),
+# measured with the JAX package's builder: blocks per level, and its cells
+BLOCKS_BENCH = (392, 1000, 1728)
+
+
+def phase_11(dev, smi, tmp, check_run_outputs, states_equal):
+    """Phase 11, the blocks layout and async_depth on the card (module
+    docstring)."""
+    import numpy as np
+    import torch
+
+    from open_ludwig_torch import checkpoint as ckpt
+    from open_ludwig_torch import checks
+    from open_ludwig_torch.core.state import build_all, hbm_estimate
+    from open_ludwig_torch.domain.builder import setup_case
+    from open_ludwig_torch.ops import cuda_step, dense_step
+    from open_ludwig_torch.ops.stream_collide import stream_collide
+    from open_ludwig_torch.runner import solve_case
+    from open_ludwig_torch.solver import (
+        _parent_view, make_batch_runner, make_coarse_step, ramp_velocity)
+    from open_ludwig_torch.solver_dense import build_patch_statics, init_patch_state
+    from open_ludwig_torch.tools import profile_slice
+
+    none = {k: 0 for k in cuda_step.LAUNCHES}
+    t_phase = time.time()
+
+    # ---- 11a. the bench case on the blocks layout through the runner ----
+    cfg = checks.bench_config(os.path.join(tmp, "blocks"), precision="float32",
+                              steps=200, diag_freq=50).with_overrides(layout="blocks")
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    live0 = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    cuda_step.reset_launches()
+    t0 = time.time()
+    res = solve_case(cfg, device="cuda")
+    wall = time.time() - t0
+    got = dict(cuda_step.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev) - live0
+    require(got == none, ("the blocks layout launched a kernel", got))
+    check_run_outputs(res, cfg)
+    require(np.isfinite(res.final_forces.Cd), ("blocks Cd", res.final_forces.Cd))
+    win = res.windows[1:]  # the first interval carries the warm-up
+    n_steps = sum(b - a + 1 for a, b, _ in win)
+    sec = sum(ms for _, _, ms in win) / 1e3
+    ms_step = sec / n_steps * 1e3
+    print(f"[11a blocks] bench case, layout blocks, float32: {res.total_cells} cells "
+          f"({res.total_cells / 1e6:.3f}M), {res.updates_per_coarse / 1e6:.3f}M site "
+          f"updates per coarse step | {n_steps} steps after the first 50 in "
+          f"{sec:.3f} s (CUDA events) -> {ms_step:.3f} ms/coarse step, "
+          f"{res.updates_per_coarse / ms_step / 1e3:.1f} MLUPS-su, "
+          f"{res.total_cells / ms_step / 1e3:.1f} MLUPS-ref | rho_min "
+          f"{res.final_stats.rho_min:.4f} | Cd {res.final_forces.Cd:.4f} | run {wall:.1f} s "
+          f"(host set-up included) | port kernels launched: none | card: {smi}",
+          flush=True)
+    # the levels again (host), their statics on the card: the memory estimate
+    # and 10 coarse steps profiled after 20 of warm-up
+    t0 = time.time()
+    _, params, levels = setup_case(cfg)
+    states, statics = build_all(cfg, params, levels, dev)
+    rows, est, trans = hbm_estimate(levels, statics)
+    for geo, state_b, field_b, plan_b, bz_b in rows:
+        print(f"[11a blocks] level {geo.level_id}: {geo.dims} block grid, "
+              f"{geo.n_blocks} blocks, {geo.n_cells} cells | state {state_b / 1e6:.1f} "
+              f"MB, fields {field_b / 1e6:.1f} MB, plan {plan_b / 1e6:.1f} MB (int64), "
+              f"bouzidi {bz_b / 1e6:.1f} MB", flush=True)
+    print(f"[11a blocks] hbm_report estimate {est / 1e9:.3f} GB (incl. {trans / 1e6:.0f}"
+          f" MB step transient) | torch.cuda.max_memory_allocated during the run "
+          f"{peak / 1e9:.3f} GB above the {live0 / 1e9:.3f} GB live before it | "
+          f"host rebuild {time.time() - t0:.1f} s | card: {smi}", flush=True)
+    require(tuple(g.n_blocks for g in levels) == BLOCKS_BENCH
+            and res.total_cells == 512 * sum(BLOCKS_BENCH),
+            ("blocks bench levels", [g.n_blocks for g in levels], res.total_cells))
+    run = make_batch_runner(cfg, params, statics)
+    states = run(states, 1, 20)
+    # the peak above the live state of one coarse step, and of one sub-step
+    # of level 3 (reading level 2 as its parent)
+    peak_step = checks.step_peak_bytes(lambda: run(states, 21, 1), dev)
+    kw3 = dict(tau=float(params.tau_levels[2]), c_wale=cfg.c_wale,
+               nu_sgs_background=cfg.nu_sgs_background,
+               inlet_turbulence=cfg.inlet_turbulence_intensity,
+               wall_model=cfg.wall_model_enabled,
+               sponge_blend=cfg.sponge_blend_distributions,
+               use_temporal=cfg.temporal_interpolation, temporal_weight=0.5,
+               parent=_parent_view(states[1], states[1]))
+    peak_l3 = checks.step_peak_bytes(lambda: stream_collide(
+        states[2]["f"], states[2]["vel"], cfg.u_lattice, 7, statics[2], **kw3), dev)
+    print(f"[11a blocks] peak allocation above the live state: one coarse step "
+          f"{peak_step / 1e9:.3f} GB, one level-3 sub-step {peak_l3 / 1e9:.3f} GB "
+          f"({peak_l3 / levels[2].n_cells:.0f} B a cell; its f is 108 B a cell)",
+          flush=True)
+    prof, states = profile_slice.profile_steps(run, states, 21, 10,
+                                               res.updates_per_coarse)
+    print(f"[11a blocks] 10 coarse steps after 20 of warm-up, one call each: "
+          f"{prof['ms']:.3f} ms/coarse step ({prof['mlups_su']:.1f} MLUPS-su; CUDA "
+          f"events) | under torch.profiler: {prof['device_ops']:.1f} CUDA device "
+          f"operations (launches) per coarse step, device busy "
+          + (f"{100 * prof['busy_share']:.1f}%" if prof["busy_share"] is not None
+             else "not measured")
+          + f" of {prof['window_ms'] / 10:.3f} ms per profiled step | card: {smi}",
+          flush=True)
+    print("[11a blocks] most launched: " + "; ".join(
+        f"{t['per_call']:.0f} x {t['name']}" for t in prof["top"]), flush=True)
+    require(prof["port_kernels"] == 0 and prof["device_ops"] > 0
+            and all(bool(torch.isfinite(st["rho"]).all()) for st in states),
+            ("profiled blocks steps", prof["port_kernels"], prof["device_ops"]))
+    del states, statics, run
+
+    # ---- 11b. one single-level sphere on both layouts ----
+    t0 = time.time()
+    d = os.path.join(tmp, "layouts")
+    cfg1 = checks.bench_config(d, surface_resolution=10, num_levels=1, steps=6,
+                               ramp_steps=3, output_freq=100, diag_freq=100,
+                               wake_enabled=False, boundary_method="bounce_back",
+                               inlet_turbulence=0.02, precision="float32")
+    mesh1, params1, levels1 = setup_case(cfg1)
+    bstates, bstatics = build_all(cfg1, params1, levels1, dev)
+    step_b = make_coarse_step(cfg1, params1, bstatics)
+    patch = checks.case_levels(cfg1)[2][0]
+    pstatic = build_patch_statics(cfg1, [patch], dev)[0]
+    kw1 = dict(c_wale=cfg1.c_wale, nu_sgs_background=cfg1.nu_sgs_background,
+               inlet_turbulence=cfg1.inlet_turbulence_intensity,
+               wall_model=cfg1.wall_model_enabled,
+               sponge_blend=cfg1.sponge_blend_distributions)
+    plain = init_patch_state(patch, "float32", dev)
+    k1 = init_patch_state(patch, "float32", dev)
+    for t in range(1, 5):
+        bstates = step_b(bstates, t)
+        u = ramp_velocity(t, cfg1.u_lattice, cfg1.ramp_steps)
+        f, r, v = dense_step.dense_stream_collide(plain["f"], plain["vel"], u, t,
+                                                  pstatic, patch, **kw1)
+        plain = {"f": f, "rho": r, "vel": v}
+        f, r, v = cuda_step.stream_collide(k1["f"], k1["vel"], u, t, pstatic,
+                                           patch, **kw1)
+        k1 = {"f": f, "rho": r, "vel": v}
+    geo = levels1[0]
+    lf = torch.arange(512, device=dev)
+    coords = torch.as_tensor(geo.coords, dtype=torch.long, device=dev)
+    gx = coords[:, 0, None] * 8 + (lf % 8)[None, :]
+    gy = coords[:, 1, None] * 8 + ((lf // 8) % 8)[None, :]
+    gz = coords[:, 2, None] * 8 + (lf // 64)[None, :]
+    X, Y, Z = patch.interior
+    diffs = {}
+    for key in ("f", "vel"):
+        blk = bstates[0][key]
+        dense = torch.zeros(blk.shape[:-2] + tuple(8 * n for n in geo.dims),
+                            dtype=blk.dtype, device=dev)
+        dense[:, gx, gy, gz] = blk
+        dense = dense[..., :X, :Y, :Z]
+        diffs[key] = (float((dense - plain[key]).abs().max()),
+                      float((dense - k1[key]).abs().max()))
+    print(f"[11b layouts] single-level sphere {patch.interior} ({geo.n_blocks} blocks),"
+          f" 4 coarse steps from rest on the card: blocks vs the patch layout's plain "
+          f"step max |diff| f {diffs['f'][0]:.2e}, vel {diffs['vel'][0]:.2e} (tol 5e-6)"
+          f" | blocks vs K1: f {diffs['f'][1]:.2e}, vel {diffs['vel'][1]:.2e} | "
+          f"{time.time() - t0:.1f} s", flush=True)
+    require(diffs["f"][0] < 5e-6 and diffs["vel"][0] < 5e-6, ("layouts", diffs))
+    del bstates, bstatics, plain, k1, pstatic
+
+    # ---- 11c. async_depth on the main path ----
+    t0 = time.time()
+    cfg3 = checks.bench_config(os.path.join(tmp, "async"), steps=20, diag_freq=10)
+    finals = {}
+    for depth in (3, 0):
+        c = cfg3.with_overrides(async_depth=depth, checkpoint_freq=20,
+                                output_dir=f"RESULTS_AD{depth}")
+        solve_case(c, device="cuda")
+        with open(os.path.join(c.output_path, "convergence.csv")) as fh:
+            steps = [int(r.split(",", 1)[0]) for r in fh.readlines()[1:]]
+        require(steps == [10, 20], ("async_depth CSV steps", depth, steps))
+        finals[depth] = ckpt.load_checkpoint(
+            os.path.join(c.output_path, "checkpoints", "ckpt_00000020.npz"),
+            cfg3.precision, dev)[1]
+    equal = states_equal(finals[3], finals[0])
+    print(f"[11c async] bench case (patch, bf16), 20 coarse steps with async_depth 3 "
+          f"(calls of 3, 3, 3, 1 per batch of 10) and 0 (one call): final states "
+          f"bit-equal: {equal}, CSV steps [10, 20] in both | {time.time() - t0:.1f} s",
+          flush=True)
+    require(equal, "async_depth 3 against 0")
+    print(f"[11 blocks] phase {time.time() - t_phase:.1f} s", flush=True)
 
 
 def main(argv=None) -> int:
@@ -1157,6 +1355,10 @@ def main(argv=None) -> int:
         k10, launches10 = phase_10(dev, smi, kw, tmp, mesh, params, levels, statics,
                                    (sweep[0], sweep_static), row7)
         del row7, sweep, sweep_static
+
+        # ---- 11. the blocks layout, and async_depth ----
+        del statics
+        phase_11(dev, smi, tmp, check_run_outputs, states_equal)
 
     print(f"[done] {time.time() - t_run:.1f} s", flush=True)
 

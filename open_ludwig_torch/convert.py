@@ -10,7 +10,10 @@ crosses bit-exactly through a 16-bit integer view.
 
 `patch` below is always a JAX package level: its attributes (`interior`,
 `padded`, `flat_yz`, `flat_m`, ...) are read by name, and nothing here
-imports the JAX package or jax.  `level_from_jax` gives the port's level
+imports the JAX package or jax.  A level of the blocks layout (a
+`LevelGeometry` of either package, which has a `block_ptr`) has no
+padding: its (27, nb, 512) float32 arrays carry over as they are, so
+`state_from_jax`, `state_to_jax` and the checkpoint rewrites take it too.  `level_from_jax` gives the port's level
 for one.  `checkpoint_from_jax` / `checkpoint_to_jax` rewrite a format-1
 checkpoint file for the other package, so a run resumes across them.
 """
@@ -53,9 +56,16 @@ def unflatten_host(arr: np.ndarray, patch) -> np.ndarray:
     return arr[..., :Y * Z].reshape(arr.shape[:-1] + (Y, Z))
 
 
+def _blocks(level) -> bool:
+    """A level of the blocks layout."""
+    return hasattr(level, "block_ptr")
+
+
 def from_jax_layout(arr: np.ndarray, patch) -> np.ndarray:
     """A JAX level array, (..., XS, YS, ZS) or flat (..., XS, M), -> the
-    interior (..., X, Y, Z)."""
+    interior (..., X, Y, Z); a blocks level's array as it is."""
+    if _blocks(patch):
+        return np.asarray(arr)
     return trim(unflatten_host(arr, patch), patch.interior)
 
 
@@ -76,8 +86,10 @@ def to_jax_layout(arr: np.ndarray, patch, fill=0) -> np.ndarray:
     """(..., X, Y, Z) -> the JAX level's layout, (..., XS, M) on a flat
     level, else (..., XS, YS, ZS); pad cells and slots take `fill`, a
     scalar or an array broadcast over the leading axes (for f: w or 0, the
-    JAX rest state)."""
+    JAX rest state).  A blocks level's array as it is."""
     arr = np.asarray(arr)
+    if _blocks(patch):
+        return arr
     lead = arr.shape[:-3]
     X, Y, Z = arr.shape[-3:]
     tail = (patch.padded[0], patch.flat_m) if patch.flat_yz else tuple(patch.padded)

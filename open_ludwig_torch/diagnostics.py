@@ -1,8 +1,9 @@
-"""Flow statistics, stability checks and the control-volume force (port
-of `open_ludwig_tpu/diagnostics.py`: FlowStats, compute_flow_stats,
-check_stability, control_volume_force; reference:
-src/diagnostics.jl:56-125).  The blocks layout's `vorticity_blocks_host`
-waits for that layout (ROADMAP.md Queue 1, item 9)."""
+"""Flow statistics, stability checks, the blocks layout's vorticity and
+the control-volume force (port of `open_ludwig_tpu/diagnostics.py`:
+FlowStats, compute_flow_stats, check_stability, vorticity_blocks_host,
+control_volume_force; reference: src/diagnostics.jl:56-125).
+`compute_flow_stats` serves both layouts: rho and the obstacle mask of
+one shape."""
 
 from __future__ import annotations
 
@@ -51,6 +52,67 @@ def check_stability(stats: FlowStats, step: int) -> List[str]:
     if stats.rho_max > 1.5:
         warnings.append(f"High density: {stats.rho_max:.4f}")
     return warnings
+
+
+def vorticity_blocks_host(
+    vel: np.ndarray, coords: np.ndarray, bp_shape
+) -> np.ndarray:
+    """Seam-free |curl u| for the sparse 8^3-block layout: blocks are
+    scattered into a dense per-level box and the curl uses mask-aware
+    differences (central where both neighbors are active cells, one-sided at
+    active-region borders), so values agree across block faces — intra-block
+    rolls would fabricate O(u) vorticity sheets at every 8-cell boundary.
+
+    vel: (3, nb, 512) host array (or tensor, fetched to the host) in the
+    blocks (c, b, z, y, x) cell order;
+    coords: (nb, 3) block (bx, by, bz) coords; bp_shape: block-grid dims.
+    Returns (nb, 512) |curl u| per cell.
+    """
+    nb = vel.shape[1]
+    bx, by, bz = (int(s) for s in bp_shape)
+    X, Y, Z = bx * 8, by * 8, bz * 8
+    dense = np.zeros((3, X, Y, Z), np.float32)
+    mask = np.zeros((X, Y, Z), bool)
+    if isinstance(vel, torch.Tensor):
+        vel = vel.detach().float().cpu().numpy()
+    v = np.asarray(vel, np.float32).reshape(3, nb, 8, 8, 8)
+    # blocks store cells (z, y, x) fastest-last -> transpose to (x, y, z)
+    v = np.transpose(v, (0, 1, 4, 3, 2))
+    cx, cy, cz = coords[:, 0], coords[:, 1], coords[:, 2]
+    for b in range(nb):
+        sl = np.s_[cx[b] * 8 : cx[b] * 8 + 8, cy[b] * 8 : cy[b] * 8 + 8,
+                   cz[b] * 8 : cz[b] * 8 + 8]
+        dense[(slice(None),) + sl] = v[:, b]
+        mask[sl] = True
+
+    def d(f, axis):
+        fwd, bwd = np.roll(f, -1, axis), np.roll(f, 1, axis)
+        fm, bm = np.roll(mask, -1, axis), np.roll(mask, 1, axis)
+        # roll wraps around the box: the wrapped entries are not neighbors
+        edge_hi = [slice(None)] * 3
+        edge_hi[axis] = slice(-1, None)
+        edge_lo = [slice(None)] * 3
+        edge_lo[axis] = slice(0, 1)
+        fm[tuple(edge_hi)] = False
+        bm[tuple(edge_lo)] = False
+        return np.where(
+            fm & bm, 0.5 * (fwd - bwd),
+            np.where(fm, fwd - f, np.where(bm, f - bwd, 0.0)),
+        )
+
+    ddx = [d(dense[c], 0) for c in range(3)]
+    ddy = [d(dense[c], 1) for c in range(3)]
+    ddz = [d(dense[c], 2) for c in range(3)]
+    wx = ddy[2] - ddz[1]
+    wy = ddz[0] - ddx[2]
+    wz = ddx[1] - ddy[0]
+    w = np.sqrt(wx * wx + wy * wy + wz * wz)
+    out = np.empty((nb, 8, 8, 8), np.float32)
+    for b in range(nb):
+        out[b] = w[cx[b] * 8 : cx[b] * 8 + 8, cy[b] * 8 : cy[b] * 8 + 8,
+                   cz[b] * 8 : cz[b] * 8 + 8]
+    # back to the blocks (z, y, x) cell order
+    return np.transpose(out, (0, 3, 2, 1)).reshape(nb, 512)
 
 
 def control_volume_force(

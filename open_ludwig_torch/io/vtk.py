@@ -1,18 +1,17 @@
-"""Minimal VTK XML (.vtu) writer + the patch layout's flow-field and
+"""Minimal VTK XML (.vtu) writer + the flow-field (both layouts) and
 surface exporters.
 
 The port's own copy of `open_ludwig_tpu/io/vtk.py` (`_b64`, `COMPRESS`,
-`write_vtu`, `_scrub`, `export_surface_vtu`, `export_flow_vtu_patches`),
-which writes the same bytes (`tests/test_torch_outputs.py`).  It replaces
-the reference's WriteVTK.jl usage (reference: src/io_vtk.jl,
+`write_vtu`, `_scrub`, `export_surface_vtu`, `export_flow_vtu_patches`,
+`export_flow_vtu`), which writes the same bytes
+(`tests/test_torch_outputs.py`, `tests/test_torch_blocks_runner.py`).  It
+replaces the reference's WriteVTK.jl usage (reference: src/io_vtk.jl,
 src/forces/io.jl:26-82): inline base64 binary DataArrays, VTK_VOXEL cells
 for the flow field, VTK_TRIANGLE cells for the surface; cells of a level
-covered by the next-finer patch are skipped (reference:
-src/io_vtk.jl:27-47); NaN/Inf are scrubbed before writing (reference:
-src/io_vtk.jl:112-113).  `read_vtu` decodes what `write_vtu` writes (the
-port's tests and chip smoke read the files back with it).  The blocks
-layout's `export_flow_vtu` waits for that layout (ROADMAP.md Queue 1,
-item 9).
+covered by the next-finer patch, or blocks covered by 8 finer children,
+are skipped (reference: src/io_vtk.jl:27-47); NaN/Inf are scrubbed before
+writing (reference: src/io_vtk.jl:112-113).  `read_vtu` decodes what `write_vtu` writes (the
+port's tests and chip smoke read the files back with it).
 """
 
 from __future__ import annotations
@@ -28,9 +27,11 @@ import numpy as np
 import torch
 
 from ..config import OutputFields
+from ..diagnostics import vorticity_blocks_host
 
 log = logging.getLogger("open_ludwig_torch")
 
+BLOCK_EDGE = 8
 VTK_VOXEL = 11
 VTK_TRIANGLE = 5
 
@@ -155,6 +156,115 @@ def _host(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):
         return a.detach().float().cpu().numpy()
     return np.asarray(a, np.float32)
+
+
+# local cell decomposition (flat = lz*64 + ly*8 + lx)
+_LF = np.arange(512)
+_LX, _LY, _LZ = _LF % 8, (_LF // 8) % 8, _LF // 64
+
+
+def export_flow_vtu(
+    path: str,
+    levels: List,
+    states: List[Dict],
+    fields: OutputFields,
+) -> None:
+    """Merged multi-level flow field of the blocks layout, one voxel cell
+    per lattice cell; blocks fully covered by 8 finer children are skipped
+    (reference: src/io_vtk.jl:27-47).  `levels` are
+    `domain.builder.LevelGeometry`; `states` hold rho (nb, 512) and vel
+    (3, nb, 512), tensors on any device or arrays: each level's are
+    fetched to the host once."""
+    # mark blocks fully covered by children (skip exporting them)
+    blocks = []  # (lvl_idx, block_id)
+    for li, geo in enumerate(levels):
+        if li + 1 < len(levels):
+            nxt = levels[li + 1]
+            # count children per parent block
+            cnt = np.zeros(geo.dims, np.int32)
+            par = nxt.coords // 2
+            np.add.at(cnt, (par[:, 0], par[:, 1], par[:, 2]), 1)
+            covered = cnt[geo.coords[:, 0], geo.coords[:, 1], geo.coords[:, 2]] == 8
+        else:
+            covered = np.zeros(geo.n_blocks, bool)
+        keep = np.nonzero(~covered)[0]
+        blocks.append(keep)
+
+    pt_chunks, conn_chunks = [], []
+    data = {name: [] for name in ("Density", "Velocity", "VelocityMagnitude",
+                                  "Vorticity", "Obstacle", "Level")}
+    pt_base = 0
+    e = BLOCK_EDGE + 1
+    # template point lattice / connectivity for one block
+    pz, py, px = np.meshgrid(np.arange(e), np.arange(e), np.arange(e), indexing="ij")
+    tmpl_pts = np.stack([px, py, pz], axis=-1).reshape(-1, 3).astype(np.float32)
+    # voxel corner ids per cell, VTK_VOXEL corner order (x fastest)
+    cidx = (_LZ * e + _LY) * e + _LX
+    tmpl_conn = np.stack(
+        [
+            cidx,
+            cidx + 1,
+            cidx + e,
+            cidx + e + 1,
+            cidx + e * e,
+            cidx + e * e + 1,
+            cidx + e * e + e,
+            cidx + e * e + e + 1,
+        ],
+        axis=1,
+    ).astype(np.int64)
+
+    for li, geo in enumerate(levels):
+        keep = blocks[li]
+        if len(keep) == 0:
+            continue
+        st = states[li]
+        vel_all = _host(st["vel"])
+        rho = _host(st["rho"])[keep]  # (m, 512)
+        vel = vel_all[:, keep]  # (3, m, 512)
+        obs = geo.obstacle[keep]
+        m = len(keep)
+        origin = geo.coords[keep] * BLOCK_EDGE  # (m, 3)
+        pts = (tmpl_pts[None, :, :] + origin[:, None, :]) * np.float32(geo.dx)
+        pt_chunks.append(pts.reshape(-1, 3))
+        conn = tmpl_conn[None, :, :] + (np.arange(m)[:, None, None] * (e**3) + pt_base)
+        conn_chunks.append(conn.reshape(-1, 8))
+        pt_base += m * e**3
+        data["Density"].append(rho.reshape(-1))
+        data["Velocity"].append(np.moveaxis(vel, 0, -1).reshape(-1, 3))
+        data["VelocityMagnitude"].append(np.sqrt((vel**2).sum(axis=0)).reshape(-1))
+        if fields.vorticity:
+            # seam-free across block faces: dense assembly + mask-aware
+            # differences (intra-block rolls would print an artifact sheet
+            # at every 8-cell boundary into the file)
+            w = vorticity_blocks_host(vel_all, geo.coords, geo.dims)[keep]
+            data["Vorticity"].append(w.reshape(-1))
+        data["Obstacle"].append(obs.reshape(-1).astype(np.uint8))
+        data["Level"].append(np.full(m * 512, geo.level_id, np.int32))
+
+    if not pt_chunks:
+        return
+    cell_data = {}
+    if fields.density:
+        cell_data["Density"] = _scrub(np.concatenate(data["Density"]))
+    if fields.velocity:
+        cell_data["Velocity"] = _scrub(np.concatenate(data["Velocity"]))
+    if fields.velocity_magnitude:
+        cell_data["VelocityMagnitude"] = _scrub(np.concatenate(data["VelocityMagnitude"]))
+    if fields.vorticity and data["Vorticity"]:
+        cell_data["Vorticity"] = _scrub(np.concatenate(data["Vorticity"]))
+    if fields.obstacle:
+        cell_data["Obstacle"] = np.concatenate(data["Obstacle"])
+    if fields.level:
+        cell_data["Level"] = np.concatenate(data["Level"])
+    write_vtu(
+        path,
+        np.concatenate(pt_chunks),
+        np.concatenate(conn_chunks),
+        VTK_VOXEL,
+        cell_data,
+    )
+    log.info("[VTK] wrote %s (%d cells)", path, sum(len(v) for v in data["Density"]))
 
 
 def export_surface_vtu(

@@ -6,6 +6,7 @@ k = (cx+1) + 3(cy+1) + 9(cz+1), cx fastest; `tests/test_torch_host_modules.py`
 holds them equal.  Weights by |c|^2: 8/27 (0), 2/27 (1), 1/54 (2),
 1/216 (3); cs^2 = 1/3.  `tables` builds per-device float32 tensor copies
 on demand; `equilibrium_np` is the reference's float64 equilibrium (:134).
+The blocks layout's `BLOCK_EDGE`, `BLOCK_CELLS` and `OFF` are :129-131.
 """
 
 from __future__ import annotations
@@ -72,14 +73,23 @@ REG_MAT = (
     )
 ).astype(np.float32)
 
+# Flat-cell roll offset inside an 8^3 block for pull streaming (the blocks
+# layout, `open_ludwig_tpu/lattice.py:126-131`).  Local flat index
+# = z*64 + y*8 + x; source cell = (x-cx, y-cy, z-cz), so
+# streamed[k][flat] = f[k][flat - OFF[k]] = roll(f[k], OFF[k]).
+BLOCK_EDGE = 8
+BLOCK_CELLS = BLOCK_EDGE**3
+OFF = (C_Z * BLOCK_EDGE * BLOCK_EDGE + C_Y * BLOCK_EDGE + C_X).astype(np.int32)
+
 
 @lru_cache(maxsize=None)
 def tables(device: str) -> Dict[str, torch.Tensor]:
-    """float32 device copies: W (27,) and CX (27,)."""
+    """Device copies: W (27,) and CX (27,) float32, OPP (27,) int64."""
     dev = torch.device(device)
     return {
         "W": torch.as_tensor(W, dtype=torch.float32, device=dev),
         "CX": torch.as_tensor(C_X, dtype=torch.float32, device=dev),
+        "OPP": torch.as_tensor(OPP, dtype=torch.long, device=dev),
     }
 
 

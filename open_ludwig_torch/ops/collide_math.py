@@ -100,11 +100,11 @@ def collide(
 ):
     """Returns (f_out (27, N), rho_out (N,), vel_out (3, N))."""
     dev = f_str.device
-    W = lat.tables(str(dev))["W"]
-    CX = lat.tables(str(dev))["CX"]
+    tab = lat.tables(str(dev))
+    W, CX = tab["W"], tab["CX"]
     # obstacle bounce-back reads the raw streamed values (the reference's
     # obstacle branch precedes sponge blending)
-    f_bb = f_str[torch.as_tensor(lat.OPP, device=dev, dtype=torch.long)]
+    f_bb = f_str[tab["OPP"]]
 
     rho_raw = torch.clamp(f_str.sum(dim=0), min=0.01)
     jmom = _contract(lat.C, f_str)

@@ -1,10 +1,13 @@
-"""Aerodynamic forces on the finest dense level: surface-stress mapping
-and momentum exchange.
+"""Aerodynamic forces on the finest level: surface-stress mapping and
+momentum exchange.
 
 Port of `open_ludwig_tpu/ops/forces.py`: the stress-mapping path
 (`build_triangle_cell_map_dense`, `_second_sample`,
-`make_force_context_dense`, `_surface_stresses`, `compute_aerodynamics`)
-and the momentum-exchange method (`MEMContext`, `make_mem_context`,
+`make_force_context_dense`, `_surface_stresses`, `compute_aerodynamics`;
+for the blocks layout `build_triangle_cell_map`, `_report_coverage` and
+`make_force_context`, whose cell indices are b * 512 + local, so
+`compute_aerodynamics` serves both layouts) and the momentum-exchange
+method of the patch layout (`MEMContext`, `make_mem_context`,
 `compute_aerodynamics_mem`; see `MEMContext`).
 Each STL triangle is mapped once, in numpy, to its nearest fluid cell
 (expanding-shell semantics, reference: src/forces/surface.jl:138-266);
@@ -15,8 +18,8 @@ each evaluation gathers (rho, vel) at the mapped cells and integrates
   dF_p = -p n A,  dF_v = tau A,  dM = r x dF about the moment center
 
 with symmetry doubling of Fx/Fz/My and zeroing of Fy/Mx/Mz for half
-models (reference: src/forces/surface.jl:282-366, :517-526).  Cell indices
-are flat in the port's unpadded (X, Y, Z) strides.
+models (reference: src/forces/surface.jl:282-366, :517-526).  A patch
+level's cell indices are flat in the port's unpadded (X, Y, Z) strides.
 """
 
 from __future__ import annotations
@@ -145,6 +148,106 @@ def build_triangle_cell_map_dense(
     }
 
 
+def build_triangle_cell_map(
+    mesh: TriMesh,
+    geo,
+    params: DomainParams,
+    search_radius: int = 5,
+    chunk: int = 4096,
+) -> Dict[str, np.ndarray]:
+    """For each triangle: nearest fluid cell (expanding-shell semantics:
+    scan shells outward, stop one shell after the first hit, keep the
+    minimum-distance candidate) and the wall distance in lattice units, on
+    the finest level `geo` (a `domain.builder.LevelGeometry`) of the blocks
+    layout: flat cell indices b * 512 + local."""
+    dx = geo.dx
+    offset = np.asarray(params.mesh_offset)
+    centers = mesh.centers + offset[None, :]  # domain coords
+    n_tri = len(centers)
+    dims_cells = np.asarray(geo.grid_cells)
+
+    # dense obstacle/active lookup for the finest level
+    obstacle_d = np.ones(tuple(dims_cells), bool)  # inactive treated as non-fluid
+    lf = np.arange(512)
+    lx, ly, lz = lf % 8, (lf // 8) % 8, lf // 64
+    gx = geo.coords[:, 0, None] * 8 + lx[None, :]
+    gy = geo.coords[:, 1, None] * 8 + ly[None, :]
+    gz = geo.coords[:, 2, None] * 8 + lz[None, :]
+    obstacle_d[gx, gy, gz] = geo.obstacle
+    block_ptr = geo.block_ptr
+
+    # offsets ordered by Chebyshev shell radius
+    r = search_radius
+    off = np.stack(
+        np.meshgrid(np.arange(-r, r + 1), np.arange(-r, r + 1), np.arange(-r, r + 1),
+                    indexing="ij"),
+        axis=-1,
+    ).reshape(-1, 3)
+    shell = np.abs(off).max(axis=1)
+    order = np.argsort(shell, kind="stable")
+    off = off[order]
+    shell = shell[order]
+
+    cell_idx = np.full(n_tri, -1, np.int64)  # flat cell index b*512 + local
+    wall_dist = np.full(n_tri, 0.5, np.float64)
+    found = np.zeros(n_tri, bool)
+    cell_idx2 = np.zeros(n_tri, np.int64)
+    found2 = np.zeros(n_tri, bool)
+    dn1 = np.full(n_tri, 0.5, np.float64)
+    dn2 = np.full(n_tri, 1.5, np.float64)
+
+    def blk_flat(bc):
+        blk = bc // 8
+        bid = block_ptr[blk[:, 0], blk[:, 1], blk[:, 2]].astype(np.int64)
+        loc = bc % 8
+        return bid * 512 + loc[:, 2] * 64 + loc[:, 1] * 8 + loc[:, 0]
+
+    for s in range(0, n_tri, chunk):
+        e = min(s + chunk, n_tri)
+        tc = centers[s:e]
+        # anchor cell: reference uses floor(t/dx)+1 in 1-based = floor(t/dx) 0-based
+        g0 = np.floor(tc / dx).astype(np.int64)  # (m, 3)
+        cand = g0[:, None, :] + off[None, :, :]  # (m, no, 3)
+        valid = np.all((cand >= 0) & (cand < dims_cells[None, None, :]), axis=2)
+        cc = np.clip(cand, 0, dims_cells - 1)
+        fluid = valid & ~obstacle_d[cc[..., 0], cc[..., 1], cc[..., 2]]
+        cell_cent = (cand + 0.5) * dx
+        d2 = np.sum((cell_cent - tc[:, None, :]) ** 2, axis=2)
+        d2 = np.where(fluid, d2, np.inf)
+        # shell-limited search: allowed shells <= first_hit_shell + 1
+        first_shell = np.where(
+            fluid.any(axis=1), shell[np.argmax(fluid, axis=1)], r + 1
+        )
+        allowed = shell[None, :] <= np.minimum(first_shell + 1, r)[:, None]
+        d2 = np.where(allowed, d2, np.inf)
+        best = np.argmin(d2, axis=1)
+        has = np.isfinite(d2[np.arange(len(best)), best])
+        bc = cc[np.arange(len(best)), best]  # (m, 3) best cell coords
+        cell_idx[s:e] = np.where(has, blk_flat(bc), 0)
+        found[s:e] = has
+        wd = np.sqrt(d2[np.arange(len(best)), best]) / dx
+        wall_dist[s:e] = np.where(has, np.maximum(wd, 0.5), 0.5)
+
+        bc2, has2, d1n, d2n = _second_sample(
+            tc, mesh.normals[s:e], bc, has, dx, dims_cells,
+            lambda cc_: ~obstacle_d[cc_[..., 0], cc_[..., 1], cc_[..., 2]],
+        )
+        cell_idx2[s:e] = np.where(has2, blk_flat(bc2), 0)
+        found2[s:e] = has2
+        dn1[s:e] = d1n
+        dn2[s:e] = np.where(has2, d2n, d1n + 1.0)
+
+    return {
+        "cell_idx": cell_idx.astype(np.int32),
+        "wall_dist": wall_dist.astype(np.float32),
+        "found": found,
+        "cell_idx2": cell_idx2.astype(np.int32),
+        "found2": found2,
+        "dn1": dn1.astype(np.float32),
+        "dn2": dn2.astype(np.float32),
+    }
+
+
 @dataclass
 class ForceContext:
     """Device-side constants for force evaluation."""
@@ -199,12 +302,34 @@ def make_force_context_dense(
     extrapolate: bool = True, device="cpu",
 ) -> ForceContext:
     m = build_triangle_cell_map_dense(mesh, patch, params, search_radius)
-    n, ok = int(m["found"].size), int(np.count_nonzero(m["found"]))
-    log.info("[Forces] stress mapping (patch layout): %d/%d triangles mapped "
-             "(%.1f%%)", ok, n, 100.0 * ok / max(n, 1))
+    _report_coverage(m["found"], "patch layout")
+    return _force_context(m, mesh, patch.tau, params, extrapolate, device)
+
+
+def make_force_context(
+    mesh: TriMesh, geo, params: DomainParams, search_radius: int = 5,
+    extrapolate: bool = True, device="cpu",
+) -> ForceContext:
+    """The force context of the blocks layout's finest level `geo`."""
+    m = build_triangle_cell_map(mesh, geo, params, search_radius)
+    _report_coverage(m["found"], "blocks layout")
+    return _force_context(m, mesh, geo.tau, params, extrapolate, device)
+
+
+def _report_coverage(found: np.ndarray, what: str) -> None:
+    """Stress-mapping coverage diagnostics, mirroring the reference's
+    mapped/total triangle statistics (reference: forces/surface.jl:425-445)."""
+    n, ok = int(found.size), int(np.count_nonzero(found))
+    log.info("[Forces] stress mapping (%s): %d/%d triangles mapped (%.1f%%)",
+             what, ok, n, 100.0 * ok / max(n, 1))
     if ok < n:
         log.warning("[Forces] %d triangles found no nearby fluid cell; their "
                     "pressure/shear contribution is zero", n - ok)
+
+
+def _force_context(m: Dict[str, np.ndarray], mesh: TriMesh, tau: float,
+                   params: DomainParams, extrapolate: bool, device) -> ForceContext:
+    """A triangle -> cell map on `device` with the case's constants."""
     offset = np.asarray(params.mesh_offset)
 
     def t(a, dtype=torch.float32):
@@ -218,7 +343,7 @@ def make_force_context_dense(
         areas=t(mesh.areas.astype(np.float32)),
         centers=t((mesh.centers + offset).T.astype(np.float32)),
         moment_center=t(np.asarray(params.moment_center, np.float32)),
-        tau_molecular=float(patch.tau),
+        tau_molecular=float(tau),
         pressure_scale=float(params.rho_physical * params.velocity_scale**2),
         q_inf=float(0.5 * params.rho_physical * params.u_physical**2),
         area_ref=float(params.reference_area),

@@ -5,11 +5,17 @@
     python -m open_ludwig_torch.runner --batch <cases_to_run.yaml> [<cases_root>] [--device ...]
 
 Port of `open_ludwig_tpu/runner.py` (`solve_case`, `run_all_cases`,
-`plan_case`, the CLI) for `layout: patch` on one device: build the nested
-patches and statics, step the multi-level schedule between event
-boundaries with no host sync (temporal blocking on, as in the JAX runner:
-the finest level's sub-step pairs, or a single-level case's coarse-step
-pairs, run as one fused kernel), and at each boundary:
+`plan_case`, the CLI) for both layouts.  `layout: patch` (the default):
+build the nested patches and statics, step the multi-level schedule
+between event boundaries with no host sync (temporal blocking on, as in
+the JAX runner: the finest level's sub-step pairs, or a single-level
+case's coarse-step pairs, run as one fused kernel).  `layout: blocks`:
+the sparse 8^3-block levels (`domain.builder`, `core.state`) stepped by
+`solver.make_batch_runner` in float32 plain PyTorch, as the JAX package
+runs that layout with no kernel of its own: another `precision` logs a
+warning and runs float32, `forces.method: momentum_exchange` logs a
+warning and falls back to stress mapping, and `devices` builds no mesh.
+At each event boundary:
   - forces (stress mapping, or momentum exchange over the finest level's
     fluid/solid links with the stress maps kept for the surface file)
     into forces.csv at the force cadence;
@@ -21,16 +27,19 @@ pairs, run as one fused kernel), and at each boundary:
   - a checkpoint (npz format 1, written on a background thread) at
     `checkpoint.freq`.
 `checkpoint.resume` continues from the latest checkpoint of the output
-directory, dropping CSV rows past its step.  `OPEN_LUDWIG_PROFILE=<dir>`
-writes a torch.profiler trace of the second batch.  `--batch` runs the
-listed cases, a failing case logged and skipped; `--plan` prints the
-set-up and device-memory report with the card's capacity.  The default
-device is `cuda`, which raises when CUDA is missing; `cpu` runs the plain
-PyTorch path.
+directory, dropping CSV rows past its step.  `async_depth` caps the
+coarse steps per call of the batch runner within a batch (0: the whole
+batch), with no host sync between the calls (reference:
+gpu.async_depth, main.jl:166-180); the states do not depend on it.
+`OPEN_LUDWIG_PROFILE=<dir>` writes a torch.profiler trace of the second
+batch.  `--batch` runs the listed cases, a failing case logged and
+skipped; `--plan` prints the set-up and device-memory report with the
+card's capacity.  The default device is `cuda`, which raises when CUDA is
+missing; `cpu` runs the plain PyTorch path.
 
-`devices: n` (n > 1) cuts every level along x over n devices
-(`parallel.patch_shard`, the JAX package's x-slab mesh): the first n
-visible cards with `--device cuda` (fewer raise), n CPU slabs with
+`devices: n` (n > 1) cuts every level of the patch layout along x over
+n devices (`parallel.patch_shard`, the JAX package's x-slab mesh): the
+first n visible cards with `--device cuda` (fewer raise), n CPU slabs with
 `--device cpu`; `solve_case(cfg, x_mesh=...)` takes a mesh built by the
 caller instead (a virtual mesh of n slabs on one card,
 `XMesh([torch.device("cuda", 0)] * n)`).  The run is then unfused.  Its
@@ -38,13 +47,8 @@ events read a level in the global layout, gathered from the slabs where
 the event needs it (`global_level`: forces and diagnostics on the first
 device, checkpoints and flow files on the host), so forces, statistics
 and files are one device's, and a sharded run resumes from a
-single-device checkpoint and the reverse.
-
-Not ported, and refused with the ROADMAP.md Queue 1 item that ports it:
-the blocks layout.  `async_depth` is read and not
-applied: the eager loop already queues a whole batch without a host sync,
-and splitting batches would change the single-level pair runner's odd
-batches (ROADMAP.md Queue 1, item 3).
+single-device checkpoint and the reverse.  `--plan` reports the patch
+layout, whatever the case's layout, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -65,7 +69,9 @@ import torch
 from . import checkpoint as ckpt
 from .config import CaseConfig, load_batch_list, load_case_config
 from .core.patch import build_patches
+from .core.state import build_all, hbm_report
 from .diagnostics import FlowStats, check_stability, compute_flow_stats
+from .domain.builder import setup_case
 from .geometry import load_mesh
 from .io.csv_out import (
     append_convergence,
@@ -75,7 +81,7 @@ from .io.csv_out import (
     write_convergence_header,
     write_forces_header,
 )
-from .io.vtk import export_flow_vtu_patches, export_surface_vtu
+from .io.vtk import export_flow_vtu, export_flow_vtu_patches, export_surface_vtu
 from .ops import storage
 from .parallel.patch_shard import (
     XMesh,
@@ -88,10 +94,12 @@ from .ops.forces import (
     ForceResult,
     compute_aerodynamics,
     compute_aerodynamics_mem,
+    make_force_context,
     make_force_context_dense,
     make_mem_context,
 )
 from .scaling import compute_domain_params
+from .solver import make_batch_runner
 from .solver_dense import (
     build_patch_statics,
     estimate_capacity,
@@ -123,18 +131,23 @@ class SolveResult:
 
 
 def check_supported(cfg: CaseConfig) -> None:
-    """Raise on configurations that need parts not ported yet."""
-    if cfg.layout != "patch":
-        raise NotImplementedError(
-            f"layout: {cfg.layout} is not ported (ROADMAP.md Queue 1: "
-            "'Blocks layout, last'); use layout: patch")
+    """Raise on configurations the runner does not know."""
+    if cfg.layout not in ("patch", "blocks"):
+        raise ValueError(f"layout: {cfg.layout} is unknown; use patch or blocks")
 
 
 def resolve_mesh(cfg: CaseConfig, dev: torch.device,
                  x_mesh: Optional[XMesh]) -> Optional[XMesh]:
     """The run's x mesh: the caller's, else `cfg.devices` slabs on `dev`'s
     kind (`make_x_mesh`, which raises when fewer cards are visible), else
-    None (one device).  A mesh of one device is no mesh."""
+    None (one device).  A mesh of one device is no mesh.  The blocks
+    layout runs on one device: `devices` builds no mesh for it (the JAX
+    runner's mesh branch is the patch layout's), and a mesh given for it
+    raises."""
+    if cfg.layout == "blocks":
+        if x_mesh is not None and x_mesh.size > 1:
+            raise ValueError("an x mesh needs layout: patch")
+        return None
     if x_mesh is None and cfg.devices > 1:
         x_mesh = make_x_mesh(cfg.devices, dev)
     if x_mesh is not None and x_mesh.size == 1:
@@ -181,12 +194,13 @@ def _truncate_csv_after_step(path: str, resume_step: int) -> None:
 
 
 def _check_resumed(states: List[Dict], levels, precision: str, path: str) -> None:
-    """The loaded states must be the case's levels, in its storage type."""
+    """The loaded states must be the case's levels, in its storage type (a
+    blocks level: (27, nb, 512) float32)."""
     want_dt = storage.f_dtype(precision)
     if len(states) != len(levels):
         raise ValueError(f"{path}: {len(states)} levels, the case has {len(levels)}")
     for st, p in zip(states, levels):
-        sh = tuple(p.interior)
+        sh = ((p.n_blocks, 512) if hasattr(p, "block_ptr") else tuple(p.interior))
         if (tuple(st["f"].shape) != (27,) + sh or tuple(st["rho"].shape) != sh
                 or tuple(st["vel"].shape) != (3,) + sh or st["f"].dtype != want_dt):
             raise ValueError(
@@ -214,10 +228,21 @@ def solve_case(cfg: CaseConfig, device="cuda",
              os.path.basename(cfg.case_dir))
     log.info("=" * 70)
 
-    mesh = load_mesh(cfg.stl_path, scale=cfg.stl_scale)
-    params = compute_domain_params(cfg, mesh.min_bounds, mesh.max_bounds)
-    levels = build_patches(cfg, mesh, params)
-    statics = build_patch_statics(cfg, levels, dev, x_mesh=x_mesh)
+    blocks = cfg.layout == "blocks"
+    fresh = None  # the blocks layout's rest states, built with its statics
+    if blocks:
+        if storage.normalize_precision(cfg.precision) != storage.STORE_F32:
+            log.warning("[Config] precision=%s is only supported on layout=patch; "
+                        "the blocks layout runs float32", cfg.precision)
+        # float32 from here on: the states, a resumed checkpoint's check
+        cfg = cfg.with_overrides(precision=storage.STORE_F32)
+        mesh, params, levels = setup_case(cfg)
+        fresh, statics = build_all(cfg, params, levels, dev)
+    else:
+        mesh = load_mesh(cfg.stl_path, scale=cfg.stl_scale)
+        params = compute_domain_params(cfg, mesh.min_bounds, mesh.max_bounds)
+        levels = build_patches(cfg, mesh, params)
+        statics = build_patch_statics(cfg, levels, dev, x_mesh=x_mesh)
     total_cells = sum(p.n_cells for p in levels)
     updates = sum(p.n_cells * 2 ** (p.level_id - 1) for p in levels)
 
@@ -228,13 +253,15 @@ def solve_case(cfg: CaseConfig, device="cuda",
     if latest:
         # a sharded run loads on the host and cuts the global arrays
         resume_step, states = ckpt.load_checkpoint(
-            latest, cfg.precision, "cpu" if x_mesh is not None else dev)
+            latest, None if blocks else cfg.precision,
+            "cpu" if x_mesh is not None else dev)
         _check_resumed(states, levels, cfg.precision, latest)
         if x_mesh is not None:
             states = shard_states(states, x_mesh)
         log.info("[Checkpoint] resumed from %s at step %d", latest, resume_step)
     else:
-        states = (init_states_sharded(levels, cfg.precision, x_mesh)
+        states = (fresh if blocks else
+                  init_states_sharded(levels, cfg.precision, x_mesh)
                   if x_mesh is not None else
                   [init_patch_state(p, cfg.precision, dev) for p in levels])
         if os.path.isdir(out_dir):
@@ -242,13 +269,21 @@ def solve_case(cfg: CaseConfig, device="cuda",
                 p = os.path.join(out_dir, f)
                 shutil.rmtree(p) if os.path.isdir(p) else os.remove(p)
         os.makedirs(out_dir, exist_ok=True)
-    log.info(hbm_report_patches(levels, statics, cfg.precision, dev, x_mesh=x_mesh))
-    for line in kernel_log_lines(levels, statics, cfg.precision, dev, x_mesh=x_mesh):
-        log.info(line)
+    fresh = None
+    if blocks:
+        log.info(hbm_report(levels, statics))
+        log.info("[Engine] blocks layout: float32 plain PyTorch step on every "
+                 "level (the JAX package's blocks layout has no kernel)")
+    else:
+        log.info(hbm_report_patches(levels, statics, cfg.precision, dev,
+                                    x_mesh=x_mesh))
+        for line in kernel_log_lines(levels, statics, cfg.precision, dev,
+                                     x_mesh=x_mesh):
+            log.info(line)
     log.info("[Info] Re = %.0f, levels = %d, tau = %s", params.re_number,
              params.num_levels, ", ".join(f"{t:.6f}" for t in params.tau_levels))
-    log.info("[Info] total cells: %.2f M (layout=patch) | %.2f M site updates "
-             "per coarse step | host setup %.1f s", total_cells / 1e6,
+    log.info("[Info] total cells: %.2f M (layout=%s) | %.2f M site updates "
+             "per coarse step | host setup %.1f s", total_cells / 1e6, cfg.layout,
              updates / 1e6, time.time() - t_start)
 
     conv_csv = os.path.join(out_dir, "convergence.csv")
@@ -265,11 +300,11 @@ def solve_case(cfg: CaseConfig, device="cuda",
 
     force_ctx = mem_ctx = None
     if cfg.forces_enabled:
-        force_ctx = make_force_context_dense(
+        force_ctx = (make_force_context if blocks else make_force_context_dense)(
             mesh, levels[-1], params, extrapolate=cfg.force_extrapolate,
             device=dev)
         if cfg.force_method == "momentum_exchange":
-            mem_ctx = make_mem_context(
+            mem_ctx = None if blocks else make_mem_context(
                 levels[-1], params, mesh,
                 g_storage=storage.f_dtype(cfg.precision) == torch.bfloat16,
                 device=dev)
@@ -282,8 +317,11 @@ def solve_case(cfg: CaseConfig, device="cuda",
                 log.info("[Forces] momentum-exchange integration over %d "
                          "fluid/solid interface links", mem_ctx.n_links)
 
-    run = make_batch_runner_dense(cfg, params, levels, statics, x_mesh=x_mesh)
-    states = run.seed_slabs(states)
+    if blocks:
+        run = make_batch_runner(cfg, params, statics)
+    else:
+        run = make_batch_runner_dense(cfg, params, levels, statics, x_mesh=x_mesh)
+        states = run.seed_slabs(states)
     gathered: Dict = {}  # (level, device) -> the level gathered since the batch
 
     def global_level(lvl: int, device=dev) -> Dict:
@@ -354,9 +392,11 @@ def solve_case(cfg: CaseConfig, device="cuda",
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
             ev[0].record()
-        # the whole batch is queued without a host sync; async_depth is not
-        # applied (module docstring)
-        states = run(states, t, batch_end - t + 1)
+        # the whole batch is queued without a host sync, in calls of at most
+        # async_depth coarse steps (0: one call)
+        depth = cfg.async_depth if cfg.async_depth > 0 else batch_end - t + 1
+        for t_sub in range(t, batch_end + 1, depth):
+            states = run(states, t_sub, min(depth, batch_end - t_sub + 1))
         gathered.clear()
         if cuda:
             ev[1].record()
@@ -410,7 +450,8 @@ def solve_case(cfg: CaseConfig, device="cuda",
         if cfg.output_freq > 0 and t_done % cfg.output_freq == 0:
             path = os.path.join(out_dir, f"flow_{t_done:06d}.vtu")
             t0 = time.time()
-            export_flow_vtu_patches(path, levels, host_states(), cfg.output_fields)
+            (export_flow_vtu if blocks else export_flow_vtu_patches)(
+                path, levels, host_states(), cfg.output_fields)
             outputs.append(("flow", t_done, path, time.time() - t0))
             if force_ctx is not None:
                 if last_forces is None or t_done % cfg.diag_freq != 0:

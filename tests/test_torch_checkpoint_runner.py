@@ -294,11 +294,12 @@ def test_resume_is_bit_equal_and_truncates_csvs(run2):
 
 
 def test_runner_accepts_ported_configs(run2):
-    """momentum_exchange, checkpoint.freq > 0 and checkpoint.resume (run
-    above and in the tests beside this one) pass the runner's check."""
+    """momentum_exchange, checkpoint.freq > 0, checkpoint.resume (run
+    above and in the tests beside this one) and layout: blocks
+    (tests/test_torch_blocks_runner.py) pass the runner's check."""
     cfg = run2[0]
     for over in (dict(force_method="momentum_exchange"), dict(checkpoint_freq=10),
-                 dict(checkpoint_resume=True)):
+                 dict(checkpoint_resume=True), dict(layout="blocks")):
         runner.check_supported(dataclasses.replace(cfg, **over))
 
 

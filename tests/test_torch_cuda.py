@@ -169,7 +169,8 @@ def test_flat_and_inplace_kernels_match_plain(bench, sweep, cuda_device, kernel,
 
 @pytest.mark.parametrize("store_bf16", [False, True], ids=["f32", "bf16"])
 @pytest.mark.parametrize("kind,level,n,i", [("k1", 1, 3, 1), ("k1", 1, 2, 0),
-                                            ("flat", 0, 3, 1), ("inplace", 0, 2, 1)])
+                                            ("flat", 0, 3, 1), ("flat", 0, 2, 0),
+                                            ("flat", 0, 2, 1), ("inplace", 0, 2, 1)])
 def test_shard_step_kernels_match_plain(bench, cuda_device, kind, level, n, i,
                                         store_bf16):
     """The sharded forms of K1, K4 and K5 on one x slab of a bench level:

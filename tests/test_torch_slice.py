@@ -152,12 +152,14 @@ def test_solve_case_writes_jax_csv_columns(sphere2, tmp_path):
 
 
 def test_runner_refuses_unported_configs(sphere2):
-    """The blocks layout is refused with its ROADMAP item; several devices
-    pass (the x-slab path, tests/test_torch_shard_runner.py), as momentum
-    exchange and checkpoints do (tests/test_torch_checkpoint_runner.py)."""
+    """A layout the runner does not know is refused; the blocks layout
+    (tests/test_torch_blocks_runner.py) and several devices pass (the
+    x-slab path, tests/test_torch_shard_runner.py), as momentum exchange
+    and checkpoints do (tests/test_torch_checkpoint_runner.py)."""
     cfg = sphere2[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        runner.check_supported(dataclasses.replace(cfg, layout="blocks"))
+    with pytest.raises(ValueError, match="layout: octree is unknown"):
+        runner.check_supported(dataclasses.replace(cfg, layout="octree"))
+    runner.check_supported(dataclasses.replace(cfg, layout="blocks"))
     runner.check_supported(dataclasses.replace(cfg, devices=2))
 
 
