@@ -159,6 +159,23 @@ Phases, each raising on failure (nothing is caught):
      f and vel within 5e-6, and the difference from K1 printed;
      11c. the bench case (patch, bf16) for 20 coarse steps with
      `async_depth` 3 and 0: final states bit-equal, the same CSV steps.
+  12. the shipped cases (`CASES/`) on the card through `solve_case`, each
+     cut to 200 coarse steps (diagnostics and forces every 50): the cube
+     (4 levels), the wing at 5 degrees (3 levels, a Bouzidi box 10 cells
+     thick), the Re~10M sphere (4 levels) and the half model of the Re~1M
+     sphere (`symmetric_analysis`, its Bouzidi box on the finest level's
+     y = 0 face): launch counts per coarse step from the kernel each level
+     takes (K4 / K1 per sub-step, K3 + K2 per pair of the finest), finite
+     CSVs, rho in (0.5, 1.5), ms per coarse step, MLUPS-su and MLUPS-ref
+     from CUDA events over the intervals after the first, 10 coarse steps
+     profiled (`tools/profile_slice.py`: CUDA device operations and the
+     device-busy share), the peak allocation of the run; then each level's
+     kernel against its plain version at the case's shapes (K4 also
+     against K1, equal; K1 on the inner levels; K2 on the finest box; K3 +
+     K2 against the plain pair and against K1 -> K2 -> K1); last, the
+     Re~1M validation case (`tools/validate_spheres`, float32, wall model
+     on) for 600 coarse steps past the ramp from one perturbed state, K3
+     pairs twice and K1 -> K2 -> K1, all three bit-equal.
 Every check prints its bound beside its time: the bytes the call must
 move over the card's memory rate (or its operations over the float32
 rate, where larger; `checks.bound`).  Before the last lines, neither jax
@@ -605,6 +622,186 @@ def phase_11(dev, smi, tmp, check_run_outputs, states_equal):
           flush=True)
     require(equal, "async_depth 3 against 0")
     print(f"[11 blocks] phase {time.time() - t_phase:.1f} s", flush=True)
+
+
+# the shipped cases of CASES/ that phase 12 runs: (label, case, half model)
+SHIPPED = (("cube", "cube", False), ("wing_5deg", "wing_5deg", False),
+           ("sphere_re10m", "sphere_re10m", False),
+           ("half_re1m", "sphere_re1m", True))
+
+
+LONG_STEPS = 600  # coarse steps of phase 12's long-horizon check
+
+
+def shipped_launches(statics) -> dict:
+    """Launches per coarse step of a multi-level case, fused (the runner's
+    default), from the kernel each level takes: level l runs 2^(l-1)
+    sub-steps, K4 on a flat level and K1 on the others, except the finest,
+    whose sub-step pairs run on K3 with K2 after each pair."""
+    want = {}
+    for lvl, st in enumerate(statics):
+        n = 2 ** lvl
+        if lvl == len(statics) - 1:
+            want["fused_pair"] = n // 2
+            if st["bouzidi"] is not None:
+                want["bouzidi"] = n // 2
+        else:
+            key = "stream_collide_flat" if st["engine"] == "flat" else "stream_collide"
+            want[key] = want.get(key, 0) + n
+    return want
+
+
+def phase_12(dev, smi, tmp, check_run_outputs):
+    """Phase 12, the shipped cases on the card (module docstring)."""
+    import torch
+
+    from open_ludwig_torch import checks
+    from open_ludwig_torch.config import load_case_config
+    from open_ludwig_torch.ops import cuda_step, storage
+    from open_ludwig_torch.runner import solve_case
+    from open_ludwig_torch.solver_dense import (
+        build_patch_statics, hbm_total_patches, init_patch_state,
+        make_batch_runner_dense)
+    from open_ludwig_torch.tools import profile_slice
+
+    none = {k: 0 for k in cuda_step.LAUNCHES}
+    t_phase = time.time()
+    for label, name, half in SHIPPED:
+        t0 = time.time()
+        full = load_case_config(os.path.join(checks.CASES_DIR, name)).steps
+        cfg = checks.shipped_config(os.path.join(tmp, "shipped", label), name,
+                                    symmetric=half)
+        _, params, levels = checks.case_levels(cfg)
+        statics = build_patch_statics(cfg, levels, dev)
+        bf16 = storage.f_dtype(cfg.precision) == torch.bfloat16
+        per_step = shipped_launches(statics)
+        est = hbm_total_patches(levels, statics, cfg.precision, dev)
+        tag = f"[12 {label}]"
+        print(f"{tag} CASES/{name}{' as the half model (y = 0 mirror)' if half else ''}"
+              f", cut to {cfg.steps} of its {full} coarse steps, {cfg.precision}: "
+              + ", ".join(f"L{p.level_id} {tuple(p.interior)} {st['engine']}"
+                          for p, st in zip(levels, statics))
+              + f" | Bouzidi box {tuple(statics[-1]['bouzidi']['dim'])} at "
+              f"{tuple(statics[-1]['bouzidi']['lo'])} | launches a coarse step "
+              f"{per_step}", flush=True)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        live0 = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        cuda_step.reset_launches()
+        res = solve_case(cfg, device="cuda")
+        got = dict(cuda_step.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev) - live0
+        require(got == {**none, **{k: v * cfg.steps for k, v in per_step.items()}},
+                (label, "launches", got, per_step))
+        check_run_outputs(res, cfg)
+        require(res.final_stats.rho_max < 1.5, (label, "rho_max", res.final_stats))
+        win = res.windows[1:]  # the first interval carries the warm-up
+        n_steps = sum(b - a + 1 for a, b, _ in win)
+        ms = sum(t for _, _, t in win) / n_steps
+        run = make_batch_runner_dense(cfg, params, levels, statics)
+        states = run([init_patch_state(p, cfg.precision, dev) for p in levels], 1, 20)
+        prof, states = profile_slice.profile_steps(run, states, 21, 10,
+                                                   res.updates_per_coarse)
+        require(all(bool(torch.isfinite(st["rho"]).all()) for st in states),
+                (label, "profiled states"))
+        del run, states
+        print(f"{tag} {res.total_cells / 1e6:.3f}M cells, {res.updates_per_coarse / 1e6:.3f}"
+              f"M site updates per coarse step | {n_steps} steps after the first 50: "
+              f"{ms:.3f} ms/coarse step (CUDA events), "
+              f"{res.updates_per_coarse / ms / 1e3:.1f} MLUPS-su, "
+              f"{res.total_cells / ms / 1e3:.1f} MLUPS-ref | profiled 10 steps: "
+              f"{prof['ms']:.3f} ms, {prof['device_ops']:.1f} CUDA device operations "
+              f"per coarse step, device busy "
+              + (f"{100 * prof['busy_share']:.1f}%" if prof["busy_share"] is not None
+                 else "not measured")
+              + f" | peak allocated {peak / 1e9:.3f} GB (hbm_report estimate "
+              f"{est / 1e9:.3f} GB) | rho "
+              f"{res.final_stats.rho_min:.4f}..{res.final_stats.rho_max:.4f}, Cd "
+              f"{res.final_forces.Cd:.4f} | card: {smi}", flush=True)
+
+        # each level's kernel against its plain version at this case's shapes
+        kw = dict(c_wale=cfg.c_wale, nu_sgs_background=cfg.nu_sgs_background,
+                  inlet_turbulence=cfg.inlet_turbulence_intensity,
+                  wall_model=cfg.wall_model_enabled,
+                  sponge_blend=cfg.sponge_blend_distributions)
+        for lvl, (p, st) in enumerate(zip(levels, statics)):
+            seed, where = 50 + lvl, f"L{p.level_id} {tuple(p.interior)}"
+            if lvl == len(levels) - 1:
+                plan = st["bouzidi"]
+                r = checks.check_bouzidi(p, plan, bf16, seed, dev, reps=10, plain_reps=2)
+                print(f"{tag} K2 on {where}: box {tuple(plan['dim'])} at "
+                      f"{tuple(plan['lo'])}, {r['links']} links, err "
+                      f"{r['max_abs_err']:.2e} (tol {r['tol']:.0e}) | {r['ms']:.5f} ms "
+                      f"(graph {r['graph_ms']:.5f}), bound {r['bound_ms']:.6f} ms, plain "
+                      f"{r['plain_ms']:.3f} ms", flush=True)
+                require(r["changed"] > 0 and r["max_abs_err"] < r["tol"]
+                        and r["peak_bytes"] == 0, (label, "K2", r))
+                r = checks.check_fused_pair(p, checks.with_sponge_ramp(st), plan, bf16,
+                                            seed, kw, dev, reps=5, plain_reps=1)
+                u = r["unfused"]
+                print(f"{tag} K3 + K2 on {where}: vs plain err {r['max_abs_err']:.2e} "
+                      f"(tol {r['tol']:.0e}) | vs K1 -> K2 -> K1: max "
+                      f"{u['max_abs_err']:.2e}, {100 * u['diff_frac']:.3f}% stored f "
+                      f"differ | K3 {r['ms']:.4f} ms per pair (bound {r['bound_ms']:.4f}),"
+                      f" unfused {r['unfused_ms']:.4f}, plain {r['plain_ms']:.3f}",
+                      flush=True)
+                require(r["finite"] and r["max_abs_err"] < r["tol"]
+                        and checks.within_k3_tol(u, bf16), (label, "K3", r["err"], u))
+            elif st["engine"] == "flat":
+                r = checks.check_flat(p, st, bf16, seed, kw, dev, reps=5, plain_reps=1)
+                print(f"{tag} K4 on {where}: vs plain err {r['max_abs_err']:.2e} (tol "
+                      f"{r['tol']:.0e}), vs K1 {100 * r['k1']['diff_frac']:.4f}% stored f"
+                      f" differ | {r['ms']:.4f} ms (graph {r['graph_ms']:.4f}), bound "
+                      f"{r['bound_ms']:.4f}, plain {r['plain_ms']:.3f}", flush=True)
+                require(r["finite"] and r["max_abs_err"] < r["tol"]
+                        and r["k1"]["diff_frac"] == 0, (label, "K4", r["err"]))
+            else:
+                r = checks.check_stream_collide(p, checks.with_sponge_ramp(st), bf16,
+                                                seed, kw, dev, reps=5, plain_reps=1)
+                print(f"{tag} K1 on {where}: vs plain err {r['max_abs_err']:.2e} (tol "
+                      f"{r['tol']:.0e}) | {r['ms']:.4f} ms, bound {r['bound_ms']:.4f}, "
+                      f"plain {r['plain_ms']:.3f}", flush=True)
+                require(r["finite"] and r["max_abs_err"] < r["tol"], (label, "K1", r["err"]))
+        del statics, levels
+        torch.cuda.empty_cache()
+        print(f"{tag} {time.time() - t0:.1f} s", flush=True)
+    # the validation regime's case (Re~1M, float32, wall model on) over a
+    # long horizon from one perturbed state: K3 pairs twice and unfused
+    # K1 -> K2 -> K1, which must stay bit-equal step after step
+    from open_ludwig_torch.tools.validate_spheres import make_case
+
+    t0 = time.time()
+    cfg = load_case_config(make_case("1M", os.path.join(tmp, "shipped", "long")))
+    _, params, levels = checks.case_levels(cfg)
+    statics = build_patch_statics(cfg, levels, dev)
+    gen = torch.Generator(device=dev)
+    finals = []
+    for fuse2 in (True, True, False):
+        gen.manual_seed(77)
+        states = [{"f": init_patch_state(p, cfg.precision, dev)["f"]
+                   * (1 + 0.01 * torch.randn((27,) + tuple(p.interior), generator=gen,
+                                             device=dev)),
+                   "rho": torch.ones(tuple(p.interior), device=dev),
+                   "vel": torch.zeros((3,) + tuple(p.interior), device=dev)}
+                  for p in levels]
+        run = make_batch_runner_dense(cfg, params, levels, statics, fuse2=fuse2)
+        finals.append(run(states, 2001, LONG_STEPS))
+    torch.cuda.synchronize(dev)
+
+    def equal(a, b):
+        return all(torch.equal(x[k], y[k]) for x, y in zip(a, b)
+                   for k in ("f", "rho", "vel"))
+    same, unfused = equal(finals[0], finals[1]), equal(finals[0], finals[2])
+    rho = finals[0][-1]["rho"]
+    print(f"[12 long] the Re~1M validation case (float32, wall model), "
+          f"{LONG_STEPS} coarse steps past the ramp from one perturbed state: "
+          f"K3 pairs twice bit-equal {same}, equal to K1 -> K2 -> K1 {unfused} | "
+          f"finest rho {float(rho.min()):.4f}..{float(rho.max()):.4f} | "
+          f"{time.time() - t0:.1f} s", flush=True)
+    require(same and unfused, ("long horizon", same, unfused))
+    del finals, states, statics
+    print(f"[12 shipped] phase {time.time() - t_phase:.1f} s", flush=True)
 
 
 def main(argv=None) -> int:
@@ -1073,7 +1270,7 @@ def main(argv=None) -> int:
                                           fuse2=fuse2)
             state = cloned(state1)
             per_step[fuse2].append(
-                checks.time_cuda(lambda: run(state, 1, 50), reps=1) / 50)
+                checks.time_cuda(lambda: run(list(state), 1, 50), reps=1) / 50)
             del state
         print("[6 single] 50-step batch, per coarse step (fused, unfused, "
               "unfused, fused): " + ", ".join(
@@ -1359,6 +1556,9 @@ def main(argv=None) -> int:
         # ---- 11. the blocks layout, and async_depth ----
         del statics
         phase_11(dev, smi, tmp, check_run_outputs, states_equal)
+
+        # ---- 12. the shipped cases ----
+        phase_12(dev, smi, tmp, check_run_outputs)
 
     print(f"[done] {time.time() - t_run:.1f} s", flush=True)
 

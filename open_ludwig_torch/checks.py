@@ -46,11 +46,14 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import os
 import re
+import shutil
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import yaml
 
 from . import lattice as lat
 from .cases import make_case_sphere
@@ -176,6 +179,52 @@ def bench_config(case_dir: str, **over) -> CaseConfig:
                 wake_enabled=True, precision="bfloat16")
     opts.update(over)
     make_case_sphere(case_dir, "1M", **opts)
+    return load_case_config(case_dir)
+
+
+CASES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "CASES")
+
+
+def edit_config(case_dir: str, overrides: Dict[str, object]) -> None:
+    """Set dotted keys of `case_dir`/config.yaml ("advanced.numerics.u_lattice"),
+    making the sections a key names where they are missing."""
+    path = os.path.join(case_dir, "config.yaml")
+    with open(path) as fh:
+        doc = yaml.safe_load(fh)
+    for key, value in overrides.items():
+        sec = doc
+        *parents, leaf = key.split(".")
+        for p in parents:
+            sec = sec.setdefault(p, {})
+        sec[leaf] = value
+    with open(path, "w") as fh:
+        yaml.safe_dump(doc, fh, sort_keys=False)
+
+
+def copy_case(name: str, case_dir: str, overrides: Dict[str, object]) -> str:
+    """The shipped case CASES/`name` (config.yaml and its STL) copied to
+    `case_dir`, its config edited by `edit_config`."""
+    src = os.path.join(CASES_DIR, name)
+    os.makedirs(case_dir, exist_ok=True)
+    with open(os.path.join(src, "config.yaml")) as fh:
+        stl = yaml.safe_load(fh)["basic"]["stl_file"]
+    shutil.copy(os.path.join(src, stl), os.path.join(case_dir, stl))
+    shutil.copy(os.path.join(src, "config.yaml"), os.path.join(case_dir, "config.yaml"))
+    edit_config(case_dir, overrides)
+    return case_dir
+
+
+def shipped_config(case_dir: str, name: str, symmetric: bool = False) -> CaseConfig:
+    """The shipped case CASES/`name` copied to `case_dir` and cut to 200
+    coarse steps (the shipped configs run 6,000-12,000): forces and
+    diagnostics every 50, no flow file; `symmetric` makes it the half
+    model (`refinement.symmetric_analysis`, the mirror plane y = 0 through
+    the body)."""
+    steps = 200
+    copy_case(name, case_dir, {
+        "basic.simulation.steps": steps, "basic.simulation.output_freq": 10 * steps,
+        "advanced.diagnostics.freq": 50,
+        "advanced.refinement.symmetric_analysis": symmetric})
     return load_case_config(case_dir)
 
 

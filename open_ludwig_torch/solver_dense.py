@@ -52,7 +52,7 @@ slab_schedule`.
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -338,26 +338,30 @@ def make_batch_runner_dense(cfg: CaseConfig, params: DomainParams,
     single-level case with a pair step runs pairs of coarse steps; an odd
     batch of n >= 3 takes one plain step first (the JAX runner's rule,
     open_ludwig_tpu/solver_dense.py:690-700).  The states first get their
-    carried endpoint slabs (`run.seed_slabs`, idempotent).  A level run in
-    place (K5) updates the f tensor of the states passed in.  With `x_mesh`
-    the states are per slab (`parallel.patch_shard.shard_states`) and every
-    coarse step is unfused (`run.fused2` False)."""
+    carried endpoint slabs (`run.seed_slabs`, idempotent).  `run` takes
+    over the list it is given, as the JAX runner's jit takes its states
+    (`donate_argnums=(0,)`): each step replaces the list's entries, so the
+    caller's list does not keep the batch's first states alive on the
+    device, and that list is returned.  A level run in place (K5) updates
+    the f tensor of the states passed in.  With `x_mesh` the states are
+    per slab (`parallel.patch_shard.shard_states`) and every coarse step
+    is unfused (`run.fused2` False)."""
     coarse_step = make_coarse_step_dense(cfg, params, patches, statics,
                                          fuse2=fuse2, x_mesh=x_mesh)
     pair = coarse_step.pair_step
 
     def run(states: List[Dict], t0: int, n: int) -> List[Dict]:
         t0, n = int(t0), int(n)
-        states = coarse_step.seed_slabs(states)
+        states[:] = coarse_step.seed_slabs(states)
         if pair is not None and n >= 2:
             if n % 2:
-                states = coarse_step(states, t0)
+                states[:] = coarse_step(states, t0)
                 t0, n = t0 + 1, n - 1
             for i in range(n // 2):
-                states = pair(states, t0 + 2 * i)
+                states[:] = pair(states, t0 + 2 * i)
             return states
         for t in range(t0, t0 + n):
-            states = coarse_step(states, t)
+            states[:] = coarse_step(states, t)
         return states
 
     run.fused2 = coarse_step.fused2
@@ -382,8 +386,27 @@ def hbm_report_patches(patches: List[PatchLevel], statics: List[Dict],
     if x_mesh is not None:
         from .parallel.patch_shard import hbm_report_sharded
         return hbm_report_sharded(patches, statics, precision, x_mesh)
-    f_bytes = 2 if storage.f_dtype(precision) == torch.bfloat16 else 4
     dev = torch.device(device)
+    lines, total = _hbm_account(patches, statics, precision, dev)
+    if dev.type == "cuda":
+        live = torch.cuda.memory_allocated(dev)
+        cap = torch.cuda.get_device_properties(dev).total_memory
+        lines.append(f"  device live: {live/1e9:.3f} GB allocated of "
+                     f"{cap/1e9:.1f} GB (estimate/live = "
+                     f"{total/max(live, 1):.2f})")
+    return "\n".join(lines)
+
+
+def hbm_total_patches(patches: List[PatchLevel], statics: List[Dict],
+                      precision: str = "float32", device="cpu") -> int:
+    """The estimated total of `hbm_report_patches` (one device), in bytes."""
+    return _hbm_account(patches, statics, precision, torch.device(device))[1]
+
+
+def _hbm_account(patches: List[PatchLevel], statics: List[Dict], precision: str,
+                 dev: torch.device) -> Tuple[List[str], int]:
+    """The report's lines up to its estimated total, and that total."""
+    f_bytes = 2 if storage.f_dtype(precision) == torch.bfloat16 else 4
     lines = [f"Device memory (dense patches, {precision} f-storage):"]
     total = 0
     trans = []
@@ -428,13 +451,7 @@ def hbm_report_patches(patches: List[PatchLevel], statics: List[Dict],
     total += max(trans)
     lines.append(f"  estimated total: {total/1e9:.3f} GB (incl. "
                  f"{max(trans)/1e6:.0f} MB step transient of the largest level)")
-    if dev.type == "cuda":
-        live = torch.cuda.memory_allocated(dev)
-        cap = torch.cuda.get_device_properties(dev).total_memory
-        lines.append(f"  device live: {live/1e9:.3f} GB allocated of "
-                     f"{cap/1e9:.1f} GB (estimate/live = "
-                     f"{total/max(live, 1):.2f})")
-    return "\n".join(lines)
+    return lines, total
 
 
 def hbm_bytes_per_cell(precision: str, transient: bool = True,

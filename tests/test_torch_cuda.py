@@ -9,7 +9,11 @@ and the single-level shape, also against K1 (equal), K4 also into
 preallocated outputs; K6 over its links, also against K2 on the same S,
 allocating nothing; the sharded forms of K1, K4, K5 (one x slab with its
 neighbours' edge planes) and K2 (the box split between two slabs) against
-their plain versions and against the unsharded kernels (equal).
+their plain versions and against the unsharded kernels (equal); K2 on the
+shipped wing's 10-cell-thick box and K3 + K2 on the shipped half model's
+box, which lies on its finest level's y = 0 face; 600 coarse steps of a
+developing 3-level sphere flow through `solve_case` on the card against
+the CPU's plain path.
 
 Every test here needs an NVIDIA GPU and nvcc, and skips without them.  On
 the card:  python -m pytest tests/test_torch_*.py -q
@@ -193,3 +197,82 @@ def test_bouzidi_shard_kernel_matches_plain(bench, cuda_device, store_bf16):
     r = checks.check_bouzidi_shard(levels[2], plan, store_bf16, 63, cut, cuda_device,
                                    reps=1, plain_reps=1)
     assert r["max_abs_err"] < r["tol"] and r["whole"]["diff_frac"] == 0.0, r
+
+
+@pytest.fixture(scope="module")
+def shipped(cuda_device, tmp_path_factory):
+    """The shipped wing at 5 degrees and the half model of the Re~1M sphere
+    (`checks.shipped_config`): config, levels and statics on the card."""
+    out = {}
+    for label, name, half in (("wing", "wing_5deg", False),
+                              ("half", "sphere_re1m", True)):
+        cfg = checks.shipped_config(str(tmp_path_factory.mktemp(label)), name,
+                                    symmetric=half)
+        levels = checks.case_levels(cfg)[2]
+        out[label] = (cfg, levels, build_patch_statics(cfg, levels, cuda_device))
+    return out
+
+
+@pytest.mark.parametrize("store_bf16", [False, True], ids=["f32", "bf16"])
+def test_bouzidi_kernel_wing_thin_box(shipped, cuda_device, store_bf16):
+    """K2 on the wing's finest box, 10 cells thick in z."""
+    _, levels, statics = shipped["wing"]
+    plan = statics[-1]["bouzidi"]
+    assert plan["dim"][2] == 10, plan["dim"]
+    r = checks.check_bouzidi(levels[-1], plan, store_bf16, 71, cuda_device,
+                             reps=1, plain_reps=1)
+    assert r["changed"] > 0 and r["max_abs_err"] < r["tol"], r
+    assert r["peak_bytes"] == 0, r
+
+
+@pytest.mark.parametrize("store_bf16", [False, True], ids=["f32", "bf16"])
+def test_fused_pair_half_model_face_box(shipped, cuda_device, store_bf16):
+    """K3 + K2 on the half model's finest level, whose Bouzidi box lies on
+    the level's y = 0 face: against the plain pair and K1 -> K2 -> K1."""
+    cfg, levels, statics = shipped["half"]
+    plan = statics[-1]["bouzidi"]
+    assert plan["lo"][1] == 0, plan["lo"]
+    kw = dict(c_wale=cfg.c_wale, nu_sgs_background=cfg.nu_sgs_background,
+              inlet_turbulence=0.02, wall_model=True, sponge_blend=True)
+    r = checks.check_fused_pair(levels[-1], checks.with_sponge_ramp(statics[-1]), plan,
+                                store_bf16, 73, kw, cuda_device, reps=1, plain_reps=1)
+    assert r["finite"] and r["max_abs_err"] < r["tol"], r
+    assert checks.within_k3_tol(r["unfused"], store_bf16), r["unfused"]
+
+
+def test_long_run_matches_plain_path(cuda_device, tmp_path):
+    """A developing flow over 600 coarse steps through `solve_case`: the
+    sphere at Re~1M, N=10, 3 levels with the wake box, the wall model and
+    Bouzidi, float32, on the card's kernels and on the CPU's plain path.
+    Before the wake's chaos parts them, their forces.csv rows agree to
+    the float32 drift of two summation orders (1e-3 in Cd and Cl; the
+    JAX package's XLA path and the port's plain path keep this over the
+    same steps): a kernel that misbehaves only in a developed flow would
+    move them further."""
+    import csv
+
+    import yaml
+
+    from open_ludwig_torch.cases import make_case_sphere
+    from open_ludwig_torch.config import load_case_config
+    from open_ludwig_torch.runner import solve_case
+
+    d = str(tmp_path)
+    make_case_sphere(d, "1M", surface_resolution=10, num_levels=3, steps=600,
+                     ramp_steps=200, output_freq=10**9, diag_freq=50)
+    with open(f"{d}/config.yaml") as fh:
+        doc = yaml.safe_load(fh)
+    doc["advanced"].setdefault("high_re", {})["min_coarse_blocks"] = 1
+    with open(f"{d}/config.yaml", "w") as fh:
+        yaml.safe_dump(doc, fh)
+    rows = {}
+    for device in ("cuda", "cpu"):
+        cfg = load_case_config(d).with_overrides(output_dir=f"R_{device}")
+        assert solve_case(cfg, device=device).steps == 600
+        with open(f"{cfg.output_path}/forces.csv") as fh:
+            rows[device] = list(csv.DictReader(fh))
+    assert len(rows["cuda"]) == len(rows["cpu"]) == 12
+    for a, b in zip(rows["cuda"], rows["cpu"]):
+        assert a["Step"] == b["Step"]
+        for key in ("Cd", "Cl"):
+            assert abs(float(a[key]) - float(b[key])) <= 1e-3, (a["Step"], key, a, b)

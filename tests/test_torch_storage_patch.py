@@ -6,8 +6,9 @@ package, and the port's independence from jax.
   its tight Bouzidi plan equals the reference's aligned one after
   embedding, for a 3-level sphere (surface_resolution 16, the smallest
   that keeps three levels);
-- no source of the port (nor chip_smoke.py) imports jax or the JAX
-  package, at top level or inside a function (an AST scan), and importing
+- no source of the port (its tools included, nor chip_smoke.py) imports
+  jax or the JAX package, at top level or inside a function (an AST
+  scan), and importing
   every module of the port, building a case with its own `cases`, stepping
   it and running its Bouzidi probe on the CPU loads neither (checked in a
   fresh interpreter).
@@ -125,6 +126,10 @@ def test_port_sources_never_import_jax():
                              recursive=True)) + [os.path.join(REPO, "chip_smoke.py")]
     assert len(paths) > 25, paths
     assert os.path.join(REPO, "open_ludwig_torch", "parallel", "patch_shard.py") in paths
+    # the validation and capacity tools count as the port
+    for tool in ("validate_spheres", "re10m_ci", "validate_wing", "wing_cv_probe",
+                 "mem_probe", "mem_convergence", "plan_216m", "big_shard_probe"):
+        assert os.path.join(REPO, "open_ludwig_torch", "tools", tool + ".py") in paths
     bad = []
     for path in paths:
         with open(path) as fh:
@@ -159,6 +164,7 @@ def test_port_never_imports_jax(tmp_path):
             importlib.import_module(name)
         assert "open_ludwig_torch.tools.probe_bz_encoding" in mods, mods
         assert "open_ludwig_torch.parallel.patch_shard" in mods, mods
+        assert "open_ludwig_torch.tools.big_shard_probe" in mods, mods
         from open_ludwig_torch.cases import make_case_sphere
         from open_ludwig_torch.config import load_case_config
         from open_ludwig_torch.runner import solve_case
