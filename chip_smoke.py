@@ -138,8 +138,9 @@ Phases, each raising on failure (nothing is caught):
      1e-5 x the sum of |link contribution| of float64,
      `checks.mem_float64`); then 50 coarse steps timed with CUDA events for
      n = 1 (unfused), 2, 3 in turns;
-     10c. the 63.7M-cell row on 2 slabs (K5 + K2), 10 steps from phase 7's
-     perturbed state, bit-equal to the unsharded K5 run, with the peak
+     10c. the 63.7M-cell row on 2 slabs (K5 + K2), graphed, 10 steps from
+     phase 7's perturbed state, bit-equal to the unsharded eager K5 loop
+     (`graphs=False`), with the peak
      allocation of one sharded coarse step;
      10d. `solve_case` with `devices: 2` and no mesh raises on a one-card
      machine.
@@ -176,6 +177,24 @@ Phases, each raising on failure (nothing is caught):
      Re~1M validation case (`tools/validate_spheres`, float32, wall model
      on) for 600 coarse steps past the ramp from one perturbed state, K3
      pairs twice and K1 -> K2 -> K1, all three bit-equal.
+  13. the batch as one program (`graphs.py`): each case's batch runner
+     graphed (each coarse step, or pair, one CUDA graph replay, the inlet
+     speed and seeds read from the step record on the card) against its
+     eager loop (`graphs=False`, every launch from the host) from one
+     perturbed state with inlet noise 0.02, over calls (1, 7), (8, 12),
+     (20, 3), (23, 18) across a 20-step ramp: the states bit-equal and the
+     kernel launches executed equal (the graphed run's are its captured
+     launches times its replays, fewer issued by the wrappers), float32
+     and bf16, on the bench case (13a), CASES/cube (13b, 4 levels), the
+     10.8M-cell pair runner and the same level on K5 in place (13c), the
+     bench on 2 virtual slabs (13d) and
+     the bench on layout: blocks (13e, float32); then, for one type of
+     each, 20 coarse steps a call in turns graph, eager, eager, graph
+     (`tools/profile_slice.turns`): ms per coarse step, CUDA device
+     operations, device-busy share and peak allocation; and `solve_case`
+     on the bench graphed and eager, 40 steps: forces.csv rows identical.
+     The phases above that count launches a coarse step read
+     `cuda_step.executed_launches()`, the runners being graphed there too.
 Every check prints its bound beside its time: the bytes the call must
 move over the card's memory rate (or its operations over the float32
 rate, where larger; `checks.bound`).  Before the last lines, neither jax
@@ -201,6 +220,12 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
+
+
+def measured(v, spec: str = ".1f", scale: float = 1.0) -> str:
+    """A profiled number, or "not measured" where the trace was incomplete
+    (`profile_slice.drop_incomplete`)."""
+    return "not measured" if v is None else f"{v * scale:{spec}}"
 
 
 def require(ok: bool, what) -> None:
@@ -352,7 +377,7 @@ def phase_10(dev, smi, kw, tmp, trimesh, params, levels, statics, sweep, row7):
         t0 = time.time()
         r = solve_case(cfg10.with_overrides(output_dir=out_dir), device="cuda",
                        x_mesh=mesh)
-        got = dict(cuda_step.LAUNCHES)
+        got = cuda_step.executed_launches()
         sec = time.time() - t0
         require(got == want, (f"sharded launches on {n} slabs", got, want))
         if n == 2:
@@ -401,13 +426,16 @@ def phase_10(dev, smi, kw, tmp, trimesh, params, levels, statics, sweep, row7):
     mesh = vmesh(2)
     stat_r = build_patch_statics(cfg7, levels7, dev, x_mesh=mesh)
     require(stat_r[0]["engine"] == "inplace", ("row engine on 2 slabs", stat_r[0]["engine"]))
-    one = make_batch_runner_dense(cfg7, params7, levels7, statics7)
+    # the reference is one device's eager loop: a record or replay fault
+    # that the graphed one-device and sharded forms share would not show
+    # against a graphed one
+    one = make_batch_runner_dense(cfg7, params7, levels7, statics7, graphs=False)
     two = make_batch_runner_dense(cfg7, params7, levels7, stat_r, x_mesh=mesh)
     want_ref = one([{**s, "f": s["f"].clone()} for s in state7], 1, 10)
     sh = shard_states(state7, mesh)
     cuda_step.reset_launches()
     sh = two(sh, 1, 10)
-    got = dict(cuda_step.LAUNCHES)
+    got = cuda_step.executed_launches()
     nbz = sum(s["bouzidi"] is not None for s in stat_r[0]["shards"])
     require(got == {**{k: 0 for k in got}, "stream_collide_inplace_shard": 20,
                     "bouzidi_shard": 10 * nbz}, ("row launches on 2 slabs", got))
@@ -415,13 +443,15 @@ def phase_10(dev, smi, kw, tmp, trimesh, params, levels, statics, sweep, row7):
     equal = states_equal(gather_states(sh, dev), want_ref)
     torch.cuda.synchronize()
     live = torch.cuda.memory_allocated(dev)
-    peak = checks.step_peak_bytes(lambda: two(sh, 11, 1), dev)
+    peak = checks.step_peak_bytes(lambda: two(sh, 11, 1), dev, two.graph_set)
     n_cells = levels7[0].n_cells
     b = slab_bounds(levels7[0].interior[0], 2)
     print(f"[10c shard] the {n_cells / 1e6:.1f}M-cell row on 2 virtual slabs x {b} "
-          f"(K5 + K2 sharded): 10 steps bit-equal to one device's K5 run: {equal} | "
+          f"(K5 + K2 sharded, graphed): 10 steps bit-equal to one device's eager K5 "
+          f"loop: {equal} | "
           f"launches {dict((k, v) for k, v in got.items() if v)} | one sharded "
-          f"coarse step's peak above the live {live / 1e9:.2f} GB: {peak / 1e9:.3f} "
+          f"coarse step's peak above the live {live / 1e9:.2f} GB, the graphs' "
+          f"pool included: {peak / 1e9:.3f} "
           f"GB, {peak / 2 / 1e9:.3f} GB per slab (a slab's rho + vel "
           f"{n_cells / 2 * 16 / 1e9:.3f} GB) | card: {smi}", flush=True)
     require(equal, "63.7M row on 2 slabs against one device")
@@ -479,7 +509,7 @@ def phase_11(dev, smi, tmp, check_run_outputs, states_equal):
     t0 = time.time()
     res = solve_case(cfg, device="cuda")
     wall = time.time() - t0
-    got = dict(cuda_step.LAUNCHES)
+    got = cuda_step.executed_launches()
     peak = torch.cuda.max_memory_allocated(dev) - live0
     require(got == none, ("the blocks layout launched a kernel", got))
     check_run_outputs(res, cfg)
@@ -537,11 +567,10 @@ def phase_11(dev, smi, tmp, check_run_outputs, states_equal):
                                                res.updates_per_coarse)
     print(f"[11a blocks] 10 coarse steps after 20 of warm-up, one call each: "
           f"{prof['ms']:.3f} ms/coarse step ({prof['mlups_su']:.1f} MLUPS-su; CUDA "
-          f"events) | under torch.profiler: {prof['device_ops']:.1f} CUDA device "
-          f"operations (launches) per coarse step, device busy "
-          + (f"{100 * prof['busy_share']:.1f}%" if prof["busy_share"] is not None
-             else "not measured")
-          + f" of {prof['window_ms'] / 10:.3f} ms per profiled step | card: {smi}",
+          f"events) | under torch.profiler: {measured(prof['device_ops'])} CUDA "
+          f"device operations (launches) per coarse step, device busy "
+          f"{measured(prof['busy_share'], '.1%')} of {prof['window_ms'] / 10:.3f} ms "
+          f"per profiled step | card: {smi}",
           flush=True)
     print("[11a blocks] most launched: " + "; ".join(
         f"{t['per_call']:.0f} x {t['name']}" for t in prof["top"]), flush=True)
@@ -690,7 +719,7 @@ def phase_12(dev, smi, tmp, check_run_outputs):
         torch.cuda.reset_peak_memory_stats(dev)
         cuda_step.reset_launches()
         res = solve_case(cfg, device="cuda")
-        got = dict(cuda_step.LAUNCHES)
+        got = cuda_step.executed_launches()
         peak = torch.cuda.max_memory_allocated(dev) - live0
         require(got == {**none, **{k: v * cfg.steps for k, v in per_step.items()}},
                 (label, "launches", got, per_step))
@@ -711,11 +740,10 @@ def phase_12(dev, smi, tmp, check_run_outputs):
               f"{ms:.3f} ms/coarse step (CUDA events), "
               f"{res.updates_per_coarse / ms / 1e3:.1f} MLUPS-su, "
               f"{res.total_cells / ms / 1e3:.1f} MLUPS-ref | profiled 10 steps: "
-              f"{prof['ms']:.3f} ms, {prof['device_ops']:.1f} CUDA device operations "
-              f"per coarse step, device busy "
-              + (f"{100 * prof['busy_share']:.1f}%" if prof["busy_share"] is not None
-                 else "not measured")
-              + f" | peak allocated {peak / 1e9:.3f} GB (hbm_report estimate "
+              f"{prof['ms']:.3f} ms, {measured(prof['device_ops'])} CUDA device "
+              f"operations per coarse step, device busy "
+              f"{measured(prof['busy_share'], '.1%')} | peak allocated "
+              f"{peak / 1e9:.3f} GB (hbm_report estimate "
               f"{est / 1e9:.3f} GB) | rho "
               f"{res.final_stats.rho_min:.4f}..{res.final_stats.rho_max:.4f}, Cd "
               f"{res.final_forces.Cd:.4f} | card: {smi}", flush=True)
@@ -802,6 +830,199 @@ def phase_12(dev, smi, tmp, check_run_outputs):
     require(same and unfused, ("long horizon", same, unfused))
     del finals, states, statics
     print(f"[12 shipped] phase {time.time() - t_phase:.1f} s", flush=True)
+
+
+# phase 13's batches: (t0, n) calls of the batch runner from t = 1 across
+# the ramp (RAMP13 coarse steps) and past it, odd and even n
+RAMP13 = 20
+CALLS13 = ((1, 7), (8, 12), (20, 3), (23, 18))
+
+
+def phase_13(dev, smi, tmp, random_states, states_equal):
+    """Phase 13, the batch as one program: graph replay against the eager
+    loop (module docstring)."""
+    import numpy as np
+    import torch
+
+    from open_ludwig_torch import checks, solver
+    from open_ludwig_torch.core.state import build_all
+    from open_ludwig_torch.domain.builder import setup_case
+    from open_ludwig_torch.ops import cuda_step
+    from open_ludwig_torch.parallel.patch_shard import XMesh, gather_states, shard_states
+    from open_ludwig_torch.runner import solve_case
+    from open_ludwig_torch.solver_dense import build_patch_statics, make_batch_runner_dense
+    from open_ludwig_torch.tools import profile_slice
+
+    TURNS13 = profile_slice.TURNS
+    t_phase = time.time()
+    steps13 = sum(n for _, n in CALLS13)
+
+    def compare(tag, make, fresh, updates, turns: bool, gather=lambda s: s,
+                prof_steps=5):
+        """The eager loop and the graphed runner from equal states over
+        CALLS13: bit-equal states, equal kernel launches executed (the
+        graphed run's from its replays); then, with `turns`, both timed in
+        turns (`profile_slice.turns`)."""
+        t0 = time.time()
+        runs = {"eager": make(False), "graph": make(True)}
+        got = {}
+        for mode in ("eager", "graph"):
+            st = fresh()
+            cuda_step.reset_launches()
+            for a, n in CALLS13:
+                st = runs[mode](st, a, n)
+            torch.cuda.synchronize(dev)
+            got[mode] = (gather(st), cuda_step.executed_launches(),
+                         sum(cuda_step.LAUNCHES.values()), dict(cuda_step.REPLAYS))
+            del st
+        equal = states_equal(got["eager"][0], got["graph"][0])
+        ex = {k: v for k, v in got["eager"][1].items() if v}
+        gx = {k: v for k, v in got["graph"][1].items() if v}
+        replays = sum(got["graph"][3].values())
+        gset = runs["graph"].graph_set
+        print(f"{tag} {steps13} coarse steps in calls {CALLS13} (ramp {RAMP13}, inlet "
+              f"noise 0.02): graph replay bit-equal to the eager loop: {equal} | "
+              f"launches executed, eager {ex} / graph {gx} ({got['graph'][2]} issued "
+              f"by the wrappers at warm-up and capture, {replays} replays) | "
+              f"{gset.report()} | {time.time() - t0:.1f} s", flush=True)
+        require(equal, (tag, "graph replay against the eager loop"))
+        require(ex == gx and replays > len(CALLS13) and len(gset.graphs) > 0
+                and (not ex or got["graph"][2] < sum(ex.values())),
+                (tag, "launch accounting", ex, gx, got["graph"][2], replays))
+        del got
+        if not turns:
+            return None
+        t1 = time.time()
+        res = profile_slice.turns(runs, fresh, 1, 20, updates, dev, TURNS13,
+                                  prof_steps=prof_steps)
+
+        def fmt(key, scale=1.0, spec=".3f"):
+            return "/".join(measured(r[key], spec, scale)
+                            for m in TURNS13[:2] for r in res[m])
+
+        print(f"{tag} in turns graph, eager, eager, graph (printed graph, graph / "
+              f"eager, eager; 20 coarse steps a call after 4, then {prof_steps} "
+              f"profiled): ms a coarse step "
+              f"{fmt('ms')} | CUDA device "
+              f"operations a coarse step {fmt('device_ops', spec='.1f')} | device "
+              f"busy % {fmt('busy_share', 100, '.1f')} | peak allocated above the "
+              f"live state GB {fmt('peak_bytes', 1e-9)} (live "
+              f"{res['graph'][0]['live_bytes'] / 1e9:.3f} GB) | MLUPS-su "
+              f"{fmt('mlups_su', spec='.0f')} | {time.time() - t1:.1f} s | card: "
+              f"{smi}", flush=True)
+        del runs
+        torch.cuda.empty_cache()
+        return res
+
+    out = {}
+    # ---- 13a. the bench case, and 13d. the bench on 2 virtual slabs ----
+    for prec in ("bfloat16", "float32"):
+        bf = prec == "bfloat16"
+        cfg = checks.bench_config(os.path.join(tmp, f"g13_{prec}"), precision=prec,
+                                  ramp_steps=RAMP13).with_overrides(
+                                      inlet_turbulence_intensity=0.02)
+        t0 = time.time()
+        _, params, levels = checks.case_levels(cfg)
+        statics = build_patch_statics(cfg, levels, dev)
+        print(f"[13a bench {prec}] case built in {time.time() - t0:.1f} s", flush=True)
+        upd = sum(p.n_cells * 2 ** (p.level_id - 1) for p in levels)
+        out[("bench", prec)] = compare(
+            f"[13a bench {prec}]",
+            lambda g: make_batch_runner_dense(cfg, params, levels, statics, graphs=g),
+            lambda: random_states(levels, prec, 53), upd, turns=bf)
+        mesh = XMesh([dev] * 2)
+        stat2 = build_patch_statics(cfg, levels, dev, x_mesh=mesh)
+        out[("mesh2", prec)] = compare(
+            f"[13d bench on 2 virtual slabs {prec}]",
+            lambda g: make_batch_runner_dense(cfg, params, levels, stat2,
+                                              x_mesh=mesh, graphs=g),
+            lambda: shard_states(random_states(levels, prec, 53), mesh), upd,
+            turns=bf, gather=lambda s: gather_states(s, dev))
+        del statics, stat2
+    # the runner end to end: forces.csv rows of both modes identical
+    t0 = time.time()
+    cfg = checks.bench_config(os.path.join(tmp, "g13_run"), steps=40,
+                              ramp_steps=RAMP13, diag_freq=10).with_overrides(
+                                  inlet_turbulence_intensity=0.02)
+    rows, res = {}, {}
+    for mode in ("graph", "eager"):
+        c = cfg.with_overrides(output_dir=f"RESULTS_{mode}")
+        cuda_step.reset_launches()
+        res[mode] = solve_case(c, device="cuda", graphs=mode == "graph")
+        with open(os.path.join(c.output_path, "forces.csv")) as fh:
+            rows[mode] = fh.read().splitlines()
+    same = rows["graph"] == rows["eager"] and len(rows["graph"]) == 5
+    print(f"[13a bench run] solve_case 40 steps (ramp {RAMP13}), forces every 10: "
+          f"forces.csv rows of the graphed and the eager runner identical: {same} "
+          f"({len(rows['graph']) - 1} rows) | graphed: {res['graph'].graph_report} | "
+          f"{time.time() - t0:.1f} s", flush=True)
+    require(same and res["graph"].final_forces.Cd == res["eager"].final_forces.Cd,
+            ("solve_case graph against eager", rows))
+
+    # ---- 13b. CASES/cube: 4 levels, four K3 pairs a coarse step ----
+    for prec in ("float32", "bfloat16"):
+        cfg = checks.shipped_config(os.path.join(tmp, f"g13_cube_{prec}"), "cube"
+                                    ).with_overrides(precision=prec, ramp_steps=RAMP13,
+                                                     inlet_turbulence_intensity=0.02)
+        t0 = time.time()
+        _, params, levels = checks.case_levels(cfg)
+        statics = build_patch_statics(cfg, levels, dev)
+        print(f"[13b cube {prec}] case built in {time.time() - t0:.1f} s", flush=True)
+        require(len(levels) == 4, ("cube levels", len(levels)))
+        upd = sum(p.n_cells * 2 ** (p.level_id - 1) for p in levels)
+        out[("cube", prec)] = compare(
+            f"[13b cube {prec}]",
+            lambda g: make_batch_runner_dense(cfg, params, levels, statics, graphs=g),
+            lambda: random_states(levels, prec, 59), upd, turns=prec == "float32")
+        del statics
+
+    # ---- 13c. the 10.8M-cell single level: the pair runner ----
+    t0 = time.time()
+    cfg = checks.bench_config(os.path.join(tmp, "g13_single"), surface_resolution=25,
+                              num_levels=1, ramp_steps=RAMP13)
+    _, params, levels = checks.case_levels(cfg)
+    print(f"[13c 10.8M single level] case built in {time.time() - t0:.1f} s",
+          flush=True)
+    for prec in ("bfloat16", "float32"):
+        c = cfg.with_overrides(precision=prec, inlet_turbulence_intensity=0.02)
+        statics = build_patch_statics(c, levels, dev)
+        out[("single", prec)] = compare(
+            f"[13c 10.8M single level {prec}]",
+            lambda g: make_batch_runner_dense(c, params, levels, statics, graphs=g),
+            lambda: random_states(levels, prec, 61), levels[0].n_cells,
+            turns=prec == "bfloat16", prof_steps=20)
+        # K5 in place on the same level: its edge copy reads what the
+        # previous replay wrote into the one f buffer
+        k5 = [{**s, "engine": "inplace", "engine_why": "forced"} for s in statics]
+        compare(f"[13c 10.8M single level, K5 forced {prec}]",
+                lambda g: make_batch_runner_dense(c, params, levels, k5, graphs=g),
+                lambda: random_states(levels, prec, 61), levels[0].n_cells,
+                turns=False)
+        del statics, k5
+    torch.cuda.empty_cache()
+
+    # ---- 13e. layout: blocks (float32, as the JAX package runs it) ----
+    t0 = time.time()
+    cfg = checks.bench_config(os.path.join(tmp, "g13_blocks"), precision="float32",
+                              ramp_steps=RAMP13).with_overrides(
+                                  layout="blocks", inlet_turbulence_intensity=0.02)
+    _, params, levels = setup_case(cfg)
+    base, statics = build_all(cfg, params, levels, dev)
+    gen = torch.Generator(device=dev).manual_seed(67)
+    for st in base:
+        st["f"] = st["f"] * (1 + 0.03 * torch.randn(st["f"].shape, generator=gen,
+                                                    device=dev))
+    print(f"[13e blocks] bench case on the blocks layout rebuilt in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    out[("blocks", "float32")] = compare(
+        "[13e blocks float32]",
+        lambda g: solver.make_batch_runner(cfg, params, statics, graphs=g),
+        lambda: [{k: v.clone() for k, v in st.items()} for st in base],
+        sum(g.n_cells * 2 ** (g.level_id - 1) for g in levels), turns=True)
+    del base, statics
+    torch.cuda.empty_cache()
+    print(f"[13 graphs] phase {time.time() - t_phase:.1f} s", flush=True)
+    return out
 
 
 def main(argv=None) -> int:
@@ -1174,7 +1395,7 @@ def main(argv=None) -> int:
         # ---- 5. the slice through the runner ----
         cuda_step.reset_launches()
         res = solve_case(cfg, device="cuda")
-        launches = dict(cuda_step.LAUNCHES)
+        launches = cuda_step.executed_launches()
         steps = cfg.steps
         print(f"[5 slice] launches {launches} over {steps} coarse steps", flush=True)
         require(launches == {**none, "stream_collide_flat": steps,
@@ -1200,14 +1421,13 @@ def main(argv=None) -> int:
                                                   res.updates_per_coarse)
         print(f"[5 slice] 10 coarse steps after 20 of warm-up, one call each: "
               f"{p5['ms']:.3f} ms/coarse step ({p5['mlups_su']:.1f} MLUPS-su; CUDA "
-              f"events) | under torch.profiler: {p5['device_ops']:.1f} CUDA device "
-              f"operations per coarse step, the port's launches "
-              f"{p5['port_launches']} ({p5['port_kernels']:.1f} of its kernels "
-              f"seen), device time {p5['port_device_ms']:.3f} ms in the port's "
-              f"kernels + {p5['other_device_ms']:.3f} ms in the rest, device busy "
-              + (f"{100 * p5['busy_share']:.1f}%" if p5["busy_share"] is not None
-                 else "not measured")
-              + f" of {p5['window_ms'] / 10:.3f} ms per profiled step | card: {smi}",
+              f"events) | under torch.profiler: {measured(p5['device_ops'])} CUDA "
+              f"device operations per coarse step, the port's launches "
+              f"{p5['port_launches']} ({measured(p5['port_kernels'])} of its kernels "
+              f"seen), device time {measured(p5['port_device_ms'], '.3f')} ms in the "
+              f"port's kernels + {measured(p5['other_device_ms'], '.3f')} ms in the "
+              f"rest, device busy {measured(p5['busy_share'], '.1%')} of "
+              f"{p5['window_ms'] / 10:.3f} ms per profiled step | card: {smi}",
               flush=True)
         print("[5 slice] most launched: " + "; ".join(
             f"{t['per_call']:.0f} x {t['name']}" for t in p5["top"]), flush=True)
@@ -1223,7 +1443,7 @@ def main(argv=None) -> int:
         print(f"[6 single] case written in {time.time() - t0:.1f} s", flush=True)
         cuda_step.reset_launches()
         res1 = solve_case(cfg1, device="cuda")
-        got = dict(cuda_step.LAUNCHES)
+        got = cuda_step.executed_launches()
         sizes = [b - a + 1 for a, b, _ in res1.windows]
         want = {**none, "stream_collide": sum(n % 2 for n in sizes),
                 "fused_pair": sum(n // 2 for n in sizes),
@@ -1289,7 +1509,7 @@ def main(argv=None) -> int:
             domain_tile_snap=True, steps=20, diag_freq=10)
         cuda_step.reset_launches()
         res7 = solve_case(cfg7, device="cuda")
-        got7 = dict(cuda_step.LAUNCHES)
+        got7 = cuda_step.executed_launches()
         steps7 = cfg7.steps
         print(f"[7 in place] launches {got7} over {steps7} coarse steps", flush=True)
         require(got7 == {**none, "stream_collide_inplace": steps7, "bouzidi": steps7},
@@ -1450,7 +1670,7 @@ def main(argv=None) -> int:
         t0 = time.time()
         cuda_step.reset_launches()
         res9 = solve_case(cfg9, device="cuda")
-        got9 = dict(cuda_step.LAUNCHES)
+        got9 = cuda_step.executed_launches()
         print(f"[9b outputs] launches {got9} over {cfg9.steps} coarse steps | "
               f"solve {time.time() - t0:.1f} s (set-up and outputs included)",
               flush=True)
@@ -1519,7 +1739,7 @@ def main(argv=None) -> int:
         t0 = time.time()
         cuda_step.reset_launches()
         res9c = solve_case(cfg9.with_overrides(checkpoint_resume=True), device="cuda")
-        got9c = dict(cuda_step.LAUNCHES)
+        got9c = cuda_step.executed_launches()
         require(res9c.resume_step == 100 and got9c == {
             k: n * 100 for k, n in per_step.items()}, ("resumed run", got9c))
         _, resumed = ckpt.load_checkpoint(path200, cfg9.precision, dev)
@@ -1559,6 +1779,9 @@ def main(argv=None) -> int:
 
         # ---- 12. the shipped cases ----
         phase_12(dev, smi, tmp, check_run_outputs)
+
+        # ---- 13. the batch as one program: graphs against the eager loop ----
+        phase_13(dev, smi, tmp, random_states, states_equal)
 
     print(f"[done] {time.time() - t_run:.1f} s", flush=True)
 

@@ -684,9 +684,11 @@ def check_inplace(patch: PatchLevel, static: Dict, store_bf16: bool, seed: int,
     return out
 
 
-def step_peak_bytes(fn: Callable[[], object], device) -> int:
+def step_peak_bytes(fn: Callable[[], object], device, graph_set=None) -> int:
     """Bytes allocated at the peak of one call of `fn` above what was live
-    before it (its outputs included)."""
+    before it (its outputs included), plus, where `fn` replays the CUDA
+    graphs of `graph_set` (`graphs.GraphSet`), their pool, which a replay
+    uses without allocating."""
     torch.cuda.synchronize(device)
     base = torch.cuda.memory_allocated(device)
     torch.cuda.reset_peak_memory_stats(device)
@@ -694,7 +696,7 @@ def step_peak_bytes(fn: Callable[[], object], device) -> int:
     torch.cuda.synchronize(device)
     peak = torch.cuda.max_memory_allocated(device) - base
     del out
-    return int(peak)
+    return int(peak + (graph_set.pool_bytes if graph_set is not None else 0))
 
 
 def check_bouzidi(patch: PatchLevel, plan: Dict, store_bf16: bool, seed: int,

@@ -133,8 +133,11 @@ def hbm_report(levels: List[LevelGeometry], statics: List[Dict]) -> str:
     sub-step writes a new f, rho and vel while the old ones are alive, and
     a parent's pre-step state lives until its children's sub-steps have
     read it: the transient counted is the largest level's new state (the
-    collision's own temporaries come on top).  On CUDA, the device's live
-    allocation beside it."""
+    collision's own temporaries come on top).  The graphed runner (the
+    default on a card) holds that transient for the whole run instead: the
+    captured step allocates its new states and temporaries in the graphs'
+    pool and copies the new states back into the first ones.  On CUDA, the
+    device's live allocation beside it."""
     rows, total, trans = hbm_estimate(levels, statics)
     lines = ["Device memory (blocks layout, float32; plan indices int64):"]
     for geo, state_b, field_b, plan_b, bz_b in rows:
@@ -144,6 +147,10 @@ def hbm_report(levels: List[LevelGeometry], statics: List[Dict]) -> str:
             f"plan {plan_b/1e6:6.1f} MB | bouzidi {bz_b/1e6:5.1f} MB")
     lines.append(f"  estimated total: {total/1e9:.3f} GB (incl. {trans/1e6:.0f} MB "
                  "step transient of the largest level)")
+    lines.append("  graphed runner (the default on a card): the step's transient "
+                 "and its temporaries stay in the graphs' pool for the run (its "
+                 "bytes on the [Graph] log line), each step's new state copied "
+                 "back into the first")
     dev = statics[0]["obstacle"].device
     if dev.type == "cuda":
         live = torch.cuda.memory_allocated(dev)

@@ -382,7 +382,9 @@ extern "C" int ol_fused_pair(
     const void* pb1, const void* pb2, const void* pb3, const void* pb4,
     const void* pb5, const void* S, int X, int Y, int Z, int lo_y, int lo_z,
     int bc0, int bc1, int bc2, int bc3, int bc4, int bc5, float u_a,
-    float u_b, int seed_a, int seed_b, double tau, double c_wale,
+    float u_b, int seed_a, int seed_b, const void* rec_t, const void* rec_u,
+    int rec_last, int dt_a, int shift_a, int k_a, int dt_b, int shift_b,
+    int k_b, double tau, double c_wale,
     double nu_sgs, double inlet_turb, int wall_model, int sponge_blend,
     int lx, int ly, int lz, int bx, int by, int bz, void* stream) {
   Params p;
@@ -402,7 +404,9 @@ extern "C" int ol_fused_pair(
                       sponge_blend) ||
       !lbm::make_step(p.b, planes_b, bcs, X, Y, Z, lo_y, lo_z, u_b, seed_b,
                       tau, c_wale, nu_sgs, inlet_turb, wall_model,
-                      sponge_blend))
+                      sponge_blend) ||
+      !lbm::set_record(p.a, rec_t, rec_u, rec_last, dt_a, shift_a, k_a) ||
+      !lbm::set_record(p.b, rec_t, rec_u, rec_last, dt_b, shift_b, k_b))
     return (int)cudaErrorInvalidValue;
   p.S = static_cast<const float*>(S);
   p.lx = lx;

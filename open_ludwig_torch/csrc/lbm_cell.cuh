@@ -61,6 +61,16 @@ struct Step {
   int lo_y, lo_z;
   float u_inlet;
   int seed;
+  // The step record (solver.StepRecord): where rec_t is set, the inlet
+  // speed and the noise seed are read on the device in place of u_inlet
+  // and seed, from the coarse-step counter *rec_t and the speed table
+  // rec_u: with tc = *rec_t + rec_dt, u = rec_u[min(tc, rec_last)] and
+  // seed = ((tc << rec_shift) + rec_k) % 1000000, rec_shift the level's
+  // depth and rec_k the sub-step within the coarse step.  A CUDA graph
+  // then replays one captured launch at every step.
+  const int* rec_t;
+  const float* rec_u;
+  int rec_last, rec_dt, rec_shift, rec_k;
   float tau, c_wale2, nu_sgs, inlet_turb, nu_visc, c17;
   int wall_model, sponge_blend;
 };
@@ -94,6 +104,9 @@ static inline bool make_step(Step& s, const void* const planes[6],
   s.lo_z = lo_z;
   s.u_inlet = u_inlet;
   s.seed = seed;
+  s.rec_t = nullptr;
+  s.rec_u = nullptr;
+  s.rec_last = s.rec_dt = s.rec_shift = s.rec_k = 0;
   s.tau = (float)tau;
   s.c_wale2 = (float)(c_wale * c_wale);
   s.nu_sgs = (float)nu_sgs;
@@ -103,6 +116,34 @@ static inline bool make_step(Step& s, const void* const planes[6],
   s.wall_model = wall_model;
   s.sponge_blend = sponge_blend;
   return true;
+}
+
+// Host side: the Step reads its inlet speed and seed from the step record
+// (rec_t null: the by-value u_inlet and seed stay); false for a table
+// without entries.
+static inline bool set_record(Step& s, const void* rec_t, const void* rec_u,
+                              int last, int dt, int shift, int k) {
+  if (!rec_t) return true;
+  if (!rec_u || last < 0 || dt < 0 || shift < 0 || shift > 16 || k < 0)
+    return false;
+  s.rec_t = static_cast<const int*>(rec_t);
+  s.rec_u = static_cast<const float*>(rec_u);
+  s.rec_last = last;
+  s.rec_dt = dt;
+  s.rec_shift = shift;
+  s.rec_k = k;
+  return true;
+}
+
+// The sub-step's inlet speed and noise seed: the Step's own, or read from
+// the step record (uniform branch; two cached loads).
+__device__ __forceinline__ float inlet_u(const Step& p) {
+  if (!p.rec_t) return p.u_inlet;
+  return __ldg(p.rec_u + min(__ldg(p.rec_t) + p.rec_dt, p.rec_last));
+}
+__device__ __forceinline__ int noise_seed(const Step& p) {
+  if (!p.rec_t) return p.seed;
+  return (((__ldg(p.rec_t) + p.rec_dt) << p.rec_shift) + p.rec_k) % 1000000;
 }
 
 // Every input of K1-K4 is read-only while it runs (A -> B buffers), so
@@ -164,10 +205,10 @@ template <bool G>
 __device__ __forceinline__ float inlet_factor(const Step& p, int gx, int y,
                                               int z) {
   if (p.bc[0] != BC_INLET || gx != 0) return 0.0f;
-  const float u_in = p.u_inlet;
+  const float u_in = inlet_u(p);
   float u_inst = u_in;
   if (p.inlet_turb > 0.0f) {
-    const float noise = hash_noise(y + p.lo_y + 1, z + p.lo_z + 1, p.seed);
+    const float noise = hash_noise(y + p.lo_y + 1, z + p.lo_z + 1, noise_seed(p));
     u_inst = u_in + noise * p.inlet_turb * u_in;
   }
   return (G ? 0.0f : 1.0f) + 3.0f * u_inst + 4.5f * u_inst * u_inst -
@@ -187,7 +228,7 @@ __device__ __forceinline__ float face_value(const Step& p, int k, int face,
   const int bc = p.bc[face];
   if (bc == BC_INLET) return weight(k) * inlet_fac;
   if (bc == BC_OUTLET) {
-    const float u_in = p.u_inlet;
+    const float u_in = inlet_u(p);
     const float cu = (float)cx * u_in;
     return weight(k) *
            ((G ? 0.0f : 1.0f) + 3.0f * cu + 4.5f * cu * cu - 1.5f * u_in * u_in);
@@ -333,7 +374,7 @@ __device__ __forceinline__ void collide_values(const Step& p, bool solid, float 
                                                float wd, VelGrad vel_grad,
                                                float f[27], float& rho_out,
                                                float u_out[3], Mark mark = Mark()) {
-  const float u_in = p.u_inlet;
+  const float u_in = inlet_u(p);
   if (solid) {
     // full bounce-back of the raw streamed values
     // (reference: src/physics_kernels.jl:154-166)

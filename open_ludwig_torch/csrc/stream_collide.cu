@@ -86,15 +86,17 @@ extern "C" int ol_stream_collide(
     const void* plane2, const void* plane3, const void* plane4,
     const void* plane5, int X, int Y, int Z, int lo_y, int lo_z, int bc0,
     int bc1, int bc2, int bc3, int bc4, int bc5, float u_inlet, int seed,
-    double tau, double c_wale, double nu_sgs, double inlet_turb,
-    int wall_model, int sponge_blend, void* stream) {
+    const void* rec_t, const void* rec_u, int rec_last, int rec_dt,
+    int rec_shift, int rec_k, double tau, double c_wale, double nu_sgs,
+    double inlet_turb, int wall_model, int sponge_blend, void* stream) {
   sc::Params p;
   const void* planes[6] = {plane0, plane1, plane2, plane3, plane4, plane5};
   const int bcs[6] = {bc0, bc1, bc2, bc3, bc4, bc5};
   if (!sc::make_params(p, store_bf16, f_in, vel_in, f_out, rho_out, vel_out,
                        obstacle, sponge, wall, planes, X, Y, Z, lo_y, lo_z, bcs,
                        u_inlet, seed, tau, c_wale, nu_sgs, inlet_turb,
-                       wall_model, sponge_blend))
+                       wall_model, sponge_blend) ||
+      !lbm::set_record(p.s, rec_t, rec_u, rec_last, rec_dt, rec_shift, rec_k))
     return (int)cudaErrorInvalidValue;
   return launch<false>(store_bf16, p, stream);
 }
@@ -112,9 +114,10 @@ extern "C" int ol_stream_collide_shard(
     const void* plane2, const void* plane3, const void* plane4,
     const void* plane5, const void* f_edges, const void* v_edges, int x_off,
     int gX, int X, int Y, int Z, int lo_y, int lo_z, int bc0, int bc1,
-    int bc2, int bc3, int bc4, int bc5, float u_inlet, int seed, double tau,
-    double c_wale, double nu_sgs, double inlet_turb, int wall_model,
-    int sponge_blend, void* stream) {
+    int bc2, int bc3, int bc4, int bc5, float u_inlet, int seed,
+    const void* rec_t, const void* rec_u, int rec_last, int rec_dt,
+    int rec_shift, int rec_k, double tau, double c_wale, double nu_sgs,
+    double inlet_turb, int wall_model, int sponge_blend, void* stream) {
   sc::Params p;
   const void* planes[6] = {plane0, plane1, plane2, plane3, plane4, plane5};
   int bcs[6] = {bc0, bc1, bc2, bc3, bc4, bc5};
@@ -125,6 +128,7 @@ extern "C" int ol_stream_collide_shard(
                        obstacle, sponge, wall, planes, X, Y, Z, lo_y, lo_z, bcs,
                        u_inlet, seed, tau, c_wale, nu_sgs, inlet_turb,
                        wall_model, sponge_blend) ||
+      !lbm::set_record(p.s, rec_t, rec_u, rec_last, rec_dt, rec_shift, rec_k) ||
       !sc::make_slab(p, f_edges, v_edges, x_off, gX))
     return (int)cudaErrorInvalidValue;
   return launch<true>(store_bf16, p, stream);

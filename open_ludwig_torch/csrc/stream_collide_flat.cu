@@ -110,8 +110,9 @@ extern "C" int ol_stream_collide_flat(
     void* rho_out, void* vel_out, const void* obstacle, const void* sponge,
     const void* wall, int X, int Y, int Z, int lo_y, int lo_z, int bc0,
     int bc1, int bc2, int bc3, int bc4, int bc5, float u_inlet, int seed,
-    double tau, double c_wale, double nu_sgs, double inlet_turb,
-    int wall_model, int sponge_blend, void* stream) {
+    const void* rec_t, const void* rec_u, int rec_last, int rec_dt,
+    int rec_shift, int rec_k, double tau, double c_wale, double nu_sgs,
+    double inlet_turb, int wall_model, int sponge_blend, void* stream) {
   const void* planes[6] = {nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
   const int bcs[6] = {bc0, bc1, bc2, bc3, bc4, bc5};
   for (int i = 0; i < 6; ++i)
@@ -120,7 +121,8 @@ extern "C" int ol_stream_collide_flat(
   if (!sc::make_params(p, store_bf16, f_in, vel_in, f_out, rho_out, vel_out,
                        obstacle, sponge, wall, planes, X, Y, Z, lo_y, lo_z, bcs,
                        u_inlet, seed, tau, c_wale, nu_sgs, inlet_turb,
-                       wall_model, sponge_blend))
+                       wall_model, sponge_blend) ||
+      !lbm::set_record(p.s, rec_t, rec_u, rec_last, rec_dt, rec_shift, rec_k))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #ifdef OL_K4_THREADS
@@ -144,9 +146,10 @@ extern "C" int ol_stream_collide_flat_shard(
     void* rho_out, void* vel_out, const void* obstacle, const void* sponge,
     const void* wall, const void* f_edges, const void* v_edges, int x_off,
     int gX, int X, int Y, int Z, int lo_y, int lo_z, int bc0, int bc1,
-    int bc2, int bc3, int bc4, int bc5, float u_inlet, int seed, double tau,
-    double c_wale, double nu_sgs, double inlet_turb, int wall_model,
-    int sponge_blend, void* stream) {
+    int bc2, int bc3, int bc4, int bc5, float u_inlet, int seed,
+    const void* rec_t, const void* rec_u, int rec_last, int rec_dt,
+    int rec_shift, int rec_k, double tau, double c_wale, double nu_sgs,
+    double inlet_turb, int wall_model, int sponge_blend, void* stream) {
   const void* planes[6] = {nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
   const int bcs[6] = {bc0, bc1, bc2, bc3, bc4, bc5};
   for (int i = 0; i < 6; ++i)
@@ -156,6 +159,7 @@ extern "C" int ol_stream_collide_flat_shard(
                        obstacle, sponge, wall, planes, X, Y, Z, lo_y, lo_z, bcs,
                        u_inlet, seed, tau, c_wale, nu_sgs, inlet_turb,
                        wall_model, sponge_blend) ||
+      !lbm::set_record(p.s, rec_t, rec_u, rec_last, rec_dt, rec_shift, rec_k) ||
       !sc::make_slab(p, f_edges, v_edges, x_off, gX))
     return (int)cudaErrorInvalidValue;
   return launch_chosen<true>(store_bf16, p, static_cast<cudaStream_t>(stream));

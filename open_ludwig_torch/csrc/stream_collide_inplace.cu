@@ -415,8 +415,10 @@ bool make_params(
     void* vel_out, void* edge, const void* obstacle, const void* sponge,
     const void* wall, int X, int Y, int Z, int lo_y, int lo_z, int bc0,
     int bc1, int bc2, int bc3, int bc4, int bc5, float u_inlet, int seed,
-    double tau, double c_wale, double nu_sgs, double inlet_turb,
-    int wall_model, int sponge_blend, int ty, int xr, int parts) {
+    const void* rec_t, const void* rec_u, int rec_last, int rec_dt,
+    int rec_shift, int rec_k, double tau, double c_wale, double nu_sgs,
+    double inlet_turb, int wall_model, int sponge_blend, int ty, int xr,
+    int parts) {
   p.f = f;
   p.vel_in = static_cast<const float*>(vel_in);
   p.rho_out = static_cast<float*>(rho_out);
@@ -435,7 +437,8 @@ bool make_params(
   if (xr < 1 || ty != rows || parts < 1 || parts > 3 ||
       !lbm::make_step(p.s, planes, bcs, X, Y, Z, lo_y, lo_z, u_inlet, seed,
                       tau, c_wale, nu_sgs, inlet_turb, wall_model,
-                      sponge_blend))
+                      sponge_blend) ||
+      !lbm::set_record(p.s, rec_t, rec_u, rec_last, rec_dt, rec_shift, rec_k))
     return false;
   p.L = make_layout(X, Y, Z, ty, xr);
   return true;
@@ -456,13 +459,16 @@ extern "C" int ol_stream_collide_inplace(
     int store_bf16, void* f, const void* vel_in, void* rho_out, void* vel_out,
     void* edge, const void* obstacle, const void* sponge, const void* wall,
     int X, int Y, int Z, int lo_y, int lo_z, int bc0, int bc1, int bc2,
-    int bc3, int bc4, int bc5, float u_inlet, int seed, double tau,
-    double c_wale, double nu_sgs, double inlet_turb, int wall_model,
-    int sponge_blend, int ty, int xr, int parts, void* stream) {
+    int bc3, int bc4, int bc5, float u_inlet, int seed, const void* rec_t,
+    const void* rec_u, int rec_last, int rec_dt, int rec_shift, int rec_k,
+    double tau, double c_wale, double nu_sgs, double inlet_turb,
+    int wall_model, int sponge_blend, int ty, int xr, int parts,
+    void* stream) {
   Params p;
   if (!make_params(p, store_bf16, f, vel_in, rho_out, vel_out, edge, obstacle,
                    sponge, wall, X, Y, Z, lo_y, lo_z, bc0, bc1, bc2, bc3, bc4,
-                   bc5, u_inlet, seed, tau, c_wale, nu_sgs, inlet_turb,
+                   bc5, u_inlet, seed, rec_t, rec_u, rec_last, rec_dt,
+                   rec_shift, rec_k, tau, c_wale, nu_sgs, inlet_turb,
                    wall_model, sponge_blend, ty, xr, parts))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -482,13 +488,16 @@ extern "C" int ol_stream_collide_inplace_shard(
     void* edge, const void* f_edges, const void* v_edges, int x_off, int gX,
     const void* obstacle, const void* sponge, const void* wall,
     int X, int Y, int Z, int lo_y, int lo_z, int bc0, int bc1, int bc2,
-    int bc3, int bc4, int bc5, float u_inlet, int seed, double tau,
-    double c_wale, double nu_sgs, double inlet_turb, int wall_model,
-    int sponge_blend, int ty, int xr, int parts, void* stream) {
+    int bc3, int bc4, int bc5, float u_inlet, int seed, const void* rec_t,
+    const void* rec_u, int rec_last, int rec_dt, int rec_shift, int rec_k,
+    double tau, double c_wale, double nu_sgs, double inlet_turb,
+    int wall_model, int sponge_blend, int ty, int xr, int parts,
+    void* stream) {
   Params p;
   if (!make_params(p, store_bf16, f, vel_in, rho_out, vel_out, edge, obstacle,
                    sponge, wall, X, Y, Z, lo_y, lo_z, bc0, bc1, bc2, bc3, bc4,
-                   bc5, u_inlet, seed, tau, c_wale, nu_sgs, inlet_turb,
+                   bc5, u_inlet, seed, rec_t, rec_u, rec_last, rec_dt,
+                   rec_shift, rec_k, tau, c_wale, nu_sgs, inlet_turb,
                    wall_model, sponge_blend, ty, xr, parts) ||
       !f_edges || !v_edges || x_off < 0 || x_off + X > gX)
     return (int)cudaErrorInvalidValue;

@@ -24,21 +24,35 @@ class FlowStats:
     kinetic_energy: float
 
 
+STATS_CHUNK = 1 << 24  # cells a chunk of compute_flow_stats's temporaries
+
+
 def compute_flow_stats(state: Dict, obstacle: torch.Tensor) -> FlowStats:
-    """Masked reductions over the fluid cells of one level (one host sync)."""
+    """Masked reductions over the fluid cells of one level (one host sync).
+    A level above STATS_CHUNK cells is reduced in runs of whole planes of
+    its first axis, so the temporaries stay near STATS_CHUNK cells beside
+    the graphed runner's two state buffers (the extrema are exact either
+    way; the sums are float32 over the runs)."""
     rho, vel = state["rho"], state["vel"]
-    fluid = ~obstacle
-    n_fluid = fluid.sum()
+    per = max(rho[:1].numel(), 1)
+    step = max(1, STATS_CHUNK // per)
     big = torch.tensor(1e30, dtype=torch.float32, device=rho.device)
     zero = torch.zeros((), dtype=torch.float32, device=rho.device)
-    rho_min = torch.where(fluid, rho, big).min()
-    rho_max = torch.where(fluid, rho, -big).max()
-    rho_mean = torch.where(fluid, rho, zero).sum() / n_fluid.clamp(min=1)
-    v2 = (vel * vel).sum(dim=0)
-    v_max = torch.sqrt(torch.where(fluid, v2, zero).max())
-    ke = 0.5 * torch.where(fluid, rho * v2, zero).sum()
+    counts, parts = [], []
+    for a in range(0, rho.shape[0], step):
+        r, v = rho[a:a + step], vel[:, a:a + step]
+        fluid = ~obstacle[a:a + step]
+        v2 = (v * v).sum(dim=0)
+        counts.append(fluid.sum())
+        parts.append(torch.stack([
+            torch.where(fluid, r, big).min(), torch.where(fluid, r, -big).max(),
+            torch.where(fluid, r, zero).sum(), torch.where(fluid, v2, zero).max(),
+            torch.where(fluid, r * v2, zero).sum()]))
+    n_fluid = torch.stack(counts).sum()
+    p = torch.stack(parts)
     vals = torch.stack([
-        n_fluid.float(), rho_mean, rho_min, rho_max, v_max, ke
+        n_fluid.float(), p[:, 2].sum() / n_fluid.clamp(min=1), p[:, 0].min(),
+        p[:, 1].max(), torch.sqrt(p[:, 3].max()), 0.5 * p[:, 4].sum()
     ]).cpu().tolist()
     return FlowStats(int(vals[0]), *[float(v) for v in vals[1:]])
 

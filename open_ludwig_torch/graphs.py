@@ -1,0 +1,123 @@
+"""CUDA graphs of the batch runners: a batch of coarse steps as one program.
+
+The port's counterpart of the JAX runners' `jax.jit` around `lax.scan`
+(open_ludwig_tpu/solver_dense.py:660-700, solver.py:102-113): a unit of
+work (one coarse step, or a pair of them) whose launches all read fixed
+addresses (static state buffers, the step record of `solver.StepRecord`)
+is captured once into a `torch.cuda.CUDAGraph` and replayed, so the host
+issues one graph launch per unit instead of every kernel and tensor
+operation.  `GraphSet.run(key, fn)` is that unit under a key that names
+what the capture depends on (the unit's kind and the addresses its inputs
+lie at):
+  - the key's first use runs `fn` eagerly, so that one-time set-up (the
+    kernels' `cudaFuncSetAttribute` and occupancy queries, library loads,
+    tables copied to the card on first use, the fixed buffers) happens
+    outside any capture;
+  - its second use captures `fn` into a graph, under
+    `torch.cuda.set_sync_debug_mode("error")` (a host sync on the path
+    raises), in a memory pool shared by the set's graphs (the temporaries
+    of one unit: ghost planes, edge buffers, halos), and replays it;
+  - every later use replays it.
+A capture or replay that fails raises: nothing runs eagerly in its place.
+On the CPU (no graphs) `fn` runs eagerly every time.  The set counts its
+replays (`cuda_step.REPLAYS`) and adds each graph's captured kernel
+launches to `cuda_step.REPLAYED` at each replay; `report()` gives the
+graphs, their captured launches and the pool's bytes.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Callable, Dict, Hashable
+
+import torch
+
+from .ops import cuda_step
+
+
+@contextlib.contextmanager
+def no_host_sync():
+    """torch.cuda.set_sync_debug_mode("error") for the block: an operation
+    that waits for the card (.item(), a copy to the host, nonzero) raises."""
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def _pool_reserved(pool, device: torch.device):
+    """Bytes the caching allocator holds in the graphs' pool `pool` on
+    `device` (its segments in `torch.cuda.memory_snapshot`), or None where
+    the snapshot does not name segments' pools."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    total, named = 0, False
+    for seg in torch.cuda.memory_snapshot():
+        pid = seg.get("segment_pool_id")
+        if pid is None or seg.get("device") != index:
+            continue
+        named = True
+        if tuple(pid) == tuple(pool):
+            total += int(seg["total_size"])
+    return total if named else None
+
+
+class GraphSet:
+    """The graphs of one runner (module docstring)."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.graphs: Dict[Hashable, Dict] = {}
+        self.warm = set()
+        self.pool = None
+        self.pool_bytes = 0  # the allocator's segments in the graphs' pool
+        self.replays = 0
+
+    def run(self, key: Hashable, fn: Callable[[], object], device: torch.device):
+        if device.type != "cuda":
+            return fn()
+        g = self.graphs.get(key)
+        if g is None:
+            if key not in self.warm:
+                self.warm.add(key)
+                with torch.cuda.device(device):
+                    return fn()
+            g = self._capture(key, fn, device)
+        with torch.cuda.device(device):
+            g["graph"].replay()
+        self.replays += 1
+        cuda_step.REPLAYS[self.name] = cuda_step.REPLAYS.get(self.name, 0) + 1
+        for k, n in g["launches"].items():
+            cuda_step.REPLAYED[k] += n
+        return g["out"]
+
+    def _capture(self, key: Hashable, fn, device: torch.device) -> Dict:
+        with torch.cuda.device(device):
+            torch.cuda.synchronize(device)
+            before = dict(cuda_step.CAPTURED)
+            reserved = torch.cuda.memory_reserved(device)
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self.pool), no_host_sync():
+                out = fn()
+            torch.cuda.synchronize(device)
+            pool = _pool_reserved(self.pool, device)
+            self.pool_bytes = (pool if pool is not None else self.pool_bytes
+                               + max(torch.cuda.memory_reserved(device) - reserved, 0))
+        launches = {k: cuda_step.CAPTURED[k] - before[k] for k in before
+                    if cuda_step.CAPTURED[k] != before[k]}
+        g = {"graph": graph, "out": out, "launches": launches}
+        self.graphs[key] = g
+        return g
+
+    def captured_launches(self) -> int:
+        return sum(sum(g["launches"].values()) for g in self.graphs.values())
+
+    def report(self) -> str:
+        return (f"[Graph] {self.name}: {len(self.graphs)} graph(s) captured, "
+                f"{self.captured_launches()} kernel launches captured in all "
+                f"({', '.join(str(sum(g['launches'].values())) for g in self.graphs.values())} "
+                f"per graph), pool {self.pool_bytes / 1e6:.1f} MB, "
+                f"{self.replays} replays")

@@ -36,19 +36,21 @@ def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
     return (lo + hi) & _M32
 
 
-def hash_noise(gy: torch.Tensor, gz: torch.Tensor, t_seed: int) -> torch.Tensor:
+def hash_noise(gy: torch.Tensor, gz: torch.Tensor, t_seed) -> torch.Tensor:
     """Integer-hash turbulence noise in [-1, 1), bit-exact with the JAX
     package and the reference (reference: src/physics_utils.jl:17-28).
 
     The JAX version wraps int32 products and shifts as uint32; torch has
     little uint32 support, so this computes in int64 masked to 32 bits,
-    which gives the same bits."""
+    which gives the same bits.  `t_seed` is an int or a 0-d integer tensor
+    (a captured step's seed, read from the step record on the device)."""
     gy = gy.to(torch.int64)
     gz = gz.to(torch.int64)
     combined = (
         _mul32(gy & _M32, 374761393)
         + _mul32(gz & _M32, 668265263)
-        + ((int(t_seed) * 1274126177) & _M32)
+        + (((t_seed.to(torch.int64) if isinstance(t_seed, torch.Tensor)
+             else int(t_seed)) * 1274126177) & _M32)
         + 1234  # the reference's salt
     ) & _M32
     h = combined

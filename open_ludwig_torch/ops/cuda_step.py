@@ -10,7 +10,18 @@ Each wrapper checks device, dtype, shape and contiguity, then:
     raises if the launch fails.  There is no fallback: a build or launch
     failure is an error.
 `LAUNCHES` counts kernel launches only (never the plain path), so a run
-can show that its main path went through the kernels.
+can show that its main path went through the kernels.  A launch made while
+a CUDA graph is captured counts there and in `CAPTURED`; the graph's
+replays add its captured launches to `REPLAYED` (`graphs.GraphSet`), so
+the kernels a run executed are `executed_launches()`: LAUNCHES - CAPTURED
++ REPLAYED.
+
+The steps K1, K3, K4 and K5 take their inlet speed and noise seed either
+by value (u_inlet a float, t_seed an int) or from the step record on the
+device (u_inlet a `solver.StepRef`, t_seed None): the kernel then reads
+both at run time (csrc/lbm_cell.cuh: `inlet_u`, `noise_seed`), so a
+captured launch serves every coarse step.  K1, K3, K4 and K5 take `out=`
+(preallocated outputs), which a captured step writes at fixed addresses.
 
 K1 `stream_collide` (csrc/stream_collide.cu) replaces the Pallas kernel
 make_pallas_step (open_ludwig_tpu/ops/pallas_step.py:247).  It moves ~145 B
@@ -114,44 +125,117 @@ LAUNCHES: Dict[str, int] = {"stream_collide": 0, "bouzidi": 0, "fused_pair": 0,
                             "bouzidi_ab": 0, "stream_collide_shard": 0,
                             "bouzidi_shard": 0, "stream_collide_flat_shard": 0,
                             "stream_collide_inplace_shard": 0}
+CAPTURED: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)  # of LAUNCHES, under capture
+REPLAYED: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)  # captured x replays
+REPLAYS: Dict[str, int] = {}  # replays per graph set (graphs.GraphSet.name)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _D = ctypes.c_double
-_SC_ARGTYPES = (
-    [_I] + [_P] * 14 + [_I] * 5 + [_I] * 6 + [_F, _I] + [_D] * 4
-    + [_I, _I, _P]
-)
+# u_inlet, seed, then the step record: its counter and table pointers,
+# the table's last index and the sub-step's (dt, shift, k)
+_STEP = [_F, _I, _P, _P, _I, _I, _I, _I]
+_SC_ARGTYPES = [_I] + [_P] * 14 + [_I] * 5 + [_I] * 6 + _STEP + [_D] * 4 + [_I, _I, _P]
 _BZ_ARGTYPES = [_I] + [_P] * 6 + [_I] * 4 + [_P]
 _BZAB_ARGTYPES = [_I] + [_P] * 7 + [_I] * 4 + [_P]
-_FLAT_ARGTYPES = [_I] + [_P] * 8 + [_I] * 5 + [_I] * 6 + [_F, _I] + [_D] * 4 + [_I, _I, _P]
+_FLAT_ARGTYPES = [_I] + [_P] * 8 + [_I] * 5 + [_I] * 6 + _STEP + [_D] * 4 + [_I, _I, _P]
 _IP_ARGTYPES = (
-    [_I] + [_P] * 8 + [_I] * 5 + [_I] * 6 + [_F, _I] + [_D] * 4
+    [_I] + [_P] * 8 + [_I] * 5 + [_I] * 6 + _STEP + [_D] * 4
     + [_I, _I, _I, _I, _I, _P]
 )
 _SC_SHARD_ARGTYPES = (
-    [_I] + [_P] * 16 + [_I] * 2 + [_I] * 5 + [_I] * 6 + [_F, _I] + [_D] * 4
+    [_I] + [_P] * 16 + [_I] * 2 + [_I] * 5 + [_I] * 6 + _STEP + [_D] * 4
     + [_I, _I, _P]
 )
 _FLAT_SHARD_ARGTYPES = (
-    [_I] + [_P] * 10 + [_I] * 2 + [_I] * 5 + [_I] * 6 + [_F, _I] + [_D] * 4
+    [_I] + [_P] * 10 + [_I] * 2 + [_I] * 5 + [_I] * 6 + _STEP + [_D] * 4
     + [_I, _I, _P]
 )
 _IP_SHARD_ARGTYPES = (
-    [_I] + [_P] * 7 + [_I] * 2 + [_P] * 3 + [_I] * 5 + [_I] * 6 + [_F, _I]
+    [_I] + [_P] * 7 + [_I] * 2 + [_P] * 3 + [_I] * 5 + [_I] * 6 + _STEP
     + [_D] * 4 + [_I, _I, _I, _I, _I, _P]
 )
 _BZ_SHARD_ARGTYPES = [_I] + [_P] * 7 + [_I] * 4 + [_P]
 _FP_ARGTYPES = (
-    [_I] + [_P] * 21 + [_I] * 5 + [_I] * 6 + [_F, _F, _I, _I] + [_D] * 4
-    + [_I, _I] + [_I] * 6 + [_P]
+    [_I] + [_P] * 21 + [_I] * 5 + [_I] * 6 + [_F, _F, _I, _I, _P, _P] + [_I] * 7
+    + [_D] * 4 + [_I, _I] + [_I] * 6 + [_P]
 )
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
-        LAUNCHES[k] = 0
+        LAUNCHES[k] = CAPTURED[k] = REPLAYED[k] = 0
+    REPLAYS.clear()
+
+
+def executed_launches() -> Dict[str, int]:
+    """Kernel launches run on the card since the last reset: the eager ones
+    and the captured ones times their graphs' replays."""
+    return {k: LAUNCHES[k] - CAPTURED[k] + REPLAYED[k] for k in LAUNCHES}
+
+
+def _count(name: str) -> None:
+    LAUNCHES[name] += 1
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED[name] += 1
+
+
+def _is_ref(u) -> bool:
+    return hasattr(u, "record")
+
+
+def _host_step(u_inlet, t_seed):
+    """(u_inlet, t_seed) as host numbers for the plain versions: a step
+    record's entry read back (the CPU's record), or the numbers given."""
+    return u_inlet.host() if _is_ref(u_inlet) else (u_inlet, t_seed)
+
+
+def _step_args(u_inlet, t_seed, device) -> list:
+    """The C interface's (u, seed, rec_t, rec_u, rec_last, dt, shift, k): a
+    step record entry's device pointers and sub-step constants, or the
+    numbers by value with no record."""
+    if not _is_ref(u_inlet):
+        return [float(u_inlet), int(t_seed), None, None, 0, 0, 0, 0]
+    rec = u_inlet.record
+    if rec.t.device != device or rec.u.device != device:
+        raise ValueError(f"step record on {rec.t.device}, the launch on {device}")
+    return [0.0, 0, rec.t.data_ptr(), rec.u.data_ptr(), rec.last,
+            u_inlet.dt, u_inlet.shift, u_inlet.k]
+
+
+def _check_out(out, f, vel, XL, Y, Z, dev, what: str, f_in_place: bool = False):
+    """Preallocated outputs (f_out, rho, vel_out): f's shape and dtype,
+    (XL, Y, Z) and vel's shape float32, on f's device, none aliasing an
+    input it must not (an A -> B step's f_out, every step's vel_out); an
+    in-place step (K5) takes f_out None or f itself."""
+    f_out, rho, vel_out = out
+    if f_in_place:
+        if f_out is not None and f_out.data_ptr() != f.data_ptr():
+            raise ValueError(f"{what}: out f must be None or f itself (in place)")
+    else:
+        _check(f_out, "out f_out", f.shape, (f.dtype,), dev)
+        if f_out.data_ptr() == f.data_ptr():
+            raise ValueError(f"{what}: out aliases its input (A -> B buffers)")
+    _check(rho, "out rho", (XL, Y, Z), (torch.float32,), dev)
+    _check(vel_out, "out vel_out", vel.shape, (torch.float32,), dev)
+    if vel_out.data_ptr() == vel.data_ptr():
+        raise ValueError(f"{what}: out vel_out aliases vel")
+
+
+def _put(out, vals):
+    """The plain version's results written into preallocated `out` (None
+    where the array is updated in place) and returned; `vals` without."""
+    if out is None:
+        return vals
+    res = []
+    for t, v in zip(out, vals):
+        if t is None:
+            res.append(v)
+        else:
+            t.copy_(v)
+            res.append(t)
+    return tuple(res)
 
 
 def _lib(name: str, fn: str, argtypes) -> ctypes._CFuncPtr:
@@ -273,9 +357,12 @@ def stream_collide(
     iface: Optional[Dict[int, torch.Tensor]] = None,  # face -> (27, A, B), f's dtype
     edges: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     x_off: int = 0,
+    out: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
 ):
     """K1: one stream-collide sub-step.  Returns new (f, rho, vel) in the
-    storage dtype of `f` (A -> B buffers; the inputs are not modified).
+    storage dtype of `f` (A -> B buffers; the inputs are not modified),
+    written into `out=(f_out, rho, vel_out)` where given (`_check_out`).
+    `u_inlet` and `t_seed`: numbers, or a step record entry and None.
     `iface` holds the pre-shifted ghost plane of each interface face in
     f's storage type (`_iface_planes`).  With `edges` = (f_edges (27, 2, Y,
     Z) in f's dtype, v_edges (3, 2, Y, Z) float32), f, vel and the statics
@@ -287,6 +374,8 @@ def stream_collide(
     XL = f.shape[1]
     planes = _iface_planes(patch, iface, dev, f.dtype,
                            slab=None if edges is None else (x_off, XL))
+    if out is not None:
+        _check_out(out, f, vel, XL, Y, Z, dev, "stream_collide")
     kw = dict(
         c_wale=c_wale, nu_sgs_background=nu_sgs_background,
         inlet_turbulence=inlet_turbulence, wall_model=wall_model,
@@ -294,18 +383,18 @@ def stream_collide(
     )
     if dev.type == "cpu":
         fo, rho, vo = dense_stream_collide(
-            storage.decode_f(f), vel, u_inlet, t_seed, static, patch,
+            storage.decode_f(f), vel, *_host_step(u_inlet, t_seed), static, patch,
             iface=iface, edges=_decoded(edges), x_off=x_off, **kw,
         )
         if f.dtype == torch.bfloat16:
             fo = storage.encode_f(fo, storage.STORE_BF16)
-        return fo, rho, vo
+        return _put(out, (fo, rho, vo))
     if dev.type != "cuda":
         raise ValueError(f"stream_collide: unsupported device {dev}")
 
-    f_out = torch.empty_like(f)
-    rho = torch.empty((XL, Y, Z), dtype=torch.float32, device=dev)
-    vel_out = torch.empty_like(vel)
+    f_out, rho, vel_out = out if out is not None else (
+        torch.empty_like(f), torch.empty((XL, Y, Z), dtype=torch.float32, device=dev),
+        torch.empty_like(vel))
     head = [int(f.dtype == torch.bfloat16),
             f.data_ptr(), vel.data_ptr(), f_out.data_ptr(), rho.data_ptr(),
             vel_out.data_ptr(),
@@ -314,7 +403,7 @@ def stream_collide(
             *[_ptr(p) for p in planes]]
     tail = [XL, Y, Z, int(patch.lo[1]), int(patch.lo[2]),
             *[int(b) for b in patch.face_bc],
-            float(u_inlet), int(t_seed),
+            *_step_args(u_inlet, t_seed, dev),
             float(patch.tau), float(c_wale), float(nu_sgs_background),
             float(inlet_turbulence),
             int(bool(wall_model)), int(bool(sponge_blend))]
@@ -331,7 +420,7 @@ def stream_collide(
                     *tail, stream)
             name = "stream_collide_shard"
     _raise_on(rc, name)
-    LAUNCHES[name] += 1
+    _count(name)
     return f_out, rho, vel_out
 
 
@@ -363,17 +452,18 @@ def _check_links(plan: Dict, level_shape, device, keys, coef_dtype=None) -> Dict
     return links
 
 
-def bouzidi(f: torch.Tensor, plan: Dict, halo: Optional[torch.Tensor] = None
-            ) -> torch.Tensor:
+def bouzidi(f: torch.Tensor, plan: Dict, halo: Optional[torch.Tensor] = None,
+            inplace: bool = False) -> torch.Tensor:
     """K2: Bouzidi correction of (27, X, Y, Z) f (float32 f or bf16 g) over
     the plan's link list.  On CUDA the links (and their scratch) are
     tensors on f's device (`dense_step.bouzidi_plan_to`), the correction is
     written into `f` in place by one launch and `f` is returned; on the CPU
-    the plain version returns a new tensor.  With `halo` (1-D, f's dtype,
-    on f's device) f is one x slab of a level and the plan its links
-    (`parallel.patch_shard.shard_statics`): a link with src = -1 - h reads
-    halo[h], gathered from another slab before any slab's correction (K2's
-    sharded form)."""
+    the plain version returns a new tensor, or with `inplace` its result is
+    copied into `f` (the graphed runner's fixed buffers). With `halo` (1-D,
+    f's dtype, on f's device) f is one x slab of a level and the plan its
+    links (`parallel.patch_shard.shard_statics`): a link with src = -1 - h
+    reads halo[h], gathered from another slab before any slab's correction
+    (K2's sharded form)."""
     dev = f.device
     if f.dim() != 4 or f.shape[0] != 27:
         raise ValueError(f"f shape {tuple(f.shape)}, expected (27, X, Y, Z)")
@@ -382,7 +472,8 @@ def bouzidi(f: torch.Tensor, plan: Dict, halo: Optional[torch.Tensor] = None
         _check(halo, "halo", (halo.numel(),), (f.dtype,), dev)
     X, Y, Z = f.shape[1:]
     if dev.type == "cpu":
-        return apply_bouzidi_links(f, plan, halo)
+        out = apply_bouzidi_links(f, plan, halo)
+        return f.copy_(out) if inplace else out
     if dev.type != "cuda":
         raise ValueError(f"bouzidi: unsupported device {dev}")
     links = _check_links(plan, (X, Y, Z), dev, ("cell", "code", "src", "a", "scratch"))
@@ -400,7 +491,7 @@ def bouzidi(f: torch.Tensor, plan: Dict, halo: Optional[torch.Tensor] = None
                     halo.data_ptr(), links["a"].shape[0], X, Y, Z, stream)
             name = "bouzidi_shard"
     _raise_on(rc, name)
-    LAUNCHES[name] += 1
+    _count(name)
     return f
 
 
@@ -430,7 +521,7 @@ def bouzidi_ab(f: torch.Tensor, plan: Dict) -> torch.Tensor:
         links["cell"].shape[0], X, Y, Z, torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, "bouzidi_ab")
-    LAUNCHES["bouzidi_ab"] += 1
+    _count("bouzidi_ab")
     return f
 
 
@@ -450,12 +541,15 @@ def fused_pair(
     sponge_blend: bool,
     iface_a: Optional[Dict[int, torch.Tensor]] = None,  # step A's ghost planes
     iface_b: Optional[Dict[int, torch.Tensor]] = None,  # step B's ghost planes
+    out: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
 ):
     """K3: two sub-steps of a childless level with step A's Bouzidi
     correction between them.  Returns step B's new (f, rho, vel) in the
     storage dtype of `f`, B's f uncorrected (A -> B buffers; the inputs are
-    not modified).  `iface_a` / `iface_b` hold each sub-step's pre-shifted
-    ghost planes in f's storage type (`_iface_planes`)."""
+    not modified), written into `out` where given (`_check_out`).  `u` and
+    `seed`: numbers, or two step record entries and (None, None).
+    `iface_a` / `iface_b` hold each sub-step's pre-shifted ghost planes in
+    f's storage type (`_iface_planes`)."""
     X, Y, Z = patch.interior
     dev = f.device
     _check_level(f, vel, static, patch)
@@ -463,6 +557,8 @@ def fused_pair(
     planes_b = _iface_planes(patch, iface_b, dev, f.dtype, "iface_b")
     if plan is not None:
         _check_plan(plan, (X, Y, Z), dev)
+    if out is not None:
+        _check_out(out, f, vel, X, Y, Z, dev, "fused_pair")
     (u_a, u_b), (seed_a, seed_b) = u, seed
     kw = dict(
         c_wale=c_wale, nu_sgs_background=nu_sgs_background,
@@ -470,16 +566,21 @@ def fused_pair(
         sponge_blend=sponge_blend,
     )
     if dev.type == "cpu":
-        return fused_pair_plain(f, vel, (u_a, u_b), (seed_a, seed_b), static,
-                                patch, plan, iface_a=iface_a, iface_b=iface_b,
-                                **kw)
+        (u_a, seed_a), (u_b, seed_b) = (_host_step(u_a, seed_a),
+                                        _host_step(u_b, seed_b))
+        return _put(out, fused_pair_plain(
+            f, vel, (u_a, u_b), (seed_a, seed_b), static, patch, plan,
+            iface_a=iface_a, iface_b=iface_b, **kw))
     if dev.type != "cuda":
         raise ValueError(f"fused_pair: unsupported device {dev}")
 
     fn = _lib("fused_pair", "ol_fused_pair", _FP_ARGTYPES)
-    f_out = torch.empty_like(f)
-    rho = torch.empty((X, Y, Z), dtype=torch.float32, device=dev)
-    vel_out = torch.empty_like(vel)
+    f_out, rho, vel_out = out if out is not None else (
+        torch.empty_like(f), torch.empty((X, Y, Z), dtype=torch.float32, device=dev),
+        torch.empty_like(vel))
+    sa, sb = _step_args(u_a, seed_a, dev), _step_args(u_b, seed_b, dev)
+    if _is_ref(u_a) != _is_ref(u_b) or (_is_ref(u_a) and u_a.record is not u_b.record):
+        raise ValueError("fused_pair: steps A and B read one step record, or none")
     box = (tuple(plan["lo"]) + tuple(plan["dim"])) if plan is not None \
         else (0,) * 6
     rc = fn(
@@ -492,7 +593,7 @@ def fused_pair(
         _ptr(plan["S"]) if plan is not None else None,
         X, Y, Z, int(patch.lo[1]), int(patch.lo[2]),
         *[int(b) for b in patch.face_bc],
-        float(u_a), float(u_b), int(seed_a), int(seed_b),
+        sa[0], sb[0], sa[1], sb[1], sa[2], sa[3], sa[4], *sa[5:], *sb[5:],
         float(patch.tau), float(c_wale), float(nu_sgs_background),
         float(inlet_turbulence),
         int(bool(wall_model)), int(bool(sponge_blend)),
@@ -500,7 +601,7 @@ def fused_pair(
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, "fused_pair")
-    LAUNCHES["fused_pair"] += 1
+    _count("fused_pair")
     return f_out, rho, vel_out
 
 
@@ -523,15 +624,17 @@ def _check_interface_free(patch: PatchLevel, what: str) -> None:
 
 
 def _step_scalars(patch: PatchLevel, u_inlet, t_seed, c_wale, nu_sgs_background,
-                  inlet_turbulence, wall_model, sponge_blend, XL=None) -> list:
-    """The (X, Y, Z, lo_y, lo_z, bc0..5, u, seed, tau, c_wale, nu_sgs,
-    inlet_turb, wall_model, sponge_blend) arguments of K4 and K5, X the
-    slab's `XL` where given."""
+                  inlet_turbulence, wall_model, sponge_blend, device, XL=None
+                  ) -> list:
+    """The (X, Y, Z, lo_y, lo_z, bc0..5, u, seed, the step record
+    (`_step_args`), tau, c_wale, nu_sgs, inlet_turb, wall_model,
+    sponge_blend) arguments of K4 and K5 launched on `device`, X the slab's
+    `XL` where given."""
     X, Y, Z = patch.interior
     return [
         X if XL is None else XL, Y, Z, int(patch.lo[1]), int(patch.lo[2]),
         *[int(b) for b in patch.face_bc],
-        float(u_inlet), int(t_seed),
+        *_step_args(u_inlet, t_seed, device),
         float(patch.tau), float(c_wale), float(nu_sgs_background),
         float(inlet_turbulence), int(bool(wall_model)), int(bool(sponge_blend)),
     ]
@@ -567,12 +670,7 @@ def stream_collide_flat(
     _check_level(f, vel, static, patch, edges, x_off)
     XL = f.shape[1]
     if out is not None:
-        for t, name, shape, dtype in zip(out, ("f_out", "rho", "vel_out"),
-                                         (f.shape, (XL, Y, Z), vel.shape),
-                                         (f.dtype, torch.float32, torch.float32)):
-            _check(t, f"out {name}", shape, (dtype,), dev)
-        if out[0].data_ptr() == f.data_ptr() or out[2].data_ptr() == vel.data_ptr():
-            raise ValueError("stream_collide_flat: out aliases its input (A -> B buffers)")
+        _check_out(out, f, vel, XL, Y, Z, dev, "stream_collide_flat")
     kw = dict(
         c_wale=c_wale, nu_sgs_background=nu_sgs_background,
         inlet_turbulence=inlet_turbulence, wall_model=wall_model,
@@ -580,15 +678,11 @@ def stream_collide_flat(
     )
     if dev.type == "cpu":
         fo, rho, vo = stream_collide_flat_plain(
-            storage.decode_f(f), vel, u_inlet, t_seed, static, patch,
+            storage.decode_f(f), vel, *_host_step(u_inlet, t_seed), static, patch,
             edges=_decoded(edges), x_off=x_off, **kw)
         if f.dtype == torch.bfloat16:
             fo = storage.encode_f(fo, storage.STORE_BF16)
-        if out is None:
-            return fo, rho, vo
-        for t, v in zip(out, (fo, rho, vo)):
-            t.copy_(v)
-        return tuple(out)
+        return _put(out, (fo, rho, vo))
     if dev.type != "cuda":
         raise ValueError(f"stream_collide_flat: unsupported device {dev}")
 
@@ -600,7 +694,7 @@ def stream_collide_flat(
             f.data_ptr(), vel.data_ptr(), *[t.data_ptr() for t in out],
             static["obstacle"].data_ptr(), static["sponge"].data_ptr(),
             static["wall_dist"].data_ptr()]
-    scalars = _step_scalars(patch, u_inlet, t_seed, **kw, XL=XL)
+    scalars = _step_scalars(patch, u_inlet, t_seed, **kw, device=dev, XL=XL)
     with _on_card(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if edges is None:
@@ -614,7 +708,7 @@ def stream_collide_flat(
                     *scalars, stream)
             name = "stream_collide_flat_shard"
     _raise_on(rc, name)
-    LAUNCHES[name] += 1
+    _count(name)
     return tuple(out)
 
 
@@ -693,10 +787,12 @@ def stream_collide_inplace(
     sponge_blend: bool,
     edges: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     x_off: int = 0,
+    out: Optional[Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor]] = None,
 ):
     """K5: one sub-step of an interface-free level written into `f` itself.
     Returns (f, rho, vel): `f` updated in place, rho and vel fresh (the
-    input vel is not modified).  `edges` and `x_off`: the sharded form, as
+    input vel is not modified), or written into `out=(None or f, rho,
+    vel_out)`.  `edges` and `x_off`: the sharded form, as
     in `stream_collide`, with the layout the slab's own; every slab's
     edges must be copied before any slab's launch, which overwrites the
     planes its neighbours read."""
@@ -705,26 +801,33 @@ def stream_collide_inplace(
     _check_interface_free(patch, "stream_collide_inplace")
     _check_level(f, vel, static, patch, edges, x_off)
     XL = f.shape[1]
+    if out is not None:
+        _check_out(out, f, vel, XL, Y, Z, dev, "stream_collide_inplace",
+                   f_in_place=True)
     kw = dict(
         c_wale=c_wale, nu_sgs_background=nu_sgs_background,
         inlet_turbulence=inlet_turbulence, wall_model=wall_model,
         sponge_blend=sponge_blend,
     )
     if dev.type == "cpu":
-        return stream_collide_inplace_plain(f, vel, u_inlet, t_seed, static,
-                                            patch, edges=edges, x_off=x_off, **kw)
+        return _put(None if out is None else (None,) + tuple(out[1:]),
+                    stream_collide_inplace_plain(
+                        f, vel, *_host_step(u_inlet, t_seed), static, patch,
+                        edges=edges, x_off=x_off, **kw))
     if dev.type != "cuda":
         raise ValueError(f"stream_collide_inplace: unsupported device {dev}")
 
     lay = inplace_layout(XL, Y, Z, dev, f.element_size())
+    # the edge buffer lives for the launch (a captured step's in the graph's pool)
     edge = torch.empty((max(lay["edge_elems"], 1),), dtype=f.dtype, device=dev)
-    rho = torch.empty((XL, Y, Z), dtype=torch.float32, device=dev)
-    vel_out = torch.empty_like(vel)
+    _, rho, vel_out = out if out is not None else (
+        None, torch.empty((XL, Y, Z), dtype=torch.float32, device=dev),
+        torch.empty_like(vel))
     _inplace_launch(f, vel, rho, vel_out, edge, static, patch, lay,
-                    _step_scalars(patch, u_inlet, t_seed, **kw, XL=XL), parts=3,
-                    edges=edges, x_off=x_off)
+                    _step_scalars(patch, u_inlet, t_seed, **kw, device=dev, XL=XL),
+                    parts=3, edges=edges, x_off=x_off)
     name = "stream_collide_inplace" if edges is None else "stream_collide_inplace_shard"
-    LAUNCHES[name] += 1
+    _count(name)
     return f, rho, vel_out
 
 
@@ -743,7 +846,7 @@ def inplace_parts_ms(f, vel, u_inlet, t_seed, static, patch, reps: int, **kw
     edge = torch.empty((max(lay["edge_elems"], 1),), dtype=f.dtype, device=dev)
     rho = torch.empty((X, Y, Z), dtype=torch.float32, device=dev)
     vel_out = torch.empty_like(vel)
-    scalars = _step_scalars(patch, u_inlet, t_seed, **kw)
+    scalars = _step_scalars(patch, u_inlet, t_seed, **kw, device=dev)
     out = {}
     for name, parts in (("edge_copy_ms", 1), ("step_ms", 2)):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))

@@ -414,7 +414,7 @@ _STEPS = {"k1": stream_collide, "flat": stream_collide_flat,
 
 
 def slab_schedule(patches: List[PatchLevel], statics: List[Dict], mesh: XMesh,
-                  dtype: torch.dtype, kw: Dict):
+                  dtype: torch.dtype, kw: Dict, out_of=None):
     """The parts of `solver_dense.make_coarse_step_dense`'s schedule that
     differ over the slabs of `mesh` (statics from `shard_statics`, states
     per slab in `dtype`), as (level_step, endpoint_slabs, cut_planes,
@@ -427,7 +427,10 @@ def slab_schedule(patches: List[PatchLevel], statics: List[Dict], mesh: XMesh,
           from its slabs' rows on the first device;
       cut_planes(lvl, planes) -> (per-slab sub-step A planes, B planes)
           of child level `lvl` (`slab_planes`);
-      f_dtype(st)   the storage type of a level state."""
+      f_dtype(st)   the storage type of a level state.
+    With `out_of` (`solver_dense.FixedBuffers.out_of`) every slab's step
+    writes into the partners of its inputs (the graphed runner's fixed
+    buffers); the edge buffers are the schedule's own, allocated once."""
     dev0 = mesh.devices[0]
     plans = [st["iface_mm"] for st in statics]
     bufs = [edge_buffers(p, st["bounds"], mesh.devices, dtype)
@@ -440,12 +443,17 @@ def slab_schedule(patches: List[PatchLevel], statics: List[Dict], mesh: XMesh,
         outs = []
         for i, sh in enumerate(stat["shards"]):
             kwi = {"iface": iface[i]} if iface is not None else {}
+            if out_of is not None:
+                kwi["out"] = (None if stat["engine"] == "inplace" else
+                              out_of(st["f"][i]), out_of(st["rho"][i]),
+                              out_of(st["vel"][i]))
             outs.append(step(st["f"][i], st["vel"][i], u, seed, sh, patches[lvl],
                              edges=edges[i], x_off=sh["x_off"], **kwi, **kw))
         f_new = [o[0] for o in outs]
         if stat["bouzidi"] is not None:
             halos = bouzidi_halos(stat["shards"], f_new)
-            f_new = [bouzidi(f, sh["bouzidi"], h) if sh["bouzidi"] is not None else f
+            f_new = [bouzidi(f, sh["bouzidi"], h, inplace=out_of is not None)
+                     if sh["bouzidi"] is not None else f
                      for f, sh, h in zip(f_new, stat["shards"], halos)]
         return {"f": f_new, "rho": [o[1] for o in outs], "vel": [o[2] for o in outs]}
 

@@ -31,6 +31,12 @@ directory, dropping CSV rows past its step.  `async_depth` caps the
 coarse steps per call of the batch runner within a batch (0: the whole
 batch), with no host sync between the calls (reference:
 gpu.async_depth, main.jl:166-180); the states do not depend on it.
+Both layouts run a batch as one program by default (`graphs=True`): each
+coarse step is the replay of a CUDA graph on a card (`graphs.GraphSet`,
+`solver_dense.make_batch_runner_dense`, `solver.make_batch_runner`), with
+its inlet speed and seeds read from a step record on the device; the CPU
+runs the same steps eagerly.  The kernel log names the graphs, their
+captured launches and their memory pool after the first batch.
 `OPEN_LUDWIG_PROFILE=<dir>` writes a torch.profiler trace of the second
 batch.  `--batch` runs the listed cases, a failing case logged and
 skipped; `--plan` prints the set-up and device-memory report with the
@@ -104,6 +110,7 @@ from .solver_dense import (
     build_patch_statics,
     estimate_capacity,
     hbm_report_patches,
+    hbm_total_patches,
     init_patch_state,
     kernel_log_lines,
     make_batch_runner_dense,
@@ -128,6 +135,8 @@ class SolveResult:
     # per file written: (kind "flow" / "surface" / "checkpoint", step, path,
     # host seconds; a checkpoint's are its fetch, its write is async)
     outputs: List[Tuple[str, int, str, float]] = field(default_factory=list)
+    # the batch runner's graphs (`graphs.GraphSet.report`), or why none
+    graph_report: str = ""
 
 
 def check_supported(cfg: CaseConfig) -> None:
@@ -210,9 +219,13 @@ def _check_resumed(states: List[Dict], levels, precision: str, path: str) -> Non
 
 
 def solve_case(cfg: CaseConfig, device="cuda",
-               x_mesh: Optional[XMesh] = None) -> SolveResult:
+               x_mesh: Optional[XMesh] = None, graphs: bool = True) -> SolveResult:
     """Run the case on `device`, or over the x slabs of `x_mesh` (built
-    from `cfg.devices` when it is above 1 and no mesh is given)."""
+    from `cfg.devices` when it is above 1 and no mesh is given).  With
+    `graphs` (the default) both layouts' batch runners run each coarse
+    step as one program, replayed from a CUDA graph on a card (eagerly on
+    the CPU); `graphs=False` is the loop that launches every kernel from
+    the host, bit-equal to it."""
     check_supported(cfg)
     dev = resolve_device(device)
     x_mesh = resolve_mesh(cfg, dev, x_mesh)
@@ -318,10 +331,19 @@ def solve_case(cfg: CaseConfig, device="cuda",
                          "fluid/solid interface links", mem_ctx.n_links)
 
     if blocks:
-        run = make_batch_runner(cfg, params, statics)
+        run = make_batch_runner(cfg, params, statics, graphs=graphs)
     else:
-        run = make_batch_runner_dense(cfg, params, levels, statics, x_mesh=x_mesh)
+        run = make_batch_runner_dense(cfg, params, levels, statics, x_mesh=x_mesh,
+                                      graphs=graphs)
         states = run.seed_slabs(states)
+    if getattr(run, "graph_note", None):
+        log.info(run.graph_note)
+    elif run.graph_set is None:
+        log.info("[Graph] off: every launch issued from the host (graphs=False)")
+    elif cuda:
+        log.info("[Graph] each coarse step (pair, on a single level) one CUDA "
+                 "graph replay; %s", "async_depth %d coarse steps per call"
+                 % cfg.async_depth if cfg.async_depth > 0 else "one call per batch")
     gathered: Dict = {}  # (level, device) -> the level gathered since the batch
 
     def global_level(lvl: int, device=dev) -> Dict:
@@ -376,6 +398,7 @@ def solve_case(cfg: CaseConfig, device="cuda",
     events = []
     outputs = []
     t = resume_step + 1
+    graph_logged = False
     last_diag_time = time.time()
     last_forces = None
     final_stats = None
@@ -402,6 +425,18 @@ def solve_case(cfg: CaseConfig, device="cuda",
             ev[1].record()
             events.append((t, batch_end, ev))
         t_done = batch_end
+        if run.graph_set is not None and cuda and not graph_logged and \
+                run.graph_set.graphs:
+            graph_logged = True
+            log.info(run.graph_set.report())
+            if not blocks:
+                est = hbm_total_patches(levels, statics, cfg.precision, dev) \
+                    if x_mesh is None else None
+                log.info("[Graph] device memory: %s + the graphs' pool %.1f MB; "
+                         "%.3f GB allocated", "estimate %.3f GB" % (est / 1e9)
+                         if est is not None else "the per-slab estimate above",
+                         run.graph_set.pool_bytes / 1e6,
+                         torch.cuda.memory_allocated(dev) / 1e9)
 
         # force-CSV cadence independent of diagnostics (reference:
         # FORCE_OUTPUT_FREQ falling back to DIAG_FREQ, config_loader.jl:192)
@@ -513,6 +548,8 @@ def solve_case(cfg: CaseConfig, device="cuda",
         wall_time=wall_total, mlups=mlups_total, final_stats=final_stats,
         final_forces=last_forces, windows=windows, resume_step=resume_step,
         outputs=outputs,
+        graph_report=(run.graph_set.report() if run.graph_set is not None
+                      else getattr(run, "graph_note", None) or "graphs off"),
     )
 
 

@@ -52,7 +52,7 @@ slab_schedule`.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -185,7 +185,7 @@ def kernel_log_lines(patches: List[PatchLevel], statics: List[Dict],
 
 def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
                            patches: List[PatchLevel], statics: List[Dict],
-                           fuse2: bool = True, x_mesh=None):
+                           fuse2: bool = True, x_mesh=None, fixed=None):
     """coarse_step(states, t) -> states advancing every level by one coarse
     step without any host synchronisation.  Each sub-step is one launch of
     its level's kernel (statics[l]["engine"]: "k1" / "flat" / "inplace"),
@@ -198,7 +198,16 @@ def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
     launch.  With `x_mesh` the states and statics are per slab, and the
     sub-step, the endpoint slabs and the child's planes are the slabs'
     (`parallel.patch_shard.slab_schedule`), fuse2 off as in the JAX
-    package under a mesh; the schedule is the same."""
+    package under a mesh; the schedule is the same.
+
+    With `fixed` (a `FixedBuffers`) the step is the graphed runner's: every
+    kernel reads its inlet speed and seed from `fixed.record` (a
+    `solver.StepRecord` at the coarse step's t, advanced by the step:
+    by 1, by 2 in `pair_step`), writes into the partner buffers of its
+    inputs (`fixed.out_of`), and a parent's new endpoint slabs are copied
+    into its carried ones after its child's planes are built
+    (`fixed.carry`): the same launches on the same values at addresses that
+    stay fixed from step to step."""
     n_levels = len(patches)
     last = n_levels - 1
     engs = [st["engine"] for st in statics]
@@ -213,19 +222,30 @@ def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
     )
     iface_free_steps = {"flat": stream_collide_flat,
                         "inplace": stream_collide_inplace}
+    record = fixed.record if fixed is not None else None
+    out_of = fixed.out_of if fixed is not None else None
+
+    def outs(st: Dict, lvl: int):
+        """The preallocated outputs of a step of level `lvl` on `st` (None:
+        allocated; an in-place level's f is its input)."""
+        if out_of is None:
+            return None
+        return (None if engs[lvl] == "inplace" else out_of(st["f"]),
+                out_of(st["rho"]), out_of(st["vel"]))
 
     def level_step(st: Dict, lvl: int, u, seed: int, iface) -> Dict:
         """One sub-step of level `lvl`: its kernel, then its K2."""
         if engs[lvl] == "k1":
             f_new, rho_new, vel_new = stream_collide(
                 st["f"], st["vel"], u, seed, statics[lvl], patches[lvl],
-                iface=iface, **kw)
+                iface=iface, out=outs(st, lvl), **kw)
         else:
             f_new, rho_new, vel_new = iface_free_steps[engs[lvl]](
-                st["f"], st["vel"], u, seed, statics[lvl], patches[lvl], **kw)
+                st["f"], st["vel"], u, seed, statics[lvl], patches[lvl],
+                out=outs(st, lvl), **kw)
         plan = statics[lvl]["bouzidi"]
         if plan is not None:
-            f_new = bouzidi(f_new, plan)
+            f_new = bouzidi(f_new, plan, inplace=fixed is not None)
         return {"f": f_new, "rho": rho_new, "vel": vel_new}
 
     def endpoint_slabs(lvl: int, st: Dict):
@@ -241,7 +261,8 @@ def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
     if x_mesh is not None:
         from .parallel.patch_shard import slab_schedule
         level_step, endpoint_slabs, cut_planes, f_dtype = slab_schedule(
-            patches, statics, x_mesh, storage.f_dtype(cfg.precision), kw)
+            patches, statics, x_mesh, storage.f_dtype(cfg.precision), kw,
+            out_of=out_of)
         fuse2 = False
     fuse_last = bool(fuse2) and engs[last] == "k1"
 
@@ -251,17 +272,27 @@ def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
         plan = statics[lvl]["bouzidi"]
         f_new, rho_new, vel_new = fused_pair(
             st["f"], st["vel"], u, seeds, statics[lvl], patches[lvl], plan,
-            iface_a=if_a, iface_b=if_b, **kw,
+            iface_a=if_a, iface_b=if_b, out=outs(st, lvl), **kw,
         )
         if plan is not None:
-            f_new = bouzidi(f_new, plan)
+            f_new = bouzidi(f_new, plan, inplace=fixed is not None)
         states[lvl] = {"f": f_new, "rho": rho_new, "vel": vel_new}
+
+    def sub_step(t: int, lvl: int, k: int):
+        """(u, seed) of sub-step k of level `lvl` at coarse step t: the
+        numbers, or the step record's entry (t is the record's then)."""
+        if record is not None:
+            return record.ref(0, lvl, k), None
+        return (ramp_velocity(t, cfg.u_lattice, cfg.ramp_steps),
+                ((t << lvl) + k) % 1000000)
 
     def coarse_step(states: List[Dict], t: int) -> List[Dict]:
         states = list(states)
-        u_curr = ramp_velocity(t, cfg.u_lattice, cfg.ramp_steps)
+        t = int(t)
 
-        def visit(lvl: int, t_sub: int, iface):
+        def visit(lvl: int, k: int, iface):
+            """Sub-step k of level `lvl` (t_sub = (t << lvl) + k), then its
+            child's two sub-steps."""
             patch = patches[lvl]
             child = patches[lvl + 1] if lvl + 1 < n_levels else None
             old_sl = None
@@ -272,31 +303,35 @@ def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
                     # (a K5 parent overwrites f)
                     old_sl = endpoint_slabs(lvl, states[lvl])
             # the pre-step state has no consumer after the launch
-            states[lvl] = level_step(states[lvl], lvl, u_curr, t_sub % 1000000, iface)
+            states[lvl] = level_step(states[lvl], lvl, *sub_step(t, lvl, k), iface)
             if child is None:
                 return
             new_sl = endpoint_slabs(lvl, states[lvl])
-            if use_temporal:
-                states[lvl]["_ifsl"] = new_sl
             # the child's planes in its storage type: bf16 g, or float32 f
             c_dtype = f_dtype(states[lvl + 1])
             planes = interface_planes_pair_mm(
                 plans[lvl + 1], child, patch, old_sl, new_sl, use_temporal,
                 g_shifted=c_dtype == torch.bfloat16, out_dtype=c_dtype)
+            if use_temporal:
+                # the planes have read the old slabs: the new ones are carried
+                states[lvl]["_ifsl"] = (new_sl if fixed is None
+                                        else fixed.carry(old_sl, new_sl))
             if_a, if_b = cut_planes(lvl + 1, planes)
             if fuse_last and lvl + 1 == last:
-                ts = 2 * t_sub
-                fused(states, last, (u_curr, u_curr),
-                      (ts % 1000000, (ts + 1) % 1000000), if_a, if_b)
+                (ua, sa), (ub, sb) = (sub_step(t, last, 2 * k),
+                                      sub_step(t, last, 2 * k + 1))
+                fused(states, last, (ua, ub), (sa, sb), if_a, if_b)
                 return
-            visit(lvl + 1, 2 * t_sub, if_a)
-            visit(lvl + 1, 2 * t_sub + 1, if_b)
+            visit(lvl + 1, 2 * k, if_a)
+            visit(lvl + 1, 2 * k + 1, if_b)
 
-        visit(0, int(t), None)
+        visit(0, 0, None)
         # visit refers to itself; clearing it breaks that cycle, which would
         # otherwise keep this step's states alive until the garbage
         # collector runs (up to a level's whole state per step)
         del visit
+        if record is not None:
+            record.advance(1)
         return states
 
     def seed_slabs(states: List[Dict]) -> List[Dict]:
@@ -318,6 +353,11 @@ def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
             (inlet velocity and noise seed of each step its own) + K2."""
             states = list(states)
             t = int(t)
+            if record is not None:
+                fused(states, 0, (record.ref(0), record.ref(1)), (None, None),
+                      None, None)
+                record.advance(2)
+                return states
             fused(states, 0,
                   (ramp_velocity(t, cfg.u_lattice, cfg.ramp_steps),
                    ramp_velocity(t + 1, cfg.u_lattice, cfg.ramp_steps)),
@@ -330,27 +370,94 @@ def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
     return coarse_step
 
 
+class FixedBuffers:
+    """The graphed runner's state buffers and its step record.  Every A -> B
+    step writes into the partner of its input (`out_of`): the first step
+    on a tensor the runner did not make (the caller's first states)
+    allocates a fresh output and keeps no hold on its input, so the
+    caller's tensor is freed once the caller's list lets it go; the first
+    step on a buffer of the runner's own allocates its partner, and from
+    then on every level's state moves between those two buffers (A/B) and
+    a graph's addresses hold.  An in-place level's f (K5) has no partner.
+    `carry` copies a parent's new endpoint slabs into its carried ones."""
+
+    def __init__(self, record):
+        self.record = record
+        self.partner: Dict[int, torch.Tensor] = {}
+        self.owned: Dict[int, torch.Tensor] = {}
+
+    def out_of(self, t):
+        """The buffer a step on `t` (a tensor, or a list of x slabs') writes."""
+        if isinstance(t, list):
+            return [self.out_of(x) for x in t]
+        key = t.data_ptr()
+        if key in self.partner:
+            return self.partner[key]
+        out = torch.empty_like(t)
+        self.owned[out.data_ptr()] = out
+        if key in self.owned:
+            self.partner[key], self.partner[out.data_ptr()] = out, t
+        return out
+
+    @staticmethod
+    def carry(old: List[Dict], new: List[Dict]) -> List[Dict]:
+        for o, n in zip(old, new):
+            for key in ("f", "rho", "vel"):
+                o[key].copy_(n[key])
+        return old
+
+
+def _leaves(states: List[Dict]) -> List[torch.Tensor]:
+    """The f, rho and vel tensors of `states` (every slab's under a mesh)."""
+    out = []
+    for st in states:
+        for key in ("f", "rho", "vel"):
+            v = st[key]
+            out.extend(v if isinstance(v, list) else [v])
+    return out
+
+
 def make_batch_runner_dense(cfg: CaseConfig, params: DomainParams,
                             patches: List[PatchLevel], statics: List[Dict],
-                            fuse2: bool = True, x_mesh=None):
-    """run(states, t0, n) -> states after coarse steps t0 .. t0+n-1: a plain
-    loop that only enqueues work (no host sync inside a batch).  A
-    single-level case with a pair step runs pairs of coarse steps; an odd
-    batch of n >= 3 takes one plain step first (the JAX runner's rule,
-    open_ludwig_tpu/solver_dense.py:690-700).  The states first get their
-    carried endpoint slabs (`run.seed_slabs`, idempotent).  `run` takes
-    over the list it is given, as the JAX runner's jit takes its states
-    (`donate_argnums=(0,)`): each step replaces the list's entries, so the
-    caller's list does not keep the batch's first states alive on the
-    device, and that list is returned.  A level run in place (K5) updates
-    the f tensor of the states passed in.  With `x_mesh` the states are
-    per slab (`parallel.patch_shard.shard_states`) and every coarse step
-    is unfused (`run.fused2` False)."""
+                            fuse2: bool = True, x_mesh=None, graphs: bool = True):
+    """run(states, t0, n) -> states after coarse steps t0 .. t0+n-1, with no
+    host sync inside a batch.  A single-level case with a pair step runs
+    pairs of coarse steps; an odd batch of n >= 3 takes one plain step
+    first (the JAX runner's rule, open_ludwig_tpu/solver_dense.py:690-700).
+    The states first get their carried endpoint slabs (`run.seed_slabs`,
+    idempotent).  `run` takes over the list it is given, as the JAX
+    runner's jit takes its states (`donate_argnums=(0,)`): each step
+    replaces the list's entries, so the caller's list does not keep the
+    batch's first states alive on the device, and that list is returned.
+    A level run in place (K5) updates the f tensor of the states passed in.
+    With `x_mesh` the states are per slab (`parallel.patch_shard.
+    shard_states`) and every coarse step is unfused (`run.fused2` False).
+
+    With `graphs` (the default) the batch is one program, the counterpart
+    of the JAX runner's jit + lax.scan: each coarse step (each pair, on a
+    single level) is the step of `make_coarse_step_dense(fixed=...)` on
+    fixed buffers (`FixedBuffers`) and a step record (`solver.StepRecord`,
+    set to t0 on the stream at each call), and on a card it is replayed
+    from a CUDA graph per kind of step and state addresses (`graphs.
+    GraphSet`: the first run of each eager, the second captured with host
+    syncs forbidden); the CPU, which has no graphs, runs the same steps on
+    the same buffers eagerly.  A mesh over more than one physical card
+    keeps the eager loop (`run.graph_note` says why).  The results are
+    bit-equal to `graphs=False`, the loop that launches every kernel from
+    the host with the step's numbers by value.  A state passed in that is
+    not the runner's last result is copied into the runner's buffers.
+    `run.graph_set` holds the graphs (None without)."""
     coarse_step = make_coarse_step_dense(cfg, params, patches, statics,
                                          fuse2=fuse2, x_mesh=x_mesh)
     pair = coarse_step.pair_step
+    cards = ({d for d in x_mesh.devices} if x_mesh is not None else set())
+    note = None
+    if graphs and len(cards) > 1:
+        graphs = False
+        note = (f"[Graph] eager loop: the x mesh spans {len(cards)} cards, and "
+                "one graph per card has never run here (one card to test on)")
 
-    def run(states: List[Dict], t0: int, n: int) -> List[Dict]:
+    def run_eager(states: List[Dict], t0: int, n: int) -> List[Dict]:
         t0, n = int(t0), int(n)
         states[:] = coarse_step.seed_slabs(states)
         if pair is not None and n >= 2:
@@ -364,8 +471,77 @@ def make_batch_runner_dense(cfg: CaseConfig, params: DomainParams,
             states[:] = coarse_step(states, t)
         return states
 
+    if not graphs:
+        run_eager.fused2 = coarse_step.fused2
+        run_eager.seed_slabs = coarse_step.seed_slabs
+        run_eager.graph_set = None
+        run_eager.graph_note = note
+        return run_eager
+
+    from .graphs import GraphSet
+    from .solver import StepRecord
+
+    gset = GraphSet("dense")
+    held = {}  # "fixed", "step", "last": the states the last call returned
+
+    def setup(device) -> None:
+        fixed = FixedBuffers(StepRecord(cfg.u_lattice, cfg.ramp_steps, device))
+        held["fixed"] = fixed
+        held["step"] = make_coarse_step_dense(cfg, params, patches, statics,
+                                              fuse2=fuse2, x_mesh=x_mesh,
+                                              fixed=fixed)
+
+    def take(states: List[Dict]) -> List[Dict]:
+        """The caller's states on the runner's buffers: where the caller
+        passes other tensors than the last result's, they are copied in,
+        and carried slabs that are missing are the copied states' own."""
+        last = held.get("last")
+        if last is None:
+            return coarse_step.seed_slabs(states)
+        for st, mine in zip(states, last):
+            for a, b in zip(_leaves([st]), _leaves([mine])):
+                if a.data_ptr() != b.data_ptr():
+                    b.copy_(a)
+        fresh = None
+        for lvl, (st, mine) in enumerate(zip(states, last)):
+            if "_ifsl" not in mine or st.get("_ifsl") is mine["_ifsl"]:
+                continue
+            sl = st.get("_ifsl")
+            if sl is None:
+                if fresh is None:
+                    fresh = coarse_step.seed_slabs(
+                        [{k: m[k] for k in ("f", "rho", "vel")} for m in last])
+                sl = fresh[lvl]["_ifsl"]
+            FixedBuffers.carry(mine["_ifsl"], sl)
+        return [dict(m) for m in last]
+
+    def unit(kind: str, states: List[Dict], device) -> List[Dict]:
+        step = held["step"]
+        key = (kind,) + tuple(t.data_ptr() for t in _leaves(states))
+        fn = ((lambda: step(states, 0)) if kind == "step" else
+              (lambda: step.pair_step(states, 0)))
+        out = gset.run(key, fn, device)
+        return [dict(st) for st in out]
+
+    def run(states: List[Dict], t0: int, n: int) -> List[Dict]:
+        t0, n = int(t0), int(n)
+        dev = _leaves(states[:1])[0].device
+        if "fixed" not in held:
+            setup(dev)
+        states[:] = take(states)
+        held["fixed"].record.set(t0)
+        kinds = ["step"] * n
+        if pair is not None and n >= 2:
+            kinds = ["step"] * (n % 2) + ["pair"] * (n // 2)
+        for kind in kinds:
+            states[:] = unit(kind, states, dev)
+        held["last"] = list(states)
+        return states
+
     run.fused2 = coarse_step.fused2
     run.seed_slabs = coarse_step.seed_slabs
+    run.graph_set = gset
+    run.graph_note = note
     return run
 
 

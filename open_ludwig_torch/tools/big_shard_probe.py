@@ -77,7 +77,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     sh = two(sh, 1, args.steps)
     sync()
     two_s = time.time() - t0
-    launches = {k: v for k, v in cuda_step.LAUNCHES.items() if v}
+    launches = {k: v for k, v in cuda_step.executed_launches().items() if v}
 
     def bits(t):
         return t.view(torch.int16) if t.dtype == torch.bfloat16 else t

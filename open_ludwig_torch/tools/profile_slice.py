@@ -3,20 +3,26 @@
     python3 -m open_ludwig_torch.tools.profile_slice [--warmup 20] [--steps 10]
 
 Builds the bench case (`checks.bench_case`: sphere Re~1M, N=25, 3 levels +
-wake, bf16 g-storage), runs `--warmup` coarse steps of the batch runner
-from rest, then over the next `--steps` coarse steps, one at a time:
+wake, bf16 g-storage) and, for each mode of `TURNS` in turn (graph, eager,
+eager, graph; graph: each coarse step a CUDA graph replay; eager: every
+launch from the host), runs `--warmup` coarse steps of the batch runner from rest in one call,
+then the next `--steps` coarse steps in one call (`measure`):
 
-  - ms per coarse step and MLUPS-su from CUDA events, without a profiler;
-  - the same steps once more under `torch.profiler`: every CUDA kernel,
+  - ms per coarse step and MLUPS-su from CUDA events, without a profiler,
+    and the call's peak allocation;
+  - the next steps once more under `torch.profiler`: every CUDA kernel,
     memcpy and memset the device ran per coarse step ("device_ops"), the
-    port's own kernel launches per coarse step (`cuda_step.LAUNCHES`), the
+    port's own kernel launches per coarse step (`cuda_step.
+    executed_launches`: under graphs the captured ones times the replays), the
     device time of the port's kernels and of everything else, and the
     share of the profiled window the device was busy (the union of its
     operations' intervals over the window; the profiler's own host cost
-    lowers it).
+    lowers it).  A trace that kept fewer device operations than the port
+    launched is incomplete: its numbers are None ("not measured").
 
 Prints one JSON line.  It imports only entry points that every version of
-the package since the bench slice has, so the same file run with another
+the package since the bench slice has (a checkout before the graphed
+runner is measured eager only), so the same file run with another
 checkout first on PYTHONPATH (`PYTHONPATH=DIR python3
 open_ludwig_torch/tools/profile_slice.py`) measures that checkout.
 """
@@ -24,6 +30,7 @@ open_ludwig_torch/tools/profile_slice.py`) measures that checkout.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import re
 import tempfile
@@ -31,6 +38,8 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
+# the runners' modes in turns: graph replay, the eager loop, and back
+TURNS = ("graph", "eager", "eager", "graph")
 # the port's kernels (csrc/*.cu): K1, K3, K4, K5's two, K2's and K6's
 PORT_KERNEL = re.compile(r"(stream_collide|fused_pair|stream_collide_flat|edge_copy|"
                          r"inplace|link)_kernel")
@@ -87,6 +96,17 @@ def profile_calls(fn: Callable[[], object], calls: int) -> Dict:
     }
 
 
+def drop_incomplete(prof: Dict, launches: float) -> Dict:
+    """`prof` (a `profile_calls` result) with its device numbers None where
+    the trace kept fewer device operations a call than `launches`, the
+    port's own launches a call executed: the profiler lost part of the
+    trace, and what it kept cannot be read as the call's."""
+    if prof["device_ops"] < max(launches, 1):
+        prof.update(device_ops=None, port_kernels=None, port_device_ms=None,
+                    other_device_ms=None, busy_share=None)
+    return prof
+
+
 def profile_steps(run, states, t0: int, steps: int, updates: int) -> Dict:
     """Coarse steps t0 .. t0 + steps - 1 of batch runner `run`, one call a
     step: timed with CUDA events ("ms", "mlups_su" from `updates` site
@@ -111,9 +131,71 @@ def profile_steps(run, states, t0: int, steps: int, updates: int) -> Dict:
     ms = start.elapsed_time(end) / steps
     cuda_step.reset_launches()
     prof = profile_calls(step, steps)
-    launches = {k: v / steps for k, v in cuda_step.LAUNCHES.items() if v}
+    launches = {k: v / steps for k, v in cuda_step.executed_launches().items() if v}
+    prof = drop_incomplete(prof, sum(launches.values()))
     out = {"ms": ms, "mlups_su": updates / ms / 1e3, "port_launches": launches, **prof}
     return out, box["states"]
+
+
+def measure(run, states, t0: int, steps: int, updates: int, device,
+            prof_steps: Optional[int] = None) -> Dict:
+    """Coarse steps t0 .. t0 + steps - 1 of batch runner `run` in ONE call,
+    timed with CUDA events ("ms" a coarse step, "mlups_su"), with the peak
+    allocation of the call above what was live ("peak_bytes") and the
+    memory reserved after it; then the next `prof_steps` (default `steps`)
+    in one call under torch.profiler (`profile_calls`, per coarse step)
+    with the port's launches a step (`cuda_step.executed_launches`:
+    captured launches x replays under graphs).  Returns the numbers and
+    the last states."""
+    from open_ludwig_torch.ops import cuda_step
+
+    torch.cuda.synchronize(device)
+    live = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    states = run(states, t0, steps)
+    end.record()
+    torch.cuda.synchronize(device)
+    ms = start.elapsed_time(end) / steps
+    out = {"ms": ms, "mlups_su": updates / ms / 1e3,
+           "peak_bytes": torch.cuda.max_memory_allocated(device) - live,
+           "live_bytes": live,
+           "reserved_bytes": torch.cuda.memory_reserved(device)}
+    box = {"states": states}
+
+    n = prof_steps or steps
+
+    def call():
+        box["states"] = run(box["states"], t0 + steps, n)
+
+    cuda_step.reset_launches()
+    prof = profile_calls(call, 1)
+    launches = {k: v / n for k, v in cuda_step.executed_launches().items() if v}
+    prof = drop_incomplete(prof, n * sum(launches.values()))
+    for key in ("device_ops", "port_kernels", "port_device_ms", "other_device_ms"):
+        if prof[key] is not None:
+            prof[key] /= n
+    prof["top"] = [{**t, "per_call": t["per_call"] / n} for t in prof["top"]]
+    return {**out, "port_launches": launches, **prof}, box["states"]
+
+
+def turns(runners: Dict[str, Callable], fresh: Callable[[], object], t0: int,
+          steps: int, updates: int, device, order: Sequence[str],
+          warmup: int = 4, prof_steps: Optional[int] = None
+          ) -> Dict[str, List[Dict]]:
+    """`measure` of each runner in `order` (e.g. graph, eager, eager,
+    graph), each turn from `fresh()` states after `warmup` coarse steps
+    in one call (a graphed runner's captures happen there)."""
+    out: Dict[str, List[Dict]] = {k: [] for k in runners}
+    for label in order:
+        run = runners[label]
+        states = run(fresh(), t0, warmup)
+        res, states = measure(run, states, t0 + warmup, steps, updates, device,
+                              prof_steps)
+        out[label].append(res)
+        del states
+    return out
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
@@ -136,14 +218,26 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     with tempfile.TemporaryDirectory() as tmp:
         cfg, _, params, levels = checks.bench_case(tmp)
     statics = build_patch_statics(cfg, levels, dev)
-    run = make_batch_runner_dense(cfg, params, levels, statics)
-    states = [init_patch_state(p, cfg.precision, dev) for p in levels]
-    states = run(states, 1, args.warmup)
+    if "graphs" in inspect.signature(make_batch_runner_dense).parameters:
+        order = TURNS
+        runners = {m: make_batch_runner_dense(cfg, params, levels, statics,
+                                              graphs=m == "graph")
+                   for m in dict.fromkeys(order)}
+    else:  # a checkout before the graphed runner: eager only
+        order = ("eager", "eager")
+        runners = {"eager": make_batch_runner_dense(cfg, params, levels, statics)}
     updates = sum(p.n_cells * 2 ** (p.level_id - 1) for p in levels)
-    out, _ = profile_steps(run, states, args.warmup + 1, args.steps, updates)
+
+    def fresh():
+        return [init_patch_state(p, cfg.precision, dev) for p in levels]
+
+    res = turns(runners, fresh, 1, args.steps, updates, dev, order,
+                warmup=args.warmup)
     out = {"label": args.label, "package": open_ludwig_torch.__file__,
            "card": torch.cuda.get_device_name(dev), "warmup": args.warmup,
-           "steps": args.steps, **out}
+           "steps": args.steps, "order": list(order),
+           **{m: [{k: v for k, v in r.items() if k != "top"} for r in rs]
+              for m, rs in res.items()}}
     print(json.dumps(out), flush=True)
     return out
 

@@ -13,7 +13,11 @@ their plain versions and against the unsharded kernels (equal); K2 on the
 shipped wing's 10-cell-thick box and K3 + K2 on the shipped half model's
 box, which lies on its finest level's y = 0 face; 600 coarse steps of a
 developing 3-level sphere flow through `solve_case` on the card against
-the CPU's plain path.
+the CPU's plain path; the graphed batch runner (CUDA graph replays, the
+step record on the card) bit-equal to the eager loop across a ramp on the
+bench, the bench on 2 virtual slabs, the 10.8M-cell pair runner, the
+shipped cube and the blocks layout, and `solve_case`'s forces.csv rows
+the same in both modes.
 
 Every test here needs an NVIDIA GPU and nvcc, and skips without them.  On
 the card:  python -m pytest tests/test_torch_*.py -q
@@ -276,3 +280,128 @@ def test_long_run_matches_plain_path(cuda_device, tmp_path):
         assert a["Step"] == b["Step"]
         for key in ("Cd", "Cl"):
             assert abs(float(a[key]) - float(b[key])) <= 1e-3, (a["Step"], key, a, b)
+
+
+def _graph_vs_eager(make, fresh, calls=((1, 7), (8, 12), (20, 3), (23, 18)),
+                    gather=lambda s: s):
+    """The eager loop and the graphed runner from equal states over calls
+    across a 20-step ramp: the states bit for bit, and the kernel launches
+    the graphed run executed (its captured launches times its replays)
+    equal to the eager run's."""
+    from open_ludwig_torch.ops import cuda_step
+
+    out, launches = {}, {}
+    for graphs in (False, True):
+        run = make(graphs)
+        st = fresh()
+        cuda_step.reset_launches()
+        for t0, n in calls:
+            st = run(st, t0, n)
+        torch.cuda.synchronize()
+        out[graphs], launches[graphs] = gather(st), cuda_step.executed_launches()
+        if graphs:
+            assert run.graph_set.graphs and run.graph_set.replays > 0
+    assert launches[True] == launches[False]
+
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+    for a, b in zip(out[False], out[True]):
+        for k in ("f", "rho", "vel"):
+            assert torch.equal(bits(a[k]), bits(b[k])), k
+
+
+def _random_states(levels, precision, seed, device):
+    from open_ludwig_torch import lattice as lat
+    from open_ludwig_torch.ops import storage
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    w = torch.as_tensor(lat.W, dtype=torch.float32, device=device).view(27, 1, 1, 1)
+    out = []
+    for p in levels:
+        sh = tuple(p.interior)
+
+        def randn(shape):
+            return torch.randn(shape, generator=gen, device=device)
+        out.append({"f": storage.encode_f(w * (1 + 0.03 * randn((27,) + sh)), precision),
+                    "rho": 1 + 0.01 * randn(sh), "vel": 0.02 * randn((3,) + sh)})
+    return out
+
+
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["bench", "bench_2slabs", "single", "single_k5"])
+def test_graph_replay_equals_eager_loop(cuda_device, tmp_path, case, precision):
+    """The graphed batch runner (each coarse step, or pair, one CUDA graph
+    replay, the step record on the card) against the eager loop, bit for
+    bit: the bench case, the bench on a virtual mesh of 2 slabs, the
+    single-level pair runner (the 10.8M-cell case) and that level on K5 in
+    place (each replay's edge copy reads what the previous one wrote)."""
+    from open_ludwig_torch.parallel.patch_shard import XMesh, gather_states, shard_states
+    from open_ludwig_torch.solver_dense import make_batch_runner_dense
+
+    single = case.startswith("single")
+    over = dict(surface_resolution=25, num_levels=1) if single else {}
+    cfg, _, params, levels = checks.bench_case(str(tmp_path), precision=precision,
+                                               ramp_steps=20, **over)
+    cfg = cfg.with_overrides(inlet_turbulence_intensity=0.02)
+    mesh = XMesh([cuda_device] * 2) if case == "bench_2slabs" else None
+    statics = build_patch_statics(cfg, levels, cuda_device, x_mesh=mesh)
+    if case == "single_k5":
+        statics = [{**s, "engine": "inplace", "engine_why": "forced"} for s in statics]
+    if mesh is None:
+        fresh = lambda: _random_states(levels, precision, 5, cuda_device)  # noqa: E731
+        gather = lambda s: s  # noqa: E731
+    else:
+        fresh = lambda: shard_states(_random_states(levels, precision, 5,  # noqa: E731
+                                                    cuda_device), mesh)
+        gather = lambda s: gather_states(s, cuda_device)  # noqa: E731
+    _graph_vs_eager(lambda g: make_batch_runner_dense(cfg, params, levels, statics,
+                                                      x_mesh=mesh, graphs=g),
+                    fresh, gather=gather)
+
+
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+def test_graph_replay_equals_eager_loop_cube(cuda_device, tmp_path, precision):
+    """The shipped cube: 4 levels, four K3 pairs a coarse step."""
+    from open_ludwig_torch.solver_dense import make_batch_runner_dense
+
+    cfg = checks.shipped_config(str(tmp_path), "cube").with_overrides(
+        precision=precision, ramp_steps=20, inlet_turbulence_intensity=0.02)
+    _, params, levels = checks.case_levels(cfg)
+    assert len(levels) == 4
+    statics = build_patch_statics(cfg, levels, cuda_device)
+    _graph_vs_eager(lambda g: make_batch_runner_dense(cfg, params, levels, statics,
+                                                      graphs=g),
+                    lambda: _random_states(levels, precision, 7, cuda_device))
+
+
+def test_graph_replay_equals_eager_loop_blocks(cuda_device, tmp_path):
+    """`layout: blocks` (float32): the plain-torch block step captured."""
+    from open_ludwig_torch import solver
+    from open_ludwig_torch.core.state import build_all
+    from open_ludwig_torch.domain.builder import setup_case
+
+    cfg = checks.bench_config(str(tmp_path), precision="float32", ramp_steps=20
+                              ).with_overrides(layout="blocks",
+                                               inlet_turbulence_intensity=0.02)
+    _, params, levels = setup_case(cfg)
+    base, statics = build_all(cfg, params, levels, cuda_device)
+    _graph_vs_eager(lambda g: solver.make_batch_runner(cfg, params, statics, graphs=g),
+                    lambda: [{k: v.clone() for k, v in st.items()} for st in base],
+                    calls=((1, 7), (8, 14), (22, 3)))
+
+
+def test_solve_case_graphs_write_the_eager_rows(cuda_device, tmp_path):
+    """`solve_case` graphed (its default on a card) and eager: identical
+    forces.csv rows over a run that crosses the ramp."""
+    from open_ludwig_torch.runner import solve_case
+
+    cfg = checks.bench_config(str(tmp_path), steps=40, ramp_steps=20, diag_freq=10
+                              ).with_overrides(inlet_turbulence_intensity=0.02)
+    rows = {}
+    for graphs in (True, False):
+        c = cfg.with_overrides(output_dir=f"R_{graphs}")
+        res = solve_case(c, device="cuda", graphs=graphs)
+        assert ("[Graph] dense" in res.graph_report) == graphs
+        with open(f"{c.output_path}/forces.csv") as fh:
+            rows[graphs] = fh.read().splitlines()
+    assert rows[True] == rows[False] and len(rows[True]) == 5

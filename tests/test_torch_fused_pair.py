@@ -316,7 +316,9 @@ def test_pair_runner_matches_jax_fused_runner(tmp_path):
 def test_pair_runner_schedule(sphere2, monkeypatch, n):
     """A single-level batch of n coarse steps runs n // 2 fused pairs and
     n % 2 plain steps (the odd one first), with the ramp velocity and the
-    noise seed of each step, and one Bouzidi correction after each."""
+    noise seed of each step, and one Bouzidi correction after each: in the
+    eager loop, which passes them by value, and in the graphed runner,
+    whose launches read them from the step record (read back here)."""
     cfg, params, _, levels_t = sphere2
     level = dataclasses.replace(
         levels_t[-1], level_id=1,
@@ -325,23 +327,31 @@ def test_pair_runner_schedule(sphere2, monkeypatch, n):
     statics = sd.build_patch_statics(cfg, [level])
     calls = []
 
+    def numbers(u, seed):
+        return u.host() if hasattr(u, "record") else (u, seed)
+
     def k1(f, vel, u, seed, *a, **k):
-        calls.append(("K1", u, seed))
+        calls.append(("K1",) + numbers(u, seed))
         return f, vel[0], vel
 
     def k3(f, vel, u, seed, *a, **k):
-        calls.append(("K3", u, seed))
+        (ua, sa), (ub, sb) = numbers(u[0], seed[0]), numbers(u[1], seed[1])
+        calls.append(("K3", (ua, ub), (sa, sb)))
         return f, vel[0], vel
 
-    def k2(f, plan):
+    def k2(f, plan, *a, **k):
         calls.append(("K2",))
         return f
 
     monkeypatch.setattr(sd, "stream_collide", k1)
     monkeypatch.setattr(sd, "fused_pair", k3)
     monkeypatch.setattr(sd, "bouzidi", k2)
-    run = sd.make_batch_runner_dense(cfg, params, [level], statics)
-    run([sd.init_patch_state(level, cfg.precision)], 7, n)
+    seen = {}
+    for graphs in (False, True):
+        calls.clear()
+        run = sd.make_batch_runner_dense(cfg, params, [level], statics, graphs=graphs)
+        run([sd.init_patch_state(level, cfg.precision)], 7, n)
+        seen[graphs] = list(calls)
 
     def ramp(t):
         return sd.ramp_velocity(t, cfg.u_lattice, cfg.ramp_steps)
@@ -354,7 +364,7 @@ def test_pair_runner_schedule(sphere2, monkeypatch, n):
     for i in range(n // 2):
         want += [("K3", (ramp(t), ramp(t + 1)), (t, t + 1)), ("K2",)]
         t += 2
-    assert calls == want
+    assert seen[False] == want and seen[True] == want
 
 
 def test_kernel_log_and_memory_report_name_k3(sphere2):

@@ -417,3 +417,22 @@ def test_profile_slice_counts_busy_time_once():
              "ampere_sgemm_32x32_sliced1x4_nn", "Memcpy HtoD (Pageable -> Device)"]
     assert [bool(profile_slice.PORT_KERNEL.search(n)) for n in names] == \
         [True, True, True, False, False, False]
+
+
+def test_profile_slice_drops_an_incomplete_trace():
+    """A profile that kept fewer device operations than the port executed
+    launches is not read as measured: its device numbers become None."""
+    from open_ludwig_torch.tools import profile_slice
+
+    def prof(ops):
+        return {"device_ops": ops, "port_kernels": 1.0, "port_device_ms": 0.5,
+                "other_device_ms": 0.1, "busy_share": 0.4, "window_ms": 2.0}
+
+    kept = profile_slice.drop_incomplete(prof(548.0), 246.0)
+    assert kept["device_ops"] == 548.0 and kept["busy_share"] == 0.4
+    for ops, launches in ((0.7, 2.0), (0.0, 0.0), (245.0, 246.0)):
+        lost = profile_slice.drop_incomplete(prof(ops), launches)
+        assert all(lost[k] is None for k in ("device_ops", "port_kernels",
+                                             "port_device_ms", "other_device_ms",
+                                             "busy_share"))
+        assert lost["window_ms"] == 2.0

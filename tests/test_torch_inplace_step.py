@@ -203,10 +203,16 @@ def test_forced_inplace_parent_level_equals_k1(tmp_path, precision):
 def test_batch_frees_each_steps_outputs(tmp_path, engs):
     """A coarse step's rho and vel are freed once the next step has run,
     without the garbage collector: held on, they would cost a 63.7M-cell
-    level 1 GB per step."""
+    level 1 GB per step.  The eager loop frees them; the graphed runner
+    writes every step into the same two buffers per array (A/B), so over
+    many calls the arrays it returns lie at two addresses where a level
+    steps once a coarse step (level 1) and at one where it steps twice
+    (level 2 returns to its buffer), one f on a K5 level: the memory it
+    holds does not grow."""
     cfg, params, levels = _case(str(tmp_path), surface_resolution=8, num_levels=2)
     statics = _forced(sd.build_patch_statics(cfg, levels), engs)
-    run = sd.make_batch_runner_dense(cfg, params, levels, statics, fuse2=False)
+    run = sd.make_batch_runner_dense(cfg, params, levels, statics, fuse2=False,
+                                     graphs=False)
     gc.collect()
     gc.disable()
     try:
@@ -216,6 +222,18 @@ def test_batch_frees_each_steps_outputs(tmp_path, engs):
         assert [r() is None for r in refs] == [True] * len(refs)
     finally:
         gc.enable()
+    run = sd.make_batch_runner_dense(cfg, params, levels, statics, fuse2=False)
+    states = run(_rand_states(levels, cfg.precision, 3), 1, 1)
+    seen = [{k: set() for k in ("f", "rho", "vel")} for _ in levels]
+    for t in range(2, 8):
+        states = run(states, t, 1)
+        for lvl, st in enumerate(states):
+            for k in seen[lvl]:
+                seen[lvl][k].add(st[k].data_ptr())
+    for lvl, eng in enumerate(engs):
+        n = 2 if lvl == 0 else 1
+        assert len(seen[lvl]["rho"]) == len(seen[lvl]["vel"]) == n, seen[lvl]
+        assert len(seen[lvl]["f"]) == (1 if eng == "inplace" else n), seen[lvl]
 
 
 @pytest.mark.parametrize("eng", ["inplace", "flat"])
