@@ -48,10 +48,14 @@ Phases, each raising on failure (nothing is caught):
   4b. K3 (+ K2) against the plain pair and against K1 -> K2 -> K1 (+ K2),
      float32 and bf16, on the bench's finest level (six interface faces,
      distinct ghost planes per sub-step: plane[0] and plane[1] of each
-     face's (2, 27, A, B) storage-type tensor, box 29x28x28) and on the 10.8M-cell
+     face's (2, 27, A, B) storage-type tensor, box 29x28x28), on the 10.8M-cell
      single level (inlet, outlet, mirrors, inlet noise, wall model, sponge
-     ramp, the sphere's box); times K3 against the unfused kernels in turns,
-     and the plain pair; prints K3's registers and occupancy;
+     ramp, the sphere's box) and on the levels of the bench's sweep rows
+     at res 12 and 25 (`bench.build_row`: 1.6M and 13.8M cells, z snapped
+     to 128 and 256, each with its own Bouzidi box, on which K2 is held
+     against its plain version first, float32 and bf16); times K3 against
+     the unfused kernels in turns, and the plain pair; prints K3's
+     registers and occupancy;
   4c. fused against unfused on the card: 4 coarse steps of the bench case
      through make_batch_runner_dense(fuse2=True) and (fuse2=False) from one
      random state, float32 and bf16, per level;
@@ -195,6 +199,16 @@ Phases, each raising on failure (nothing is caught):
      on the bench graphed and eager, 40 steps: forces.csv rows identical.
      The phases above that count launches a coarse step read
      `cuda_step.executed_launches()`, the runners being graphed there too.
+  14. the bench entry point (`open_ludwig_torch.bench`): `headline("cuda")`
+     in full (the bench case built 3 times, each from rest, warm-up calls
+     until all replays, then 6 windows of 400 coarse steps between CUDA
+     events): its JSON fields printed with the card, finite MLUPS with
+     min <= median <= max, each build's median, no launch captured in the
+     timed windows, launches executed per coarse step K4 1, K1 2, K3 2,
+     K2 2, and the median ms per coarse step over the builds
+     within 20% of phase 13's graphed bench turns; then one sweep row,
+     `sweep((12,), "cuda", <tmp>)` (1.6M cells): the row schema, no error,
+     its engine and peak memory.
 Every check prints its bound beside its time: the bytes the call must
 move over the card's memory rate (or its operations over the float32
 rate, where larger; `checks.bound`).  Before the last lines, neither jax
@@ -209,17 +223,9 @@ import json
 import logging
 import os
 import re
-import subprocess
 import sys
 import tempfile
 import time
-
-
-def nvidia_smi() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
 
 
 def measured(v, spec: str = ".1f", scale: float = 1.0) -> str:
@@ -662,29 +668,11 @@ SHIPPED = (("cube", "cube", False), ("wing_5deg", "wing_5deg", False),
 LONG_STEPS = 600  # coarse steps of phase 12's long-horizon check
 
 
-def shipped_launches(statics) -> dict:
-    """Launches per coarse step of a multi-level case, fused (the runner's
-    default), from the kernel each level takes: level l runs 2^(l-1)
-    sub-steps, K4 on a flat level and K1 on the others, except the finest,
-    whose sub-step pairs run on K3 with K2 after each pair."""
-    want = {}
-    for lvl, st in enumerate(statics):
-        n = 2 ** lvl
-        if lvl == len(statics) - 1:
-            want["fused_pair"] = n // 2
-            if st["bouzidi"] is not None:
-                want["bouzidi"] = n // 2
-        else:
-            key = "stream_collide_flat" if st["engine"] == "flat" else "stream_collide"
-            want[key] = want.get(key, 0) + n
-    return want
-
-
 def phase_12(dev, smi, tmp, check_run_outputs):
     """Phase 12, the shipped cases on the card (module docstring)."""
     import torch
 
-    from open_ludwig_torch import checks
+    from open_ludwig_torch import bench, checks
     from open_ludwig_torch.config import load_case_config
     from open_ludwig_torch.ops import cuda_step, storage
     from open_ludwig_torch.runner import solve_case
@@ -703,7 +691,7 @@ def phase_12(dev, smi, tmp, check_run_outputs):
         _, params, levels = checks.case_levels(cfg)
         statics = build_patch_statics(cfg, levels, dev)
         bf16 = storage.f_dtype(cfg.precision) == torch.bfloat16
-        per_step = shipped_launches(statics)
+        per_step = bench.batch_launches(statics, 1, True)
         est = hbm_total_patches(levels, statics, cfg.precision, dev)
         tag = f"[12 {label}]"
         print(f"{tag} CASES/{name}{' as the half model (y = 0 mirror)' if half else ''}"
@@ -1025,6 +1013,61 @@ def phase_13(dev, smi, tmp, random_states, states_equal):
     return out
 
 
+BENCH_TOL14 = 0.2  # the headline's median against phase 13's graphed turns
+ROW_KEYS14 = ("res", "cells", "label", "mlups", "mlups_min", "mlups_max", "windows",
+              "engine", "peak_gb", "error")
+
+
+def phase_14(smi, tmp, bench13, per_step):
+    """Phase 14, the bench entry point (module docstring).  `bench13` is
+    phase 13's bf16 bench turns (`profile_slice.turns`), `per_step` the
+    launches a coarse step of the bench case executes."""
+    import math
+
+    import torch
+
+    from open_ludwig_torch import bench
+
+    t_phase = time.time()
+    head = bench.headline("cuda")  # raises on a capture inside a timed window
+    print("[14 bench] headline: " + json.dumps(head) + f" | card: {smi}", flush=True)
+    nums = [head[k] for k in ("value", "value_su", "value_ref", "value_su_min",
+                              "value_su_max", "ms_per_coarse_step")] + head["build_ms"]
+    require(all(math.isfinite(v) and v > 0 for v in nums)
+            and head["builds"] == len(head["build_ms"]) == bench.HEADLINE_BUILDS
+            and head["value_su_min"] <= head["value_su"] <= head["value_su_max"]
+            and head["value"] == head["value_su"] and "vs_baseline" not in head,
+            ("headline values", nums))
+    require(head["launches_per_coarse_step"] == per_step,
+            ("headline launches per coarse step", head["launches_per_coarse_step"]))
+    turns13 = [r["ms"] for r in bench13["graph"]]
+    ms = head["ms_per_coarse_step"]
+    print(f"[14 bench] median {ms:.4f} ms per coarse step over {head['builds']} "
+          "builds (" + ", ".join(f"{t:.4f}" for t in head["build_ms"])
+          + ") against phase 13's graphed bench turns "
+          + ", ".join(f"{t:.4f}" for t in turns13)
+          + f" ms (within {100 * BENCH_TOL14:.0f}% required) | card: {smi}",
+          flush=True)
+    require((1 - BENCH_TOL14) * min(turns13) <= ms <= (1 + BENCH_TOL14) * max(turns13),
+            ("headline against phase 13", ms, turns13))
+    path = os.path.join(tmp, "bench_sweep.json")
+    live = torch.cuda.memory_allocated()
+    rows = bench.sweep((12,), "cuda", path)
+    with open(path) as fh:
+        doc = json.load(fh)
+    row = rows[0]
+    print(f"[14 bench] sweep row: {json.dumps(row)} | file device {doc['device']!r} "
+          f"| allocated before the row {live / 1e9:.3f} GB", flush=True)
+    require(len(rows) == 1 and doc["rows"] == rows and doc["device"] == smi
+            and tuple(row) == ROW_KEYS14
+            and row["error"] is None and row["cells"] == 1605632
+            and row["engine"] == "K3 pairs + K2" and row["peak_gb"] > 0
+            and math.isfinite(row["mlups"])
+            and row["mlups_min"] <= row["mlups"] <= row["mlups_max"],
+            ("sweep row", row))
+    print(f"[14 bench] phase {time.time() - t_phase:.1f} s", flush=True)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1042,6 +1085,7 @@ def main(argv=None) -> int:
 
     import numpy as np
 
+    from open_ludwig_torch import bench
     from open_ludwig_torch import checkpoint as ckpt
     from open_ludwig_torch import checks
     from open_ludwig_torch import lattice as lat
@@ -1139,7 +1183,7 @@ def main(argv=None) -> int:
     none = {k: 0 for k in cuda_step.LAUNCHES}  # every launch counter at zero
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = nvidia_smi()
+    smi = checks.nvidia_smi()
     name = torch.cuda.get_device_name(0)
     t_run = time.time()
 
@@ -1202,6 +1246,12 @@ def main(argv=None) -> int:
               + ", ".join(f"L{p.level_id} {p.interior}" for p in levels), flush=True)
         kw = dict(c_wale=cfg.c_wale, nu_sgs_background=cfg.nu_sgs_background,
                   inlet_turbulence=0.02, wall_model=True, sponge_blend=True)
+        # the launches a coarse step of the bench case executes, at the
+        # runner's defaults (phases 5, 9 and 14 count them)
+        bench_step = bench.batch_launches(statics, 1, True)
+        require(bench_step == {"stream_collide_flat": 1, "stream_collide": 2,
+                               "fused_pair": 2, "bouzidi": 2},
+                ("bench launches a coarse step", bench_step))
 
         # ---- 3. K1 against plain on the bench levels ----
         cases = checks.bench_k1_cases(levels, statics)
@@ -1326,18 +1376,37 @@ def main(argv=None) -> int:
         k2 = {}
         for bf16 in (False, True):
             r = checks.check_bouzidi(levels[2], plan, bf16, seed=19, device=dev)
-            k2[bf16] = r
+            k2[("bench box", bf16)] = r
             print_k2("4 K2", plan, bf16, r)
             if "bouzidi" in refs:
                 print_ref("4 K2", "K2", "bench box", bf16, checks.check_bouzidi_against(
                     refs["bouzidi"], "bouzidi", levels[2], plan, bf16, 19, dev))
 
         # ---- 4b. K3 (+ K2) against the plain pair and the unfused kernels ----
+        # also on the levels of the bench's sweep rows at res 12 (phase 14's
+        # row) and res 25 (z snapped to 256), each with its own Bouzidi box,
+        # where K2 is held against its plain version too
+        rows4 = {}
+        for res in (12, 25):
+            t0 = time.time()
+            b = bench.build_row(res, dev)
+            rows4[f"row {b.total_cells / 1e6:.1f}M"] = (b.levels[0], b.statics[0])
+            print(f"[4b K3] sweep row res {res}: {b.levels[0].interior} "
+                  f"({b.total_cells / 1e6:.1f}M cells) built in {time.time() - t0:.1f}"
+                  " s", flush=True)
+            del b
+        for label, (patch, static) in rows4.items():
+            for bf16 in (False, True):
+                r = checks.check_bouzidi(patch, static["bouzidi"], bf16, seed=19,
+                                         device=dev)
+                k2[(label, bf16)] = r
+                print_k2(f"4b K2 {label}", static["bouzidi"], bf16, r)
         k3 = {}
         k3_cases = (
             ("L3", levels[2], checks.with_sponge_ramp(statics[2]), 20, 3),
             ("sweep", sweep[0], checks.with_sponge_ramp(sweep_static), 5, 1),
-        )
+        ) + tuple((label, patch, checks.with_sponge_ramp(static), 5, 1)
+                  for label, (patch, static) in rows4.items())
         for label, patch, static, reps, plain_reps in k3_cases:
             for bf16 in (False, True):
                 r = checks.check_fused_pair(patch, static, static["bouzidi"], bf16,
@@ -1369,6 +1438,7 @@ def main(argv=None) -> int:
                     print_ref("4b K3", "K3", label, bf16, checks.check_step_against(
                         refs["fused_pair"], "fused_pair", patch, static, bf16, 23, kw,
                         dev, reps=reps))
+        del rows4, k3_cases
         torch.cuda.empty_cache()
 
         # ---- 4c. fused against unfused on the card: 4 coarse steps ----
@@ -1398,9 +1468,7 @@ def main(argv=None) -> int:
         launches = cuda_step.executed_launches()
         steps = cfg.steps
         print(f"[5 slice] launches {launches} over {steps} coarse steps", flush=True)
-        require(launches == {**none, "stream_collide_flat": steps,
-                             "stream_collide": 2 * steps, "fused_pair": 2 * steps,
-                             "bouzidi": 2 * steps},
+        require(launches == {**none, **{k: v * steps for k, v in bench_step.items()}},
                 ("slice launches", launches))
         check_run_outputs(res, cfg)
         win = res.windows[1:]  # the first interval carries the warm-up
@@ -1555,7 +1623,7 @@ def main(argv=None) -> int:
                 ("K5 on the 63.7M row", r["err"], r["k1"]))
         plan7 = st7["bouzidi"]
         r = checks.check_bouzidi(row, plan7, True, seed=39, device=dev)
-        k2["row"] = r
+        k2[(f"row {row.n_cells / 1e6:.1f}M", True)] = r
         print_k2("7 in place: K2 on the row", plan7, True, r)
         torch.cuda.empty_cache()
 
@@ -1660,8 +1728,7 @@ def main(argv=None) -> int:
                 ("probe box and K6 vs K2", probe["dim"], probe["max_abs_err"]))
 
         # ---- 9. the runner's outputs and restarts on the bench case ----
-        per_step = {**none, "stream_collide_flat": 1, "stream_collide": 2,
-                    "fused_pair": 2, "bouzidi": 2}
+        per_step = {**none, **bench_step}
         cfg9 = checks.bench_config(
             os.path.join(tmp, "outputs"), steps=200, output_freq=100,
             diag_freq=100).with_overrides(force_method="momentum_exchange",
@@ -1781,7 +1848,10 @@ def main(argv=None) -> int:
         phase_12(dev, smi, tmp, check_run_outputs)
 
         # ---- 13. the batch as one program: graphs against the eager loop ----
-        phase_13(dev, smi, tmp, random_states, states_equal)
+        out13 = phase_13(dev, smi, tmp, random_states, states_equal)
+
+        # ---- 14. the bench entry point ----
+        phase_14(smi, tmp, out13[("bench", "bfloat16")], bench_step)
 
     print(f"[done] {time.time() - t_run:.1f} s", flush=True)
 
@@ -1798,8 +1868,8 @@ def main(argv=None) -> int:
                     launches["stream_collide"], k1[("L3", True)],
                     max(r["max_abs_err"] for (lab, bf), r in k1.items() if bf)),
         kernel_line("bouzidi", csrc + "bouzidi.cu", pallas + "62",
-                    launches["bouzidi"], k2[True],
-                    max(k2[key]["max_abs_err"] for key in (True, "row"))),
+                    launches["bouzidi"], k2[("bench box", True)],
+                    max(r["max_abs_err"] for (lab, bf), r in k2.items() if bf)),
         kernel_line("fused_pair", csrc + "fused_pair.cu", pallas + "961",
                     launches["fused_pair"], k3[("L3", True)],
                     max(r["max_abs_err"] for (lab, bf), r in k3.items() if bf)),

@@ -49,6 +49,7 @@ import dataclasses
 import os
 import re
 import shutil
+import subprocess
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -116,6 +117,16 @@ CARD_PEAKS = {"NVIDIA H100 80GB HBM3": {"bytes_per_s": 3.35e12,
 # ~3 operations per byte, under the card's float32 ridge of 20.
 CELL_OPS = 450
 LINK_OPS = 3  # a * f_k + b * other, per linked Bouzidi slot
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit as `nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader` prints them: written beside every
+    time, since a card below its 700 W limit runs slower under load."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
 
 
 def bound(nbytes: int, ops: int, device) -> Dict:

@@ -5,8 +5,9 @@
 Builds the bench case (`checks.bench_case`: sphere Re~1M, N=25, 3 levels +
 wake, bf16 g-storage) and, for each mode of `TURNS` in turn (graph, eager,
 eager, graph; graph: each coarse step a CUDA graph replay; eager: every
-launch from the host), runs `--warmup` coarse steps of the batch runner from rest in one call,
-then the next `--steps` coarse steps in one call (`measure`):
+launch from the host), warms the batch runner up from rest with calls of
+`--warmup` coarse steps (`warm_up`: until a call is all graph replays),
+then runs the next `--steps` coarse steps in one call (`measure`):
 
   - ms per coarse step and MLUPS-su from CUDA events, without a profiler,
     and the call's peak allocation;
@@ -34,12 +35,13 @@ import inspect
 import json
 import re
 import tempfile
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 # the runners' modes in turns: graph replay, the eager loop, and back
 TURNS = ("graph", "eager", "eager", "graph")
+MAX_WARMUP = 8  # warm-up calls allowed before a graphed runner must be all replays
 # the port's kernels (csrc/*.cu): K1, K3, K4, K5's two, K2's and K6's
 PORT_KERNEL = re.compile(r"(stream_collide|fused_pair|stream_collide_flat|edge_copy|"
                          r"inplace|link)_kernel")
@@ -145,19 +147,25 @@ def measure(run, states, t0: int, steps: int, updates: int, device,
     memory reserved after it; then the next `prof_steps` (default `steps`)
     in one call under torch.profiler (`profile_calls`, per coarse step)
     with the port's launches a step (`cuda_step.executed_launches`:
-    captured launches x replays under graphs).  Returns the numbers and
-    the last states."""
+    captured launches x replays under graphs).  A launch captured inside
+    the timed call raises.  Returns the numbers and the last states."""
     from open_ludwig_torch.ops import cuda_step
 
+    captured = getattr(cuda_step, "CAPTURED", {})
     torch.cuda.synchronize(device)
     live = torch.cuda.memory_allocated(device)
     torch.cuda.reset_peak_memory_stats(device)
+    before = sum(captured.values())
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     states = run(states, t0, steps)
     end.record()
     torch.cuda.synchronize(device)
     ms = start.elapsed_time(end) / steps
+    if sum(captured.values()) != before:
+        raise RuntimeError(f"measure: kernel launches captured inside the timed call "
+                           f"of steps {t0} .. {t0 + steps - 1}; warm the runner up "
+                           "(`warm_up`) with calls of the same length")
     out = {"ms": ms, "mlups_su": updates / ms / 1e3,
            "peak_bytes": torch.cuda.max_memory_allocated(device) - live,
            "live_bytes": live,
@@ -180,19 +188,45 @@ def measure(run, states, t0: int, steps: int, updates: int, device,
     return {**out, "port_launches": launches, **prof}, box["states"]
 
 
+def warm_up(run, states, n: int, t0: int = 1) -> Tuple[object, List[Tuple[int, int]]]:
+    """Calls of `n` coarse steps of batch runner `run` from `t0`, t counted
+    on, until the runner is ready to be timed with calls of `n` steps: one
+    call, or for a graphed runner (`run.graph_set`) as many as it takes
+    until a call launches nothing from the host (every step a replay).  A
+    graphed runner's (kind, addresses) key runs eagerly at its first use
+    and is captured at its second (`graphs.GraphSet`), and a single
+    level's odd batch starts on the other buffer at each call, so one call
+    does not capture every key the timed calls use.  Returns the states
+    and the (t0, n) calls."""
+    from open_ludwig_torch.ops import cuda_step
+
+    graphed = getattr(run, "graph_set", None) is not None
+    t, calls = t0, []
+    for _ in range(MAX_WARMUP):
+        issued = sum(cuda_step.LAUNCHES.values())
+        states = run(states, t, n)
+        calls.append((t, n))
+        t += n
+        if not graphed or sum(cuda_step.LAUNCHES.values()) == issued:
+            return states, calls
+    raise RuntimeError(f"warm_up: the runner still launched from the host after "
+                       f"{MAX_WARMUP} calls of {n} steps")
+
+
 def turns(runners: Dict[str, Callable], fresh: Callable[[], object], t0: int,
           steps: int, updates: int, device, order: Sequence[str],
           warmup: int = 4, prof_steps: Optional[int] = None
           ) -> Dict[str, List[Dict]]:
     """`measure` of each runner in `order` (e.g. graph, eager, eager,
-    graph), each turn from `fresh()` states after `warmup` coarse steps
-    in one call (a graphed runner's captures happen there)."""
+    graph), each turn from `fresh()` states after `warm_up`'s calls of
+    `warmup` coarse steps from `t0` (a graphed runner's captures happen
+    there)."""
     out: Dict[str, List[Dict]] = {k: [] for k in runners}
     for label in order:
         run = runners[label]
-        states = run(fresh(), t0, warmup)
-        res, states = measure(run, states, t0 + warmup, steps, updates, device,
-                              prof_steps)
+        states, calls = warm_up(run, fresh(), warmup, t0)
+        res, states = measure(run, states, calls[-1][0] + warmup, steps, updates,
+                              device, prof_steps)
         out[label].append(res)
         del states
     return out

@@ -10,8 +10,8 @@ package, and the port's independence from jax.
   jax or the JAX package, at top level or inside a function (an AST
   scan), and importing
   every module of the port, building a case with its own `cases`, stepping
-  it and running its Bouzidi probe on the CPU loads neither (checked in a
-  fresh interpreter).
+  it, running its Bouzidi probe and its bench's headline on the CPU loads
+  neither (checked in a fresh interpreter).
 """
 
 import ast
@@ -130,6 +130,7 @@ def test_port_sources_never_import_jax():
     for tool in ("validate_spheres", "re10m_ci", "validate_wing", "wing_cv_probe",
                  "mem_probe", "mem_convergence", "plan_216m", "big_shard_probe"):
         assert os.path.join(REPO, "open_ludwig_torch", "tools", tool + ".py") in paths
+    assert os.path.join(REPO, "open_ludwig_torch", "bench.py") in paths
     bad = []
     for path in paths:
         with open(path) as fh:
@@ -151,9 +152,9 @@ def test_import_scan_finds_nested_imports():
 
 def test_port_never_imports_jax(tmp_path):
     """A fresh interpreter imports every module of the port, builds a
-    2-level case with the port's own `cases`, runs two coarse steps and the
-    Bouzidi probe on the CPU; neither jax nor the JAX package may enter
-    sys.modules."""
+    2-level case with the port's own `cases`, runs two coarse steps, the
+    Bouzidi probe and a tiny bench headline on the CPU; neither jax nor the
+    JAX package may enter sys.modules."""
     script = textwrap.dedent(f"""
         import importlib, pkgutil, sys, torch
         torch.set_num_threads(1)
@@ -165,6 +166,7 @@ def test_port_never_imports_jax(tmp_path):
         assert "open_ludwig_torch.tools.probe_bz_encoding" in mods, mods
         assert "open_ludwig_torch.parallel.patch_shard" in mods, mods
         assert "open_ludwig_torch.tools.big_shard_probe" in mods, mods
+        assert "open_ludwig_torch.bench" in mods, mods
         from open_ludwig_torch.cases import make_case_sphere
         from open_ludwig_torch.config import load_case_config
         from open_ludwig_torch.runner import solve_case
@@ -178,6 +180,10 @@ def test_port_never_imports_jax(tmp_path):
         out = probe_bz_encoding.main(["--device", "cpu", "--res", "8", "--levels",
                                       "1", "--n", "2", "--reps", "1"])
         assert out["links"] > 0 and out["max_abs_err"] < 2e-3, out
+        from open_ludwig_torch import bench
+        head = bench.headline("cpu", surface_resolution=8, num_levels=1, batch=2,
+                              n_windows=1, builds=1)
+        assert head["device"] == "cpu" and head["value_su"] > 0, head
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "open_ludwig_tpu"))
         assert not bad, bad
