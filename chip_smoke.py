@@ -56,14 +56,19 @@ Phases, each raising on failure (nothing is caught):
      against its plain version first, float32 and bf16); times K3 against
      the unfused kernels in turns, and the plain pair; prints K3's
      registers and occupancy;
-  4c. fused against unfused on the card: 4 coarse steps of the bench case
-     through make_batch_runner_dense(fuse2=True) and (fuse2=False) from one
-     random state, float32 and bf16, per level;
+  4c. the card's default against the JAX package's schedule: 20 coarse
+     steps of the bench case through make_batch_runner_dense at its default
+     (unfused: level 3 on K1 + K2) and with fuse2=True (level 3's sub-step
+     pairs on K3 + K2, the former default) from one random state, float32
+     and bf16: launch counts of each, every level bit-equal; the fused bf16
+     run's K3 launches are the kernels line's;
   5. the slice: `open_ludwig_torch.runner.solve_case` on the bench case
      (sphere Re~1M, N=25, 3 levels + wake, wall model, Bouzidi, bf16
-     g-storage) for 400 coarse steps, fused by default: finite CSVs,
-     rho_min in (0.5, 1.5), launch counts per coarse step K4 = 1 (level
-     1), K1 = 2 (level 2), K3 = 2 and K2 = 2 (level 3), and MLUPS-su /
+     g-storage) for 400 coarse steps, each level on the card's rule (K4,
+     K1, K1), unfused by default: finite CSVs, rho_min in (0.5, 1.5),
+     launch counts per coarse step K4 = 1 (level 1), K1 = 2 + 4 (levels 2
+     and 3), K2 = 4 (level 3), the peak allocation beside the estimate the
+     card's rule reads (`[memory]`), and MLUPS-su /
      MLUPS-ref from CUDA events over the post-warm-up intervals; then 10
      coarse steps after 20 of warm-up, one batch-runner call each, timed
      with CUDA events and then profiled (`tools/profile_slice.py`): every
@@ -71,28 +76,31 @@ Phases, each raising on failure (nothing is caught):
      launches, the device time of the port's kernels and of the rest, and
      the device-busy share of the profiled window;
   6. the single-level path: `solve_case` on the 10.8M-cell case (bf16,
-     75 coarse steps in batches of 25, so each batch takes one plain step
-     and 12 pairs): finite CSVs, rho_min in (0.5, 1.5), per batch of n
-     steps K1 = n % 2, K3 = n // 2, K2 = n // 2 + n % 2, and MLUPS from CUDA
-     events over the batches after the first; then one checkpoint of a
+     75 coarse steps in batches of 25, unfused): finite CSVs, rho_min in
+     (0.5, 1.5), K1 = K2 = one a coarse step, the peak beside the estimate,
+     and MLUPS from CUDA events over the batches after the first; then one
+     checkpoint of a
      perturbed state of the level saved (the host fetch and the zip write
      timed apart) and loaded back bit for bit, with its size; then one
      50-step batch of the runner fused and unfused, in turns, timed with
      CUDA events;
-  7. the in-place path: `solve_case` on the 63.7M-cell single-level row
-     (surface_resolution 45, bf16, domain_tile_snap; 20 coarse steps in
-     batches of 10), whose level the reference runs with its in-place 2-D
-     kernel: launch counts K5 = K2 = steps and no K1, K3 or K4, finite
-     CSVs, rho_min in (0.5, 1.5), MLUPS from CUDA events over the batches
-     after the first.  Then, on the row's level rebuilt as solve_case
-     builds it: K5 against its plain version (bf16 2e-3) and K1 (0 stored
-     f differ), K2 against its plain version on the row's Bouzidi box (no
-     byte allocated per call), the
-     peak allocation above the live state of one K5 step (at most rho +
-     vel + 25% of one f copy) and of one K1 step (a whole second f), and
-     a 10-step batch from one perturbed state on K5, on K1 unfused (equal
-     bit for bit) and on K3 pairs (the path the row ran before K5; within
-     K3's bound), each timed in turns;
+  7. the 63.7M-cell single-level row (surface_resolution 45, bf16,
+     domain_tile_snap), whose level the reference runs with its in-place
+     2-D kernel: `solve_case` at the card's capacity (20 coarse steps in
+     batches of 10): the card's rule runs K1 (launch counts K1 = K2 =
+     steps, no K3, K4 or K5), finite CSVs, rho_min in (0.5, 1.5), MLUPS
+     from CUDA events over the batches after the first, the peak beside
+     the estimate.  Then, on the row's level rebuilt as solve_case builds
+     it: K5 against its plain version (bf16 2e-3) and K1 (0 stored f
+     differ), K2 against its plain version on the row's Bouzidi box (no
+     byte allocated per call), the peak allocation above the live state of
+     one K5 step (at most rho + vel + 25% of one f copy) and of one K1
+     step (a whole second f); the card's rule under a capacity cut between
+     the row's K5 and K1 estimates: it picks K5, whose graphed 10-step
+     batch (K5 = K2 = 10 launches, the kernels line's K5 count) peaks under
+     the cut; and 10 steps from one perturbed state on the default (K1
+     unfused), on K5 and on K3 pairs, all three bit-equal, each timed in
+     turns;
   8. the probe's path: K6 against its plain version on the bench case's
      own Bouzidi box, float32 (1e-6) and bf16 (2e-3, decoded f), and
      against K2 on the same S (under the same bounds; both run one launch
@@ -142,10 +150,12 @@ Phases, each raising on failure (nothing is caught):
      1e-5 x the sum of |link contribution| of float64,
      `checks.mem_float64`); then 50 coarse steps timed with CUDA events for
      n = 1 (unfused), 2, 3 in turns;
-     10c. the 63.7M-cell row on 2 slabs (K5 + K2), graphed, 10 steps from
-     phase 7's perturbed state, bit-equal to the unsharded eager K5 loop
-     (`graphs=False`), with the peak
-     allocation of one sharded coarse step;
+     10c. the 63.7M-cell row on 2 slabs: the card's rule (both slabs on
+     the one card add up) picks K1 at the card's capacity and K5 under a
+     cut between the two estimates; on K5 + K2 sharded, graphed, 10 steps
+     from phase 7's perturbed state, bit-equal to the unsharded eager loop
+     (`graphs=False`, K1), with the peak allocation of one sharded coarse
+     step;
      10d. `solve_case` with `devices: 2` and no mesh raises on a one-card
      machine.
   11. the blocks layout (the JAX package's sparse 8^3-block path, plain
@@ -170,11 +180,12 @@ Phases, each raising on failure (nothing is caught):
      thick), the Re~10M sphere (4 levels) and the half model of the Re~1M
      sphere (`symmetric_analysis`, its Bouzidi box on the finest level's
      y = 0 face): launch counts per coarse step from the kernel each level
-     takes (K4 / K1 per sub-step, K3 + K2 per pair of the finest), finite
+     takes (K4 / K1 per sub-step, K2 after each of the finest's), finite
      CSVs, rho in (0.5, 1.5), ms per coarse step, MLUPS-su and MLUPS-ref
      from CUDA events over the intervals after the first, 10 coarse steps
      profiled (`tools/profile_slice.py`: CUDA device operations and the
-     device-busy share), the peak allocation of the run; then each level's
+     device-busy share), the peak allocation of the run beside the
+     estimate; then each level's
      kernel against its plain version at the case's shapes (K4 also
      against K1, equal; K1 on the inner levels; K2 on the finest box; K3 +
      K2 against the plain pair and against K1 -> K2 -> K1); last, the
@@ -189,8 +200,10 @@ Phases, each raising on failure (nothing is caught):
      (20, 3), (23, 18) across a 20-step ramp: the states bit-equal and the
      kernel launches executed equal (the graphed run's are its captured
      launches times its replays, fewer issued by the wrappers), float32
-     and bf16, on the bench case (13a), CASES/cube (13b, 4 levels), the
-     10.8M-cell pair runner and the same level on K5 in place (13c), the
+     and bf16, on the bench case (13a), CASES/cube (13b, 4 levels, unfused
+     and with fuse2=True: level 4's pairs on K3), the
+     10.8M-cell pair runner (fuse2=True: K3 pairs, an odd call's plain
+     step first) and the same level on K5 in place (13c), the
      bench on 2 virtual slabs (13d) and
      the bench on layout: blocks (13e, float32); then, for one type of
      each, 20 coarse steps a call in turns graph, eager, eager, graph
@@ -204,11 +217,19 @@ Phases, each raising on failure (nothing is caught):
      until all replays, then 6 windows of 400 coarse steps between CUDA
      events): its JSON fields printed with the card, finite MLUPS with
      min <= median <= max, each build's median, no launch captured in the
-     timed windows, launches executed per coarse step K4 1, K1 2, K3 2,
-     K2 2, and the median ms per coarse step over the builds
+     timed windows, launches executed per coarse step K4 1, K1 6, K2 4
+     (the engines K4, K1, K1 + K2), the largest build's peak beside the
+     estimate, and the median ms per coarse step over the builds
      within 20% of phase 13's graphed bench turns; then one sweep row,
      `sweep((12,), "cuda", <tmp>)` (1.6M cells): the row schema, no error,
-     its engine and peak memory.
+     its engine (K1 + K2) and peak memory beside the estimate.
+Every run's device-memory estimate (`solver_dense.hbm_total_patches`, the
+card's rule's) must be at or above its allocated peak, and with the card's
+reserve (`memory.card_reserve`) at or above what the run reserved (the
+larger of its allocated peak and the caching allocator's reservations
+above theirs at its start) plus the CUDA context (`bench.memory_fields`;
+`[memory]` lines, checked at the end).  The earlier phases' objects are
+released before the later runs, so that their free blocks are few.
 Every check prints its bound beside its time: the bytes the call must
 move over the card's memory rate (or its operations over the float32
 rate, where larger; `checks.bound`).  Before the last lines, neither jax
@@ -250,7 +271,7 @@ def phase_10(dev, smi, kw, tmp, trimesh, params, levels, statics, sweep, row7):
     import torch
 
     from open_ludwig_torch import checkpoint as ckpt
-    from open_ludwig_torch import checks
+    from open_ludwig_torch import checks, memory
     from open_ludwig_torch.ops import cuda_step, forces
     from open_ludwig_torch.parallel.patch_shard import (
         XMesh, gather_states, shard_states, slab_bounds)
@@ -428,10 +449,24 @@ def phase_10(dev, smi, kw, tmp, trimesh, params, levels, statics, sweep, row7):
     torch.cuda.empty_cache()
 
     # ---- 10c. the 63.7M-cell row on 2 slabs ----
+    # the card's rule on a virtual mesh: both slabs on this card add up; at
+    # the card's capacity they run K1, under a cut between the sharded K5
+    # and K1 estimates K5, which this run holds to one device
     cfg7, params7, levels7, statics7, state7 = row7
     mesh = vmesh(2)
-    stat_r = build_patch_statics(cfg7, levels7, dev, x_mesh=mesh)
-    require(stat_r[0]["engine"] == "inplace", ("row engine on 2 slabs", stat_r[0]["engine"]))
+    stat_k1 = build_patch_statics(cfg7, levels7, dev, x_mesh=mesh)
+    bounds = [st["bounds"] for st in stat_k1]
+    est = {e: max(memory.case_bytes(levels7, [e], cfg7.precision, None, mesh.devices,
+                                    bounds).values())
+           for e in ("k1", "inplace")}
+    cut = (est["k1"] + est["inplace"]) // 2
+    stat_r = build_patch_statics(cfg7, levels7, dev, x_mesh=mesh, capacity=cut)
+    print(f"[10c shard] the card's rule on 2 virtual slabs: at the card's capacity "
+          f"{stat_k1[0]['engine']} ({stat_k1[0]['engine_why']}); at {cut / 1e9:.3f} GB "
+          f"{stat_r[0]['engine']} ({stat_r[0]['engine_why']})", flush=True)
+    require(stat_k1[0]["engine"] == "k1" and stat_r[0]["engine"] == "inplace",
+            ("row engine on 2 slabs", stat_k1[0]["engine"], stat_r[0]["engine"]))
+    del stat_k1
     # the reference is one device's eager loop: a record or replay fault
     # that the graphed one-device and sharded forms share would not show
     # against a graphed one
@@ -453,8 +488,8 @@ def phase_10(dev, smi, kw, tmp, trimesh, params, levels, statics, sweep, row7):
     n_cells = levels7[0].n_cells
     b = slab_bounds(levels7[0].interior[0], 2)
     print(f"[10c shard] the {n_cells / 1e6:.1f}M-cell row on 2 virtual slabs x {b} "
-          f"(K5 + K2 sharded, graphed): 10 steps bit-equal to one device's eager K5 "
-          f"loop: {equal} | "
+          f"(K5 + K2 sharded, graphed): 10 steps bit-equal to one device's eager "
+          f"loop (K1, the card's rule): {equal} | "
           f"launches {dict((k, v) for k, v in got.items() if v)} | one sharded "
           f"coarse step's peak above the live {live / 1e9:.2f} GB, the graphs' "
           f"pool included: {peak / 1e9:.3f} "
@@ -668,7 +703,7 @@ SHIPPED = (("cube", "cube", False), ("wing_5deg", "wing_5deg", False),
 LONG_STEPS = 600  # coarse steps of phase 12's long-horizon check
 
 
-def phase_12(dev, smi, tmp, check_run_outputs):
+def phase_12(dev, smi, tmp, check_run_outputs, mem_row):
     """Phase 12, the shipped cases on the card (module docstring)."""
     import torch
 
@@ -691,7 +726,7 @@ def phase_12(dev, smi, tmp, check_run_outputs):
         _, params, levels = checks.case_levels(cfg)
         statics = build_patch_statics(cfg, levels, dev)
         bf16 = storage.f_dtype(cfg.precision) == torch.bfloat16
-        per_step = bench.batch_launches(statics, 1, True)
+        per_step = bench.batch_launches(statics, 1, False)
         est = hbm_total_patches(levels, statics, cfg.precision, dev)
         tag = f"[12 {label}]"
         print(f"{tag} CASES/{name}{' as the half model (y = 0 mirror)' if half else ''}"
@@ -701,17 +736,15 @@ def phase_12(dev, smi, tmp, check_run_outputs):
               + f" | Bouzidi box {tuple(statics[-1]['bouzidi']['dim'])} at "
               f"{tuple(statics[-1]['bouzidi']['lo'])} | launches a coarse step "
               f"{per_step}", flush=True)
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        live0 = torch.cuda.memory_allocated(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
+        base = bench.memory_start(dev)
         cuda_step.reset_launches()
         res = solve_case(cfg, device="cuda")
         got = cuda_step.executed_launches()
-        peak = torch.cuda.max_memory_allocated(dev) - live0
+        mem = bench.memory_fields(dev, base, est)
         require(got == {**none, **{k: v * cfg.steps for k, v in per_step.items()}},
                 (label, "launches", got, per_step))
         check_run_outputs(res, cfg)
+        mem_row(f"12 {label} solve_case", mem)
         require(res.final_stats.rho_max < 1.5, (label, "rho_max", res.final_stats))
         win = res.windows[1:]  # the first interval carries the warm-up
         n_steps = sum(b - a + 1 for a, b, _ in win)
@@ -731,8 +764,9 @@ def phase_12(dev, smi, tmp, check_run_outputs):
               f"{prof['ms']:.3f} ms, {measured(prof['device_ops'])} CUDA device "
               f"operations per coarse step, device busy "
               f"{measured(prof['busy_share'], '.1%')} | peak allocated "
-              f"{peak / 1e9:.3f} GB (hbm_report estimate "
-              f"{est / 1e9:.3f} GB) | rho "
+              f"{mem['peak_gb']:.3f} GB (hbm_report estimate "
+              f"{est / 1e9:.3f} GB, estimate / peak {mem['estimate_over_peak']:.3f}) "
+              "| rho "
               f"{res.final_stats.rho_min:.4f}..{res.final_stats.rho_max:.4f}, Cd "
               f"{res.final_forces.Cd:.4f} | card: {smi}", flush=True)
 
@@ -947,7 +981,8 @@ def phase_13(dev, smi, tmp, random_states, states_equal):
     require(same and res["graph"].final_forces.Cd == res["eager"].final_forces.Cd,
             ("solve_case graph against eager", rows))
 
-    # ---- 13b. CASES/cube: 4 levels, four K3 pairs a coarse step ----
+    # ---- 13b. CASES/cube: 4 levels, eight K1 sub-steps of level 4 a step,
+    # and four K3 pairs under fuse2=True ----
     for prec in ("float32", "bfloat16"):
         cfg = checks.shipped_config(os.path.join(tmp, f"g13_cube_{prec}"), "cube"
                                     ).with_overrides(precision=prec, ramp_steps=RAMP13,
@@ -962,9 +997,15 @@ def phase_13(dev, smi, tmp, random_states, states_equal):
             f"[13b cube {prec}]",
             lambda g: make_batch_runner_dense(cfg, params, levels, statics, graphs=g),
             lambda: random_states(levels, prec, 59), upd, turns=prec == "float32")
+        # the JAX package's schedule on 4 levels: level 4's sub-step pairs
+        # on K3 (fuse2=True), graph against eager
+        compare(f"[13b cube fused {prec}]",
+                lambda g: make_batch_runner_dense(cfg, params, levels, statics,
+                                                  graphs=g, fuse2=True),
+                lambda: random_states(levels, prec, 59), upd, turns=False)
         del statics
 
-    # ---- 13c. the 10.8M-cell single level: the pair runner ----
+    # ---- 13c. the 10.8M-cell single level: the pair runner (fuse2=True) ----
     t0 = time.time()
     cfg = checks.bench_config(os.path.join(tmp, "g13_single"), surface_resolution=25,
                               num_levels=1, ramp_steps=RAMP13)
@@ -975,8 +1016,9 @@ def phase_13(dev, smi, tmp, random_states, states_equal):
         c = cfg.with_overrides(precision=prec, inlet_turbulence_intensity=0.02)
         statics = build_patch_statics(c, levels, dev)
         out[("single", prec)] = compare(
-            f"[13c 10.8M single level {prec}]",
-            lambda g: make_batch_runner_dense(c, params, levels, statics, graphs=g),
+            f"[13c 10.8M single level, K3 pairs {prec}]",
+            lambda g: make_batch_runner_dense(c, params, levels, statics, graphs=g,
+                                              fuse2=True),
             lambda: random_states(levels, prec, 61), levels[0].n_cells,
             turns=prec == "bfloat16", prof_steps=20)
         # K5 in place on the same level: its edge copy reads what the
@@ -1015,10 +1057,11 @@ def phase_13(dev, smi, tmp, random_states, states_equal):
 
 BENCH_TOL14 = 0.2  # the headline's median against phase 13's graphed turns
 ROW_KEYS14 = ("res", "cells", "label", "mlups", "mlups_min", "mlups_max", "windows",
-              "engine", "peak_gb", "error")
+              "engine", "peak_gb", "reserved_gb", "context_gb", "reserve_gb",
+              "estimate_gb", "estimate_over_peak", "error")
 
 
-def phase_14(smi, tmp, bench13, per_step):
+def phase_14(smi, tmp, bench13, per_step, mem_row):
     """Phase 14, the bench entry point (module docstring).  `bench13` is
     phase 13's bf16 bench turns (`profile_slice.turns`), `per_step` the
     launches a coarse step of the bench case executes."""
@@ -1038,8 +1081,11 @@ def phase_14(smi, tmp, bench13, per_step):
             and head["value_su_min"] <= head["value_su"] <= head["value_su_max"]
             and head["value"] == head["value_su"] and "vs_baseline" not in head,
             ("headline values", nums))
-    require(head["launches_per_coarse_step"] == per_step,
-            ("headline launches per coarse step", head["launches_per_coarse_step"]))
+    require(head["launches_per_coarse_step"] == per_step
+            and head["engines"] == ["K4", "K1", "K1 + K2"],
+            ("headline launches per coarse step", head["launches_per_coarse_step"],
+             head["engines"]))
+    mem_row("14 headline (largest build)", head)
     turns13 = [r["ms"] for r in bench13["graph"]]
     ms = head["ms_per_coarse_step"]
     print(f"[14 bench] median {ms:.4f} ms per coarse step over {head['builds']} "
@@ -1058,10 +1104,12 @@ def phase_14(smi, tmp, bench13, per_step):
     row = rows[0]
     print(f"[14 bench] sweep row: {json.dumps(row)} | file device {doc['device']!r} "
           f"| allocated before the row {live / 1e9:.3f} GB", flush=True)
+    mem_row("14 sweep row res 12", row)
     require(len(rows) == 1 and doc["rows"] == rows and doc["device"] == smi
             and tuple(row) == ROW_KEYS14
             and row["error"] is None and row["cells"] == 1605632
-            and row["engine"] == "K3 pairs + K2" and row["peak_gb"] > 0
+            and row["engine"] == "K1 + K2" and row["peak_gb"] > 0
+            and row["estimate_over_peak"] >= 1.0
             and math.isfinite(row["mlups"])
             and row["mlups_min"] <= row["mlups"] <= row["mlups_max"],
             ("sweep row", row))
@@ -1094,6 +1142,7 @@ def main(argv=None) -> int:
     from open_ludwig_torch.runner import plan_case, solve_case
     from open_ludwig_torch.solver_dense import (
         build_patch_statics,
+        hbm_total_patches,
         init_patch_state,
         make_batch_runner_dense,
     )
@@ -1246,12 +1295,45 @@ def main(argv=None) -> int:
               + ", ".join(f"L{p.level_id} {p.interior}" for p in levels), flush=True)
         kw = dict(c_wale=cfg.c_wale, nu_sgs_background=cfg.nu_sgs_background,
                   inlet_turbulence=0.02, wall_model=True, sponge_blend=True)
-        # the launches a coarse step of the bench case executes, at the
-        # runner's defaults (phases 5, 9 and 14 count them)
-        bench_step = bench.batch_launches(statics, 1, True)
-        require(bench_step == {"stream_collide_flat": 1, "stream_collide": 2,
-                               "fused_pair": 2, "bouzidi": 2},
+        # the card's rule on the bench case: K4, K1, K1 (the JAX package's
+        # choice too); the launches a coarse step executes at the runner's
+        # defaults, unfused (phases 5, 9 and 14 count them), and with
+        # fuse2=True, the JAX package's K3 pairs (phase 4c)
+        print("[3 K1] the card's rule on the bench case: " + "; ".join(
+            f"L{p.level_id} {st['engine']} ({st['engine_why']})"
+            for p, st in zip(levels, statics)), flush=True)
+        require([st["engine"] for st in statics] == ["flat", "k1", "k1"],
+                ("bench engines", [st["engine"] for st in statics]))
+        bench_step = bench.batch_launches(statics, 1, False)
+        require(bench_step == {"stream_collide_flat": 1, "stream_collide": 6,
+                               "bouzidi": 4},
                 ("bench launches a coarse step", bench_step))
+        bench_fused = bench.batch_launches(statics, 1, True)
+        require(bench_fused == {"stream_collide_flat": 1, "stream_collide": 2,
+                                "fused_pair": 2, "bouzidi": 2},
+                ("bench launches a fused coarse step", bench_fused))
+        mem_rows = []  # (run, `bench.memory_fields`), checked at the end
+
+        def estimated(m, est):
+            """`bench.memory_fields` `m` with the estimate `est` (bytes)."""
+            return {**m, "estimate_gb": est / 1e9,
+                    "estimate_over_peak": est / 1e9 / m["peak_gb"]}
+
+        def mem_row(tag, m):
+            """Print a run's memory (`bench.memory_fields`: its allocated and
+            reserved peaks, the CUDA context) beside the device-memory
+            estimate the card's rule reads and the card's reserve, and keep
+            them for the checks at the end."""
+            mem_rows.append((tag, m))
+            print(f"[memory] {tag}: peak {m['peak_gb']:.3f} GB allocated, "
+                  f"{m['reserved_gb']:.3f} GB reserved (above the allocated "
+                  f"{m['reserved_gb'] - m['peak_gb']:.3f} GB), context "
+                  f"{m['context_gb']:.3f} GB | estimate {m['estimate_gb']:.3f} GB, "
+                  f"estimate / peak {m['estimate_over_peak']:.3f}; estimate + the "
+                  f"card's reserve {m['estimate_gb'] + m['reserve_gb']:.3f} GB "
+                  f"against reserved + context "
+                  f"{m['reserved_gb'] + m['context_gb']:.3f} GB | card: {smi}",
+                  flush=True)
 
         # ---- 3. K1 against plain on the bench levels ----
         cases = checks.bench_k1_cases(levels, statics)
@@ -1441,31 +1523,45 @@ def main(argv=None) -> int:
         del rows4, k3_cases
         torch.cuda.empty_cache()
 
-        # ---- 4c. fused against unfused on the card: 4 coarse steps ----
+        # ---- 4c. the card's default against the JAX package's schedule ----
+        # 20 coarse steps of the bench case from one random state: the
+        # runner's default (unfused, level 3 on K1 + K2) and fuse2=True (level
+        # 3's sub-step pairs on K3 + K2, the former default), bit-equal; the
+        # fused bf16 run's K3 launches are the kernels line's
+        steps4c = 20
         for precision in ("float32", "bfloat16"):
-            bf16 = precision == "bfloat16"
             cfg_p = dataclasses.replace(cfg, precision=precision)
             out = []
-            for fuse2 in (True, False):
+            for fuse2 in (False, True):
                 run = make_batch_runner_dense(cfg_p, params, levels, statics,
                                               fuse2=fuse2)
-                out.append(run(random_states(levels, precision, 29), 1, 4))
-            torch.cuda.synchronize()
+                cuda_step.reset_launches()
+                out.append(run(random_states(levels, precision, 29), 1, steps4c))
+                torch.cuda.synchronize()
+                got = cuda_step.executed_launches()
+                want = {**none, **{k: v * steps4c for k, v in
+                                   (bench_fused if fuse2 else bench_step).items()}}
+                require(got == want, ("4c launches", fuse2, got, want))
+                if fuse2 and precision == "bfloat16":
+                    launches_k3 = got["fused_pair"]
             for li, (a, b) in enumerate(zip(*out)):
                 d = checks.state_diff(a["f"], a["rho"], a["vel"],
                                       b["f"], b["rho"], b["vel"])
-                print(f"[4c fused vs unfused] {precision} L{li + 1}: max "
-                      f"{d['max_abs_err']:.2e} (f {d['err']['f']:.2e}), "
-                      f"{100 * d['diff_frac']:.3f}% stored f differ", flush=True)
-                require(checks.within_k3_tol(d, bf16),
-                        ("fused vs unfused", precision, li, d))
+                print(f"[4c default vs fused] {precision} L{li + 1} after {steps4c} "
+                      f"coarse steps: max {d['max_abs_err']:.2e} (f "
+                      f"{d['err']['f']:.2e}), {100 * d['diff_frac']:.3f}% stored f "
+                      "differ", flush=True)
+                require(states_equal([a], [b]), ("default vs fused", precision, li, d))
             del out
         torch.cuda.empty_cache()
 
         # ---- 5. the slice through the runner ----
+        base = bench.memory_start(dev)
         cuda_step.reset_launches()
         res = solve_case(cfg, device="cuda")
         launches = cuda_step.executed_launches()
+        mem_row("5 bench solve_case", bench.memory_fields(
+            dev, base, hbm_total_patches(levels, statics, cfg.precision)))
         steps = cfg.steps
         print(f"[5 slice] launches {launches} over {steps} coarse steps", flush=True)
         require(launches == {**none, **{k: v * steps for k, v in bench_step.items()}},
@@ -1509,13 +1605,13 @@ def main(argv=None) -> int:
             os.path.join(tmp, "single"), surface_resolution=25, num_levels=1,
             steps=75, diag_freq=25)
         print(f"[6 single] case written in {time.time() - t0:.1f} s", flush=True)
+        base = bench.memory_start(dev)
         cuda_step.reset_launches()
         res1 = solve_case(cfg1, device="cuda")
         got = cuda_step.executed_launches()
+        mem6 = bench.memory_fields(dev, base, 0)  # estimate: with the statics below
         sizes = [b - a + 1 for a, b, _ in res1.windows]
-        want = {**none, "stream_collide": sum(n % 2 for n in sizes),
-                "fused_pair": sum(n // 2 for n in sizes),
-                "bouzidi": sum(n // 2 + n % 2 for n in sizes)}
+        want = {**none, "stream_collide": sum(sizes), "bouzidi": sum(sizes)}
         print(f"[6 single] batches {sizes} | launches {got}", flush=True)
         require(sum(sizes) == cfg1.steps and got == want,
                 ("single-level launches", sizes, got, want))
@@ -1531,6 +1627,8 @@ def main(argv=None) -> int:
               f"{res1.final_forces.Cd:.4f} | card: {smi}", flush=True)
         # the same batch fused and unfused, in turns, from one state
         statics1 = build_patch_statics(cfg1, levels1, dev)
+        mem_row("6 10.8M solve_case", estimated(
+            mem6, hbm_total_patches(levels1, statics1, cfg1.precision)))
         state1 = random_states(levels1, cfg1.precision, 31)
         # one checkpoint of the level: host fetch, zip write, load back
         t0 = time.time()
@@ -1570,17 +1668,20 @@ def main(argv=None) -> int:
         del state1, statics1
         torch.cuda.empty_cache()
 
-        # ---- 7. the in-place path: the 63.7M-cell single-level row ----
+        # ---- 7. the 63.7M-cell single-level row: the card's rule, and K5 ----
         t0 = time.time()
         cfg7 = checks.bench_config(
             os.path.join(tmp, "row64"), surface_resolution=45, num_levels=1,
             domain_tile_snap=True, steps=20, diag_freq=10)
+        base = bench.memory_start(dev)
         cuda_step.reset_launches()
         res7 = solve_case(cfg7, device="cuda")
         got7 = cuda_step.executed_launches()
+        mem7 = bench.memory_fields(dev, base, 0)  # estimate: with the statics below
         steps7 = cfg7.steps
-        print(f"[7 in place] launches {got7} over {steps7} coarse steps", flush=True)
-        require(got7 == {**none, "stream_collide_inplace": steps7, "bouzidi": steps7},
+        print(f"[7 in place] solve_case at the card's capacity: launches {got7} over "
+              f"{steps7} coarse steps", flush=True)
+        require(got7 == {**none, "stream_collide": steps7, "bouzidi": steps7},
                 ("63.7M launches", got7))
         check_run_outputs(res7, cfg7)
         win = res7.windows[1:]
@@ -1604,8 +1705,10 @@ def main(argv=None) -> int:
         print(f"[7 in place] row level {row.interior} rebuilt in "
               f"{time.time() - t0:.1f} s, engine {st7['engine']}: "
               f"{st7['engine_why']}", flush=True)
-        require(st7["engine"] == "inplace" and st7["bouzidi"] is not None,
-                ("63.7M engine", st7["engine"]))
+        require(st7["engine"] == "k1" and st7["engine_ref"] == "inplace"
+                and st7["bouzidi"] is not None, ("63.7M engine", st7["engine"]))
+        mem_row("7 63.7M solve_case (K1)", estimated(
+            mem7, hbm_total_patches(levels7, statics7, cfg7.precision)))
         r = checks.check_inplace(row, checks.with_sponge_ramp(st7), True, seed=37,
                                  kw=kw, device=dev, reps=5, plain_reps=1)
         k5[("row", True)] = r
@@ -1646,33 +1749,77 @@ def main(argv=None) -> int:
         require(peak5 <= out_bytes + 0.25 * f_bytes and peak1 >= f_bytes,
                 ("K5 / K1 peak memory at 63.7M", peak5, peak1))
 
-        # a 10-step batch of the row from one perturbed state on K5 (this
-        # path), on K1 unfused, and on the parent's path (K3 pairs + K2, what
-        # the row ran before K5): K5 equals K1 bit for bit, K3 within its
-        # bound; then each timed, in turns
+        # the card's rule under a capacity cut between the row's K5 and K1
+        # estimates picks K5; that path (its statics and a graphed 10-step
+        # batch on a copy of the perturbed state, which K5 updates in place)
+        # peaks under the capacity and the estimate, the state's own bytes
+        # counted
+        del f7
+        est_k1 = hbm_total_patches(levels7, statics7, cfg7.precision)
+        est_k5 = hbm_total_patches(levels7, [{**st7, "engine": "inplace"}],
+                                   cfg7.precision)
+        cut = (est_k1 + est_k5) // 2
+        # a copy of every tensor, counted in the peaks: the runner lets the
+        # first rho and vel go after its first step, as it does a caller's
+        # states
+        base = bench.memory_start(dev)
+        in7 = [{k: st[k].clone() for k in ("f", "rho", "vel")} for st in state7]
+        in_bytes = sum(t.numel() * t.element_size()
+                       for t in (in7[0]["f"], in7[0]["rho"], in7[0]["vel"]))
+        statics7c = build_patch_statics(cfg7, levels7, dev, capacity=cut)
+        run7c = make_batch_runner_dense(cfg7, params7, levels7, statics7c)
+        cuda_step.reset_launches()
+        out7c = run7c(in7, 1, 10)[0]
+        torch.cuda.synchronize()
+        got7c = cuda_step.executed_launches()
+        mem7c = bench.memory_fields(dev, base, est_k5)
+        peak7c = mem7c["peak_gb"] * 1e9
+        del in7
+        launches_k5 = got7c["stream_collide_inplace"]
+        print(f"[7 in place] the card's rule at a capacity of {cut / 1e9:.3f} GB "
+              f"(estimates: K1 {est_k1 / 1e9:.3f} GB, K5 {est_k5 / 1e9:.3f} GB): "
+              f"engine {statics7c[0]['engine']} ({statics7c[0]['engine_why']}) | 10 "
+              f"steps: launches {dict((k, v) for k, v in got7c.items() if v)}, peak "
+              f"allocated {peak7c / 1e9:.3f} GB (the state's "
+              f"{in_bytes / 1e9:.3f} GB included) | card: "
+              f"{smi}", flush=True)
+        require(statics7c[0]["engine"] == "inplace" and peak7c <= cut
+                and got7c == {**none, "stream_collide_inplace": 10, "bouzidi": 10},
+                ("63.7M under a capacity cut", statics7c[0]["engine"], peak7c, cut,
+                 got7c))
+        mem_row("7 63.7M K5 batch under the cut", mem7c)
+        del run7c, statics7c
+        torch.cuda.empty_cache()
+
+        # a 10-step batch of the row from one perturbed state on the card's
+        # default (K1 unfused), on K5 (the row's former default) and on K3
+        # pairs + K2 (the JAX package's fused schedule on its 1-D kernel): all
+        # three bit-equal; then each timed, in turns
         runs7 = {
-            "K5": make_batch_runner_dense(cfg7, params7, levels7, statics7),
-            "K1": make_batch_runner_dense(cfg7, params7, levels7,
-                                          [{**st7, "engine": "k1"}], fuse2=False),
-            "K3": make_batch_runner_dense(cfg7, params7, levels7,
-                                          [{**st7, "engine": "k1"}]),
+            "K1": make_batch_runner_dense(cfg7, params7, levels7, statics7),
+            "K5": make_batch_runner_dense(cfg7, params7, levels7,
+                                          [{**st7, "engine": "inplace"}]),
+            "K3": make_batch_runner_dense(cfg7, params7, levels7, statics7,
+                                          fuse2=True),
         }
-        out7 = {k: run(cloned(state7), 1, 10)[0] for k, run in runs7.items()}
+        out7 = {"K5": out7c}
+        for k in ("K1", "K3"):
+            out7[k] = runs7[k](cloned(state7), 1, 10)[0]
         torch.cuda.synchronize()
         d1 = checks.state_diff(*(out7["K5"][k] for k in ("f", "rho", "vel")),
                                *(out7["K1"][k] for k in ("f", "rho", "vel")))
-        d3 = checks.state_diff(*(out7["K5"][k] for k in ("f", "rho", "vel")),
+        d3 = checks.state_diff(*(out7["K1"][k] for k in ("f", "rho", "vel")),
                                *(out7["K3"][k] for k in ("f", "rho", "vel")))
-        rho5 = out7["K5"]["rho"]
-        print(f"[7 in place] 10 steps from a perturbed state: K5 vs K1 "
+        rho1 = out7["K1"]["rho"]
+        print(f"[7 in place] 10 steps from a perturbed state: the default (K1) vs K5 "
               f"{100 * d1['diff_frac']:.4f}% stored f differ (max "
-              f"{d1['max_abs_err']:.2e}); K5 vs K3 pairs {100 * d3['diff_frac']:.3f}%"
-              f" (max {d3['max_abs_err']:.2e}); rho {float(rho5.min()):.4f}.."
-              f"{float(rho5.max()):.4f}", flush=True)
-        require(d1["finite"] and d1["diff_frac"] == 0.0 and d1["max_abs_err"] == 0.0,
-                ("63.7M batch K5 vs K1", d1))
-        require(checks.within_k3_tol(d3, True), ("63.7M batch K5 vs K3", d3))
-        del out7
+              f"{d1['max_abs_err']:.2e}); vs K3 pairs {100 * d3['diff_frac']:.4f}%"
+              f" (max {d3['max_abs_err']:.2e}); rho {float(rho1.min()):.4f}.."
+              f"{float(rho1.max()):.4f}", flush=True)
+        require(d1["finite"] and states_equal([out7["K1"]], [out7["K5"]])
+                and states_equal([out7["K1"]], [out7["K3"]]),
+                ("63.7M batch: the default vs K5 and K3", d1, d3))
+        del out7, out7c
         per7 = {k: [] for k in runs7}
         for k in ("K5", "K3", "K1", "K1", "K3", "K5"):
             state = cloned(state7)
@@ -1838,21 +1985,39 @@ def main(argv=None) -> int:
         # ---- 10. the x-slab multi-device path ----
         k10, launches10 = phase_10(dev, smi, kw, tmp, mesh, params, levels, statics,
                                    (sweep[0], sweep_static), row7)
-        del row7, sweep, sweep_static
+        # phase 7's row is done with: its state and statics would hold
+        # segments whose free blocks the later runs fill
+        del row7, sweep, sweep_static, cfg7, params7, levels7, statics7, state7
 
         # ---- 11. the blocks layout, and async_depth ----
         del statics
         phase_11(dev, smi, tmp, check_run_outputs, states_equal)
 
         # ---- 12. the shipped cases ----
-        phase_12(dev, smi, tmp, check_run_outputs)
+        phase_12(dev, smi, tmp, check_run_outputs, mem_row)
 
         # ---- 13. the batch as one program: graphs against the eager loop ----
         out13 = phase_13(dev, smi, tmp, random_states, states_equal)
 
         # ---- 14. the bench entry point ----
-        phase_14(smi, tmp, out13[("bench", "bfloat16")], bench_step)
+        phase_14(smi, tmp, out13[("bench", "bfloat16")], bench_step, mem_row)
 
+    # every run's device-memory estimate (the card's rule reads it) at or
+    # above its measured peak
+    low = [tag for tag, m in mem_rows if m["estimate_gb"] < m["peak_gb"]]
+    # and with the card's reserve, at or above what the card held: the
+    # allocator's reserved peak and the CUDA context
+    short = [tag for tag, m in mem_rows
+             if m["estimate_gb"] + m["reserve_gb"] < m["reserved_gb"] + m["context_gb"]]
+    print(f"[memory] {len(mem_rows)} runs, estimate / peak "
+          + ", ".join(f"{m['estimate_over_peak']:.3f}" for _, m in mem_rows)
+          + f"; below 1: {low} | reserved above allocated (GB) "
+          + ", ".join(f"{m['reserved_gb'] - m['peak_gb']:.3f}" for _, m in mem_rows)
+          + f", context (GB) {max(m['context_gb'] for _, m in mem_rows):.3f} at most, "
+          f"the card's reserve {mem_rows[0][1]['reserve_gb']:.3f} GB; estimate + "
+          f"reserve below reserved + context: {short}", flush=True)
+    require(not low, ("estimates below their peaks", low))
+    require(not short, ("estimate + reserve below reserved + context", short))
     print(f"[done] {time.time() - t_run:.1f} s", flush=True)
 
     def kernel_line(kname, source, replaces, n, r, max_abs_err):
@@ -1871,13 +2036,13 @@ def main(argv=None) -> int:
                     launches["bouzidi"], k2[("bench box", True)],
                     max(r["max_abs_err"] for (lab, bf), r in k2.items() if bf)),
         kernel_line("fused_pair", csrc + "fused_pair.cu", pallas + "961",
-                    launches["fused_pair"], k3[("L3", True)],
+                    launches_k3, k3[("L3", True)],
                     max(r["max_abs_err"] for (lab, bf), r in k3.items() if bf)),
         kernel_line("stream_collide_flat", csrc + "stream_collide_flat.cu",
                     pallas + "2100", launches["stream_collide_flat"], k4[("L1", True)],
                     max(r["max_abs_err"] for (lab, bf), r in k4.items() if bf)),
         kernel_line("stream_collide_inplace", csrc + "stream_collide_inplace.cu",
-                    pallas + "1575", got7["stream_collide_inplace"], k5[("row", True)],
+                    pallas + "1575", launches_k5, k5[("row", True)],
                     max(r["max_abs_err"] for (lab, bf), r in k5.items() if bf)),
         kernel_line("bouzidi_ab", csrc + "bouzidi_ab.cu", "tools/probe_bz_encoding.py:117",
                     got8["bouzidi_ab"], k6[True],
@@ -1894,6 +2059,10 @@ def main(argv=None) -> int:
         kernels.append(kernel_line(kname, csrc + source, pallas + replaces,
                                    launches10[kname], rs[0],
                                    max(r["max_abs_err"] for r in rs)))
+    # every kernel launched on the run that drove its path (K3 and K5 on
+    # their forced paths: 4c's fused runner, 7's capacity cut, 10c's cut)
+    require(all(k["launches"] > 0 for k in kernels),
+            ("kernels not launched", [k["name"] for k in kernels if not k["launches"]]))
     # the port's independence from the JAX package, where jax is installed
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "open_ludwig_tpu"))

@@ -7,13 +7,16 @@ package) for this package, on one card:
   - the headline (`headline`): the sphere at Re~1M, N=25, 3 levels plus a
     wake box, bf16 g-storage (`build_sphere_runner`, the case of
     `checks.bench_config`), through `make_batch_runner_dense` at its
-    defaults (fused, each coarse step a CUDA graph replay); the case built
+    defaults (each level on the card's choice of kernel, unfused, each
+    coarse step a CUDA graph replay); the case built
     3 times in the process, each build warmed up and timed over 6 windows
     of 400 coarse steps, since its speed is set per build;
   - `--sweep` (`sweep`): single-level rows at surface resolutions 12, 25,
     34, 45, 52 and 57 (1.6M to 134.1M cells), bf16 with
     `domain_tile_snap`, written to `--out` (default
-    open_ludwig_torch/BENCH_SWEEP.json) after each row, before the headline.
+    open_ludwig_torch/BENCH_SWEEP.json) after each row, before the headline,
+    each with its peak allocation beside the device-memory estimate the
+    card's rule reads (`solver_dense.hbm_total_patches`) and their ratio.
 Each window is one call of the batch runner timed between CUDA events
 with one `torch.cuda.synchronize` at its end (`time.perf_counter` on the
 CPU); a row's result is the median over its windows with their min and
@@ -51,14 +54,19 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import checks
+from . import checks, memory
 from .cases import make_case_sphere
 from .config import CaseConfig, load_case_config
 from .core.patch import PatchLevel
 from .ops import cuda_step
 from .runner import resolve_device
 from .scaling import DomainParams
-from .solver_dense import build_patch_statics, init_patch_state, make_batch_runner_dense
+from .solver_dense import (
+    build_patch_statics,
+    hbm_total_patches,
+    init_patch_state,
+    make_batch_runner_dense,
+)
 from .tools.profile_slice import warm_up
 
 SWEEP_RES = (12, 25, 34, 45, 52, 57)  # bench.py:188, 1.6M to 134.1M cells
@@ -83,8 +91,9 @@ _LABEL = {"k1": "K1", "flat": "K4", "inplace": "K5"}
 
 @dataclasses.dataclass
 class Bench:
-    """A built case: its batch runner (`make_batch_runner_dense` at its
-    defaults) and rest states on the device, with what timing it needs."""
+    """A built case: its batch runner (`make_batch_runner_dense`, unfused
+    unless built with `fuse2`) and rest states on the device, with what
+    timing it needs."""
     cfg: CaseConfig
     params: DomainParams
     levels: List[PatchLevel]
@@ -96,8 +105,9 @@ class Bench:
 
     @property
     def engines(self) -> List[str]:
-        """Each level's kernels: K1 / K4 / K5 per sub-step, "K3 pairs" on
-        the finest level when the runner fuses it, "+ K2" with Bouzidi."""
+        """Each level's kernels as the runner runs them: K1 / K4 / K5 per
+        sub-step (statics[l]["engine"], the card's rule's), "K3 pairs" on the
+        finest level when the runner fuses it, "+ K2" with Bouzidi."""
         out = []
         for lvl, st in enumerate(self.statics):
             fused = lvl == len(self.statics) - 1 and self.run.fused2
@@ -117,27 +127,30 @@ class Windows:
     states: List[Dict]  # the states after the last window
 
 
-def _build(cfg: CaseConfig, device: torch.device) -> Bench:
+def _build(cfg: CaseConfig, device: torch.device, fuse2: bool = False) -> Bench:
+    """The case's statics by the card's rule (the card's memory less its
+    reserve; no limit on the CPU), rest states, and the batch runner, fused
+    with `fuse2`."""
     _, params, levels = checks.case_levels(cfg)
     statics = build_patch_statics(cfg, levels, device)
     states = [init_patch_state(p, cfg.precision, device) for p in levels]
-    run = make_batch_runner_dense(cfg, params, levels, statics)
+    run = make_batch_runner_dense(cfg, params, levels, statics, fuse2=fuse2)
     return Bench(cfg, params, levels, statics, run, states,
                  sum(p.n_cells for p in levels),
                  sum(p.n_cells * 2 ** (p.level_id - 1) for p in levels))
 
 
 def build_sphere_runner(surface_resolution: int = 25, num_levels: int = 3,
-                        device="cuda", **over) -> Bench:
+                        device="cuda", fuse2: bool = False, **over) -> Bench:
     """The headline's case (bench.py:67-104): the sphere at Re~1M, 400
     steps, ramp 200, wake box, bf16, no output or diagnostics inside the
     run, as `checks.bench_config` writes it; `over` overrides case
-    options (the tests' float32)."""
+    options (the tests' float32); `fuse2` as `_build`."""
     dev = resolve_device(device)
     with tempfile.TemporaryDirectory() as tmp:
         cfg = checks.bench_config(tmp, surface_resolution=surface_resolution,
                                   num_levels=num_levels, diag_freq=100000, **over)
-        return _build(cfg, dev)
+        return _build(cfg, dev, fuse2)
 
 
 def build_row(res: int, device="cuda") -> Bench:
@@ -229,9 +242,11 @@ def _check(b: Bench, w: Windows, batch: int, n_windows: int, device) -> None:
             raise RuntimeError(f"bench: the timed windows executed {w.launches}, "
                                f"their coarse steps need {want}")
     for lvl, st in enumerate(w.states):
-        rho = st["rho"]
-        ok = bool(torch.isfinite(rho).all() and torch.isfinite(st["vel"]).all()
-                  and rho.min() > 0.5 and rho.max() < 1.5)
+        # extrema (NaN propagates through them) rather than an elementwise
+        # test, whose temporaries would add ~21 B a cell to the row's peak
+        vals = torch.stack([*torch.aminmax(st["rho"]), *torch.aminmax(st["vel"])])
+        lo, hi, vlo, vhi = vals.tolist()
+        ok = all(np.isfinite([lo, hi, vlo, vhi])) and lo > 0.5 and hi < 1.5
         if not ok:
             raise RuntimeError(f"bench: level {lvl + 1} is not finite or rho left "
                                "(0.5, 1.5) after the timed windows")
@@ -256,16 +271,20 @@ def headline(device="cuda", surface_resolution: int = 25, num_levels: int = 3,
     every window of every build; `ms_per_coarse_step` the median over the
     builds of each build's median (`build_ms`); `value_ref` in the
     reference's convention; the kernels each level runs and their
-    launches per coarse step."""
+    launches per coarse step; the memory (`memory_fields`) of the build
+    that peaked highest."""
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
-    window_ms, mlups, warmups, launches = [], [], [], {}
+    window_ms, mlups, warmups, launches, mem = [], [], [], {}, []
     for i in range(builds):
         t0 = time.time()
+        base = memory_start(dev)
         b = build_sphere_runner(surface_resolution, num_levels, dev)
         built = time.time() - t0
         w = time_runner(b.run, b.states, b.updates_per_coarse, batch, n_windows, dev)
         _check(b, w, batch, n_windows, dev)
+        mem.append(memory_fields(dev, base, hbm_total_patches(
+            b.levels, b.statics, b.cfg.precision, dev)))
         window_ms.append(w.ms)
         mlups.append(w.mlups)
         warmups.append(w.warmup)
@@ -309,14 +328,54 @@ def headline(device="cuda", surface_resolution: int = 25, num_levels: int = 3,
         "updates_per_coarse": updates,
         "engines": engines,
         "launches_per_coarse_step": {k: v / steps for k, v in launches.items()},
+        **max(mem, key=lambda m: m["peak_gb"] or 0),
         "device": card(dev),
     }
 
 
-def _time_row(row: Dict, res: int, dev: torch.device, base: int) -> None:
+def memory_start(dev: torch.device) -> Tuple[int, int]:
+    """The bytes (allocated, reserved) on the card `dev` once its cache is
+    emptied, with its peaks reset: what `memory_fields` measures above;
+    (0, 0) on the CPU."""
+    if dev.type != "cuda":
+        return 0, 0
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.memory_allocated(dev), torch.cuda.memory_reserved(dev)
+
+
+def memory_fields(dev: torch.device, base: Tuple[int, int], estimate: int) -> Dict:
+    """A run's device memory since `memory_start` returned `base`, beside its
+    estimate (`solver_dense.hbm_total_patches`, what the card's rule
+    reads): `peak_gb` its allocated peak above `base`; `reserved_gb` the
+    larger of that peak and what the caching allocator's reservations
+    peaked above theirs at the start (in a fresh process the run's
+    reserved peak; where earlier runs left free blocks in live segments
+    the run may fill them, and this reads its allocated peak); `context_gb`
+    what the card holds beyond torch's reservations (the CUDA context);
+    `reserve_gb` the card's reserve (`memory.card_reserve`);
+    `estimate_over_peak`.  The card's rule holds where estimate + reserve
+    covers reserved + context.  None on the CPU but the estimate."""
+    out = {"peak_gb": None, "reserved_gb": None, "context_gb": None,
+           "reserve_gb": None, "estimate_gb": estimate / 1e9,
+           "estimate_over_peak": None}
+    if dev.type == "cuda":
+        peak = torch.cuda.max_memory_allocated(dev) - base[0]
+        held = max(peak, torch.cuda.max_memory_reserved(dev) - base[1])
+        free, total = torch.cuda.mem_get_info(dev)
+        out.update(peak_gb=peak / 1e9, reserved_gb=held / 1e9,
+                   context_gb=(total - free - torch.cuda.memory_reserved(dev)) / 1e9,
+                   reserve_gb=memory.card_reserve(total) / 1e9,
+                   estimate_over_peak=estimate / max(peak, 1))
+    return out
+
+
+def _time_row(row: Dict, res: int, dev: torch.device, base: Tuple[int, int]) -> None:
     """Build, time and check one sweep row into `row`; its case, states and
-    runner die with this call.  `base`: the bytes allocated on the card
-    at the row's start, which its peak does not count."""
+    runner die with this call.  `base`: the bytes (allocated, reserved) on
+    the card at the row's start (`memory_start`), which its peaks do not
+    count."""
     t0 = time.time()
     b = build_row(res, dev)
     built = time.time() - t0
@@ -327,28 +386,33 @@ def _time_row(row: Dict, res: int, dev: torch.device, base: int) -> None:
     w = time_runner(b.run, b.states, b.updates_per_coarse, batch, n_win, dev)
     _check(b, w, batch, n_win, dev)
     mlups, lo, hi = _spread(w.mlups)
+    mem = memory_fields(dev, base, hbm_total_patches(b.levels, b.statics,
+                                                     b.cfg.precision, dev))
     row.update(mlups=mlups, mlups_min=lo, mlups_max=hi, windows=f"{n_win} x {batch}",
-               peak_gb=((torch.cuda.max_memory_allocated(dev) - base) / 1e9
-                        if dev.type == "cuda" else None))
+               **mem)
     print(f"# sweep res {res}: {row['label']} cells on {row['engine']} -> "
-          f"{mlups:.1f} MLUPS (median; {lo:.1f} - {hi:.1f}) | build {built:.1f} s",
+          f"{mlups:.1f} MLUPS (median; {lo:.1f} - {hi:.1f}) | build {built:.1f} s | "
+          f"memory estimate {mem['estimate_gb']:.3f} GB"
+          + (f", peak {mem['peak_gb']:.3f} GB allocated, {mem['reserved_gb']:.3f} GB "
+             f"reserved, context {mem['context_gb']:.3f} GB, estimate / peak "
+             f"{mem['estimate_over_peak']:.3f}" if mem["peak_gb"] is not None else ""),
           file=sys.stderr, flush=True)
 
 
 def sweep_row(res: int, device) -> Dict:
     """One sweep row; a failure is the row's `error`, with `mlups` null.  On
-    a card the peak is reset at the row's start and `peak_gb` is the peak
-    allocated above what was allocated then; the row fails if its teardown
-    leaves more than `TEARDOWN_SLACK` above that level."""
+    a card the peaks are reset at the row's start and its memory
+    (`memory_fields`) is measured above what was allocated and reserved
+    then; the row fails if its teardown leaves more than `TEARDOWN_SLACK`
+    allocated above that level."""
     dev = torch.device(device)
     row = {"res": res, "cells": None, "label": None, "mlups": None,
            "mlups_min": None, "mlups_max": None, "windows": None, "engine": None,
-           "peak_gb": None, "error": None}
+           "peak_gb": None, "reserved_gb": None, "context_gb": None,
+           "reserve_gb": None, "estimate_gb": None, "estimate_over_peak": None,
+           "error": None}
     cuda = dev.type == "cuda"
-    base = 0
-    if cuda:
-        base = torch.cuda.memory_allocated(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
+    base = memory_start(dev)
     try:
         _time_row(row, res, dev, base)
     except Exception as e:  # noqa: BLE001 - the row records it, main exits 1
@@ -359,7 +423,7 @@ def sweep_row(res: int, device) -> Dict:
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-        left = torch.cuda.memory_allocated(dev) - base
+        left = torch.cuda.memory_allocated(dev) - base[0]
         if left > TEARDOWN_SLACK and row["error"] is None:
             row.update(mlups=None, mlups_min=None, mlups_max=None,
                        error=f"teardown left {left} bytes allocated")

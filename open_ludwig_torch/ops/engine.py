@@ -25,12 +25,26 @@ count there, `build_patches(x_multiple)`), each device's slab ceil(X, n)
 CPU and the GPU, so the CPU tests run the card's schedule.  The port's
 own slabs are unpadded (`parallel.patch_shard.slab_bounds`); only the
 choice reads the reference's padded extent.
+
+That is the reference's rule (`level_engines`, held to the JAX builder by
+the tests).  The card's rule (`card_engines`) is laid over it, since the
+H100 has no VMEM window: K1 has no plane limit, and the card's limit is
+its memory.  A level the reference runs in place (K5) runs K1 (A -> B)
+where the case's device-memory estimate with that level stepping A -> B
+(`memory.case_bytes`, through the callable the caller passes) fits the
+card's capacity (`memory.card_capacity`: its memory less a reserve); it
+stays on K5 only where it does not fit.  K5 is no faster there: in turns
+on the sweep rows it took 0.120-0.136 ns a cell a coarse step against
+K1 -> K2's 0.063-0.066 (NVIDIA H100 80GB HBM3, 700 W,
+`tools/probe_sweep_rows.py`).  Flat levels stay K4 and K1 levels K1.  The
+rule asks no backend: the CPU tests run it with a capacity, or none (no
+limit).
 """
 
 from __future__ import annotations
 
 import logging
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 from ..core.patch import BC_INTERFACE, PatchLevel
 from . import storage
@@ -177,3 +191,42 @@ def level_engines(cfg, patches: List[PatchLevel], shard_nx: int = 1
     last = len(patches) - 1
     return [choose_engine(mode, p, li == last, bf16, shard_nx)
             for li, p in enumerate(patches)]
+
+
+# ---- the card's rule ----
+
+_NAMES = {"k1": "K1", "flat": "K4", "inplace": "K5"}
+
+
+def card_engines(patches: List[PatchLevel], precision: str, capacity: Optional[int],
+                 need: Callable[[List[str]], int], flat_coarse: str = "auto",
+                 n_slabs: int = 1) -> List[Tuple[str, str]]:
+    """(engine, reason) per level by the card's rule (module docstring) for
+    `precision`, a capacity in bytes per card (None: no limit) and the
+    reference's rule on `n_slabs` x slabs.  `need(engines)` is the case's
+    device-memory estimate on its most loaded card with each level on
+    `engines` (`memory.case_bytes`).  Levels the reference runs in place
+    are taken in order, each on K1 where the estimate, the levels before
+    it as decided, fits.  The reason names both rules."""
+    bf16 = storage.normalize_precision(precision) == storage.STORE_BF16
+    last = len(patches) - 1
+    ref = [choose_engine(flat_coarse, p, li == last, bf16, n_slabs)
+           for li, p in enumerate(patches)]
+    engs = [e for e, _ in ref]
+    out = []
+    for li, (eng, why) in enumerate(ref):
+        head = f"the JAX package runs {_NAMES[eng]} here ({why}); "
+        if eng != "inplace":
+            out.append((eng, head + f"the card runs {_NAMES[eng]} too"))
+            continue
+        trial = engs[:li] + ["k1"] + engs[li + 1:]
+        nbytes = need(trial)
+        if capacity is None or nbytes <= capacity:
+            engs[li] = "k1"
+            out.append(("k1", head + f"the card runs K1: A->B {nbytes / 1e9:.1f} GB "
+                        + ("(no memory limit given)" if capacity is None
+                           else f"fits {capacity / 1e9:.1f} GB")))
+        else:
+            out.append(("inplace", head + f"the card keeps K5: A->B {nbytes / 1e9:.1f} "
+                        f"GB exceeds {capacity / 1e9:.1f} GB"))
+    return out

@@ -61,6 +61,7 @@ import numpy as np
 import torch
 
 from .. import lattice as lat
+from .. import memory
 from ..core.patch import BC_INTERFACE, PatchLevel
 from ..ops import engine, storage
 from ..ops.cuda_step import (
@@ -257,10 +258,17 @@ def shard_bouzidi_plan(plan: Dict, bounds: List[int], devices) -> List[Optional[
     return out
 
 
-def shard_statics(cfg, patches: List[PatchLevel], mesh: XMesh) -> List[Dict]:
+def shard_statics(cfg, patches: List[PatchLevel], mesh: XMesh,
+                  capacity: Optional[int] = None) -> List[Dict]:
     """Per level, the statics of the mesh's slabs:
 
-      "engine", "engine_why"  the level's kernel for n = mesh.size devices
+      "engine", "engine_why"  the level's kernel by the card's rule
+                              (`engine.card_engines`) for the mesh's slabs
+                              and `capacity` bytes a card (None: the first
+                              card's own, `memory.card_capacity`; no limit
+                              on the CPU): the slabs that share a card add
+                              up there
+      "engine_ref"            the JAX package's for n = mesh.size devices
       "bounds"                its slab bounds (`slab_bounds`)
       "iface_mm"              its ghost-plane plan against its parent, on
                               the first device (None on level 1)
@@ -273,11 +281,23 @@ def shard_statics(cfg, patches: List[PatchLevel], mesh: XMesh) -> List[Dict]:
                               device) pairs) or None"""
     n = mesh.size
     dev0 = mesh.devices[0]
+    if capacity is None:
+        capacity = memory.card_capacity(dev0)
+    plans = [build_bouzidi_dense_plan(p, cfg.q_min_threshold) for p in patches]
+    mms = [iface_mm_plan_to(build_iface_mm_plan(p, patches[li - 1]), dev0)
+           if li > 0 else None for li, p in enumerate(patches)]
+    bounds = [slab_bounds(p.interior[0], n) for p in patches]
+    extra = memory.plans_extra(plans, mms, storage.f_dtype(cfg.precision).itemsize)
+    card = engine.card_engines(
+        patches, cfg.precision, capacity,
+        lambda engs: max(memory.case_bytes(patches, engs, cfg.precision, extra,
+                                           mesh.devices, bounds).values()),
+        str(getattr(cfg, "flat_coarse", "auto")), n)
+    ref = engine.level_engines(cfg, patches, n)
     out = []
-    for li, (p, (eng, why)) in enumerate(zip(patches,
-                                             engine.level_engines(cfg, patches, n))):
-        b = slab_bounds(p.interior[0], n)
-        plan = build_bouzidi_dense_plan(p, cfg.q_min_threshold)
+    for li, (p, (eng, why), (eng_ref, _)) in enumerate(zip(patches, card, ref)):
+        b = bounds[li]
+        plan = plans[li]
         parts = (shard_bouzidi_plan(plan, b, mesh.devices) if plan is not None
                  else [None] * n)
         shards = []
@@ -293,9 +313,8 @@ def shard_statics(cfg, patches: List[PatchLevel], mesh: XMesh) -> List[Dict]:
                 "bouzidi": parts[i],
             })
         out.append({
-            "engine": eng, "engine_why": why, "bounds": b,
-            "iface_mm": (iface_mm_plan_to(build_iface_mm_plan(p, patches[li - 1]), dev0)
-                         if li > 0 else None),
+            "engine": eng, "engine_why": why, "engine_ref": eng_ref, "bounds": b,
+            "iface_mm": mms[li],
             "bouzidi": plan,
             "shards": shards,
         })
@@ -503,28 +522,28 @@ def kernel_log_lines_sharded(patches: List[PatchLevel], statics: List[Dict],
 
 def hbm_report_sharded(patches: List[PatchLevel], statics: List[Dict],
                        precision: str, mesh: XMesh) -> str:
-    """Device memory per slab: resident state and static fields, edge
-    buffers, and the largest slab step's A -> B transient (K5: rho and vel
-    only), summed per device."""
+    """Device memory per slab and per device (`memory.case_bytes`, which the
+    card's rule reads): each slab's resident state and static fields, its
+    two edge planes, and its second buffers (A -> B: f, rho, vel; K5: rho,
+    vel and its edge buffer's bound), which the graphed runner holds for
+    every slab, so the slabs that share a device add up; the plans
+    (`memory.plans_extra`) on the first device."""
     f_bytes = 2 if storage.f_dtype(precision) == torch.bfloat16 else 4
-    per_dev: Dict[str, float] = {}
     lines = [f"Device memory (x mesh of {mesh.size} slabs, {precision} f-storage):"]
     for p, st in zip(patches, statics):
         _, Y, Z = p.interior
         b = st["bounds"]
         cells = [(b[i + 1] - b[i]) * Y * Z for i in range(len(b) - 1)]
-        step_extra = 16 if st["engine"] == "inplace" else 27 * f_bytes + 16
-        for i, c in enumerate(cells):
-            res = c * (27 * f_bytes + 16 + 9) + 2 * Y * Z * (27 * f_bytes + 12)
-            key = str(mesh.devices[i])
-            per_dev[key] = per_dev.get(key, 0.0) + res
-            per_dev[key + " transient"] = max(per_dev.get(key + " transient", 0.0),
-                                              c * step_extra)
+        res, sec = memory.level_bytes(max(cells), f_bytes, st["engine"])
         lines.append(f"  level {p.level_id}: slabs of "
                      + "/".join(f"{c / 1e6:.2f}M" for c in cells) + " cells, "
-                     + f"{(27 * f_bytes + 25) * max(cells) / 1e6:.1f} MB resident "
-                     f"on the largest")
-    for key in sorted(k for k in per_dev if not k.endswith("transient")):
-        lines.append(f"  {key}: {per_dev[key] / 1e9:.3f} GB resident + "
-                     f"{per_dev[key + ' transient'] / 1e9:.3f} GB step transient")
+                     + f"{res / 1e6:.1f} MB resident + {sec / 1e6:.1f} MB second "
+                     "buffers on the largest")
+    extra = memory.plans_extra([st["bouzidi"] for st in statics],
+                               [st["iface_mm"] for st in statics], f_bytes)
+    per_dev = memory.case_bytes(patches, [st["engine"] for st in statics], precision,
+                                extra, mesh.devices, [st["bounds"] for st in statics])
+    for key in sorted(per_dev):
+        lines.append(f"  {key}: {per_dev[key] / 1e9:.3f} GB estimated ("
+                     f"{sum(str(d) == key for d in mesh.devices)} slab(s))")
     return "\n".join(lines)

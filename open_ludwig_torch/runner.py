@@ -225,7 +225,10 @@ def solve_case(cfg: CaseConfig, device="cuda",
     `graphs` (the default) both layouts' batch runners run each coarse
     step as one program, replayed from a CUDA graph on a card (eagerly on
     the CPU); `graphs=False` is the loop that launches every kernel from
-    the host, bit-equal to it."""
+    the host, bit-equal to it.  Each patch level's kernel is the card's
+    rule's (`ops.engine.card_engines`: the card's memory less its reserve,
+    `memory.card_capacity`; no limit on the CPU), each sub-step one launch
+    (the runner's default, unfused)."""
     check_supported(cfg)
     dev = resolve_device(device)
     x_mesh = resolve_mesh(cfg, dev, x_mesh)
@@ -580,7 +583,9 @@ def plan_case(cfg: CaseConfig, device="cuda") -> Dict:
     (`estimate_capacity`); on the CPU it is not estimated.  With `devices:
     n` the statics are cut over n slabs (`make_x_mesh`, which raises when
     fewer cards are visible) and the memory is reported per slab and card;
-    the capacity is one card's, times the mesh's cards."""
+    the capacity is one card's, times the mesh's cards.  The kernels are
+    the card's rule's (the card's memory less its reserve; no limit on the
+    CPU)."""
     check_supported(cfg)
     dev = resolve_device(device)
     x_mesh = resolve_mesh(cfg, dev, None)

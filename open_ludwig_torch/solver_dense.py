@@ -16,24 +16,27 @@ contraction + elementwise tail per axis group
 pre-shifted, in the child's storage type (bf16 g = f - w planes on bf16
 levels, float32 f planes otherwise), whose plane[n] sub-step n reads.
 
-Each level's kernel is the JAX package's choice (`ops.engine`, mirroring
-solver_dense.py:233-336 of the reference), recorded as
-statics[l]["engine"]:
+Each level's kernel is the card's choice (`ops.engine.card_engines`: the
+JAX package's dispatch, solver_dense.py:233-336 of the reference, with
+its in-place levels on K1 where the case fits the card's memory),
+recorded as statics[l]["engine"] (the reference's as "engine_ref"):
   - "flat": K4 (`ops.cuda_step.stream_collide_flat`), on an
     interface-free level the reference stores flat (level 1 of a
     multi-level case);
   - "inplace": K5 (`ops.cuda_step.stream_collide_inplace`), on an
-    interface-free level whose plane exceeds the reference's 1-D window:
-    f is updated in its own buffer, and the level takes no K3;
+    interface-free level whose plane exceeds the reference's 1-D window
+    and whose A -> B step does not fit the card: f is updated in its own
+    buffer, and the level takes no K3;
   - "k1": K1 (`ops.cuda_step.stream_collide`) on every other level.
-Temporal blocking (`fuse2=True`, the default, as in the JAX package): a
-childless finest "k1" level runs each pair of sub-steps as one K3 launch
+Every sub-step is one launch of its level's kernel, followed on the
+finest level by K2 (`ops.cuda_step.bouzidi`): the default (`fuse2=False`),
+since K1 -> K2 -> K1 beat K3 pairs at every shape measured on the H100.
+Temporal blocking (`fuse2=True`, the JAX package's schedule): a childless
+finest "k1" level runs each pair of sub-steps as one K3 launch
 (`ops.cuda_step.fused_pair`: step A, A's Bouzidi correction, step B) and
 one K2 launch after it; a single-level case runs pairs of coarse steps so
 (`coarse_step.pair_step`), an odd batch taking one plain step first.
-Every other sub-step is one launch of its level's kernel, followed on the
-finest level by K2 (`ops.cuda_step.bouzidi`).  `fuse2=False` keeps the
-unfused schedule.  The ghost planes are plain torch (~170 small launches
+The ghost planes are plain torch (~170 small launches
 per child build).  States are {f: (27, X, Y, Z), rho, vel} in
 the storage dtype (float32 f or bf16 g = f - w) on every level, and a
 parent level's also "_ifsl", its carried slabs.  K1, K3 and K4 write
@@ -59,12 +62,12 @@ import torch
 from . import lattice as lat
 from .config import CaseConfig
 from .core.patch import BC_INTERFACE, PatchLevel
+from . import memory
 from .ops import engine, storage
 from .ops.cuda_step import (
     bouzidi,
     flat_choice,
     fused_pair,
-    inplace_layout,
     stream_collide,
     stream_collide_flat,
     stream_collide_inplace,
@@ -97,25 +100,36 @@ def init_patch_state(patch: PatchLevel, precision: str = "float32",
 
 
 def build_patch_statics(cfg: CaseConfig, patches: List[PatchLevel],
-                        device="cpu", x_mesh=None) -> List[Dict]:
+                        device="cpu", x_mesh=None,
+                        capacity: Optional[int] = None) -> List[Dict]:
     """Per level: obstacle (bool), sponge, wall_dist as (X, Y, Z) device
     tensors, the Bouzidi plan (S, the link list and its scratch as device
     tensors: `dense_step.bouzidi_plan_to`) or None, the level's ghost-plane
     plan against its parent ("iface_mm": `dense_step.build_iface_mm_plan`
     with its device tensors, `iface_mm_plan_to`; None on level 1), and
-    the level's kernel ("engine") with the reason for it ("engine_why").
-    With `x_mesh`, the per-slab statics of its devices
-    (`parallel.patch_shard.shard_statics`; `device` is not read)."""
+    the level's kernel ("engine", by the card's rule `engine.card_engines`
+    for `capacity` bytes a card) with the reason for it ("engine_why",
+    naming both rules) and the JAX package's choice ("engine_ref").
+    `capacity` None is the card's own (`memory.card_capacity`) on CUDA and
+    no limit on the CPU.  With `x_mesh`, the per-slab statics of its
+    devices (`parallel.patch_shard.shard_statics`; `device` is not read)."""
     if x_mesh is not None:
         from .parallel.patch_shard import shard_statics
-        return shard_statics(cfg, patches, x_mesh)
+        return shard_statics(cfg, patches, x_mesh, capacity)
+    if capacity is None:
+        capacity = memory.card_capacity(device)
+    plans = [bouzidi_plan_to(build_bouzidi_dense_plan(p, cfg.q_min_threshold), device)
+             for p in patches]
+    mms = [iface_mm_plan_to(build_iface_mm_plan(p, patches[li - 1]), device)
+           if li > 0 else None for li, p in enumerate(patches)]
+    extra = memory.plans_extra(plans, mms, storage.f_dtype(cfg.precision).itemsize)
+    card = engine.card_engines(
+        patches, cfg.precision, capacity,
+        lambda engs: memory.case_bytes(patches, engs, cfg.precision, extra)["device"],
+        str(getattr(cfg, "flat_coarse", "auto")))
+    ref = engine.level_engines(cfg, patches)
     statics = []
-    for li, (p, (eng, why)) in enumerate(zip(patches,
-                                             engine.level_engines(cfg, patches))):
-        plan = bouzidi_plan_to(build_bouzidi_dense_plan(p, cfg.q_min_threshold),
-                               device)
-        mm = (iface_mm_plan_to(build_iface_mm_plan(p, patches[li - 1]), device)
-              if li > 0 else None)
+    for p, plan, mm, (eng, why), (eng_ref, _) in zip(patches, plans, mms, card, ref):
         statics.append({
             "obstacle": torch.as_tensor(p.obstacle, dtype=torch.bool, device=device),
             "sponge": torch.as_tensor(p.sponge, dtype=torch.float32, device=device),
@@ -125,16 +139,28 @@ def build_patch_statics(cfg: CaseConfig, patches: List[PatchLevel],
             "iface_mm": mm,
             "engine": eng,
             "engine_why": why,
+            "engine_ref": eng_ref,
         })
     return statics
 
 
+# why the finest level's sub-step pairs take no K3 by default, from the
+# turns of `tools/probe_sweep_rows.py` and `chip_smoke.py` phase 4b (NVIDIA
+# H100 80GB HBM3, 700 W): a K3 pair costs more than K1 -> K2 -> K1 at every
+# shape measured
+NO_K3_WHY = ("K3 no: unfused by default on this card (K1 -> K2 took "
+             "0.063-0.066 ns a cell a coarse step on the sweep rows, K3 pairs "
+             "0.079-0.125; a K3 pair 0.2765 ms against K1 -> K2 -> K1's "
+             "0.13-0.19 on the bench's level 3, H100); fuse2=True runs the JAX "
+             "package's pairs")
+
+
 def kernel_log_lines(patches: List[PatchLevel], statics: List[Dict],
-                     precision: str, device, x_mesh=None) -> List[str]:
-    """Per level: the kernel its sub-steps run under the default (fused)
-    schedule and why, and whether its sub-step pairs take K3 (and why
-    not); with `x_mesh`, per slab
-    (`parallel.patch_shard.kernel_log_lines_sharded`)."""
+                     precision: str, device, x_mesh=None,
+                     fuse2: bool = False) -> List[str]:
+    """Per level: the kernel its sub-steps run and why (both rules), and
+    whether its sub-step pairs take K3 under `fuse2` (and why not); with
+    `x_mesh`, per slab (`parallel.patch_shard.kernel_log_lines_sharded`)."""
     if x_mesh is not None:
         from .parallel.patch_shard import kernel_log_lines_sharded
         return kernel_log_lines_sharded(patches, statics, precision, x_mesh)
@@ -156,6 +182,8 @@ def kernel_log_lines(patches: List[PatchLevel], statics: List[Dict],
         elif eng != "k1":
             k3 = (f"K3 no: {names[eng].split()[0]} runs one sub-step per "
                   "launch, as the reference's kernel for this level does")
+        elif not fuse2:
+            k3 = NO_K3_WHY
         elif last == 0:
             k3 = (f"K3 fused_pair {route} on pairs of coarse steps (an odd "
                   "batch takes one K1 step first), K2 after each pair")
@@ -185,12 +213,13 @@ def kernel_log_lines(patches: List[PatchLevel], statics: List[Dict],
 
 def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
                            patches: List[PatchLevel], statics: List[Dict],
-                           fuse2: bool = True, x_mesh=None, fixed=None):
+                           fuse2: bool = False, x_mesh=None, fixed=None):
     """coarse_step(states, t) -> states advancing every level by one coarse
     step without any host synchronisation.  Each sub-step is one launch of
     its level's kernel (statics[l]["engine"]: "k1" / "flat" / "inplace"),
-    followed on the finest level by K2.  With `fuse2` the sub-step pairs of a
-    finest "k1" level are K3 launches instead.  `coarse_step.pair_step(
+    followed on the finest level by K2.  With `fuse2` (the JAX package's
+    schedule; off by default) the sub-step pairs of a finest "k1" level are
+    K3 launches instead.  `coarse_step.pair_step(
     states, t)` runs coarse steps t and t + 1 of such a single-level case
     as one K3 + K2 (None otherwise).  `coarse_step.seed_slabs(states)`
     stores each parent level's endpoint slabs under "_ifsl" (idempotent);
@@ -286,8 +315,16 @@ def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
         return (ramp_velocity(t, cfg.u_lattice, cfg.ramp_steps),
                 ((t << lvl) + k) % 1000000)
 
+    def own(states: List[Dict]) -> List[Dict]:
+        """The list a step works in: the graphed runner's step takes the
+        caller's list over, so that each level's previous state (the
+        caller's first states, on the first step) is released as soon as
+        its step has replaced it; the eager step leaves the caller's list
+        as it was."""
+        return states if fixed is not None else list(states)
+
     def coarse_step(states: List[Dict], t: int) -> List[Dict]:
-        states = list(states)
+        states = own(states)
         t = int(t)
 
         def visit(lvl: int, k: int, iface):
@@ -332,7 +369,7 @@ def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
         del visit
         if record is not None:
             record.advance(1)
-        return states
+        return list(states)
 
     def seed_slabs(states: List[Dict]) -> List[Dict]:
         """The states with "_ifsl", the endpoint slabs of each parent level,
@@ -351,13 +388,13 @@ def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
         def pair_step(states: List[Dict], t: int) -> List[Dict]:
             """Coarse steps t and t + 1 of a single-level case as one K3
             (inlet velocity and noise seed of each step its own) + K2."""
-            states = list(states)
+            states = own(states)
             t = int(t)
             if record is not None:
                 fused(states, 0, (record.ref(0), record.ref(1)), (None, None),
                       None, None)
                 record.advance(2)
-                return states
+                return list(states)
             fused(states, 0,
                   (ramp_velocity(t, cfg.u_lattice, cfg.ramp_steps),
                    ramp_velocity(t + 1, cfg.u_lattice, cfg.ramp_steps)),
@@ -419,10 +456,11 @@ def _leaves(states: List[Dict]) -> List[torch.Tensor]:
 
 def make_batch_runner_dense(cfg: CaseConfig, params: DomainParams,
                             patches: List[PatchLevel], statics: List[Dict],
-                            fuse2: bool = True, x_mesh=None, graphs: bool = True):
+                            fuse2: bool = False, x_mesh=None, graphs: bool = True):
     """run(states, t0, n) -> states after coarse steps t0 .. t0+n-1, with no
-    host sync inside a batch.  A single-level case with a pair step runs
-    pairs of coarse steps; an odd batch of n >= 3 takes one plain step
+    host sync inside a batch.  Unfused by default; with `fuse2` (K3 pairs,
+    `make_coarse_step_dense`) a single-level case with a pair step runs
+    pairs of coarse steps, an odd batch of n >= 3 taking one plain step
     first (the JAX runner's rule, open_ludwig_tpu/solver_dense.py:690-700).
     The states first get their carried endpoint slabs (`run.seed_slabs`,
     idempotent).  `run` takes over the list it is given, as the JAX
@@ -547,23 +585,21 @@ def make_batch_runner_dense(cfg: CaseConfig, params: DomainParams,
 
 def hbm_report_patches(patches: List[PatchLevel], statics: List[Dict],
                        precision: str = "float32", device="cpu", x_mesh=None) -> str:
-    """Per-level device-memory accounting: resident state (f + rho + vel)
-    and statics, plus the step's transient: every K1 / K4 sub-step, and
-    every K3 pair on the finest level, writes a second f/rho/vel (A -> B)
-    while the first is alive, and K3's step A stays in shared memory; a K5
-    sub-step writes f in place and allocates only rho, vel and its edge
-    buffer (sized by the card's layout; the plain CPU path has none).  The
-    transient counted is the largest level's.  A parent level also holds
-    its child's carried endpoint slabs (float32, one set between steps, a
-    second while the child's planes are built; `extract_endpoint_slabs`),
-    and no longer its pre-step state until then: that state has no
-    consumer after the parent's launch.  With `x_mesh`, per slab and
-    device (`parallel.patch_shard.hbm_report_sharded`)."""
+    """Per-level device-memory accounting (`memory.case_bytes`, which the
+    card's rule reads): resident state (f + rho + vel) and static fields,
+    the Bouzidi plan, the carried endpoint slabs (two sets while the
+    child's planes are built), the ghost planes' plan and working set
+    (`memory.plan_bytes`), and each level's second buffers: an A -> B
+    level (K1, K4, K3 pairs) a second f/rho/vel, a K5 level a second
+    rho/vel and its edge buffer (bounded, `memory.edge_bound_elems`).  The graphed runner
+    holds every level's second buffers for the whole run (`FixedBuffers`),
+    so they add up over the levels.  With `x_mesh`, per slab and device
+    (`parallel.patch_shard.hbm_report_sharded`)."""
     if x_mesh is not None:
         from .parallel.patch_shard import hbm_report_sharded
         return hbm_report_sharded(patches, statics, precision, x_mesh)
     dev = torch.device(device)
-    lines, total = _hbm_account(patches, statics, precision, dev)
+    lines, total = _hbm_account(patches, statics, precision)
     if dev.type == "cuda":
         live = torch.cuda.memory_allocated(dev)
         cap = torch.cuda.get_device_properties(dev).total_memory
@@ -576,75 +612,59 @@ def hbm_report_patches(patches: List[PatchLevel], statics: List[Dict],
 def hbm_total_patches(patches: List[PatchLevel], statics: List[Dict],
                       precision: str = "float32", device="cpu") -> int:
     """The estimated total of `hbm_report_patches` (one device), in bytes."""
-    return _hbm_account(patches, statics, precision, torch.device(device))[1]
+    return _hbm_account(patches, statics, precision)[1]
 
 
-def _hbm_account(patches: List[PatchLevel], statics: List[Dict], precision: str,
-                 dev: torch.device) -> Tuple[List[str], int]:
+def _hbm_account(patches: List[PatchLevel], statics: List[Dict], precision: str
+                 ) -> Tuple[List[str], int]:
     """The report's lines up to its estimated total, and that total."""
     f_bytes = 2 if storage.f_dtype(precision) == torch.bfloat16 else 4
     lines = [f"Device memory (dense patches, {precision} f-storage):"]
-    total = 0
-    trans = []
+    second = 0
+    mms = [st["iface_mm"] for st in statics]
+    extra = memory.plans_extra([st["bouzidi"] for st in statics], mms, f_bytes)
     for li, (p, st) in enumerate(zip(patches, statics)):
         n = p.n_cells
-        child_mm = statics[li + 1]["iface_mm"] if li + 1 < len(statics) else None
-        slab_b = sum(len(g["faces"]) * 31 * g["sizes"][t0] * g["sizes"][t1] * 4
-                     for g in (child_mm["groups"] if child_mm else ())
-                     for t0, t1 in [[a for a in range(3) if a != g["axis"]]])
-        state_b = n * (27 * f_bytes + 4 * (1 + 3))
-        field_b = n * (1 + 4 + 4)
-        # the resident split of hbm_bytes_per_cell (shared with
-        # estimate_capacity, so the planner and the report agree)
-        assert state_b + field_b == n * hbm_bytes_per_cell(precision, transient=False)
-        bz = st["bouzidi"]
-        # S (float32, K3's) + K2's links (13 B each) and their scratch (4 B)
-        bz_b = (bz["S"].numel() * 4 + bz["links"]["a"].numel() * 17
-                if bz is not None else 0)
-        total += state_b + field_b + bz_b + slab_b
+        child_mm = mms[li + 1] if li + 1 < len(mms) else None
+        bz_b, slab_b, plane_b = memory.plan_bytes(st["bouzidi"], mms[li], child_mm,
+                                                  f_bytes)
+        resident, sec = memory.level_bytes(n, f_bytes, st["engine"])
+        second += sec
         if st["engine"] == "inplace":
-            edge = (inplace_layout(*p.interior, dev, f_bytes)["edge_elems"] * f_bytes
-                    if dev.type == "cuda" else 0)
-            trans.append(n * 16 + edge)
             step = (f"K5 in place: rho/vel {n * 16 / 1e6:.1f} MB + edge buffer "
-                    f"{edge / 1e6:.1f} MB, no second f")
+                    f"<= {(sec - n * 16) / 1e6:.1f} MB, no second f")
         else:
-            trans.append(n * (27 * f_bytes + 16))
-            step = f"A->B f/rho/vel {trans[-1] / 1e6:.1f} MB"
+            step = f"A->B second f/rho/vel {sec / 1e6:.1f} MB"
         lines.append(
-            f"  level {p.level_id}: {n/1e6:7.2f}M cells | state "
-            f"{state_b/1e6:8.1f} MB | fields {field_b/1e6:6.1f} MB | bouzidi "
-            f"{bz_b/1e6:5.1f} MB | step {step}"
+            f"  level {p.level_id}: {n/1e6:7.2f}M cells | state + fields "
+            f"{resident/1e6:8.1f} MB | bouzidi {bz_b/1e6:5.1f} MB | step {step}"
             + (f" | carried ghost-plane slabs {slab_b/1e6:.2f} MB (x2 while the "
                "child's planes are built; the pre-step state is not held)"
                if child_mm else "")
-        )
-    if statics[-1]["engine"] == "k1":
-        lines.append(
-            f"  level {patches[-1].level_id}: K3 A->B output f/rho/vel "
-            f"{trans[-1]/1e6:.1f} MB per pair; step A in shared memory (no "
-            "device buffer)")
-    total += max(trans)
-    lines.append(f"  estimated total: {total/1e9:.3f} GB (incl. "
-                 f"{max(trans)/1e6:.0f} MB step transient of the largest level)")
+            + (f" | ghost planes (plan + working set) {plane_b/1e6:.1f} MB"
+               if plane_b else ""))
+    total = memory.case_bytes(patches, [st["engine"] for st in statics], precision,
+                              extra)["device"]
+    lines.append(f"  estimated total: {total/1e9:.3f} GB (incl. {second/1e6:.0f} MB "
+                 "of second buffers, every level's: the graphed runner holds them; "
+                 "matmul workspaces and the flow statistics' chunk)")
     return lines, total
 
 
 def hbm_bytes_per_cell(precision: str, transient: bool = True,
-                       engine: str = "k1") -> int:
-    """Device bytes per cell, shared by `hbm_report_patches` and
-    `estimate_capacity` (the reference's `solver_dense.py:707`, for this
-    card; reference analogue: src/diagnostics_vram.jl:17-133): 27 f entries
-    + rho + vel, the static fields once (obstacle u8 + sponge f32 + wall
-    distance f32 = 9 B), and with `transient` the step's second buffers:
-    an A -> B level ("k1", "flat") writes a second f, rho and vel while
-    the first is alive; an in-place level ("inplace", K5) writes only rho
-    and vel (its edge buffer, at most a quarter of one f, is left out)."""
+                       engine: str = "k1") -> float:
+    """Device bytes per cell of one level, from `memory.level_bytes` (the
+    estimate the card's rule and `hbm_report_patches` read; the
+    reference's `solver_dense.py:707`, for this card; reference analogue:
+    src/diagnostics_vram.jl:17-133): 27 f entries + rho + vel, the static
+    fields once (obstacle u8 + sponge f32 + wall distance f32 = 9 B), and
+    with `transient` the level's second buffers: an A -> B level ("k1",
+    "flat") a second f, rho and vel; an in-place level ("inplace", K5) a
+    second rho and vel and its edge buffer's bound."""
     f_bytes = 2 if storage.f_dtype(precision) == torch.bfloat16 else 4
-    per = 27 * f_bytes + 4 * (1 + 3) + (1 + 4 + 4)
-    if transient:
-        per += 4 * (1 + 3) + (0 if engine == "inplace" else 27 * f_bytes)
-    return per
+    n = 1 << 30  # every term a whole number of the allocator's blocks
+    resident, second = memory.level_bytes(n, f_bytes, engine)
+    return (resident + (second if transient else 0)) / n
 
 
 def estimate_capacity(device_gb: float = 0.0, precision: str = "float32",
@@ -662,4 +682,5 @@ def estimate_capacity(device_gb: float = 0.0, precision: str = "float32",
         total = torch.cuda.mem_get_info(dev)[1]
     else:
         total = device_gb * 1e9
-    return int(total / hbm_bytes_per_cell(precision, transient=True, engine=engine))
+    return int(total / hbm_bytes_per_cell(precision, transient=True,
+                                          engine=engine))

@@ -10,10 +10,12 @@ scaled up (`cases.make_case_sphere("1M")` at N = `--res`, one level, bf16
 storage, `domain_tile_snap`; 640x592x640 = 242.5M cells at N = 68), then:
 
   1. prints the per-level device-memory report (`hbm_report_patches`), the
-     planner's estimate (cells x `hbm_bytes_per_cell` for the level's
-     kernel) and, on the card, its capacity (`runner --plan`'s formula);
-  2. on one perturbed state, one coarse step on the kernel `ops/engine.py`
-     picks and one with the other of K1 / K5 forced (unfused, each with
+     planner's estimate from the levels alone (`memory.case_bytes` for
+     the level's kernel, what the card's rule reads, without the plans) and,
+     on the card, its capacity (`runner --plan`'s formula);
+  2. on one perturbed state, one coarse step on the kernel the card's rule
+     picks (`ops/engine.card_engines`: K1 where the row's A -> B step fits
+     the card) and one with the other of K1 / K5 forced (unfused, each with
      K2 after it), which must be bit-equal, with their launch counts
      (K5's plain version does not fit beside the row: 33 GB at 63.7M
      cells);
@@ -108,6 +110,7 @@ def card() -> Dict:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
+    from .. import memory
     from ..ops import cuda_step
     from ..runner import resolve_device, solve_case
     from ..solver_dense import (estimate_capacity, hbm_bytes_per_cell,
@@ -141,8 +144,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     # ---- 1. memory: the report, the planner's estimate, the capacity ----
     report = hbm_report_patches(levels, statics, cfg.precision, dev)
     print(report, flush=True)
-    est = sum(q.n_cells * hbm_bytes_per_cell(cfg.precision, engine=st["engine"])
-              for q, st in zip(levels, statics))
+    est = memory.case_bytes(levels, [st["engine"] for st in statics],
+                            cfg.precision)["device"]
     out.update(report_bytes=hbm_total_patches(levels, statics, cfg.precision, dev),
                estimate_bytes=est,
                bytes_per_cell=hbm_bytes_per_cell(cfg.precision, engine=engine))
@@ -150,7 +153,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         cap = {eng: estimate_capacity(precision=cfg.precision, engine=eng, device=dev)
                for eng in ("k1", "inplace")}
         out["capacity_cells"] = cap
-        print(f"[216M] estimate {est / 1e9:.2f} GB ({out['bytes_per_cell']} B a cell);"
+        print(f"[216M] estimate {est / 1e9:.2f} GB ({out['bytes_per_cell']:.1f} B a cell);"
               f" capacity of this card: {cap['k1'] / 1e6:.0f}M cells on A->B levels, "
               f"{cap['inplace'] / 1e6:.0f}M in place -> this row uses "
               f"{100 * cells / cap[engine if engine == 'inplace' else 'k1']:.0f}%",
@@ -185,6 +188,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     # ---- 3. the row through the runner ----
     if cuda:
         live0 = torch.cuda.memory_allocated(dev)
+        held0 = torch.cuda.memory_reserved(dev)
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.time()
     res = solve_case(cfg, device=args.device)
@@ -196,6 +200,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                finite=finite)
     if cuda:
         out["peak_bytes"] = torch.cuda.max_memory_allocated(dev) - live0
+        # what the allocator reserved from the card at its peak, and what the
+        # card holds beyond torch's reservations (the CUDA context): the
+        # card's reserve must cover both beyond the estimate
+        out["reserved_bytes"] = torch.cuda.max_memory_reserved(dev) - held0
+        free, total = torch.cuda.mem_get_info(dev)
+        out["context_bytes"] = total - free - torch.cuda.memory_reserved(dev)
+        out["reserve_bytes"] = memory.card_reserve(total)
         win = res.windows[1:]  # the first batch carries the warm-up
         n = sum(b - a + 1 for a, b, _ in win)
         ms = sum(t for _, _, t in win) / n
@@ -205,7 +216,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
               f"first batch: {ms:.3f} ms per coarse step, {out['mlups']:.0f} MLUPS "
               f"(one level: MLUPS-su = MLUPS-ref) | peak allocated "
               f"{out['peak_bytes'] / 1e9:.2f} GB against the estimate "
-              f"{est / 1e9:.2f} GB | rho {stats.rho_min:.4f}..{stats.rho_max:.4f} | "
+              f"{est / 1e9:.2f} GB, reserved {out['reserved_bytes'] / 1e9:.2f} GB + "
+              f"context {out['context_bytes'] / 1e9:.2f} GB against the estimate + "
+              f"the card's reserve {(est + out['reserve_bytes']) / 1e9:.2f} GB | rho {stats.rho_min:.4f}..{stats.rho_max:.4f} | "
               f"run {out['solve_wall_s']:.1f} s with its host set-up", flush=True)
     else:
         print(f"[216M] solve_case on the CPU: {res.steps} coarse steps, rho "

@@ -1,17 +1,26 @@
-"""The bench's sweep rows on their own schedule and on K1, at their shapes.
+"""The bench's sweep rows on the card's schedule and on the JAX package's.
 
     python -m open_ludwig_torch.tools.probe_sweep_rows [--res 25,34,45,52,57]
         [--windows 3] [--batch N] [--device cuda|cpu]
 
 For each surface resolution, the sweep row of `open_ludwig_torch.bench`
-(`bench.ROW_CASE`: one level, bf16, `domain_tile_snap`) and, where the row
-runs K3 pairs, the same case without the snap (res 25: the 10.8M-cell
-level 232x216x216 of `chip_smoke.py` phases 6 and 13), each timed through
-`bench.time_runner` (the row's batch, graphed on a card) on the row's own
-schedule ("own": the batch runner's defaults, K3 pairs or K5) and on K1 ->
-K2 unfused ("k1": every level's engine K1, `fuse2=False`), in turns own,
-k1, k1, own, each turn from rest.  Prints one JSON line per case: the
-level's dims, its engine, K5's layout where it runs, and per turn the
+(`bench.ROW_CASE`: one level, bf16, `domain_tile_snap`) and, where the JAX
+package runs the row on its 1-D kernel (K3 pairs under its fused schedule),
+the same case without the snap (res 25: the 10.8M-cell level 232x216x216
+of `chip_smoke.py` phases 6 and 13), each timed through
+`bench.time_runner` (the row's batch, graphed on a card) on three
+schedules, in turns own, fused, k5, k5, fused, own, each turn from rest:
+
+  "own"    the batch runner's defaults: the card's rule (`ops.engine.
+           card_engines`, the card's capacity), unfused: K1 -> K2 where the
+           row fits the card
+  "fused"  the JAX package's schedule on its 1-D kernel: K3 pairs + K2
+           (engine K1, `fuse2=True`)
+  "k5"     the level forced in place: K5 + K2 (the JAX package's choice
+           for the large rows)
+
+Prints one JSON line per case: the level's dims, its engine by the card's
+rule and by the JAX package's, K5's layout on a card, and per turn the
 median ms per coarse step and ns per cell update.  `main` returns the
 lines.  `--device cpu` runs the plain PyTorch path at a small size (the
 tests).
@@ -37,16 +46,18 @@ from ..ops.cuda_step import inplace_layout
 from ..runner import resolve_device
 from ..solver_dense import build_patch_statics, init_patch_state, make_batch_runner_dense
 
-TURNS = ("own", "k1", "k1", "own")
+TURNS = ("own", "fused", "k5", "k5", "fused", "own")
+_FORCED = {"fused": "k1", "k5": "inplace"}  # the level's engine on a schedule
 
 
 def _turn(case, schedule: str, batch: int, windows: int, dev) -> float:
     """Median ms per coarse step of one schedule's runner from rest."""
     cfg, params, levels, statics = case
-    if schedule == "k1":
-        statics = [{**s, "engine": "k1"} for s in statics]
+    if schedule in _FORCED:
+        statics = [{**s, "engine": _FORCED[schedule], "engine_why": "forced"}
+                   for s in statics]
     run = make_batch_runner_dense(cfg, params, levels, statics,
-                                  fuse2=schedule == "own")
+                                  fuse2=schedule == "fused")
     states = [init_patch_state(p, cfg.precision, dev) for p in levels]
     w = bench.time_runner(run, states, levels[0].n_cells, batch, windows, dev)
     return statistics.median(w.ms) / batch
@@ -64,9 +75,10 @@ def probe(res: int, snap: bool, windows: int, batch: Optional[int], dev) -> Dict
     cells = level.n_cells
     batch = batch or int(np.clip(round(2e9 / cells), 10, 1200))
     out = {"res": res, "snap": snap, "dims": list(level.interior), "cells": cells,
-           "engine": static["engine"], "batch": batch, "windows": windows,
-           "build_s": time.time() - t0, "turns": []}
-    if static["engine"] == "inplace" and dev.type == "cuda":
+           "engine": static["engine"], "engine_ref": static["engine_ref"],
+           "batch": batch, "windows": windows, "build_s": time.time() - t0,
+           "turns": []}
+    if dev.type == "cuda":
         out["layout"] = inplace_layout(*level.interior, dev, 2)
     for schedule in TURNS:
         ms = _turn((cfg, params, levels, statics), schedule, batch, windows, dev)
@@ -92,7 +104,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
     for res in (int(r) for r in args.res.split(",")):
         snapped = probe(res, True, args.windows, args.batch, dev)
         cases = [snapped]
-        if snapped["engine"] == "k1":  # a K3 row: its shape without the snap
+        if snapped["engine_ref"] == "k1":  # a K3 row of the JAX package's
             cases.append(probe(res, False, args.windows, args.batch, dev))
         for line in cases:
             line["device"] = card

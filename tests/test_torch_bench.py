@@ -120,8 +120,11 @@ def test_headline_case_equals_root_bench(headline_case):
 
 def test_headline_engines_and_launches(headline_case):
     port = headline_case[0]
-    assert port.engines == ["K4", "K1", "K3 pairs + K2"]
+    # unfused by default: level 3's four sub-steps on K1, K2 after each
+    assert port.engines == ["K4", "K1", "K1 + K2"] and not port.run.fused2
     assert bench.batch_launches(port.statics, 1, port.run.fused2) == {
+        "stream_collide_flat": 1, "stream_collide": 6, "bouzidi": 4}
+    assert bench.batch_launches(port.statics, 1, True) == {
         "stream_collide_flat": 1, "stream_collide": 2, "fused_pair": 2, "bouzidi": 2}
     assert bench.batch_launches(port.statics, 400, False) == {
         "stream_collide_flat": 400, "stream_collide": 800 + 1600, "bouzidi": 1600}
@@ -147,7 +150,7 @@ def test_sweep_rows_match_root_bench(tmp_path):
     assert [p.interior for p in port.levels] == [tuple(p.interior) for p in levels]
     assert port.total_cells == sum(p.n_cells for p in levels) == 1605632
     assert port.updates_per_coarse == port.total_cells
-    assert port.engines == ["K3 pairs + K2"]
+    assert port.engines == ["K1 + K2"]
     # an odd batch: one plain step, then pairs; K2 after each
     assert bench.batch_launches(port.statics, 145, True) == {
         "stream_collide": 1, "fused_pair": 72, "bouzidi": 73}
@@ -257,7 +260,11 @@ def test_headline_json_line():
         [np.median([res["updates_per_coarse"] * 2 / m / 1e3 for m in w])
          for w in res["window_ms"]]))
     assert res["warmup_calls"] == [1, 1]
-    assert res["engines"] == ["K4", "K3 pairs + K2"]
+    assert res["engines"] == ["K4", "K1 + K2"]
+    # no device memory on the CPU
+    assert all(res[k] is None for k in ("peak_gb", "reserved_gb", "context_gb",
+                                         "reserve_gb", "estimate_over_peak"))
+    assert res["estimate_gb"] > 0
     json.dumps(res)
 
 
@@ -281,7 +288,9 @@ def test_failed_row_keeps_schema_and_main_exits_1(monkeypatch, tmp_path, capsys)
     assert [r["res"] for r in doc["rows"]] == list(bench.SWEEP_RES)
     for row in doc["rows"]:
         assert list(row) == ["res", "cells", "label", "mlups", "mlups_min",
-                             "mlups_max", "windows", "engine", "peak_gb", "error"]
+                             "mlups_max", "windows", "engine", "peak_gb",
+                             "reserved_gb", "context_gb", "reserve_gb",
+                             "estimate_gb", "estimate_over_peak", "error"]
         assert row["mlups"] is None and row["error"].startswith("MemoryError: row ")
 
 
@@ -294,14 +303,15 @@ def test_cuda_without_a_card_raises(monkeypatch):
 
 
 def test_probe_sweep_rows_on_cpu():
-    """tools.probe_sweep_rows: a K3 row snapped and unsnapped, each on its
-    own schedule and on K1 unfused in turns."""
+    """tools.probe_sweep_rows: a row the JAX package runs on its 1-D kernel,
+    snapped and unsnapped, each on the card's schedule (K1 unfused), on K3
+    pairs and on K5, in turns."""
     from open_ludwig_torch.tools import probe_sweep_rows
 
     lines = probe_sweep_rows.main(["--device", "cpu", "--res", "5", "--windows", "1",
                                    "--batch", "2"])
-    assert [(ln["res"], ln["snap"], ln["engine"]) for ln in lines] == [
-        (5, True, "k1"), (5, False, "k1")]
+    assert [(ln["res"], ln["snap"], ln["engine"], ln["engine_ref"]) for ln in lines] == [
+        (5, True, "k1", "k1"), (5, False, "k1", "k1")]
     snapped, plain = lines
     assert snapped["dims"][2] % 128 == 0 and snapped["cells"] > plain["cells"]
     for ln in lines:

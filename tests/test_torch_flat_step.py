@@ -314,7 +314,7 @@ def test_flat_coarse_sphere_matches_jax_pallas(sphere_flat, precision):
         use_pallas=True)
     assert run_j.pallas_levels == (True, True) and run_j.fused2
     states_j = run_j(states_j, np.int32(1), 2)
-    run_t = sd.make_batch_runner_dense(cfg, params, levels_t, statics_t)
+    run_t = sd.make_batch_runner_dense(cfg, params, levels_t, statics_t, fuse2=True)
     assert run_t.fused2
     states_t = run_t(states_t, 1, 2)
 
@@ -365,7 +365,7 @@ def test_convert_flat_level_round_trip(sphere_flat):
 def test_kernel_log_names_k4(sphere_flat):
     cfg, _, _, levels_t = sphere_flat
     statics = sd.build_patch_statics(cfg, levels_t)
-    lines = sd.kernel_log_lines(levels_t, statics, cfg.precision, "cpu")
+    lines = sd.kernel_log_lines(levels_t, statics, cfg.precision, "cpu", fuse2=True)
     assert "K4 stream_collide_flat plain torch (CPU)" in lines[0]
     assert "flat_coarse: auto" in lines[0] and "K3 no: parent of level 2" in lines[0]
     assert "K1 stream_collide" in lines[1] and "K3 fused_pair" in lines[1]

@@ -383,17 +383,25 @@ def test_sphere3_matches_jax_pallas(sphere3, precision):
         use_pallas=True)
     assert run_j.pallas_levels == (True, True, True) and run_j.fused2
     states_j = run_j(states_j, np.int32(1), 2)
-    run_t = sd.make_batch_runner_dense(cfg, params, levels_t, statics_t)
+    # the JAX package's schedule (K3 pairs on level 3), and the port's
+    # default (unfused), each from the same states
+    run_t = sd.make_batch_runner_dense(cfg, params, levels_t, statics_t, fuse2=True)
     assert run_t.fused2
+    run_d = sd.make_batch_runner_dense(cfg, params, levels_t, statics_t)
+    assert not run_d.fused2
+    states_d = run_d(list(states_t), 1, 2)
     states_t = run_t(states_t, 1, 2)
 
     tol = 2e-3 if precision == "bfloat16" else 2e-5
-    for li, (p, sj, st) in enumerate(zip(levels_j, states_j, states_t)):
-        got = convert.state_to_numpy(st)
-        for key in ("f", "rho", "vel"):
-            want = convert.from_jax_layout(np.asarray(sj[key]).astype(np.float32), p)
-            d = np.abs(got[key] - want).max()
-            assert d < tol, (li, key, d)
+    for li, (p, sj, st, sdf) in enumerate(zip(levels_j, states_j, states_t,
+                                              states_d)):
+        for label, s in (("fused", st), ("default", sdf)):
+            got = convert.state_to_numpy(s)
+            for key in ("f", "rho", "vel"):
+                want = convert.from_jax_layout(np.asarray(sj[key]).astype(np.float32),
+                                               p)
+                d = np.abs(got[key] - want).max()
+                assert d < tol, (label, li, key, d)
     print(f"sphere3 {precision}: {time.time() - t0:.1f} s")
 
 

@@ -295,7 +295,7 @@ def test_batch_runner_takes_over_its_list(tmp_path, num_levels, monkeypatch):
     params = compute_domain_params(cfg, mesh.min_bounds, mesh.max_bounds)
     levels = build_patches(cfg, mesh, params)
     statics = sd.build_patch_statics(cfg, levels)
-    run = sd.make_batch_runner_dense(cfg, params, levels, statics)
+    run = sd.make_batch_runner_dense(cfg, params, levels, statics, fuse2=True)
     states = [sd.init_patch_state(p, cfg.precision) for p in levels]
     first = weakref.ref(states[-1]["f"])
     alive = []

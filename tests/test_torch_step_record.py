@@ -203,7 +203,8 @@ def test_graphed_runner_equals_the_eager_loop_k5(cases, num_levels, precision):
     statics[0] = {**statics[0], "engine": "inplace", "engine_why": "forced"}
     out = {}
     for graphs in (False, True):
-        run = sd.make_batch_runner_dense(cfg, params, levels, statics, graphs=graphs)
+        run = sd.make_batch_runner_dense(cfg, params, levels, statics, graphs=graphs,
+                                         fuse2=True)
         assert run.fused2 == (num_levels > 1)
         states = _random_states(levels, precision, 9)
         f0 = states[0]["f"]
