@@ -895,13 +895,13 @@ def phase_13(dev, smi, tmp, random_states, states_equal):
                 st = runs[mode](st, a, n)
             torch.cuda.synchronize(dev)
             got[mode] = (gather(st), cuda_step.executed_launches(),
-                         sum(cuda_step.LAUNCHES.values()), dict(cuda_step.REPLAYS))
+                         sum(cuda_step.LAUNCHES.values()))
             del st
         equal = states_equal(got["eager"][0], got["graph"][0])
         ex = {k: v for k, v in got["eager"][1].items() if v}
         gx = {k: v for k, v in got["graph"][1].items() if v}
-        replays = sum(got["graph"][3].values())
         gset = runs["graph"].graph_set
+        replays = gset.replays
         print(f"{tag} {steps13} coarse steps in calls {CALLS13} (ramp {RAMP13}, inlet "
               f"noise 0.02): graph replay bit-equal to the eager loop: {equal} | "
               f"launches executed, eager {ex} / graph {gx} ({got['graph'][2]} issued "

@@ -35,6 +35,7 @@ from ..domain.fields import sponge_for_cells, wall_distance_dense
 from ..domain.voxelize import flood_fill_dense, voxelize_dense
 from ..geometry import TriMesh
 from ..scaling import DomainParams
+from ..spans import span
 
 log = logging.getLogger("open_ludwig_torch")
 
@@ -74,7 +75,15 @@ class PatchLevel:
 def build_patches(
     cfg: CaseConfig, mesh: TriMesh, params: DomainParams
 ) -> List[PatchLevel]:
-    """The levels of `cfg`, each at its interior, on one device."""
+    """The levels of `cfg`, each at its interior, on one device (span
+    `build.patches`)."""
+    with span("build.patches"):
+        return _build_levels(cfg, mesh, params)
+
+
+def _build_levels(
+    cfg: CaseConfig, mesh: TriMesh, params: DomainParams
+) -> List[PatchLevel]:
     num_levels = params.num_levels
     offset = np.asarray(params.mesh_offset)
     verts_placed = mesh.vertices + offset[None, None, :]
@@ -157,32 +166,36 @@ def build_patches(
         # --- static fields over the patch box (dense builders with the
         # vertices shifted into patch-local coordinates) ---
         verts_local = verts_placed - (lo.astype(np.float64) * dx)[None, None, :]
-        obstacle = voxelize_dense(verts_local, dx, interior)
         active = np.ones(interior, bool)
-        obstacle = flood_fill_dense(obstacle, active, 0)
+        with span("build.voxelize"):
+            obstacle = voxelize_dense(verts_local, dx, interior)
+            obstacle = flood_fill_dense(obstacle, active, 0)
 
-        gx, gy, gz = np.meshgrid(
-            lo[0] + np.arange(interior[0]),
-            lo[1] + np.arange(interior[1]),
-            lo[2] + np.arange(interior[2]),
-            indexing="ij",
-        )
-        sponge = sponge_for_cells(
-            (gx + 0.5) * dx,
-            (gy + 0.5) * dx,
-            (gz + 0.5) * dx,
-            params.domain_size,
-            cfg.sponge_thickness,
-            cfg.symmetric_analysis,
-        )
+        with span("build.sponge"):
+            gx, gy, gz = np.meshgrid(
+                lo[0] + np.arange(interior[0]),
+                lo[1] + np.arange(interior[1]),
+                lo[2] + np.arange(interior[2]),
+                indexing="ij",
+            )
+            sponge = sponge_for_cells(
+                (gx + 0.5) * dx,
+                (gy + 0.5) * dx,
+                (gz + 0.5) * dx,
+                params.domain_size,
+                cfg.sponge_thickness,
+                cfg.symmetric_analysis,
+            )
         if cfg.wall_model_enabled:
-            wall = wall_distance_dense(obstacle, dx)
+            with span("build.wall_distance"):
+                wall = wall_distance_dense(obstacle, dx)
         else:
             wall = np.full(interior, 100.0, np.float32)
 
         bouzidi = None
         if should_use_bouzidi(lvl, num_levels, cfg):
-            bouzidi = compute_bouzidi(verts_local, dx, interior, active)
+            with span("build.bouzidi"):
+                bouzidi = compute_bouzidi(verts_local, dx, interior, active)
             log.info("[Bouzidi] level %d: %d boundary cells", lvl, bouzidi.n_boundary_cells)
 
         patch = PatchLevel(

@@ -13,6 +13,8 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from .spans import count, span
+
 
 @dataclass
 class FlowStats:
@@ -32,29 +34,36 @@ def compute_flow_stats(state: Dict, obstacle: torch.Tensor) -> FlowStats:
     A level above STATS_CHUNK cells is reduced in runs of whole planes of
     its first axis, so the temporaries stay near STATS_CHUNK cells beside
     the graphed runner's two state buffers (the extrema are exact either
-    way; the sums are float32 over the runs)."""
+    way; the sums are float32 over the runs).  Span `stats`, with
+    `stats.reduce` (the launches) and `stats.readback` (the copy to the
+    host, counted as `sync.stats`)."""
     rho, vel = state["rho"], state["vel"]
-    per = max(rho[:1].numel(), 1)
-    step = max(1, STATS_CHUNK // per)
-    big = torch.tensor(1e30, dtype=torch.float32, device=rho.device)
-    zero = torch.zeros((), dtype=torch.float32, device=rho.device)
-    counts, parts = [], []
-    for a in range(0, rho.shape[0], step):
-        r, v = rho[a:a + step], vel[:, a:a + step]
-        fluid = ~obstacle[a:a + step]
-        v2 = (v * v).sum(dim=0)
-        counts.append(fluid.sum())
-        parts.append(torch.stack([
-            torch.where(fluid, r, big).min(), torch.where(fluid, r, -big).max(),
-            torch.where(fluid, r, zero).sum(), torch.where(fluid, v2, zero).max(),
-            torch.where(fluid, r * v2, zero).sum()]))
-    n_fluid = torch.stack(counts).sum()
-    p = torch.stack(parts)
-    vals = torch.stack([
-        n_fluid.float(), p[:, 2].sum() / n_fluid.clamp(min=1), p[:, 0].min(),
-        p[:, 1].max(), torch.sqrt(p[:, 3].max()), 0.5 * p[:, 4].sum()
-    ]).cpu().tolist()
-    return FlowStats(int(vals[0]), *[float(v) for v in vals[1:]])
+    with span("stats"):
+        with span("stats.reduce"):
+            per = max(rho[:1].numel(), 1)
+            step = max(1, STATS_CHUNK // per)
+            big = torch.tensor(1e30, dtype=torch.float32, device=rho.device)
+            zero = torch.zeros((), dtype=torch.float32, device=rho.device)
+            counts, parts = [], []
+            for a in range(0, rho.shape[0], step):
+                r, v = rho[a:a + step], vel[:, a:a + step]
+                fluid = ~obstacle[a:a + step]
+                v2 = (v * v).sum(dim=0)
+                counts.append(fluid.sum())
+                parts.append(torch.stack([
+                    torch.where(fluid, r, big).min(), torch.where(fluid, r, -big).max(),
+                    torch.where(fluid, r, zero).sum(), torch.where(fluid, v2, zero).max(),
+                    torch.where(fluid, r * v2, zero).sum()]))
+            n_fluid = torch.stack(counts).sum()
+            p = torch.stack(parts)
+            vals = torch.stack([
+                n_fluid.float(), p[:, 2].sum() / n_fluid.clamp(min=1), p[:, 0].min(),
+                p[:, 1].max(), torch.sqrt(p[:, 3].max()), 0.5 * p[:, 4].sum()
+            ])
+        with span("stats.readback"):
+            count("sync.stats")
+            vals = vals.cpu().tolist()
+        return FlowStats(int(vals[0]), *[float(v) for v in vals[1:]])
 
 
 def check_stability(stats: FlowStats, step: int) -> List[str]:

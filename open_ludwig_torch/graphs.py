@@ -19,10 +19,12 @@ lie at):
     of one unit: ghost planes, edge buffers, halos), and replays it;
   - every later use replays it.
 A capture or replay that fails raises: nothing runs eagerly in its place.
-On the CPU (no graphs) `fn` runs eagerly every time.  The set counts its
-replays (`cuda_step.REPLAYS`) and adds each graph's captured kernel
-launches to `cuda_step.REPLAYED` at each replay; `report()` gives the
-graphs, their captured launches and the pool's bytes.
+On the CPU (no graphs) `fn` runs eagerly every time.  Each unit is one
+span (`spans`) named by how it ran: `run.eager`, `run.capture` (the
+capture and the replay that follows it) or `run.replay`.  The set counts
+its replays (`replays`) and adds each graph's captured kernel launches to
+`cuda_step.REPLAYED` at each replay; `report()` gives the graphs, their
+captured launches and the pool's bytes.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from typing import Callable, Dict, Hashable
 import torch
 
 from .ops import cuda_step
+from .spans import span
 
 
 @contextlib.contextmanager
@@ -76,18 +79,19 @@ class GraphSet:
 
     def run(self, key: Hashable, fn: Callable[[], object], device: torch.device):
         if device.type != "cuda":
-            return fn()
+            with span("run.eager"):
+                return fn()
         g = self.graphs.get(key)
-        if g is None:
-            if key not in self.warm:
-                self.warm.add(key)
-                with torch.cuda.device(device):
-                    return fn()
-            g = self._capture(key, fn, device)
-        with torch.cuda.device(device):
-            g["graph"].replay()
+        if g is None and key not in self.warm:
+            self.warm.add(key)
+            with span("run.eager"), torch.cuda.device(device):
+                return fn()
+        with span("run.replay" if g is not None else "run.capture"):
+            if g is None:
+                g = self._capture(key, fn, device)
+            with torch.cuda.device(device):
+                g["graph"].replay()
         self.replays += 1
-        cuda_step.REPLAYS[self.name] = cuda_step.REPLAYS.get(self.name, 0) + 1
         for k, n in g["launches"].items():
             cuda_step.REPLAYED[k] += n
         return g["out"]

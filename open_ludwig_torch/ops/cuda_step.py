@@ -127,7 +127,6 @@ LAUNCHES: Dict[str, int] = {"stream_collide": 0, "bouzidi": 0, "fused_pair": 0,
                             "stream_collide_inplace_shard": 0}
 CAPTURED: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)  # of LAUNCHES, under capture
 REPLAYED: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)  # captured x replays
-REPLAYS: Dict[str, int] = {}  # replays per graph set (graphs.GraphSet.name)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -166,7 +165,6 @@ _FP_ARGTYPES = (
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = CAPTURED[k] = REPLAYED[k] = 0
-    REPLAYS.clear()
 
 
 def executed_launches() -> Dict[str, int]:

@@ -33,6 +33,7 @@ import torch
 
 from ..geometry import TriMesh
 from ..scaling import DomainParams
+from ..spans import count, span
 
 log = logging.getLogger("open_ludwig_torch")
 
@@ -301,9 +302,10 @@ def make_force_context_dense(
     mesh: TriMesh, patch, params: DomainParams, search_radius: int = 5,
     extrapolate: bool = True, device="cpu",
 ) -> ForceContext:
-    m = build_triangle_cell_map_dense(mesh, patch, params, search_radius)
-    _report_coverage(m["found"], "patch layout")
-    return _force_context(m, mesh, patch.tau, params, extrapolate, device)
+    with span("build.force_context"):
+        m = build_triangle_cell_map_dense(mesh, patch, params, search_radius)
+        _report_coverage(m["found"], "patch layout")
+        return _force_context(m, mesh, patch.tau, params, extrapolate, device)
 
 
 def make_force_context(
@@ -392,39 +394,49 @@ def _surface_stresses(rho_flat, vel_flat, ctx: ForceContext):
     return p, tau_vec, dFp.sum(dim=1), dFv.sum(dim=1), dM.sum(dim=1)
 
 
+def _fetch(t: torch.Tensor) -> np.ndarray:
+    """`t` on the host: a blocking copy, counted as `sync.forces`."""
+    count("sync.forces")
+    return t.cpu().numpy()
+
+
 def compute_aerodynamics(state: Dict, ctx: ForceContext) -> ForceResult:
     """Map stresses and integrate forces/coefficients for the finest level
-    state (reference: src/forces/surface.jl:592-600)."""
-    p, tau_vec, Fp, Fv, M = _surface_stresses(
-        state["rho"].reshape(-1), state["vel"].reshape(3, -1), ctx
-    )
-    Fp = Fp.double().cpu().numpy()
-    Fv = Fv.double().cpu().numpy()
-    M = M.double().cpu().numpy()
-    if ctx.symmetric:
-        Fp = np.array([2 * Fp[0], 0.0, 2 * Fp[2]])
-        Fv = np.array([2 * Fv[0], 0.0, 2 * Fv[2]])
-        M = np.array([0.0, 2 * M[1], 0.0])
-    F = Fp + Fv
-    res = ForceResult(
-        Fx=F[0], Fy=F[1], Fz=F[2],
-        Fx_pressure=Fp[0], Fy_pressure=Fp[1], Fz_pressure=Fp[2],
-        Fx_viscous=Fv[0], Fy_viscous=Fv[1], Fz_viscous=Fv[2],
-        Mx=M[0], My=M[1], Mz=M[2],
-        pressure_map=p.cpu().numpy(),
-        shear_map=tau_vec.cpu().numpy(),
-    )
-    F_ref = ctx.q_inf * ctx.area_ref
-    M_ref = F_ref * ctx.chord_ref
-    if F_ref > 1e-10:
-        res.Cd = F[0] / F_ref
-        res.Cl = F[2] / F_ref
-        res.Cs = F[1] / F_ref
-    if M_ref > 1e-10:
-        res.Cmx = M[0] / M_ref
-        res.Cmy = M[1] / M_ref
-        res.Cmz = M[2] / M_ref
-    return res
+    state (reference: src/forces/surface.jl:592-600).  Span `forces`, with
+    `forces.map` (the launches) and `forces.readback` (five copies to the
+    host)."""
+    with span("forces"):
+        with span("forces.map"):
+            p, tau_vec, Fp, Fv, M = _surface_stresses(
+                state["rho"].reshape(-1), state["vel"].reshape(3, -1), ctx
+            )
+            Fp, Fv, M = Fp.double(), Fv.double(), M.double()
+        with span("forces.readback"):
+            Fp, Fv, M, p, tau_vec = (_fetch(t) for t in (Fp, Fv, M, p, tau_vec))
+        if ctx.symmetric:
+            Fp = np.array([2 * Fp[0], 0.0, 2 * Fp[2]])
+            Fv = np.array([2 * Fv[0], 0.0, 2 * Fv[2]])
+            M = np.array([0.0, 2 * M[1], 0.0])
+        F = Fp + Fv
+        res = ForceResult(
+            Fx=F[0], Fy=F[1], Fz=F[2],
+            Fx_pressure=Fp[0], Fy_pressure=Fp[1], Fz_pressure=Fp[2],
+            Fx_viscous=Fv[0], Fy_viscous=Fv[1], Fz_viscous=Fv[2],
+            Mx=M[0], My=M[1], Mz=M[2],
+            pressure_map=p,
+            shear_map=tau_vec,
+        )
+        F_ref = ctx.q_inf * ctx.area_ref
+        M_ref = F_ref * ctx.chord_ref
+        if F_ref > 1e-10:
+            res.Cd = F[0] / F_ref
+            res.Cl = F[2] / F_ref
+            res.Cs = F[1] / F_ref
+        if M_ref > 1e-10:
+            res.Cmx = M[0] / M_ref
+            res.Cmy = M[1] / M_ref
+            res.Cmz = M[2] / M_ref
+        return res
 
 
 @dataclass
@@ -563,10 +575,10 @@ def make_mem_context(patch, params: DomainParams, mesh: TriMesh,
     )
 
 
-def _mem_sums(f: torch.Tensor, ctx: MEMContext) -> np.ndarray:
+def _mem_sums(f: torch.Tensor, ctx: MEMContext) -> torch.Tensor:
     """Two gathers from f.reshape(-1), the per-link kick in float32, its
-    flux, moment and per-triangle sums on f's device; one host fetch of
-    [F (3), M (3), F_tri (3 * n_tri)] as float64."""
+    flux, moment and per-triangle sums on f's device: [F (3), M (3), F_tri
+    (3 * n_tri)] as float64."""
     f_flat = f.reshape(-1)
     vo = f_flat.index_select(0, ctx.idx_out).float()
     vi = f_flat.index_select(0, ctx.idx_in).float()
@@ -578,7 +590,7 @@ def _mem_sums(f: torch.Tensor, ctx: MEMContext) -> np.ndarray:
     M = torch.linalg.cross(ctx.r, dF, dim=0).sum(dim=1)
     F_tri = torch.zeros((3, ctx.n_tri), dtype=torch.float32, device=f.device)
     F_tri.index_add_(1, ctx.tri, dF)
-    return torch.cat([F, M, F_tri.reshape(-1)]).double().cpu().numpy()
+    return torch.cat([F, M, F_tri.reshape(-1)]).double()
 
 
 def compute_aerodynamics_mem(
@@ -589,35 +601,40 @@ def compute_aerodynamics_mem(
     shear maps are kept for the surface VTK and only the integrals are
     replaced; the method has no pressure/viscous split (totals go in Fx
     etc.; the *_pressure/_viscous fields keep the stress-mapping estimate
-    when available, else total/zero)."""
-    sums = _mem_sums(state["f"], ctx)
-    F = (sums[0:3] + ctx.rest_F) * ctx.force_scale
-    M = (sums[3:6] + ctx.rest_M) * ctx.force_scale
-    if ctx.symmetric:
-        F = np.array([2 * F[0], 0.0, 2 * F[2]])
-        M = np.array([0.0, 2 * M[1], 0.0])
-    res = ForceResult(
-        Fx=F[0], Fy=F[1], Fz=F[2],
-        Mx=M[0], My=M[1], Mz=M[2],
-        Fx_pressure=base.Fx_pressure if base else F[0],
-        Fy_pressure=base.Fy_pressure if base else F[1],
-        Fz_pressure=base.Fz_pressure if base else F[2],
-        Fx_viscous=base.Fx_viscous if base else 0.0,
-        Fy_viscous=base.Fy_viscous if base else 0.0,
-        Fz_viscous=base.Fz_viscous if base else 0.0,
-        pressure_map=base.pressure_map if base else None,
-        shear_map=base.shear_map if base else None,
-    )
-    res.force_map = ((sums[6:].reshape(3, ctx.n_tri) + ctx.rest_F_tri)
-                     * ctx.force_scale)  # (3, n_tri) N
-    F_ref = ctx.q_inf * ctx.area_ref
-    M_ref = F_ref * ctx.chord_ref
-    if F_ref > 1e-10:
-        res.Cd = F[0] / F_ref
-        res.Cl = F[2] / F_ref
-        res.Cs = F[1] / F_ref
-    if M_ref > 1e-10:
-        res.Cmx = M[0] / M_ref
-        res.Cmy = M[1] / M_ref
-        res.Cmz = M[2] / M_ref
-    return res
+    when available, else total/zero).  Span `forces`, with `forces.map`
+    and `forces.readback` (one copy to the host)."""
+    with span("forces"):
+        with span("forces.map"):
+            sums = _mem_sums(state["f"], ctx)
+        with span("forces.readback"):
+            sums = _fetch(sums)
+        F = (sums[0:3] + ctx.rest_F) * ctx.force_scale
+        M = (sums[3:6] + ctx.rest_M) * ctx.force_scale
+        if ctx.symmetric:
+            F = np.array([2 * F[0], 0.0, 2 * F[2]])
+            M = np.array([0.0, 2 * M[1], 0.0])
+        res = ForceResult(
+            Fx=F[0], Fy=F[1], Fz=F[2],
+            Mx=M[0], My=M[1], Mz=M[2],
+            Fx_pressure=base.Fx_pressure if base else F[0],
+            Fy_pressure=base.Fy_pressure if base else F[1],
+            Fz_pressure=base.Fz_pressure if base else F[2],
+            Fx_viscous=base.Fx_viscous if base else 0.0,
+            Fy_viscous=base.Fy_viscous if base else 0.0,
+            Fz_viscous=base.Fz_viscous if base else 0.0,
+            pressure_map=base.pressure_map if base else None,
+            shear_map=base.shear_map if base else None,
+        )
+        res.force_map = ((sums[6:].reshape(3, ctx.n_tri) + ctx.rest_F_tri)
+                         * ctx.force_scale)  # (3, n_tri) N
+        F_ref = ctx.q_inf * ctx.area_ref
+        M_ref = F_ref * ctx.chord_ref
+        if F_ref > 1e-10:
+            res.Cd = F[0] / F_ref
+            res.Cl = F[2] / F_ref
+            res.Cs = F[1] / F_ref
+        if M_ref > 1e-10:
+            res.Cmx = M[0] / M_ref
+            res.Cmy = M[1] / M_ref
+            res.Cmz = M[2] / M_ref
+        return res

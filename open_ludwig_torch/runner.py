@@ -38,7 +38,12 @@ its inlet speed and seeds read from a step record on the device; the CPU
 runs the same steps eagerly.  The kernel log names the graphs, their
 captured launches and their memory pool after the first batch.
 `OPEN_LUDWIG_PROFILE=<dir>` writes a torch.profiler trace of the second
-batch.  `--batch` runs the listed cases, a failing case logged and
+batch; it carries the port's spans as "olt.<name>" ranges on the host's
+timeline (`spans`: the runner's calls and units, the events, their
+read-backs), the parents of the launches they enclose.  At the end of a
+case the log gives the case's spans (calls, host seconds) and counters
+(`sync.forces`, `sync.stats`: blocking copies to the host), at INFO.
+`--batch` runs the listed cases, a failing case logged and
 skipped; `--plan` prints the set-up and device-memory report with the
 card's capacity.  The default device is `cuda`, which raises when CUDA is
 missing; `cpu` runs the plain PyTorch path.
@@ -73,6 +78,7 @@ import numpy as np
 import torch
 
 from . import checkpoint as ckpt
+from . import spans
 from .config import CaseConfig, load_batch_list, load_case_config
 from .core.patch import build_patches
 from .core.state import build_all, hbm_report
@@ -230,6 +236,7 @@ def solve_case(cfg: CaseConfig, device="cuda",
     `memory.card_capacity`; no limit on the CPU), each sub-step one launch
     (the runner's default, unfused)."""
     check_supported(cfg)
+    spans_at = spans.snapshot()
     dev = resolve_device(device)
     x_mesh = resolve_mesh(cfg, dev, x_mesh)
     if x_mesh is not None:
@@ -546,6 +553,8 @@ def solve_case(cfg: CaseConfig, device="cuda",
             log.info("  time-averaged (last third): Cd = %.4f +- %.4f | "
                      "Cl = %.4f +- %.4f", float(np.mean(cds)), float(np.std(cds)),
                      float(np.mean(cls_)), float(np.std(cls_)))
+    log.info("[Spans] the case's host spans and counters:\n%s",
+             spans.report(spans.since(spans_at)))
     return SolveResult(
         total_cells=total_cells, updates_per_coarse=updates, steps=cfg.steps,
         wall_time=wall_total, mlups=mlups_total, final_stats=final_stats,

@@ -20,6 +20,7 @@ import torch
 from .config import CaseConfig
 from .ops.stream_collide import apply_bouzidi, stream_collide
 from .scaling import DomainParams
+from .spans import span
 
 
 def ramp_velocity(t: int, u_target: float, ramp_steps: int) -> float:
@@ -186,7 +187,9 @@ def make_batch_runner(cfg: CaseConfig, params: DomainParams, statics: List[Dict]
     and on the CPU the same step runs eagerly.  The fixed buffers are the
     first call's states, taken over; a later call given other tensors
     than the last result has them copied in.  Bit-equal to `graphs=False`,
-    the loop that issues every operation from the host."""
+    the loop that launches every operation from the host.  A graphed call is
+    the span `run` with `run.take`, `run.record` and its units' spans
+    (`spans`, `graphs.GraphSet.run`)."""
     coarse_step = make_coarse_step(cfg, params, statics)
     if not graphs:
         def run_eager(states: List[Dict], t0: int, n: int) -> List[Dict]:
@@ -203,28 +206,32 @@ def make_batch_runner(cfg: CaseConfig, params: DomainParams, statics: List[Dict]
     held = {}  # "record", "step", "fixed": the state buffers
 
     def run(states: List[Dict], t0: int, n: int) -> List[Dict]:
-        dev = states[0]["f"].device
-        if "fixed" not in held:
-            held["record"] = StepRecord(cfg.u_lattice, cfg.ramp_steps, dev)
-            held["step"] = make_coarse_step(cfg, params, statics, held["record"])
-            held["fixed"] = [{k: st[k] for k in ("f", "rho", "vel")} for st in states]
-        fixed = held["fixed"]
-        for st, mine in zip(states, fixed):
-            for k in ("f", "rho", "vel"):
-                if st[k].data_ptr() != mine[k].data_ptr():
-                    mine[k].copy_(st[k])
+        with span("run"):
+            dev = states[0]["f"].device
+            if "fixed" not in held:
+                held["record"] = StepRecord(cfg.u_lattice, cfg.ramp_steps, dev)
+                held["step"] = make_coarse_step(cfg, params, statics, held["record"])
+                held["fixed"] = [{k: st[k] for k in ("f", "rho", "vel")}
+                                 for st in states]
+            fixed = held["fixed"]
+            with span("run.take"):
+                for st, mine in zip(states, fixed):
+                    for k in ("f", "rho", "vel"):
+                        if st[k].data_ptr() != mine[k].data_ptr():
+                            mine[k].copy_(st[k])
 
-        def unit():
-            new = held["step"](fixed, 0)
-            for st, mine in zip(new, fixed):
-                for k in ("f", "rho", "vel"):
-                    mine[k].copy_(st[k])
-            return fixed
+            def unit():
+                new = held["step"](fixed, 0)
+                for st, mine in zip(new, fixed):
+                    for k in ("f", "rho", "vel"):
+                        mine[k].copy_(st[k])
+                return fixed
 
-        held["record"].set(t0)
-        for _ in range(int(n)):
-            gset.run("step", unit, dev)
-        return [dict(st) for st in fixed]
+            with span("run.record"):
+                held["record"].set(t0)
+            for _ in range(int(n)):
+                gset.run("step", unit, dev)
+            return [dict(st) for st in fixed]
 
     run.graph_set = gset
     return run

@@ -82,6 +82,7 @@ from .ops.dense_step import (
 )
 from .scaling import DomainParams
 from .solver import ramp_velocity
+from .spans import span
 
 def init_patch_state(patch: PatchLevel, precision: str = "float32",
                      device="cpu") -> Dict:
@@ -112,7 +113,14 @@ def build_patch_statics(cfg: CaseConfig, patches: List[PatchLevel],
     naming both rules) and the JAX package's choice ("engine_ref").
     `capacity` None is the card's own (`memory.card_capacity`) on CUDA and
     no limit on the CPU.  With `x_mesh`, the per-slab statics of its
-    devices (`parallel.patch_shard.shard_statics`; `device` is not read)."""
+    devices (`parallel.patch_shard.shard_statics`; `device` is not read).
+    Span `build.statics`."""
+    with span("build.statics"):
+        return _build_statics(cfg, patches, device, x_mesh, capacity)
+
+
+def _build_statics(cfg: CaseConfig, patches: List[PatchLevel], device, x_mesh,
+                   capacity: Optional[int]) -> List[Dict]:
     if x_mesh is not None:
         from .parallel.patch_shard import shard_statics
         return shard_statics(cfg, patches, x_mesh, capacity)
@@ -484,7 +492,9 @@ def make_batch_runner_dense(cfg: CaseConfig, params: DomainParams,
     bit-equal to `graphs=False`, the loop that launches every kernel from
     the host with the step's numbers by value.  A state passed in that is
     not the runner's last result is copied into the runner's buffers.
-    `run.graph_set` holds the graphs (None without)."""
+    `run.graph_set` holds the graphs (None without).  A graphed call is
+    the span `run` with `run.take`, `run.record` and its units' spans
+    (`spans`, `graphs.GraphSet.run`)."""
     coarse_step = make_coarse_step_dense(cfg, params, patches, statics,
                                          fuse2=fuse2, x_mesh=x_mesh)
     pair = coarse_step.pair_step
@@ -562,19 +572,22 @@ def make_batch_runner_dense(cfg: CaseConfig, params: DomainParams,
         return [dict(st) for st in out]
 
     def run(states: List[Dict], t0: int, n: int) -> List[Dict]:
-        t0, n = int(t0), int(n)
-        dev = _leaves(states[:1])[0].device
-        if "fixed" not in held:
-            setup(dev)
-        states[:] = take(states)
-        held["fixed"].record.set(t0)
-        kinds = ["step"] * n
-        if pair is not None and n >= 2:
-            kinds = ["step"] * (n % 2) + ["pair"] * (n // 2)
-        for kind in kinds:
-            states[:] = unit(kind, states, dev)
-        held["last"] = list(states)
-        return states
+        with span("run"):
+            t0, n = int(t0), int(n)
+            dev = _leaves(states[:1])[0].device
+            if "fixed" not in held:
+                setup(dev)
+            with span("run.take"):
+                states[:] = take(states)
+            with span("run.record"):
+                held["fixed"].record.set(t0)
+            kinds = ["step"] * n
+            if pair is not None and n >= 2:
+                kinds = ["step"] * (n % 2) + ["pair"] * (n // 2)
+            for kind in kinds:
+                states[:] = unit(kind, states, dev)
+            held["last"] = list(states)
+            return states
 
     run.fused2 = coarse_step.fused2
     run.seed_slabs = coarse_step.seed_slabs
