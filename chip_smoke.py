@@ -17,7 +17,8 @@ Phases, each raising on failure (nothing is caught):
      power limit, and the toolchain;
   2. build: K1 (csrc/stream_collide.cu), K2 (csrc/bouzidi.cu), K3
      (csrc/fused_pair.cu), K4 (csrc/stream_collide_flat.cu), K5
-     (csrc/stream_collide_inplace.cu) and K6 (csrc/bouzidi_ab.cu) with nvcc
+     (csrc/stream_collide_inplace.cu), K6 (csrc/bouzidi_ab.cu) and the
+     ghost planes' kernels (csrc/ghost_planes.cu) with nvcc
      for sm_90a into build/kernels/, one nvcc per source, all at once;
      prints registers, spills and K3's and K5's shared memory and occupancy
      (K5's at the 63.7M-cell row's layout);
@@ -27,8 +28,9 @@ Phases, each raising on failure (nothing is caught):
      storage type, bf16 g-space on bf16, `checks.random_level_inputs`)
      and on a 10.8M-cell single-level sweep shape, float32 and bf16;
   3b. the ghost planes of the bench case's level-2 and level-3 children
-     (the einsum plan, the endpoint slabs, `interface_planes_pair_mm`)
-     against the endpoint path + `shift_planes` on the card, float32 and
+     (the einsum plan, the endpoint slabs, `interface_planes_pair_mm`: the
+     plain versions, which phase 15 holds the kernels to) against the
+     endpoint path + `shift_planes` on the card, float32 and
      bf16 parents: float32 planes < 2e-6, the storage-type planes within
      2e-3 of the endpoint path's cast alike; one child build timed
      eagerly (ms, and its device operations by torch.profiler) beside the
@@ -67,7 +69,10 @@ Phases, each raising on failure (nothing is caught):
      g-storage) for 400 coarse steps, each level on the card's rule (K4,
      K1, K1), unfused by default: finite CSVs, rho_min in (0.5, 1.5),
      launch counts per coarse step K4 = 1 (level 1), K1 = 2 + 4 (levels 2
-     and 3), K2 = 4 (level 3), the peak allocation beside the estimate the
+     and 3), K2 = 4 (level 3), and the ghost planes' kernels' 3 + 3 (a
+     child build each of levels 2 and 3's: an extraction and a planes
+     launch) and 2 extractions that seed the carried slabs (the kernels
+     line's launches), the peak allocation beside the estimate the
      card's rule reads (`[memory]`), and MLUPS-su /
      MLUPS-ref from CUDA events over the post-warm-up intervals; then 10
      coarse steps after 20 of warm-up, one batch-runner call each, timed
@@ -223,6 +228,23 @@ Phases, each raising on failure (nothing is caught):
      within 20% of phase 13's graphed bench turns; then one sweep row,
      `sweep((12,), "cuda", <tmp>)` (1.6M cells): the row schema, no error,
      its engine (K1 + K2) and peak memory beside the estimate.
+  15. the ghost planes' kernels (`ops.ghost_planes`, csrc/ghost_planes.cu)
+     against their plain versions (`checks.check_ghost_kernels`) on the
+     shipped Re10M sphere's three child builds (float32), the bf16
+     bench's two (g slabs, g planes) and the geometries of
+     `checks.GHOST_GEOMS` (a group of one face, two groups, the clamp, an
+     offset parent; float32 and bf16), temporal on and off: the endpoint
+     slabs bit-equal, float32 planes < 2e-6, bf16 planes the kernel's
+     float32 ones rounded and at most one bf16 ulp beyond the float32
+     planes' distance from the plain ones (`checks.bf16_ulps`); each
+     build's time (extraction and planes) from a CUDA graph beside its
+     byte bound and the plain build's, each kernel's and the carry's copy
+     beside theirs; then the Re10M batch runner graphed against
+     its eager loop (`GHOST_CALLS15`), both on the kernels: bit-equal, the
+     builds counted as "planes.kernel" and none as "planes.plain", the
+     kernels' executed launches (`ghost_planes.executed_launches`) those
+     of the steps and seedings (`ghost_launches`), and
+     `cuda_step.LAUNCHES` with the keys it had.
 Every run's device-memory estimate (`solver_dense.hbm_total_patches`, the
 card's rule's) must be at or above its allocated peak, and with the card's
 reserve (`memory.card_reserve`) at or above what the run reserved (the
@@ -1116,6 +1138,130 @@ def phase_14(smi, tmp, bench13, per_step, mem_row):
     print(f"[14 bench] phase {time.time() - t_phase:.1f} s", flush=True)
 
 
+GHOST_CALLS15 = ((1, 4), (5, 3))  # phase 15's batches of the Re10M runner
+
+
+def ghost_launches(n_levels: int, temporal: bool, steps: int, seeds: int = 1) -> dict:
+    """The ghost-plane kernels' launches (`ops.ghost_planes.LAUNCHES`) of
+    `steps` coarse steps of a case of `n_levels` levels whose carried slabs
+    are seeded `seeds` times: a child build a parent sub-step (2^(n-1) - 1
+    a coarse step), each one extraction and one planes launch, and with
+    the temporal blend one extraction a parent level at each seeding."""
+    builds = steps * (2 ** (n_levels - 1) - 1)
+    return {"ghost_extract": builds + (n_levels - 1) * seeds * bool(temporal),
+            "ghost_planes": builds}
+
+
+def phase_15(dev, smi, tmp):
+    """Phase 15, the ghost planes' kernels (module docstring).  Returns the
+    checks by (case, child level index, temporal)."""
+    import torch
+
+    from open_ludwig_torch import checks, spans
+    from open_ludwig_torch import lattice as lat
+    from open_ludwig_torch.ops import cuda_step, ghost_planes
+    from open_ludwig_torch.ops.dense_step import build_iface_mm_plan, iface_mm_plan_to
+    from open_ludwig_torch.solver_dense import build_patch_statics, make_batch_runner_dense
+
+    t_phase = time.time()
+    keys = set(cuda_step.LAUNCHES)
+    cfg = checks.shipped_config(os.path.join(tmp, "ghost", "re10m"), "sphere_re10m")
+    _, params, levels = checks.case_levels(cfg)
+    statics = build_patch_statics(cfg, levels, dev)
+    bcfg, _, _, blevels = checks.bench_case(os.path.join(tmp, "ghost", "bench"))
+    bstatics = build_patch_statics(bcfg, blevels, dev)
+    out = {}
+    for label, lv, st, bf16 in (("Re10M", levels, statics, False),
+                                ("bench", blevels, bstatics, True)):
+        for li in range(1, len(lv)):
+            child, parent = lv[li], lv[li - 1]
+            for temporal in (True, False):
+                r = checks.check_ghost_kernels(child, parent, st[li]["iface_mm"], bf16,
+                                               temporal, seed=90 + li, device=dev)
+                out[(label, li, temporal)] = r
+                ulps = ("" if r["max_ulps"] is None else
+                        f", bf16 g planes the f32 ones rounded {r['bf16_is_cast']}, "
+                        f"{100 * r['bf16_diff_frac']:.4f}% differ, {r['raw_ulps']:.1f} "
+                        f"ulp apart at most, {r['max_ulps']:.2f} beyond the f32 planes'")
+                carry = ("" if r["carry"] is None else
+                         f" | the carry's copy {r['carry']['ms']:.5f} ms, bound "
+                         f"{r['carry']['bound_ms']:.5f} ms ({r['carry']['bytes'] / 1e6:.2f} MB)")
+                print(f"[15 ghost] {label} L{child.level_id} {tuple(child.interior)} from "
+                      f"L{parent.level_id} {'bf16' if bf16 else 'f32 '} "
+                      f"{'temporal' if temporal else 'frozen  '}: {r['faces']} faces in "
+                      f"{r['groups']} groups | slabs bit-equal {r['slabs_equal']} | f32 "
+                      f"planes {r['max_abs_err']:.2e} (tol {r['tol']:.0e}){ulps} | from "
+                      f"graphs, a build (extraction and planes) {r['ms']:.5f} ms, bound "
+                      f"{r['bound_ms']:.5f} ms ({r['bytes'] / 1e6:.2f} MB), plain "
+                      f"{r['plain_ms']:.5f} ms; the extraction {r['extract']['ms']:.5f} ms, "
+                      f"bound {r['extract']['bound_ms']:.5f}; the planes "
+                      f"{r['planes']['ms']:.5f} ms, bound {r['planes']['bound_ms']:.5f}"
+                      f"{carry} | card: {smi}", flush=True)
+                require(r["slabs_equal"] and r["max_abs_err"] < r["tol"]
+                        and (not bf16 or (r["bf16_is_cast"] and r["max_ulps"] <= 1.0)),
+                        ("ghost kernels", label, li, temporal, r))
+    # the geometries no shipped case has (`checks.GHOST_GEOMS`: a group of
+    # one face, two groups, the clamp, an offset parent)
+    err = ulps = 0.0
+    for name in checks.GHOST_GEOMS:
+        parent, child = checks.ghost_levels(name)
+        plan = iface_mm_plan_to(build_iface_mm_plan(child, parent), dev)
+        for bf16 in (False, True):
+            for temporal in (True, False):
+                r = checks.check_ghost_kernels(child, parent, plan, bf16, temporal,
+                                               seed=97, device=dev, reps=1)
+                require(r["slabs_equal"] and r["max_abs_err"] < r["tol"]
+                        and (not bf16 or (r["bf16_is_cast"] and r["max_ulps"] <= 1.0)),
+                        ("ghost kernels", name, bf16, temporal, r))
+                err = max(err, r["max_abs_err"])
+                ulps = max(ulps, r["max_ulps"] or 0.0)
+    print(f"[15 ghost] {', '.join(checks.GHOST_GEOMS)} (f32 and bf16, temporal and "
+          f"frozen): slabs bit-equal, f32 planes at most {err:.2e}, bf16 planes at most "
+          f"{ulps:.2f} ulp beyond the f32 planes'", flush=True)
+    # the Re10M batch graphed against the eager loop, both on the kernels
+    gen = torch.Generator(device=dev)
+    w = torch.as_tensor(lat.W, dtype=torch.float32, device=dev).view(27, 1, 1, 1)
+
+    def start():
+        gen.manual_seed(93)
+        return [{"f": w * (1 + 0.01 * torch.randn((27,) + tuple(p.interior), generator=gen,
+                                                  device=dev)),
+                 "rho": 1 + 0.005 * torch.randn(tuple(p.interior), generator=gen, device=dev),
+                 "vel": 0.01 * torch.randn((3,) + tuple(p.interior), generator=gen,
+                                           device=dev)}
+                for p in levels]
+
+    before = spans.snapshot()
+    ghost_planes.reset_launches()
+    finals, replays = [], 0
+    for graphs in (True, False):
+        run = make_batch_runner_dense(cfg, params, levels, statics, graphs=graphs)
+        states = start()
+        for t0, n in GHOST_CALLS15:
+            states = run(states, t0, n)
+        finals.append(states)
+        replays += run.graph_set.replays if run.graph_set is not None else 0
+    torch.cuda.synchronize(dev)
+    counts = spans.since(before)["counts"]
+    got = ghost_planes.executed_launches()
+    # both runners: each seeds its carried slabs once, then runs every step
+    want = ghost_launches(len(levels), cfg.temporal_interpolation,
+                          2 * sum(n for _, n in GHOST_CALLS15), 2)
+    equal = all(torch.equal(a[k], b[k]) for a, b in zip(*finals)
+                for k in ("f", "rho", "vel"))
+    builds = counts.get("planes.kernel", 0)
+    print(f"[15 ghost] Re10M batches {GHOST_CALLS15} graphed against the eager loop: "
+          f"bit-equal {equal}, {replays} replays | child builds issued on the kernels "
+          f"{builds}, plain {counts.get('planes.plain', 0)} | executed launches {got} "
+          f"(want {want}) | launch counters {sorted(cuda_step.LAUNCHES)} | phase "
+          f"{time.time() - t_phase:.1f} s", flush=True)
+    require(equal and replays > 0 and builds > 0 and "planes.plain" not in counts
+            and got == want and set(cuda_step.LAUNCHES) == keys,
+            ("ghost batches", equal, replays, counts, got, want,
+             sorted(cuda_step.LAUNCHES)))
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1138,7 +1284,7 @@ def main(argv=None) -> int:
     from open_ludwig_torch import checks
     from open_ludwig_torch import lattice as lat
     from open_ludwig_torch.io import vtk
-    from open_ludwig_torch.ops import build, cuda_step, forces, storage
+    from open_ludwig_torch.ops import build, cuda_step, forces, ghost_planes, storage
     from open_ludwig_torch.runner import plan_case, solve_case
     from open_ludwig_torch.solver_dense import (
         build_patch_statics,
@@ -1558,14 +1704,20 @@ def main(argv=None) -> int:
         # ---- 5. the slice through the runner ----
         base = bench.memory_start(dev)
         cuda_step.reset_launches()
+        ghost_planes.reset_launches()
         res = solve_case(cfg, device="cuda")
         launches = cuda_step.executed_launches()
+        launches_ghost = ghost_planes.executed_launches()
         mem_row("5 bench solve_case", bench.memory_fields(
             dev, base, hbm_total_patches(levels, statics, cfg.precision)))
         steps = cfg.steps
-        print(f"[5 slice] launches {launches} over {steps} coarse steps", flush=True)
+        want_ghost = ghost_launches(len(levels), cfg.temporal_interpolation, steps)
+        print(f"[5 slice] launches {launches} and the ghost planes' {launches_ghost} "
+              f"(want {want_ghost}) over {steps} coarse steps", flush=True)
         require(launches == {**none, **{k: v * steps for k, v in bench_step.items()}},
                 ("slice launches", launches))
+        require(launches_ghost == want_ghost, ("slice ghost launches", launches_ghost,
+                                               want_ghost))
         check_run_outputs(res, cfg)
         win = res.windows[1:]  # the first interval carries the warm-up
         n_steps = sum(b - a + 1 for a, b, _ in win)
@@ -2002,6 +2154,9 @@ def main(argv=None) -> int:
         # ---- 14. the bench entry point ----
         phase_14(smi, tmp, out13[("bench", "bfloat16")], bench_step, mem_row)
 
+        # ---- 15. the ghost planes' kernels ----
+        k15 = phase_15(dev, smi, tmp)
+
     # every run's device-memory estimate (the card's rule reads it) at or
     # above its measured peak
     low = [tag for tag, m in mem_rows if m["estimate_gb"] < m["peak_gb"]]
@@ -2047,6 +2202,17 @@ def main(argv=None) -> int:
         kernel_line("bouzidi_ab", csrc + "bouzidi_ab.cu", "tools/probe_bz_encoding.py:117",
                     got8["bouzidi_ab"], k6[True],
                     max(r["max_abs_err"] for r in k6.values())),
+        # no Pallas kernel: the XLA glue of extract_endpoint_slabs and
+        # interface_planes_pair_mm; launches from the slice (phase 5), times
+        # of the Re10M finest level's build
+        kernel_line("ghost_extract", csrc + "ghost_planes.cu",
+                    "open_ludwig_tpu/ops/dense_step.py:577 (XLA)",
+                    launches_ghost["ghost_extract"], k15[("Re10M", 3, True)]["extract"],
+                    0.0),  # the slabs bit-equal (phase 15 requires it)
+        kernel_line("ghost_planes", csrc + "ghost_planes.cu",
+                    "open_ludwig_tpu/ops/dense_step.py:630 (XLA)",
+                    launches_ghost["ghost_planes"], k15[("Re10M", 3, True)]["planes"],
+                    max(r["max_abs_err"] for r in k15.values())),
     ]
     # the sharded forms: launches from phase 10's runs (K1, K4 and K2 on the
     # bench's 2 slabs, K5 on the row's), times from 10a's first bf16 check

@@ -25,6 +25,10 @@ same layers (`tests/test_patch_pallas.py:114, :400, :439`):
                      bound for the reference's pair); the storage-type planes
                      against the endpoint path's cast the same way, within
                      the bf16 bound 2e-3
+  ghost-plane kernels (`ops.ghost_planes`): against the plain versions from
+                     the same parent states, the endpoint slabs bit for bit,
+                     float32 planes < 2e-6, bf16 planes at most one bf16 ulp
+                     beyond the float32 planes' distance (`check_ghost_kernels`)
   K3 fused pair (+ K2 after it): against the plain pair, float32 < 1e-5,
                      bf16 g-storage < 2e-3 (decoded f); against the unfused
                      kernels K1 -> K2 -> K1 (+ K2), the same and, in bf16,
@@ -91,6 +95,7 @@ from .ops.dense_step import (
     dense_stream_collide,
     extract_endpoint_slabs,
     fused_pair_plain,
+    iface_mm_matrices,
     interface_endpoints_pair,
     interface_from_endpoints,
     interface_planes_pair_mm,
@@ -365,7 +370,8 @@ def state_diff(fa: torch.Tensor, ra: torch.Tensor, va: torch.Tensor,
 
 def check_iface_planes(child: PatchLevel, parent: PatchLevel, plan: Dict,
                        store_bf16: bool, seed: int, device, reps: int = 20) -> Dict:
-    """The main path's ghost planes of `child` (device plan `plan`,
+    """The plain ghost planes of `child` (the CPU's path, which
+    `check_ghost_kernels` holds the card's kernels to; device plan `plan`,
     statics[l]["iface_mm"]) from two random parent states, old and new
     (`extract_endpoint_slabs` of each, `interface_planes_pair_mm` at the
     temporal weights 0.0 and 0.5, g-space on bf16 as the scheduler makes
@@ -392,6 +398,7 @@ def check_iface_planes(child: PatchLevel, parent: PatchLevel, plan: Dict,
                 "rho": 1 + 0.02 * torch.randn(sh, generator=gen, device=device),
                 "vel": 0.03 * torch.randn((3,) + sh, generator=gen, device=device)}
 
+    plan = iface_mm_matrices(plan)
     old, new = state(), state()
     sl_old = extract_endpoint_slabs(plan, old)
 
@@ -422,6 +429,164 @@ def check_iface_planes(child: PatchLevel, parent: PatchLevel, plan: Dict,
             "device_ops": prof["device_ops"],
             "device_ms": prof["port_device_ms"] + prof["other_device_ms"],
             "ms": time_cuda(build, reps), "endpoint_ms": time_cuda(endpoint, reps)}
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor, a32: Optional[torch.Tensor] = None,
+              b32: Optional[torch.Tensor] = None) -> float:
+    """The largest distance of two bf16 tensors in units of the bf16 ulp at
+    the larger of the two magnitudes (8 significant bits); with the float32
+    values they round (`a32`, `b32`), the distance beyond theirs.  Rounding
+    two float32 values to bf16 moves each by at most half an ulp, so two
+    roundings add at most one ulp to the float32 values' own distance,
+    which near zero spans several bf16 ulps by itself."""
+    d = (a.float() - b.float()).abs()
+    if a32 is not None:
+        d = (d - (a32.float() - b32.float()).abs()).clamp(min=0.0)
+    _, e = torch.frexp(torch.maximum(a.float().abs(), b.float().abs()))
+    return float((d / torch.ldexp(torch.ones_like(d), e - 8)).max())
+
+
+_IFACE6 = (BC_INTERFACE,) * 6
+# Ghost-plane geometries beyond the shipped cases' (every one of which has
+# six interface faces): (parent lo, child lo, child interior, child
+# face_bc) on a (20, 16, 16) parent: inside the parent, offset (a level 3+
+# parent), reaching past the parent's edges (the clamp), one face of the y
+# group a mirror (a group of one face), and no interface face along z (two
+# groups)
+GHOST_GEOMS = {
+    "lo0": ((0, 0, 0), (10, 8, 8), (14, 12, 12), _IFACE6),
+    "lo642": ((6, 4, 2), (22, 16, 12), (14, 12, 12), _IFACE6),
+    "edge": ((0, 0, 0), (2, 2, 2), (16, 14, 30), _IFACE6),
+    "nf1": ((6, 4, 2), (22, 16, 12), (14, 12, 12),
+            (BC_INTERFACE,) * 3 + (BC_MIRROR_Y,) + (BC_INTERFACE,) * 2),
+    "no_z": ((0, 0, 0), (10, 8, 8), (14, 12, 12),
+             (BC_INTERFACE,) * 4 + (BC_MIRROR_Z,) * 2),
+}
+
+
+def ghost_levels(name: str) -> Tuple[PatchLevel, PatchLevel]:
+    """(parent, child) of `GHOST_GEOMS[name]`, without fields."""
+    parent_lo, child_lo, child_in, face_bc = GHOST_GEOMS[name]
+    parent = PatchLevel(1, 0.1, 0.58, parent_lo, (20, 16, 16), (BC_INLET,) * 6,
+                        None, None, None)
+    child = PatchLevel(2, 0.05, 0.54, child_lo, child_in, face_bc, None, None, None)
+    return parent, child
+
+
+def ghost_build_bytes(plan: Dict, store_bf16: bool, nw: int) -> Dict[str, int]:
+    """Bytes each part of one child build must move (each input read once,
+    each output written once): "extract", the two parent planes along
+    each face's normal over its window (f in the storage type, rho and vel
+    float32) read and the float32 slabs written; "planes", the slabs read
+    (old and new with the temporal blend, nw = 2) and the planes written,
+    (nw, 27, A, B) a face in the storage type; "carry", with the blend the
+    graphed runner's copy of the new slabs into the old (read and
+    written).  The build's bound is "extract" + "planes": the carry is a
+    cost of this schedule, which a fold into the kernels could spare, not
+    of the planes."""
+    fb = 2 if store_bf16 else 4
+    out = {"extract": 0, "planes": 0, "carry": 0}
+    for g in plan["groups"]:
+        t0, t1 = [a for a in range(3) if a != g["axis"]]
+        nf = len(g["faces"])
+        slab = nf * 31 * g["sizes"][t0] * g["sizes"][t1] * 4
+        out["extract"] += 2 * nf * (27 * fb + 16) * g["sizes"][t0] * g["sizes"][t1] + slab
+        out["planes"] += nw * slab + nf * nw * 27 * g["A"] * g["B"] * fb
+        out["carry"] += 2 * slab if nw == 2 else 0
+    return out
+
+
+def check_ghost_kernels(child: PatchLevel, parent: PatchLevel, plan: Dict,
+                        store_bf16: bool, use_temporal: bool, seed: int, device,
+                        reps: int = 20) -> Dict:
+    """The ghost planes' kernels (`ops.ghost_planes`) against their plain
+    versions on the card, from two random parent states (old, new) in the
+    parent's storage type: the extraction bit for bit ("slabs_equal"); the
+    float32 planes of both from the same slabs ("max_abs_err", `PLANE_TOL`),
+    g planes with `store_bf16` as the scheduler makes them; with
+    `store_bf16` the bf16 g planes: the kernel's its float32 planes rounded
+    ("bf16_is_cast"), and against the plain ones at most one bf16 ulp
+    beyond the float32 planes' distance ("max_ulps", `bf16_ulps`), with the
+    distance alone in ulps ("raw_ulps") and the share of bf16 values that
+    differ ("bf16_diff_frac"); None on float32.  Then, replayed from CUDA
+    graphs, each part of a child build as the scheduler runs it, with its
+    bytes (`ghost_build_bytes`) and bound: "build" the new state's
+    extraction and the planes from the carried old slabs (and "ms",
+    "bytes", "bound_ms" and "plain_ms", the plain versions' same build, at
+    the top level), "extract" and "planes" each kernel alone beside its
+    plain version, and with `use_temporal` "carry" the carry's one copy
+    (None without)."""
+    from .ops import ghost_planes
+    from .solver_dense import FixedBuffers
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    sh = tuple(parent.interior)
+    dt = torch.bfloat16 if store_bf16 else torch.float32
+    w = torch.as_tensor(lat.W, dtype=torch.float32, device=device).view(27, 1, 1, 1)
+
+    def state():
+        f = w * (1 + 0.05 * torch.randn((27,) + sh, generator=gen, device=device))
+        return {"f": storage.encode_f(f, storage.STORE_BF16) if store_bf16 else f,
+                "rho": 1 + 0.02 * torch.randn(sh, generator=gen, device=device),
+                "vel": 0.03 * torch.randn((3,) + sh, generator=gen, device=device)}
+
+    old, new = state(), state()
+    k_old, k_new = (ghost_planes.extract_slabs(plan, s) for s in (old, new))
+    p_old, p_new = (extract_endpoint_slabs(plan, s) for s in (old, new))
+    equal = all(torch.equal(a[key], b[key]) for ka, pa in ((k_old, p_old), (k_new, p_new))
+                for a, b in zip(ka, pa) for key in ("f", "rho", "vel"))
+    o_k, o_p = (k_old, p_old) if use_temporal else (None, None)
+
+    def kernel(slabs_old, slabs_new, out_dtype):
+        return ghost_planes.planes(plan, child, parent, slabs_old, slabs_new,
+                                   use_temporal, store_bf16, out_dtype)
+
+    plain_plan = iface_mm_matrices(plan)
+
+    def plain(slabs_old, slabs_new, out_dtype):
+        return interface_planes_pair_mm(plain_plan, child, parent, slabs_old, slabs_new,
+                                        use_temporal, store_bf16, out_dtype)
+
+    got32, want32 = kernel(o_k, k_new, torch.float32), plain(o_p, p_new, torch.float32)
+    err = max(float((got32[fc] - pl).abs().max()) for fc, pl in want32.items())
+    ulps = raw = frac = cast = None  # float32 planes: "max_abs_err" says it
+    if store_bf16:
+        got, want = kernel(o_k, k_new, dt), plain(o_p, p_new, dt)
+        ulps = max(bf16_ulps(got[fc], want[fc], got32[fc], want32[fc]) for fc in want)
+        raw = max(bf16_ulps(got[fc], want[fc]) for fc in want)
+        frac = (sum(int((got[fc] != want[fc]).sum()) for fc in want)
+                / sum(want[fc].numel() for fc in want))
+        cast = all(torch.equal(got[fc], got32[fc].to(dt)) for fc in want)
+
+    carried = ghost_planes.extract_slabs(plan, old)
+    carried_p = extract_endpoint_slabs(plan, old)
+    torch.cuda.synchronize()
+    o_k = carried if use_temporal else None
+    o_p = carried_p if use_temporal else None
+    nw = 2 if use_temporal else 1
+    nbytes = ghost_build_bytes(plan, store_bf16, nw)
+
+    def part(fn, plain_fn, n):
+        return {"ms": graph_ms(fn, reps),
+                "plain_ms": None if plain_fn is None else graph_ms(plain_fn, reps),
+                **bound(n, 0, device)}
+
+    parts = {
+        "build": part(lambda: kernel(o_k, ghost_planes.extract_slabs(plan, new), dt),
+                      lambda: plain(o_p, extract_endpoint_slabs(plan, new), dt),
+                      nbytes["extract"] + nbytes["planes"]),
+        "extract": part(lambda: ghost_planes.extract_slabs(plan, new),
+                        lambda: extract_endpoint_slabs(plan, new), nbytes["extract"]),
+        "planes": part(lambda: kernel(o_k, k_new, dt), lambda: plain(o_p, p_new, dt),
+                       nbytes["planes"]),
+        "carry": (part(lambda: FixedBuffers.carry(carried, k_new), None, nbytes["carry"])
+                  if use_temporal else None),
+    }
+    return {"slabs_equal": equal, "max_abs_err": err, "tol": PLANE_TOL,
+            "max_ulps": ulps, "raw_ulps": raw, "bf16_diff_frac": frac,
+            "bf16_is_cast": cast,
+            "faces": len(want32), "groups": len(plan["groups"]),
+            **parts["build"], **parts}
 
 
 def check_stream_collide(patch: PatchLevel, static: Dict, store_bf16: bool,

@@ -23,8 +23,9 @@ On the CPU (no graphs) `fn` runs eagerly every time.  Each unit is one
 span (`spans`) named by how it ran: `run.eager`, `run.capture` (the
 capture and the replay that follows it) or `run.replay`.  The set counts
 its replays (`replays`) and adds each graph's captured kernel launches to
-`cuda_step.REPLAYED` at each replay; `report()` gives the graphs, their
-captured launches and the pool's bytes.
+`cuda_step.REPLAYED` and `ghost_planes.REPLAYED` at each replay; `report()`
+gives the graphs, their captured `cuda_step` launches and the pool's
+bytes.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from typing import Callable, Dict, Hashable
 
 import torch
 
-from .ops import cuda_step
+from .ops import cuda_step, ghost_planes
 from .spans import span
 
 
@@ -92,14 +93,17 @@ class GraphSet:
             with torch.cuda.device(device):
                 g["graph"].replay()
         self.replays += 1
-        for k, n in g["launches"].items():
-            cuda_step.REPLAYED[k] += n
+        for counters, launches in ((cuda_step, g["launches"]),
+                                   (ghost_planes, g["ghost_launches"])):
+            for k, n in launches.items():
+                counters.REPLAYED[k] += n
         return g["out"]
 
     def _capture(self, key: Hashable, fn, device: torch.device) -> Dict:
         with torch.cuda.device(device):
             torch.cuda.synchronize(device)
             before = dict(cuda_step.CAPTURED)
+            before_ghost = dict(ghost_planes.CAPTURED)
             reserved = torch.cuda.memory_reserved(device)
             if self.pool is None:
                 self.pool = torch.cuda.graph_pool_handle()
@@ -112,7 +116,9 @@ class GraphSet:
                                + max(torch.cuda.memory_reserved(device) - reserved, 0))
         launches = {k: cuda_step.CAPTURED[k] - before[k] for k in before
                     if cuda_step.CAPTURED[k] != before[k]}
-        g = {"graph": graph, "out": out, "launches": launches}
+        ghost = {k: ghost_planes.CAPTURED[k] - before_ghost[k] for k in before_ghost
+                 if ghost_planes.CAPTURED[k] != before_ghost[k]}
+        g = {"graph": graph, "out": out, "launches": launches, "ghost_launches": ghost}
         self.graphs[key] = g
         return g
 

@@ -38,7 +38,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 # every kernel source of csrc/, as chip_smoke.py builds them at once
 KERNELS = ("stream_collide", "bouzidi", "fused_pair", "stream_collide_flat",
-           "stream_collide_inplace", "bouzidi_ab")
+           "stream_collide_inplace", "bouzidi_ab", "ghost_planes")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

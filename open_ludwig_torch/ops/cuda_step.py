@@ -10,7 +10,9 @@ Each wrapper checks device, dtype, shape and contiguity, then:
     raises if the launch fails.  There is no fallback: a build or launch
     failure is an error.
 `LAUNCHES` counts kernel launches only (never the plain path), so a run
-can show that its main path went through the kernels.  A launch made while
+can show that its main path went through the kernels.  The ghost planes'
+kernels (`ops/ghost_planes.py`) have no key in it: they count their
+launches in their own `ghost_planes.LAUNCHES`.  A launch made while
 a CUDA graph is captured counts there and in `CAPTURED`; the graph's
 replays add its captured launches to `REPLAYED` (`graphs.GraphSet`), so
 the kernels a run executed are `executed_launches()`: LAUNCHES - CAPTURED

@@ -1,7 +1,8 @@
 """Dense-patch stream + BC + collide, ghost planes and Bouzidi: plain PyTorch.
 
 Port of the XLA path of `open_ludwig_tpu/ops/dense_step.py`.  These are the
-plain versions of the two CUDA kernels and the torch glue between them:
+plain versions of the CUDA kernels (the CPU's path, and what the tests hold
+the kernels to):
 
   - `dense_stream_collide`: one sub-step of one level (K1's plain version).
     Streaming is a 3-axis roll per direction; every boundary condition is a
@@ -15,7 +16,9 @@ plain versions of the two CUDA kernels and the torch glue between them:
     `interface_planes_pair_mm` (the reference's Pallas-path pipeline: a
     static plan of small matrices, endpoint slabs the scheduler carries
     across parent steps, two batched matmuls per field and one elementwise
-    tail per axis group), and the endpoint path
+    tail per axis group; on a card the two kernels of `ops/ghost_planes.py`
+    compute the last two from the plan's tap tables, `iface_taps`), and
+    the endpoint path
     `interface_endpoints[_pair]` / `interface_from_endpoints` +
     `shift_planes` (the reference's XLA path), the plain reference the
     main path's planes are held to.  Both give planes pre-shifted (27, A,
@@ -382,6 +385,33 @@ def build_iface_mm_plan(patch: PatchLevel, parent: PatchLevel) -> Optional[Dict]
     return {"groups": groups}
 
 
+def iface_taps(grp: Dict) -> Dict[str, np.ndarray]:
+    """The tap tables of one group of `build_iface_mm_plan` that the ghost
+    planes' CUDA kernel reads (`ops/ghost_planes.py`): per transverse axis
+    (A from UA3, B from UB3), class c + 1 and fine row, the two slab
+    columns the row's taps read, ascending, and their weights, after the
+    clamp: "col_a" int32 and "w_a" float32 (3, A, 2), "col_b" and "w_b"
+    (3, B, 2).  A row of the 2x upsample reads two parent cells; where the
+    clamp folded both onto one column, the row reads that column with its
+    weight and again with weight 0.  So each row is its matrix row exactly,
+    and `build_iface_mm_plan` stays the one definition of the geometry."""
+    out = {}
+    for ax, key in (("a", "UA3"), ("b", "UB3")):
+        M = np.asarray(grp[key], np.float32)
+        nz = M != 0
+        counts = nz.sum(axis=2)
+        if counts.min() < 1 or counts.max() > 2:
+            raise ValueError(f"{key}: a row with {counts.min()}..{counts.max()} "
+                             "nonzero weights (the upsample's rows have 1 or 2)")
+        first = nz.argmax(axis=2)
+        last = M.shape[2] - 1 - nz[..., ::-1].argmax(axis=2)
+        col = np.stack([first, last], axis=-1).astype(np.int32)
+        w = np.take_along_axis(M, col, axis=2)
+        w[..., 1] = np.where(first == last, 0.0, w[..., 1])
+        out["col_" + ax], out["w_" + ax] = col, w.astype(np.float32)
+    return out
+
+
 def _class_of(axis: int) -> np.ndarray:
     """Per direction k, the class c + 1 of its component along `axis`."""
     return np.asarray([(lat.C_X, lat.C_Y, lat.C_Z)[axis][k] + 1 for k in range(27)])
@@ -394,6 +424,12 @@ def iface_mm_plan_to(plan: Optional[Dict], device) -> Optional[Dict]:
       "idx"        int64 (2 nf,)      the slab planes of each face's normal
                                       lerp, as parent indices along the normal
       "w_lo/w_hi"  float32 (nf,)      their weights
+      "taps"       `iface_taps` as tensors, for the ghost planes' CUDA
+                                      kernel (`ops/ghost_planes.py`)
+
+    and, off a card (`iface_mm_matrices`: a card runs the kernel, and its
+    checks add them where they run the plain version)
+
       "UA", "UBt"  float32 (27, A, wa), (27, wb, B): UA3 and UB3 transposed,
                                       picked per direction k by its classes
       "UA_class", "UBt_class" the same per class, (3, A, wa) and (3, wb,
@@ -411,23 +447,41 @@ def iface_mm_plan_to(plan: Optional[Dict], device) -> Optional[Dict]:
     groups = []
     for grp in plan["groups"]:
         ax = grp["axis"]
-        t0, t1 = [a for a in range(3) if a != ax]
         idx = [st3[ax] + i for st3, (i0, i1, _) in zip(grp["starts"], grp["lerp_idx"])
                for i in (i0, i1)]
         wf = np.asarray([w for _, _, w in grp["lerp_idx"]], np.float32)
-        UA3 = torch.as_tensor(grp["UA3"], device=device)
-        UB3t = torch.as_tensor(grp["UB3"], device=device).transpose(1, 2).contiguous()
         groups.append({
             **grp,
             "idx_list": tuple(int(i) for i in idx),
             "idx": torch.as_tensor(idx, dtype=torch.int64, device=device),
             "w_lo": torch.as_tensor(1.0 - wf, device=device),
             "w_hi": torch.as_tensor(wf, device=device),
+            "taps": {key: torch.as_tensor(v, device=device)
+                     for key, v in iface_taps(grp).items()},
+        })
+    plan = {**plan, "groups": groups, **tail}
+    return plan if torch.device(device).type == "cuda" else iface_mm_matrices(plan)
+
+
+def iface_mm_matrices(plan: Optional[Dict]) -> Optional[Dict]:
+    """A device plan (`iface_mm_plan_to`) with the plain contraction's
+    matrices ("UA", "UBt", "UA_class", "UBt_class") on its device, where it
+    lacks them: a card's plan, whose checks run the plain version."""
+    if plan is None or all("UA" in g for g in plan["groups"]):
+        return plan
+    groups = []
+    for grp in plan["groups"]:
+        device = grp["idx"].device
+        t0, t1 = [a for a in range(3) if a != grp["axis"]]
+        UA3 = torch.as_tensor(grp["UA3"], device=device)
+        UB3t = torch.as_tensor(grp["UB3"], device=device).transpose(1, 2).contiguous()
+        groups.append({
+            **grp,
             "UA": UA3[torch.as_tensor(_class_of(t0), device=device)].contiguous(),
             "UBt": UB3t[torch.as_tensor(_class_of(t1), device=device)].contiguous(),
             "UA_class": UA3, "UBt_class": UB3t,
         })
-    return {**plan, "groups": groups, **tail}
+    return {**plan, "groups": groups}
 
 
 def extract_endpoint_slabs(plan: Dict, state: Dict) -> List[Dict]:
@@ -491,7 +545,8 @@ def interface_planes_pair_mm(
 ) -> Dict[int, torch.Tensor]:
     """Ghost planes of both child sub-steps of one parent step from the
     parent's endpoint slabs (extract_endpoint_slabs) and the device plan
-    (iface_mm_plan_to): temporal blend at weights (0.0, 0.5), 2x upsample
+    (iface_mm_plan_to; a card's plan gets its matrices here,
+    `iface_mm_matrices`): temporal blend at weights (0.0, 0.5), 2x upsample
     with the edge clamp and the per-direction window shift (two batched
     matmuls per field), then equilibrium split and f_neq rescale clamped
     to [0.01, 100] (reference: interface_planes_pair_mm,
@@ -504,6 +559,7 @@ def interface_planes_pair_mm(
     the output planes (`_check_intermediate`)."""
     scale = _fneq_scale(patch, parent)
     blend = use_temporal and slabs_old is not None
+    plan = iface_mm_matrices(plan)
     out = {}
     for gi, grp in enumerate(plan["groups"]):
         ax = grp["axis"]

@@ -36,9 +36,11 @@ finest "k1" level runs each pair of sub-steps as one K3 launch
 (`ops.cuda_step.fused_pair`: step A, A's Bouzidi correction, step B) and
 one K2 launch after it; a single-level case runs pairs of coarse steps so
 (`coarse_step.pair_step`), an odd batch taking one plain step first.
-The ghost planes are plain torch (~170 small launches
-per child build).  States are {f: (27, X, Y, Z), rho, vel} in
-the storage dtype (float32 f or bf16 g = f - w) on every level, and a
+A child build of the ghost planes is two CUDA kernels on the card
+(`ops.ghost_planes`: the endpoint slabs' extraction, then the planes; the
+graphed runner's carry adds one copy) and the plain versions on the CPU
+(`ghost_slabs`, `ghost_planes_of`).  States are {f: (27, X, Y, Z), rho,
+vel} in the storage dtype (float32 f or bf16 g = f - w) on every level, and a
 parent level's also "_ifsl", its carried slabs.  K1, K3 and K4 write
 fresh buffers (A -> B); a parent's pre-step state has no consumer after
 its launch (its old slabs are carried, or taken before the launch on an
@@ -63,7 +65,7 @@ from . import lattice as lat
 from .config import CaseConfig
 from .core.patch import BC_INTERFACE, PatchLevel
 from . import memory
-from .ops import engine, storage
+from .ops import engine, ghost_planes, storage
 from .ops.cuda_step import (
     bouzidi,
     flat_choice,
@@ -82,7 +84,7 @@ from .ops.dense_step import (
 )
 from .scaling import DomainParams
 from .solver import ramp_velocity
-from .spans import span
+from .spans import count, span
 
 def init_patch_state(patch: PatchLevel, precision: str = "float32",
                      device="cpu") -> Dict:
@@ -206,6 +208,8 @@ def kernel_log_lines(patches: List[PatchLevel], statics: List[Dict],
         mm = st["iface_mm"]
         ghost = (f" | ghost planes: einsum plan, {len(mm['groups'])} groups, "
                  + ("bf16 g-space" if store.startswith("bf16") else "f32 f-space")
+                 + (", 2 CUDA kernels a child build" if dev.type == "cuda"
+                    else ", plain torch (CPU)")
                  if mm is not None else "")
         lines.append(
             f"  [engine] level {p.level_id}: {'x'.join(map(str, p.interior))} "
@@ -286,7 +290,7 @@ def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
         return {"f": f_new, "rho": rho_new, "vel": vel_new}
 
     def endpoint_slabs(lvl: int, st: Dict):
-        return extract_endpoint_slabs(plans[lvl + 1], st)
+        return ghost_slabs(plans[lvl + 1], st)
 
     def cut_planes(lvl: int, planes: Dict):
         return ({fc: pl[0] for fc, pl in planes.items()},
@@ -354,9 +358,8 @@ def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
             new_sl = endpoint_slabs(lvl, states[lvl])
             # the child's planes in its storage type: bf16 g, or float32 f
             c_dtype = f_dtype(states[lvl + 1])
-            planes = interface_planes_pair_mm(
-                plans[lvl + 1], child, patch, old_sl, new_sl, use_temporal,
-                g_shifted=c_dtype == torch.bfloat16, out_dtype=c_dtype)
+            planes = ghost_planes_of(plans[lvl + 1], child, patch, old_sl, new_sl,
+                                     use_temporal, c_dtype)
             if use_temporal:
                 # the planes have read the old slabs: the new ones are carried
                 states[lvl]["_ifsl"] = (new_sl if fixed is None
@@ -415,6 +418,36 @@ def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
     return coarse_step
 
 
+def ghost_slabs(plan: Dict, state: Dict) -> List[Dict]:
+    """A parent state's endpoint slabs for its child's planes: one launch of
+    the extraction kernel on the card (`ghost_planes.extract_slabs`, the
+    slabs views of one buffer), the plain `extract_endpoint_slabs` on the
+    CPU."""
+    if state["f"].is_cuda:
+        return ghost_planes.extract_slabs(plan, state)
+    return extract_endpoint_slabs(plan, state)
+
+
+def ghost_planes_of(plan: Dict, child: PatchLevel, parent: PatchLevel,
+                    old_sl: Optional[List[Dict]], new_sl: List[Dict],
+                    use_temporal: bool, dtype: torch.dtype) -> Dict[int, torch.Tensor]:
+    """A child build: the child's planes of one parent step from the old and
+    new endpoint slabs, in the child's storage type `dtype` (bf16 g planes
+    on bf16 levels, float32 f otherwise): one launch of the planes kernel
+    where the slabs lie on a card (`ghost_planes.planes`), the plain
+    `interface_planes_pair_mm` on the CPU.  Counts the build as
+    "planes.kernel" or "planes.plain" (`spans.COUNTS`) at this call, so a
+    captured build counts once and its replays do not."""
+    kw = dict(g_shifted=dtype == torch.bfloat16, out_dtype=dtype)
+    if new_sl[0]["f"].is_cuda:
+        count("planes.kernel")
+        return ghost_planes.planes(plan, child, parent, old_sl, new_sl, use_temporal,
+                                   **kw)
+    count("planes.plain")
+    return interface_planes_pair_mm(plan, child, parent, old_sl, new_sl, use_temporal,
+                                    **kw)
+
+
 class FixedBuffers:
     """The graphed runner's state buffers and its step record.  Every A -> B
     step writes into the partner of its input (`out_of`): the first step
@@ -424,7 +457,9 @@ class FixedBuffers:
     step on a buffer of the runner's own allocates its partner, and from
     then on every level's state moves between those two buffers (A/B) and
     a graph's addresses hold.  An in-place level's f (K5) has no partner.
-    `carry` copies a parent's new endpoint slabs into its carried ones."""
+    `carry` copies a parent's new endpoint slabs into its carried ones: one
+    copy where both are one buffer (the extraction kernel's, "buf"), else
+    one per field and group."""
 
     def __init__(self, record):
         self.record = record
@@ -446,6 +481,10 @@ class FixedBuffers:
 
     @staticmethod
     def carry(old: List[Dict], new: List[Dict]) -> List[Dict]:
+        bo, bn = old[0].get("buf"), new[0].get("buf")
+        if bo is not None and bn is not None and bo.shape == bn.shape:
+            bo.copy_(bn)
+            return old
         for o, n in zip(old, new):
             for key in ("f", "rho", "vel"):
                 o[key].copy_(n[key])

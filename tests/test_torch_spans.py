@@ -9,7 +9,8 @@ tiny two-level sphere, on the CPU:
 - with the profiler off, no profiler range is ever entered (the range
   constructors patched to raise), and the tables still count;
 - `sync.forces` counts 5 blocking copies a force evaluation, `sync.stats`
-  1 a flow statistics;
+  1 a flow statistics, `planes.plain` each child build of the ghost planes
+  (plain torch on the CPU);
 - the states and forces are bit-equal with the profiler on and off.
 """
 
@@ -108,7 +109,8 @@ def test_profiler_off_enters_no_range_and_still_counts(case, monkeypatch):
             calls, ns = got["spans"][name]
             assert calls >= 1 and ns > 0, name
     assert got["spans"]["run"][0] == 2 and got["spans"]["run.eager"][0] == 3
-    assert got["counts"] == {"sync.forces": 5, "sync.stats": 1}
+    # and one child build of the ghost planes a coarse step, plain on the CPU
+    assert got["counts"] == {"sync.forces": 5, "sync.stats": 1, "planes.plain": 3}
     assert "[Spans] run: 2 call(s)" in spans.report(got)
 
 
