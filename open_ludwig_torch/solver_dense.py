@@ -607,7 +607,7 @@ def make_batch_runner_dense(cfg: CaseConfig, params: DomainParams,
         key = (kind,) + tuple(t.data_ptr() for t in _leaves(states))
         fn = ((lambda: step(states, 0)) if kind == "step" else
               (lambda: step.pair_step(states, 0)))
-        out = gset.run(key, fn, device)
+        out = gset.run(key, fn, device, steps=1 if kind == "step" else 2)
         return [dict(st) for st in out]
 
     def run(states: List[Dict], t0: int, n: int) -> List[Dict]:

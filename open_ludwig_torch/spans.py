@@ -36,7 +36,9 @@ Spans (a dot names the parent):
     (`diagnostics.compute_flow_stats`) with `stats.reduce` and
     `stats.readback`.
 Counters: `sync.forces` and `sync.stats`, each blocking copy to the host
-those events make (never captured in a graph, so every one is counted).
+those events make (never captured in a graph, so every one is counted);
+`graph.ops` and `graph.steps`, the device operations and the coarse steps
+of each graph replay (`graphs.GraphSet`, nodes read at capture).
 """
 
 from __future__ import annotations
