@@ -6,10 +6,10 @@
 `--reference DIR` (also `--k1-reference`) names a directory holding an
 earlier `csrc/` (an earlier commit's sources and headers): each of K1-K6
 whose source it holds is built from it too, run beside today's kernel on
-the same inputs (K1 on every phase-3 input, K4 and K5 on phase 3c's and
-3d's, K3 on 4b's, K2 and K6 on the bench box) and timed against it in
-turns, eager and (K2, K4, K6) from a CUDA graph, with the share of stored
-f entries that differ printed.
+the same inputs (K1 on every phase-3 and 3e input, K4 and K5 on phase
+3c's and 3d's, K3 on 4b's, K2 and K6 on the bench box) and timed against
+it in turns, eager and (K1, K2, K4, K6) from a CUDA graph, with the share
+of stored f entries that differ printed.
 Without it (as the smoke run is meant to be run) nothing else changes.
 
 Phases, each raising on failure (nothing is caught):
@@ -35,6 +35,11 @@ Phases, each raising on failure (nothing is caught):
      2e-3 of the endpoint path's cast alike; one child build timed
      eagerly (ms, and its device operations by torch.profiler) beside the
      endpoint path's;
+  3e. K1 at the level shapes of the benchmark's cells (the headline's L2
+     and L3 in bf16, Re10M's L2-L4 and the 400^3 row in float32, with the
+     cells' face types): against its plain version (but on the row), and
+     from a CUDA graph beside its bound; with --reference bit for bit
+     against the reference's K1, both times in turns;
   3c. K4 against its plain version and against K1 (share of stored f
      entries that differ, expected 0), float32 and bf16, on the bench
      case's level 1 (64x56x56, which the bench runs on K4) and on the
@@ -1262,6 +1267,55 @@ def phase_15(dev, smi, tmp):
     return out
 
 
+def phase_3e(dev, smi, kw, ref=None, print_ref=None) -> dict:
+    """K1 at the level shapes of the benchmark's cells (`checks.K1_SHAPES`,
+    each in its cell's storage type; children with six interface faces,
+    the row a wind tunnel): against its plain version (not on the row,
+    whose plain step would take tens of GB), and replayed from a CUDA
+    graph into preallocated outputs beside `checks.step_work`'s bound; with
+    `ref` (the --reference build) bit for bit against it and timed against
+    it in turns, eagerly and from a graph.  Returns {label: the times}."""
+    import torch
+
+    from open_ludwig_torch import checks
+    from open_ludwig_torch.ops import cuda_step
+
+    out = {}
+    for label, shape, bf16 in checks.K1_SHAPES:
+        row = label == "64m_row"
+        patch, static = checks.k1_level(shape, "tunnel" if row else "iface", dev)
+        b = checks.bound(*checks.step_work(patch, bf16, kw["wall_model"]), dev)
+        inp = checks.random_level_inputs(patch, bf16, 25, dev)
+        bufs = (torch.empty_like(inp["f"]), torch.empty(shape, device=dev),
+                torch.empty_like(inp["vel"]))
+        iface = checks.sub_step_planes(inp["iface"], 0)
+        ms = checks.graph_ms(lambda: cuda_step.stream_collide(
+            inp["f"], inp["vel"], 0.04, 9, static, patch, iface=iface, out=bufs, **kw),
+            3 if row else 20)
+        del inp, bufs
+        err = ""
+        if not row:
+            r = checks.check_stream_collide(patch, static, bf16, 25, kw, dev, reps=1,
+                                            plain_reps=1)
+            require(r["finite"] and r["max_abs_err"] < r["tol"],
+                    ("K1 at the cells' shapes", label, bf16, r["err"]))
+            err = (f" | vs plain: err f/rho/vel {r['err']['f']:.2e}/{r['err']['rho']:.2e}/"
+                   f"{r['err']['vel']:.2e} (tol {r['tol']:.0e})")
+        out[label] = {"graph_ms": ms, "bound_ms": b["bound_ms"]}
+        print(f"[3e K1] {label} {shape} {'bf16' if bf16 else 'f32 '}: from a CUDA graph "
+              f"{ms:.5f} ms, {100 * b['bound_ms'] / ms:.1f}% of its bound "
+              f"{b['bound_ms']:.5f} ms ({b['bytes'] / 1e6:.1f} MB){err} | card: {smi}",
+              flush=True)
+        if ref is not None:
+            r = checks.check_step_against(ref, "stream_collide", patch, static, bf16, 25,
+                                          kw, dev, reps=3 if row else 20)
+            out[label]["ref"] = r
+            print_ref("3e K1", "K1", label, bf16, r)
+        del patch, static
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1546,6 +1600,10 @@ def main(argv=None) -> int:
                     bf16, 18, kw, dev, reps=5))
         torch.cuda.empty_cache()
 
+        # ---- 3e. K1 at the benchmark cells' level shapes ----
+        phase_3e(dev, smi, kw, refs.get("stream_collide"), print_ref)
+        torch.cuda.empty_cache()
+
         # ---- 3c/3d. K4 and K5 against plain and against K1 ----
         k45_cases = (
             ("L1", levels[0], checks.with_sponge_ramp(statics[0]), 20, 3),
@@ -1584,7 +1642,7 @@ def main(argv=None) -> int:
                         require(want == {k: c[k] for k in want}, (tag, label, c, want))
                         print(f"[{tag}]   {c['threads']} threads a block, launch "
                               f"bounds for {c['min_blocks']} a SM ({-(-n // c['threads'])}"
-                              f" blocks; the one-wave shape holds {c['resident']})",
+                              f" blocks; the card holds {c['resident']} of the 64-register bf16 one)",
                               flush=True)
                         print(f"[{tag}]   in turns K4, K1, K1, K4: "
                               + ", ".join(f"{t:.5f}" for t in r["turns_ms"])

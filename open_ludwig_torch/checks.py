@@ -345,6 +345,52 @@ def bench_k1_cases(levels: List[PatchLevel], statics: List[Dict]
     ]
 
 
+# K1's level shapes in the benchmark's cells (`lbm_bench/configs`), with the
+# storage type each runs: the headline's L2 and L3 (bf16), Re10M's L2-L4
+# and the 400^3 row (float32)
+K1_SHAPES = (
+    ("re1m_bench L2", (46, 48, 104), True),
+    ("re1m_bench L3", (60, 64, 128), True),
+    ("re10m L2", (48, 48, 120), False),
+    ("re10m L3", (62, 64, 128), False),
+    ("re10m L4", (94, 88, 128), False),
+    ("64m_row", (400, 400, 400), False),
+)
+# face mixes of `k1_level`: a child level (every face an interface), the
+# two mixes of `bench_k1_cases` and a wind tunnel (inlet, outlet, mirrors)
+K1_FACES = {
+    "iface": (BC_INTERFACE,) * 6,
+    "inlet-mix": (BC_INLET, BC_INTERFACE, BC_MIRROR_Y, BC_INTERFACE, BC_MIRROR_Z,
+                  BC_INTERFACE),
+    "outlet-mix": (BC_INTERFACE, BC_OUTLET, BC_INTERFACE, BC_MIRROR_Y, BC_INTERFACE,
+                   BC_MIRROR_Z),
+    "tunnel": (BC_INLET, BC_OUTLET, BC_MIRROR_Y, BC_MIRROR_Y, BC_MIRROR_Z,
+               BC_MIRROR_Z),
+}
+
+
+def k1_level(shape, faces: str, device) -> Tuple[PatchLevel, Dict]:
+    """A level of interior `shape` with the face mix `K1_FACES[faces]` and
+    its statics made on `device`: a solid ball at the centre (radius a
+    sixth of the smallest side), wall distances in (0, 4) on the three
+    cells outside it (100 elsewhere, as domain/fields.py marks the far
+    field), and a sponge ramp over the last three x planes."""
+    patch = PatchLevel(2, 0.05, 0.54, (3, 5, 7), tuple(shape), K1_FACES[faces],
+                       None, None, None)
+    ax = [torch.arange(n, device=device, dtype=torch.float32) - (n - 1) / 2
+          for n in shape]
+    r = torch.sqrt(ax[0][:, None, None] ** 2 + ax[1][None, :, None] ** 2
+                   + ax[2][None, None, :] ** 2)
+    rad = min(shape) / 6.0
+    wall = torch.where((r >= rad) & (r < rad + 3), r - rad + 0.5,
+                       torch.full_like(r, 100.0))
+    static = {"obstacle": (r < rad).contiguous(),
+              "sponge": torch.zeros(shape, device=device),
+              "wall_dist": wall.contiguous()}
+    del r, ax
+    return patch, with_sponge_ramp(static)
+
+
 def with_sponge_ramp(static: Dict) -> Dict:
     """The level's statics with a sponge ramp over its last three x-planes
     (so the sponge blend runs even on levels inside the sponge-free core)."""
@@ -686,16 +732,20 @@ def check_step_against(ref: build.Built, name: str, patch: PatchLevel,
     "stream_collide_flat" K4, "stream_collide_inplace" K5, or "fused_pair"
     K3 with the level's Bouzidi plan) against `ref`, the same kernel built
     from another source (`check_against`), on one random input of `patch`;
-    K4 also replayed from a CUDA graph into preallocated outputs.  K5
-    writes its f in place: each compared run takes a fresh copy, the timed
-    calls step one working copy."""
+    K1 and K4 also replayed from a CUDA graph into preallocated outputs.
+    K5 writes its f in place: each compared run takes a fresh copy, the
+    timed calls step one working copy."""
     inp = random_level_inputs(patch, store_bf16, seed, device)
     f, vel = inp["f"], inp["vel"]
     args = (0.04, 9, static, patch)
     graph = False
     if_a, if_b = (sub_step_planes(inp["iface"], n) for n in (0, 1))
     if name == "stream_collide":
-        run = call = lambda: stream_collide(f, vel, *args, iface=if_a, **kw)
+        bufs = (torch.empty_like(f), torch.empty(f.shape[1:], device=device),
+                torch.empty_like(vel))
+        run = lambda: stream_collide(f, vel, *args, iface=if_a, **kw)
+        call = lambda: stream_collide(f, vel, *args, iface=if_a, out=bufs, **kw)
+        graph = True
     elif name == "stream_collide_flat":
         bufs = (torch.empty_like(f), torch.empty(f.shape[1:], device=device),
                 torch.empty_like(vel))

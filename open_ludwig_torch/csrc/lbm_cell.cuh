@@ -3,7 +3,7 @@
 // stream_collide_body.cuh), K3 (fused_pair.cu) and K5
 // (stream_collide_inplace.cu) so that all compile the same device code:
 //   neighbours + apply_faces: pull streaming of the 27 populations with
-//     the boundary conditions of the level's six faces (face_value): every
+//     the boundary conditions of the level's six faces (face_slots): every
 //     slot is loaded from its source clamped into the level (K1 leaves z
 //     unclamped: its addresses stay inside f), with no branch between the
 //     loads, then the face slots are overwritten, in the precedence
@@ -50,7 +50,7 @@ constexpr int BC_INTERFACE = 4;
 // The constants of one sub-step of one level.
 struct Step {
   // interface ghost planes (27, A, B), pre-shifted, in the storage type T:
-  // float f-space, or __nv_bfloat16 g = f - w (read as T by face_value<G>)
+  // float f-space, or __nv_bfloat16 g = f - w (read as T by face_slots<..., G, ...>)
   const void* plane[6];
   int bc[6];
   int X, Y, Z;
@@ -215,38 +215,6 @@ __device__ __forceinline__ float inlet_factor(const Step& p, int gx, int y,
          1.5f * u_inst * u_inst;
 }
 
-// Population k of cell (x, y, z) where its pull source lies beyond `face`:
-// the face's boundary condition.  `mirror(km)` returns population km of
-// the cell itself.
-// With IFACE false (K4: a level without interface faces) the ghost-plane
-// tail is compiled out and a z-mirror face is the last case.
-template <bool G, bool IFACE = true, class Mirror>
-__device__ __forceinline__ float face_value(const Step& p, int k, int face,
-                                            int x, int y, int z,
-                                            float inlet_fac, Mirror mirror) {
-  const int cx = k % 3 - 1, cy = (k / 3) % 3 - 1, cz = k / 9 - 1;
-  const int bc = p.bc[face];
-  if (bc == BC_INLET) return weight(k) * inlet_fac;
-  if (bc == BC_OUTLET) {
-    const float u_in = inlet_u(p);
-    const float cu = (float)cx * u_in;
-    return weight(k) *
-           ((G ? 0.0f : 1.0f) + 3.0f * cu + 4.5f * cu * cu - 1.5f * u_in * u_in);
-  }
-  if (bc == BC_MIRROR_Y) return mirror((cx + 1) + 3 * (1 - cy) + 9 * (cz + 1));
-  if (!IFACE || bc == BC_MIRROR_Z)
-    return mirror((cx + 1) + 3 * (cy + 1) + 9 * (1 - cz));
-  // BC_INTERFACE: the plane's value for this cell (pre-shifted), in the
-  // storage type's space
-  const int ax = face >> 1;
-  const int a = ax == 0 ? y : x;
-  const int b = ax == 2 ? y : z;
-  const int A = ax == 0 ? p.Y : p.X;
-  const int B = ax == 2 ? p.Y : p.Z;
-  const long long i = ((long long)k * A + a) * B + b;
-  if (G) return ld(static_cast<const __nv_bfloat16*>(p.plane[face]), i);
-  return ld(static_cast<const float*>(p.plane[face]), i);
-}
 
 // Pull streaming into f[27] for cell (x, y, z), in two phases, so that the
 // 27 loads go out back to back with no branch between them:
@@ -259,9 +227,14 @@ __device__ __forceinline__ float face_value(const Step& p, int k, int face,
 //     bytes, and 64-bit index arithmetic per slot was most of it;
 //   phase 2 (apply_faces): the slots whose source lay beyond a face are
 //     overwritten with the face's condition, x faces over y faces over z
-//     faces (the plain version applies its masks z -> y -> x, later ones
-//     winning: the same precedence).  `mirror(km)` returns population km
-//     of the cell itself.  Cells off every face, nearly all, skip the phase.
+//     faces: like the plain version, which applies its masks z -> y -> x,
+//     later ones winning, the faces the cell lies on are applied in that
+//     order, each a constant (`face_slots`: the 9 slots that cross it,
+//     one branch on the face's condition), so a face lane's path, which
+//     its whole warp waits for, holds no per-slot face test or switch.  `mirror(km)` returns
+//     population km of the cell itself (a read without side effects: an
+//     edge cell may read a slot that a higher face then overwrites).
+//     Cells off every face, nearly all, skip the phase.
 //     With SHARD (an x slab of a sharded level, Step::x_off and gX) the x
 //     faces are tested at the cell's global x: a slab's inner x ends are
 //     no face, their slots come from the neighbour slabs' edge planes,
@@ -285,6 +258,62 @@ __device__ __forceinline__ Nbr neighbours(const Step& p, int x, int y, int z) {
   return n;
 }
 
+// The slots of cell (x, y, z) whose source lies beyond face FACE (a
+// constant), each set to the face's boundary condition, in the storage
+// type's space: the inlet's or the outlet's equilibrium, the cell's own
+// mirrored slot (`mirror(km)`, population km of the cell itself) or the
+// interface face's ghost plane (27, A, B) at the cell's transverse
+// position (pre-shifted).  The condition is branched on once for the
+// face's nine slots, whose loop holds no test; with IFACE false (K4: a
+// level without interface faces) the plane's case is compiled out and a
+// z mirror is the last one.
+template <int FACE, bool G, bool IFACE, class Mirror>
+__device__ __forceinline__ void face_slots(const Step& p, int x, int y, int z,
+                                           float inlet_fac, Mirror mirror,
+                                           float f[27]) {
+  constexpr int ax = FACE >> 1;
+  auto each = [&](auto value) {
+#pragma unroll
+    for (int k = 0; k < 27; ++k) {
+      const int c = ax == 0 ? k % 3 - 1 : ax == 1 ? (k / 3) % 3 - 1 : k / 9 - 1;
+      if (FACE & 1 ? c < 0 : c > 0) f[k] = value(k);
+    }
+  };
+  const int bc = p.bc[FACE];
+  if (bc == BC_INLET) {
+    each([&](int k) { return weight(k) * inlet_fac; });
+  } else if (bc == BC_OUTLET) {
+    const float u_in = inlet_u(p);
+    each([&](int k) {
+      const float cu = (float)(k % 3 - 1) * u_in;
+      return weight(k) *
+             ((G ? 0.0f : 1.0f) + 3.0f * cu + 4.5f * cu * cu - 1.5f * u_in * u_in);
+    });
+  } else if (bc == BC_MIRROR_Y) {
+    each([&](int k) {
+      return mirror((k % 3) + 3 * (2 - (k / 3) % 3) + 9 * (k / 9));
+    });
+  } else if (!IFACE || bc == BC_MIRROR_Z) {
+    each([&](int k) {
+      return mirror((k % 3) + 3 * ((k / 3) % 3) + 9 * (2 - k / 9));
+    });
+  } else {
+    // BC_INTERFACE: plane index (k A + a) B + b, below 2^31 (27 A B)
+    const int a = ax == 0 ? y : x;
+    const int b = ax == 2 ? y : z;
+    const int A = ax == 0 ? p.Y : p.X;
+    const int B = ax == 2 ? p.Y : p.Z;
+    const int AB = A * B;
+    if (G) {
+      const __nv_bfloat16* at = static_cast<const __nv_bfloat16*>(p.plane[FACE]) + a * B + b;
+      each([&](int k) { return ld(at, k * AB); });
+    } else {
+      const float* at = static_cast<const float*>(p.plane[FACE]) + a * B + b;
+      each([&](int k) { return ld(at, k * AB); });
+    }
+  }
+}
+
 template <bool G, bool IFACE = true, bool SHARD = false, class Mirror>
 __device__ __forceinline__ void apply_faces(const Step& p, int x, int y, int z,
                                             Mirror mirror, float f[27]) {
@@ -294,19 +323,14 @@ __device__ __forceinline__ void apply_faces(const Step& p, int x, int y, int z,
   if (gx != 0 && gx != last && y != 0 && y != Y - 1 && z != 0 && z != Z - 1)
     return;
   const float inlet_fac = inlet_factor<G>(p, gx, y, z);
-#pragma unroll
-  for (int k = 0; k < 27; ++k) {
-    const int cx = k % 3 - 1, cy = (k / 3) % 3 - 1, cz = k / 9 - 1;
-    int face = -1;
-    if (cx > 0 && gx == 0) face = 0;
-    else if (cx < 0 && gx == last) face = 1;
-    else if (cy > 0 && y == 0) face = 2;
-    else if (cy < 0 && y == Y - 1) face = 3;
-    else if (cz > 0 && z == 0) face = 4;
-    else if (cz < 0 && z == Z - 1) face = 5;
-    if (face >= 0)
-      f[k] = face_value<G, IFACE>(p, k, face, x, y, z, inlet_fac, mirror);
-  }
+  // face by face from the lowest precedence up, each overwriting the slots
+  // that cross it, so a slot ends with its highest face's value
+  if (z == Z - 1) face_slots<5, G, IFACE>(p, x, y, z, inlet_fac, mirror, f);
+  if (z == 0) face_slots<4, G, IFACE>(p, x, y, z, inlet_fac, mirror, f);
+  if (y == Y - 1) face_slots<3, G, IFACE>(p, x, y, z, inlet_fac, mirror, f);
+  if (y == 0) face_slots<2, G, IFACE>(p, x, y, z, inlet_fac, mirror, f);
+  if (gx == last) face_slots<1, G, IFACE>(p, x, y, z, inlet_fac, mirror, f);
+  if (gx == 0) face_slots<0, G, IFACE>(p, x, y, z, inlet_fac, mirror, f);
 }
 
 // Section marks of the cell update, for tools/probe_k1_sections.py: `mark(s)`

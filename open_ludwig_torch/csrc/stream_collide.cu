@@ -8,21 +8,42 @@
 // instantiates it with the interface faces' ghost planes.
 //
 // What bounds it on an H100.  A bf16 step moves ~145 bytes a cell (27*2
-// read f, 27*2 write f, 12 read vel, 16 write rho and vel, 9 statics);
-// measured, K1 runs at 68-70% of that bound (bf16) and 82% (f32), at
-// ~3,000-3,150 static instructions a cell.  The sections probe
-// (tools/probe_k1_sections.py) finds the pull, the face test, the velocity
-// gradient and the moments (which wait for the loads) the longest; the
-// arithmetic of the collision is short.  What the design does: the
-// addressing of the body (plane base pointers, 32-bit offsets, z
-// unclamped, the index decoded by reciprocals), and the wall model's
-// transcendental chain only where the wall distance is in (0, 10)
-// (collide_values): bit-equal, 4-6% of K1's time.
+// read f, 27*2 write f, 12 read vel, 16 write rho and vel, 9 statics); f32
+// ~253.  On the levels of 0.2-1.1M cells that multi-level cases run, K1 is
+// bound by the instructions and latencies of its cells, not by bytes: the
+// bulk copies of a tile's f alone run at ~2.7 TB/s (10.5 us of the 48 us
+// that K1 took on a 60x64x128 bf16 level), and the face phase was the
+// longest section of a cell (tools/probe_k1_sections.py: 427 of 1,145
+// warp-cycles a cell on the bench's L2 in bf16).  Its warps diverge there:
+// a z face falls on every row, so half the warps of a 128-cell row carry a
+// face lane, and the whole warp waited for that lane's 27 per-slot face
+// tests and branches (csrc/lbm_cell.cuh, apply_faces).  What the design
+// does: the addressing of the body (plane base pointers, 32-bit offsets, z
+// unclamped, the index decoded by reciprocals); the face phase face by face
+// with the face a constant and one branch on its condition for its nine
+// slots (`face_slots`); 128 threads capped at 64 registers (8 blocks a SM,
+// none spilled); the wall model's transcendental chain only where the wall
+// distance is in (0, 10) (collide_values).  All bit-equal.
+// Measured at the benchmark cells' levels from a CUDA graph, in turns with
+// the per-slot face phase at 56 registers (PERF.md; before -> after, % of
+// the byte bound after): bf16 46x48x104 0.0206 -> 0.0132 ms (80%),
+// 60x64x128 0.0483 -> 0.0341 (64%); float32 48x48x120 0.0377 -> 0.0298
+// (74%), 62x64x128 0.0600 -> 0.0504 (79%), 94x88x128 0.1123 -> 0.1002
+// (82%), 400^3 6.153 -> 6.101 ms (79%).  Uncapped, this face phase takes
+// 110-118 registers and runs 13-29% slower than at 64; at 56 (9 a SM)
+// bf16 spills and loses 1-11%.
 // Measured and taken out (PERF.md): a grid over (z-tiles, y-tiles, x)
 // (idle lanes and row segments off the 128-byte lines on the 10.8M-cell
-// level: 0.80 against 0.70 ms) and two z-adjacent cells a thread with
-// paired accesses (96-128 registers, half the resident warps: 1.08 ms at
-// 10.8M cells, 4.59 at 63.7M against 4.05).
+// level: 0.80 against 0.70 ms); two z-adjacent cells a thread with paired
+// accesses (96-128 registers, half the resident warps: 1.08 ms at 10.8M
+// cells, 4.59 at 63.7M against 4.05); a persistent kernel whose warps pull
+// from a ring of 128-cell tiles in shared memory, fed by bulk copies
+// (cp.async.bulk on mbarriers) one to three tiles ahead, tiles taken from
+// a counter: bit-equal, at parity to 2% slower in float32 and 15-50%
+// slower in bf16 (60x64x128 0.055-0.061 ms against 0.048; 64 registers, 8
+// CTAs a SM; the loads it overlaps were not what bound the cells); cell
+// maps that put a row's two z-face lanes into one warp (one cell of shift:
+// 30-70% slower, every access off its 128-byte line).
 
 #include "stream_collide_body.cuh"
 
@@ -45,9 +66,10 @@ struct SectionMark {
 namespace {
 
 constexpr int THREADS = 128;
+constexpr int MIN_BLOCKS = 8;  // 64 registers a thread, none spilled
 
 template <typename T, bool SHARD>
-__global__ void __launch_bounds__(THREADS) stream_collide_kernel(const sc::Params p) {
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) stream_collide_kernel(const sc::Params p) {
 #ifdef OL_K1_SECTIONS
   long long t_mark = clock64();
   const SectionMark mark{t_mark};

@@ -21,22 +21,18 @@
 //
 // What bounds it on an H100: bytes, ~145 B a cell in bf16 (as K1), and at
 // the bench case's level 1, 64 x 56 x 56 = 200,704 cells (~29 MB, 8.7 us
-// at 3.35 TB/s), the waves: 1,568 blocks of 128 threads against 9 resident
-// blocks per SM at K1's 56 registers make 1.32 waves on 132 SMs.  So the
-// instantiation depends on the storage type and the level (`choose`),
-// each measured against the others at 64x56x56 and 232x216x216
-// (tools/probe_k4_shapes.py, PERF.md; device times from a CUDA graph):
-//   - bf16 on a level whose blocks of 256 all fit at once at 6 per SM (40
-//     registers, 88 B spilled): one wave, 15.2-15.6 us on the bench's
-//     level 1 against 18.3 for 128 threads uncapped (64 registers) and
-//     18.5-18.9 for K1; on the 10.8M-cell level the spills cost 17%, so
-//     there
-//   - bf16 otherwise: 128 threads capped at 48 registers (10 per SM, 4 B
-//     spilled): 0.669 ms against 0.691 for K1 and 0.725 uncapped;
-//   - float32: 256 threads uncapped (56 registers), as fast as K1 on both
-//     levels (26.9 against 27.3 us, 1.018 against 1.022 ms); at 40
-//     registers it lost 6-15%, and capped at 48 registers 2% on the 10.8M
-//     level.
+// at 3.35 TB/s), the waves.  So the instantiation depends on the storage
+// type and the level (`choose`), each measured against the others at
+// 64x56x56 and 232x216x216 with the face phase of csrc/lbm_cell.cuh as it
+// stands (tools/probe_k4_shapes.py, PERF.md; device times from a CUDA
+// graph): 128 threads capped at 64 registers (8 a SM, none spilled)
+// everywhere but bf16 levels of more than two waves of that shape, which
+// take 128 threads at 48 registers (10 a SM, 4 B spilled).  bf16 at L1
+// 0.0107-0.0111 ms against 0.0113-0.0117 at 10 a SM and 0.0123 for the
+// one-wave <256, 6> (40 registers, 60 B spilled) that was the choice
+// before; at 10.8M cells 0.6326 against 0.6176.  float32 at L1 0.0230 ms
+// against 0.0248 uncapped (118 registers), at 10.8M cells 0.997 against
+// 1.131.
 
 #include "stream_collide_body.cuh"
 
@@ -50,9 +46,10 @@ stream_collide_flat_kernel(const sc::Params p) {
   sc::update_cell<T, false, SHARD>(p, cell, lbm::NoMark());
 }
 
-// The blocks of the one-wave instantiation the current card holds at once.
-// Asked once per card (a sharded level's slabs may lie on several).
-int one_wave_resident() {
+// The blocks of the 64-register bf16 instantiation the current card holds
+// at once.  Asked once per card (a sharded level's slabs may lie on
+// several).
+int resident_8() {
   static int cached[64] = {};
   int dev = 0;
   cudaGetDevice(&dev);
@@ -61,7 +58,7 @@ int one_wave_resident() {
     int sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, stream_collide_flat_kernel<__nv_bfloat16, 256, 6>, 256, 0);
+        &per_sm, stream_collide_flat_kernel<__nv_bfloat16, 128, 8>, 128, 0);
     c = sms * per_sm;
   }
   return c;
@@ -70,13 +67,8 @@ int one_wave_resident() {
 // The instantiation a level of n cells takes: (threads, min blocks per SM).
 // ops/cuda_step.flat_instantiation states the same rule.
 void choose(int store_bf16, long long n, int& threads, int& min_blocks) {
-  if (!store_bf16) {
-    threads = 256, min_blocks = 1;
-  } else if ((n + 255) / 256 <= one_wave_resident()) {
-    threads = 256, min_blocks = 6;
-  } else {
-    threads = 128, min_blocks = 10;
-  }
+  threads = 128;
+  min_blocks = store_bf16 && (n + 127) / 128 > 2LL * resident_8() ? 10 : 8;
 }
 
 template <bool SHARD, typename T, int THREADS, int MIN_BLOCKS>
@@ -91,9 +83,9 @@ int launch_chosen(int store_bf16, const sc::Params& p, cudaStream_t s) {
   int threads, min_blocks;
   choose(store_bf16, p.N, threads, min_blocks);
   if (!store_bf16)
-    launch<SHARD, float, 256, 1>(p, s);
-  else if (min_blocks == 6)
-    launch<SHARD, __nv_bfloat16, 256, 6>(p, s);
+    launch<SHARD, float, 128, 8>(p, s);
+  else if (min_blocks == 8)
+    launch<SHARD, __nv_bfloat16, 128, 8>(p, s);
   else
     launch<SHARD, __nv_bfloat16, 128, 10>(p, s);
   return (int)cudaGetLastError();
@@ -166,11 +158,12 @@ extern "C" int ol_stream_collide_flat_shard(
 }
 
 // The instantiation ol_stream_collide_flat launches on an (X, Y, Z) level,
-// and the blocks of the one-wave instantiation the card holds at once.
+// and the blocks of the 64-register bf16 instantiation the card holds at
+// once.
 extern "C" int ol_stream_collide_flat_choice(int store_bf16, int X, int Y, int Z,
                                              int* threads, int* min_blocks,
                                              int* resident) {
   choose(store_bf16, (long long)X * Y * Z, *threads, *min_blocks);
-  *resident = one_wave_resident();
+  *resident = resident_8();
   return (int)cudaGetLastError();
 }

@@ -67,8 +67,8 @@ reference stores flat (level 1 of a multi-level case): K1's cell body
 the reference's flat-(y, z) view, with the ghost-plane reads compiled out.
 Its eager time at the bench case's level 1 (0.2M cells) is the host's
 launch; `out=` takes preallocated outputs, so a CUDA graph can replay it.
-Its launch shape depends on the storage type and on whether the level fits
-the card in one wave (`flat_instantiation`, `flat_choice`).
+Its launch shape depends on the storage type and on the level's waves
+(`flat_instantiation`, `flat_choice`).
 
 K5 `stream_collide_inplace` (csrc/stream_collide_inplace.cu) replaces the
 in-place make_pallas_step_2d (pallas_step.py:1575) on interface-free levels
@@ -712,25 +712,22 @@ def stream_collide_flat(
     return tuple(out)
 
 
-def flat_instantiation(n_cells: int, store_bf16: bool, one_wave_resident: int
+def flat_instantiation(n_cells: int, store_bf16: bool, resident: int
                        ) -> Dict[str, int]:
     """K4's instantiation for a level of `n_cells` (the rule of `choose` in
     csrc/stream_collide_flat.cu): "threads" per block and "min_blocks" per
-    SM of its launch bounds.  bf16 levels whose blocks of 256 all fit at
-    once (`one_wave_resident`: the blocks of that 40-register instantiation
-    the card holds) run in one wave; other bf16 levels take 128 threads at
-    10 blocks per SM, float32 levels 256 threads uncapped (PERF.md)."""
-    if not store_bf16:
-        return {"threads": 256, "min_blocks": 1}
-    if -(-n_cells // 256) <= one_wave_resident:
-        return {"threads": 256, "min_blocks": 6}
-    return {"threads": 128, "min_blocks": 10}
+    SM of its launch bounds.  128 threads at 64 registers (8 a SM) but for
+    bf16 levels of more than two waves of `resident` (the blocks of that
+    bf16 instantiation the card holds), which take 10 a SM (PERF.md)."""
+    if store_bf16 and -(-n_cells // 128) > 2 * resident:
+        return {"threads": 128, "min_blocks": 10}
+    return {"threads": 128, "min_blocks": 8}
 
 
 def flat_choice(patch: PatchLevel, store_bf16: bool) -> Dict[str, int]:
     """The instantiation K4 launches on `patch` on the current card, as
-    its C entry chooses it, with "resident": the blocks of the one-wave
-    instantiation the card holds at once."""
+    its C entry chooses it, with "resident": the blocks of the 64-register
+    bf16 instantiation the card holds at once."""
     fn = _lib("stream_collide_flat", "ol_stream_collide_flat_choice",
               [_I, _I, _I, _I] + [ctypes.POINTER(ctypes.c_int)] * 3)
     vals = [ctypes.c_int(0) for _ in range(3)]

@@ -32,7 +32,8 @@ from ..ops.cuda_step import flat_choice, stream_collide, stream_collide_flat
 from ..solver_dense import build_patch_statics
 
 # (threads per block, minimum blocks per SM in the launch bounds; 1: uncapped)
-SHAPES = ((128, 1), (128, 10), (128, 12), (256, 1), (256, 6))
+SHAPES = ((128, 1), (128, 8), (128, 10), (128, 12), (256, 1), (256, 3), (256, 4),
+          (256, 6))
 
 
 def _shape_flags(threads: int, min_blocks: int):

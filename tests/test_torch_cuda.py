@@ -2,8 +2,9 @@
 (flat stream-collide), K5 (in-place stream-collide) and K6 (two-array
 Bouzidi) against their plain PyTorch versions on the card, at the shapes of
 chip_smoke.py: the bench case's levels (sphere Re~1M, N=25, 3 levels) with
-every face type, the 10.8M-cell single-level sweep shape, and the bench
-Bouzidi box; K3 + K2 on the bench's finest level and on the single-level
+every face type, the 10.8M-cell single-level sweep shape, K1 at the level
+shapes of the benchmark's cells with every face mix and the wall model on
+and off, and the bench Bouzidi box; K3 + K2 on the bench's finest level and on the single-level
 shape, also against K1 -> K2 -> K1 -> K2; K4 and K5 on the bench's level 1
 and the single-level shape, also against K1 (equal), K4 also into
 preallocated outputs; K6 over its links, also against K2 on the same S,
@@ -69,6 +70,28 @@ def test_stream_collide_kernel_sweep_shape(bench, cuda_device, tmp_path, store_b
     static = build_patch_statics(cfg, sweep, cuda_device)[0]
     r = checks.check_stream_collide(sweep[0], static, store_bf16, 18, kw,
                                     cuda_device, reps=1, plain_reps=1)
+    assert r["finite"]
+    assert r["max_abs_err"] < r["tol"], r["err"]
+
+
+CELL_SHAPES = [s for s in checks.K1_SHAPES if s[0] != "64m_row"]
+
+
+@pytest.mark.parametrize("wall_model", [True, False], ids=["wall", "nowall"])
+@pytest.mark.parametrize("faces", list(checks.K1_FACES))
+@pytest.mark.parametrize("store_bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("label,shape,_", CELL_SHAPES, ids=[s[0] for s in CELL_SHAPES])
+def test_stream_collide_kernel_at_the_cells_shapes(cuda_device, label, shape, _,
+                                                   store_bf16, faces, wall_model):
+    """K1 against its plain version at the K1 levels of the benchmark's
+    cells (`checks.K1_SHAPES`; the 400^3 row's plain step would take tens
+    of GB), with interface, mirror, inlet and outlet faces and the wall
+    model on and off: the face phase runs each face's slots in turn."""
+    patch, static = checks.k1_level(shape, faces, cuda_device)
+    kw = dict(c_wale=0.3, nu_sgs_background=1e-4, inlet_turbulence=0.02,
+              wall_model=wall_model, sponge_blend=True)
+    r = checks.check_stream_collide(patch, static, store_bf16, 23, kw, cuda_device,
+                                    reps=1, plain_reps=1)
     assert r["finite"]
     assert r["max_abs_err"] < r["tol"], r["err"]
 

@@ -418,21 +418,19 @@ def test_flat_step_out_refuses_wrong_outputs():
             stream_collide_flat(f, vel, 0.035, 4, st, tp, out=out, **KW)
 
 
-@pytest.mark.parametrize("resident", [792, 660], ids=["6-per-SM", "5-per-SM"])
+@pytest.mark.parametrize("resident", [1056, 924], ids=["8-per-SM", "7-per-SM"])
 def test_flat_instantiation_by_size(resident):
     """K4's launch shape (`cuda_step.flat_instantiation`, the rule its C
-    entry applies): the bench's 64x56x56 level in bf16 fits 132 SMs x 6
-    blocks of 256 in one wave (784 blocks); at 5 a SM it does not, and
-    neither does the 10.8M-cell 232x216x216 level; float32 takes one
-    shape at every size."""
-    one_wave = {"threads": 256, "min_blocks": 6}
+    entry applies): the bench's 64x56x56 level in bf16 makes at most two
+    waves of 132 SMs x 8 (or 7) blocks of 128 and takes 64 registers; the
+    10.8M-cell 232x216x216 level makes more and takes 10 blocks a SM;
+    float32 takes one shape at every size."""
+    small = {"threads": 128, "min_blocks": 8}
     stream = {"threads": 128, "min_blocks": 10}
-    f32 = {"threads": 256, "min_blocks": 1}
     l1, row = 64 * 56 * 56, 232 * 216 * 216
-    assert cuda_step.flat_instantiation(l1, True, resident) == (
-        one_wave if resident == 792 else stream)
+    assert cuda_step.flat_instantiation(l1, True, resident) == small
     assert cuda_step.flat_instantiation(row, True, resident) == stream
-    assert cuda_step.flat_instantiation(resident * 256, True, resident) == one_wave
-    assert cuda_step.flat_instantiation(resident * 256 + 1, True, resident) == stream
+    assert cuda_step.flat_instantiation(2 * resident * 128, True, resident) == small
+    assert cuda_step.flat_instantiation(2 * resident * 128 + 1, True, resident) == stream
     for n in (l1, row):
-        assert cuda_step.flat_instantiation(n, False, resident) == f32
+        assert cuda_step.flat_instantiation(n, False, resident) == small

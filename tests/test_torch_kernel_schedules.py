@@ -534,6 +534,43 @@ def test_k1_pull_equals_plain_step(rng, interior, faces):
         assert torch.equal(a, b)
 
 
+def _crosses(face, k):
+    """Slot k's source lies beyond face `face` (0/1 x low/high, 2/3 y, 4/5
+    z) for a cell on that face."""
+    c = (int(lat.C_X[k]), int(lat.C_Y[k]), int(lat.C_Z[k]))[face // 2]
+    return c < 0 if face % 2 else c > 0
+
+
+def _on(face, cell, dims):
+    return cell[face // 2] == (dims[face // 2] - 1 if face % 2 else 0)
+
+
+@pytest.mark.parametrize("interior", [(6, 7, 9), (3, 4, 5), (1, 1, 1), (2, 1, 3)])
+def test_faces_in_order_equal_the_precedence_chain(interior):
+    """The kernels' face phase (`apply_faces` in csrc/lbm_cell.cuh) sets
+    the slots face by face, z high, z low, y high, y low, x high, x low,
+    each overwriting: every slot of every cell ends with the face that the
+    precedence chain picks (x over y over z, the first face the slot
+    crosses) and that the plain step's masks pick (applied z -> y -> x,
+    later ones winning), and slots that cross no face keep the pull."""
+    cells = np.stack(np.meshgrid(*[np.arange(n) for n in interior], indexing="ij"),
+                     -1).reshape(-1, 3)
+    for cell in cells:
+        for k in range(27):
+            chain = next((fc for fc in range(6)
+                          if _crosses(fc, k) and _on(fc, cell, interior)), None)
+            ordered = None
+            for fc in (5, 4, 3, 2, 1, 0):
+                if _on(fc, cell, interior) and _crosses(fc, k):
+                    ordered = fc
+            masked = None
+            for axis in (2, 1, 0):  # the plain step's masks
+                for fc in (2 * axis, 2 * axis + 1):
+                    if _on(fc, cell, interior) and _crosses(fc, k):
+                        masked = fc
+            assert ordered == chain == masked, (tuple(cell), k)
+
+
 def test_wall_model_off_its_range_is_no_wall_model(rng):
     """The identity the kernels' gate rests on (csrc/lbm_cell.cuh,
     collide_values): on cells whose wall distance is outside (0, 10) the
@@ -688,7 +725,7 @@ def test_k4_shape_builds_are_distinct():
     with open(os.path.join(build.CSRC, "stream_collide_flat.cu")) as fh:
         src = fh.read()
     assert "#ifdef OL_K4_THREADS" in src
-    for t, m in ((256, 1), (256, 6), (128, 10)):
+    for t, m in ((128, 8), (128, 10)):
         assert (t, m) in probe_k4_shapes.SHAPES and f"{t}, {m}>(p, s)" in src
 
 
