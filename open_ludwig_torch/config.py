@@ -141,12 +141,11 @@ class CaseConfig:
                                       # path) or "blocks" (sparse 8^3 blocks)
     devices: int = 1                  # >1: shard the run over an x-slab
                                       # device mesh (patch layout only)
-    flat_coarse: str = "auto"         # flat-(y,z) storage for interface-free
-                                      # levels (the coarse wind tunnel):
-                                      # "auto" = on when the Pallas kernel
-                                      # runs (TPU), "on", "off".  Kills the
-                                      # dead 128-lane z padding of small
-                                      # transverse extents (core/patch.py)
+    flat_coarse: str = "auto"         # informational: the JAX package's
+                                      # flat-(y,z) storage of interface-free
+                                      # levels ("auto", "on", "off"), parsed
+                                      # so its cases load; the card's kernel
+                                      # rule (ops/engine.py) does not read it
     domain_tile_snap: bool = False    # grow the coarse grid to TPU tile
                                       # multiples (x,y -> 16, z -> 128):
                                       # lane/sublane padding becomes real

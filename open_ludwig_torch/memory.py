@@ -18,7 +18,9 @@ hbm_report_sharded`):
     (`MATMUL_WORKSPACE`) and the flow statistics' chunk; under an x mesh
     each slab's bytes on its device, so the slabs that share a card add up.
   - `card_capacity`: the card's memory less `CARD_RESERVE_*`, what the
-    estimate leaves to what it does not count.
+    estimate leaves to what it does not count; `level_capacity`, that
+    capacity in cells of one level (`bytes_per_cell`), is what
+    `runner.plan_case` and `tools/plan_216m` report.
 
 The estimate counts what torch allocates (`torch.cuda.max_memory_
 allocated`); the reserve covers what the card holds beyond it: the caching
@@ -77,6 +79,20 @@ def card_capacity(device) -> Optional[int]:
         return None
     total = int(torch.cuda.mem_get_info(dev)[1])
     return total - card_reserve(total)
+
+
+def bytes_per_cell(f_bytes: int, eng: str) -> float:
+    """Device bytes a cell of one level on engine `eng` holds, resident and
+    second (`level_bytes`)."""
+    n = 1 << 30  # every term a whole number of the allocator's blocks
+    return sum(level_bytes(n, f_bytes, eng)) / n
+
+
+def level_capacity(capacity: int, f_bytes: int, eng: str) -> int:
+    """Cells of one level on engine `eng` whose bytes (`bytes_per_cell`)
+    fit `capacity` bytes: with the card's rule's capacity (`card_capacity`)
+    what `runner.plan_case` reports."""
+    return int(capacity / bytes_per_cell(f_bytes, eng))
 
 
 def card_reserve(total: int) -> int:

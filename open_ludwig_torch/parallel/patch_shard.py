@@ -18,8 +18,8 @@ matching slices of the static fields.  Per sub-step of a level:
      launch: K5 writes f in place, and on a virtual mesh (several slabs on
      one card) the slabs share one stream;
   2. each slab's launch of its level's kernel in its sharded form (K1, K4
-     or K5 with `edges=` and `x_off=`), the kernel the JAX dispatch takes
-     with shard_nx = n (`ops.engine`, the reference's x padded to n);
+     or K5 with `edges=` and `x_off=`), the level's kernel by the card's
+     rule (`ops.engine`) for the slabs' bytes on each card;
   3. on a Bouzidi level, every slab's halo of link sources that lie in
      other slabs gathered first (`bouzidi_halos`), then K2 per slab over
      the links whose written cell it owns (K2's two phases hold across
@@ -268,7 +268,6 @@ def shard_statics(cfg, patches: List[PatchLevel], mesh: XMesh,
                               card's own, `memory.card_capacity`; no limit
                               on the CPU): the slabs that share a card add
                               up there
-      "engine_ref"            the JAX package's for n = mesh.size devices
       "bounds"                its slab bounds (`slab_bounds`)
       "iface_mm"              its ghost-plane plan against its parent, on
                               the first device (None on level 1)
@@ -289,13 +288,11 @@ def shard_statics(cfg, patches: List[PatchLevel], mesh: XMesh,
     bounds = [slab_bounds(p.interior[0], n) for p in patches]
     extra = memory.plans_extra(plans, mms, storage.f_dtype(cfg.precision).itemsize)
     card = engine.card_engines(
-        patches, cfg.precision, capacity,
+        patches, capacity,
         lambda engs: max(memory.case_bytes(patches, engs, cfg.precision, extra,
-                                           mesh.devices, bounds).values()),
-        str(getattr(cfg, "flat_coarse", "auto")), n)
-    ref = engine.level_engines(cfg, patches, n)
+                                           mesh.devices, bounds).values()))
     out = []
-    for li, (p, (eng, why), (eng_ref, _)) in enumerate(zip(patches, card, ref)):
+    for li, (p, (eng, why)) in enumerate(zip(patches, card)):
         b = bounds[li]
         plan = plans[li]
         parts = (shard_bouzidi_plan(plan, b, mesh.devices) if plan is not None
@@ -313,7 +310,7 @@ def shard_statics(cfg, patches: List[PatchLevel], mesh: XMesh,
                 "bouzidi": parts[i],
             })
         out.append({
-            "engine": eng, "engine_why": why, "engine_ref": eng_ref, "bounds": b,
+            "engine": eng, "engine_why": why, "bounds": b,
             "iface_mm": mms[li],
             "bouzidi": plan,
             "shards": shards,

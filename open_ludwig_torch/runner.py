@@ -78,7 +78,7 @@ import numpy as np
 import torch
 
 from . import checkpoint as ckpt
-from . import spans
+from . import memory, spans
 from .config import CaseConfig, load_batch_list, load_case_config
 from .core.patch import build_patches
 from .core.state import build_all, hbm_report
@@ -114,7 +114,6 @@ from .scaling import compute_domain_params
 from .solver import make_batch_runner
 from .solver_dense import (
     build_patch_statics,
-    estimate_capacity,
     hbm_report_patches,
     hbm_total_patches,
     init_patch_state,
@@ -588,13 +587,14 @@ def plan_case(cfg: CaseConfig, device="cuda") -> Dict:
     """Build the domain and the statics on `device` and print the set-up
     and device-memory report without running: the reference's domain
     summary and capacity planning (reference: physics_scaling.jl:178-187,
-    diagnostics_vram.jl).  The capacity comes from the card's own memory
-    (`estimate_capacity`); on the CPU it is not estimated.  With `devices:
-    n` the statics are cut over n slabs (`make_x_mesh`, which raises when
-    fewer cards are visible) and the memory is reported per slab and card;
-    the capacity is one card's, times the mesh's cards.  The kernels are
-    the card's rule's (the card's memory less its reserve; no limit on the
-    CPU)."""
+    diagnostics_vram.jl).  The capacity is what the card's kernel rule
+    plans for, the card's memory less its reserve (`memory.card_capacity`),
+    in cells of one level (`memory.level_capacity`); on the CPU it is not
+    estimated.  With `devices: n` the statics are cut over n slabs
+    (`make_x_mesh`, which raises when fewer cards are visible) and the
+    memory is reported per slab and card; the capacity is one card's, times
+    the mesh's cards.  The kernels are the card's rule's for that capacity
+    (no limit on the CPU)."""
     check_supported(cfg)
     dev = resolve_device(device)
     x_mesh = resolve_mesh(cfg, dev, None)
@@ -622,12 +622,14 @@ def plan_case(cfg: CaseConfig, device="cuda") -> Dict:
     cap = None
     if dev.type == "cuda":
         cards = 1 if x_mesh is None else len(set(x_mesh.devices))
-        cap = {eng: cards * estimate_capacity(precision=cfg.precision, engine=eng,
-                                              device=dev)
+        per_card = memory.card_capacity(dev)
+        fb = storage.f_dtype(cfg.precision).itemsize
+        cap = {eng: cards * memory.level_capacity(per_card, fb, eng)
                for eng in ("k1", "inplace")}
         log.info("capacity: ~%.0fM cells on A->B levels (~%.0fM in place) fit "
-                 "%d card(s) of %.1f GB -> this case uses %.1f%%", cap["k1"] / 1e6,
-                 cap["inplace"] / 1e6, cards, torch.cuda.mem_get_info(dev)[1] / 1e9,
+                 "%d card(s) of %.1f GB less the reserve (%.1f GB planned) -> this "
+                 "case uses %.1f%%", cap["k1"] / 1e6, cap["inplace"] / 1e6, cards,
+                 torch.cuda.mem_get_info(dev)[1] / 1e9, per_card / 1e9,
                  100.0 * total / cap["k1"])
     else:
         log.info("capacity: not estimated on the CPU (the card's memory sets it)")

@@ -16,18 +16,16 @@ contraction + elementwise tail per axis group
 pre-shifted, in the child's storage type (bf16 g = f - w planes on bf16
 levels, float32 f planes otherwise), whose plane[n] sub-step n reads.
 
-Each level's kernel is the card's choice (`ops.engine.card_engines`: the
-JAX package's dispatch, solver_dense.py:233-336 of the reference, with
-its in-place levels on K1 where the case fits the card's memory),
-recorded as statics[l]["engine"] (the reference's as "engine_ref"):
-  - "flat": K4 (`ops.cuda_step.stream_collide_flat`), on an
-    interface-free level the reference stores flat (level 1 of a
-    multi-level case);
-  - "inplace": K5 (`ops.cuda_step.stream_collide_inplace`), on an
-    interface-free level whose plane exceeds the reference's 1-D window
-    and whose A -> B step does not fit the card: f is updated in its own
-    buffer, and the level takes no K3;
-  - "k1": K1 (`ops.cuda_step.stream_collide`) on every other level.
+Each level's kernel is the card's choice (`ops.engine.card_engines`, from
+its faces, whether it is the finest or a Bouzidi level, and the case's
+memory estimate against the card's), recorded as statics[l]["engine"]:
+  - "k1": K1 (`ops.cuda_step.stream_collide`) on a level with interface
+    faces, and on an interface-free finest or Bouzidi level;
+  - "flat": K4 (`ops.cuda_step.stream_collide_flat`) on every other
+    interface-free level (level 1 of a multi-level case);
+  - "inplace": K5 (`ops.cuda_step.stream_collide_inplace`) on an
+    interface-free level where the case's A -> B steps do not fit the
+    card: f is updated in its own buffer, and the level takes no K3.
 Every sub-step is one launch of its level's kernel, followed on the
 finest level by K2 (`ops.cuda_step.bouzidi`): the default (`fuse2=False`),
 since K1 -> K2 -> K1 beat K3 pairs at every shape measured on the H100.
@@ -111,8 +109,7 @@ def build_patch_statics(cfg: CaseConfig, patches: List[PatchLevel],
     plan against its parent ("iface_mm": `dense_step.build_iface_mm_plan`
     with its device tensors, `iface_mm_plan_to`; None on level 1), and
     the level's kernel ("engine", by the card's rule `engine.card_engines`
-    for `capacity` bytes a card) with the reason for it ("engine_why",
-    naming both rules) and the JAX package's choice ("engine_ref").
+    for `capacity` bytes a card) with the reason for it ("engine_why").
     `capacity` None is the card's own (`memory.card_capacity`) on CUDA and
     no limit on the CPU.  With `x_mesh`, the per-slab statics of its
     devices (`parallel.patch_shard.shard_statics`; `device` is not read).
@@ -134,12 +131,10 @@ def _build_statics(cfg: CaseConfig, patches: List[PatchLevel], device, x_mesh,
            if li > 0 else None for li, p in enumerate(patches)]
     extra = memory.plans_extra(plans, mms, storage.f_dtype(cfg.precision).itemsize)
     card = engine.card_engines(
-        patches, cfg.precision, capacity,
-        lambda engs: memory.case_bytes(patches, engs, cfg.precision, extra)["device"],
-        str(getattr(cfg, "flat_coarse", "auto")))
-    ref = engine.level_engines(cfg, patches)
+        patches, capacity,
+        lambda engs: memory.case_bytes(patches, engs, cfg.precision, extra)["device"])
     statics = []
-    for p, plan, mm, (eng, why), (eng_ref, _) in zip(patches, plans, mms, card, ref):
+    for p, plan, mm, (eng, why) in zip(patches, plans, mms, card):
         statics.append({
             "obstacle": torch.as_tensor(p.obstacle, dtype=torch.bool, device=device),
             "sponge": torch.as_tensor(p.sponge, dtype=torch.float32, device=device),
@@ -149,7 +144,6 @@ def _build_statics(cfg: CaseConfig, patches: List[PatchLevel], device, x_mesh,
             "iface_mm": mm,
             "engine": eng,
             "engine_why": why,
-            "engine_ref": eng_ref,
         })
     return statics
 
@@ -168,7 +162,7 @@ NO_K3_WHY = ("K3 no: unfused by default on this card (K1 -> K2 took "
 def kernel_log_lines(patches: List[PatchLevel], statics: List[Dict],
                      precision: str, device, x_mesh=None,
                      fuse2: bool = False) -> List[str]:
-    """Per level: the kernel its sub-steps run and why (both rules), and
+    """Per level: the kernel its sub-steps run and why, and
     whether its sub-step pairs take K3 under `fuse2` (and why not); with
     `x_mesh`, per slab (`parallel.patch_shard.kernel_log_lines_sharded`)."""
     if x_mesh is not None:
@@ -701,38 +695,3 @@ def _hbm_account(patches: List[PatchLevel], statics: List[Dict], precision: str
                  "of second buffers, every level's: the graphed runner holds them; "
                  "matmul workspaces and the flow statistics' chunk)")
     return lines, total
-
-
-def hbm_bytes_per_cell(precision: str, transient: bool = True,
-                       engine: str = "k1") -> float:
-    """Device bytes per cell of one level, from `memory.level_bytes` (the
-    estimate the card's rule and `hbm_report_patches` read; the
-    reference's `solver_dense.py:707`, for this card; reference analogue:
-    src/diagnostics_vram.jl:17-133): 27 f entries + rho + vel, the static
-    fields once (obstacle u8 + sponge f32 + wall distance f32 = 9 B), and
-    with `transient` the level's second buffers: an A -> B level ("k1",
-    "flat") a second f, rho and vel; an in-place level ("inplace", K5) a
-    second rho and vel and its edge buffer's bound."""
-    f_bytes = 2 if storage.f_dtype(precision) == torch.bfloat16 else 4
-    n = 1 << 30  # every term a whole number of the allocator's blocks
-    resident, second = memory.level_bytes(n, f_bytes, engine)
-    return (resident + (second if transient else 0)) / n
-
-
-def estimate_capacity(device_gb: float = 0.0, precision: str = "float32",
-                      engine: str = "k1", device="cuda") -> int:
-    """Cells of one level that fit in `device_gb` of device memory (0 =
-    the card's own total, from `torch.cuda.mem_get_info`), the reference's
-    capacity planner (`solver_dense.py:796`; reference:
-    src/diagnostics_vram.jl estimate_mesh_capacity) by
-    `hbm_bytes_per_cell(precision, transient=True, engine=engine)`."""
-    if device_gb <= 0.0:
-        dev = torch.device(device)
-        if dev.type != "cuda" or not torch.cuda.is_available():
-            raise RuntimeError("estimate_capacity reads the card's memory; "
-                               "without CUDA pass device_gb")
-        total = torch.cuda.mem_get_info(dev)[1]
-    else:
-        total = device_gb * 1e9
-    return int(total / hbm_bytes_per_cell(precision, transient=True,
-                                          engine=engine))

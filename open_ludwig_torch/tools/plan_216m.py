@@ -12,7 +12,8 @@ storage, `domain_tile_snap`; 640x592x640 = 242.5M cells at N = 68), then:
   1. prints the per-level device-memory report (`hbm_report_patches`), the
      planner's estimate from the levels alone (`memory.case_bytes` for
      the level's kernel, what the card's rule reads, without the plans) and,
-     on the card, its capacity (`runner --plan`'s formula);
+     on the card, its capacity (`runner --plan`'s: the card's memory less
+     its reserve, in cells, `memory.level_capacity`);
   2. on one perturbed state, one coarse step on the kernel the card's rule
      picks (`ops/engine.card_engines`: K1 where the row's A -> B step fits
      the card) and one with the other of K1 / K5 forced (unfused, each with
@@ -111,10 +112,9 @@ def card() -> Dict:
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     from .. import memory
-    from ..ops import cuda_step
+    from ..ops import cuda_step, storage
     from ..runner import resolve_device, solve_case
-    from ..solver_dense import (estimate_capacity, hbm_bytes_per_cell,
-                                hbm_report_patches, hbm_total_patches,
+    from ..solver_dense import (hbm_report_patches, hbm_total_patches,
                                 make_batch_runner_dense)
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -146,15 +146,16 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     print(report, flush=True)
     est = memory.case_bytes(levels, [st["engine"] for st in statics],
                             cfg.precision)["device"]
+    fb = storage.f_dtype(cfg.precision).itemsize
     out.update(report_bytes=hbm_total_patches(levels, statics, cfg.precision, dev),
-               estimate_bytes=est,
-               bytes_per_cell=hbm_bytes_per_cell(cfg.precision, engine=engine))
+               estimate_bytes=est, bytes_per_cell=memory.bytes_per_cell(fb, engine))
     if cuda:
-        cap = {eng: estimate_capacity(precision=cfg.precision, engine=eng, device=dev)
-               for eng in ("k1", "inplace")}
+        per_card = memory.card_capacity(dev)
+        cap = {eng: memory.level_capacity(per_card, fb, eng) for eng in ("k1", "inplace")}
         out["capacity_cells"] = cap
         print(f"[216M] estimate {est / 1e9:.2f} GB ({out['bytes_per_cell']:.1f} B a cell);"
-              f" capacity of this card: {cap['k1'] / 1e6:.0f}M cells on A->B levels, "
+              f" capacity of this card ({per_card / 1e9:.1f} GB, its memory less the "
+              f"reserve): {cap['k1'] / 1e6:.0f}M cells on A->B levels, "
               f"{cap['inplace'] / 1e6:.0f}M in place -> this row uses "
               f"{100 * cells / cap[engine if engine == 'inplace' else 'k1']:.0f}%",
               flush=True)

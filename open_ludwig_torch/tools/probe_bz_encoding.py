@@ -37,7 +37,6 @@ from ..checks import graph_ms
 from ..config import load_case_config
 from ..core.patch import PatchLevel, build_patches
 from ..geometry import load_mesh
-from ..ops import engine
 from ..ops import cuda_step
 from ..ops.cuda_step import bouzidi, bouzidi_ab
 from ..ops.dense_step import bouzidi_ab_plan, bouzidi_plan_to, build_bouzidi_dense_plan
@@ -69,7 +68,8 @@ def ref_box_dim(level: PatchLevel) -> Tuple[int, int, int]:
     bz = level.bouzidi
     lo = np.array([bz.cell_gx.min(), bz.cell_gy.min(), bz.cell_gz.min()]) - 1
     hi = np.array([bz.cell_gx.max(), bz.cell_gy.max(), bz.cell_gz.max()]) + 2
-    XS, YS, ZS = engine.ref_padded(level)
+    X, Y, Z = level.interior
+    XS, YS, ZS = X, -(-Y // 8) * 8, -(-Z // 128) * 128  # the JAX package's padded
     lo = np.maximum(lo, 0)
     hi = np.minimum(hi, [XS, YS, ZS])
     lo[2], hi[2] = lo[2] // 128 * 128, min(-(-hi[2] // 128) * 128, ZS)

@@ -4,12 +4,12 @@
         [--windows 3] [--batch N] [--device cuda|cpu]
 
 For each surface resolution, the sweep row of `open_ludwig_torch.bench`
-(`bench.ROW_CASE`: one level, bf16, `domain_tile_snap`) and, where the JAX
-package runs the row on its 1-D kernel (K3 pairs under its fused schedule),
-the same case without the snap (res 25: the 10.8M-cell level 232x216x216
-of `chip_smoke.py` phases 6 and 13), each timed through
-`bench.time_runner` (the row's batch, graphed on a card) on three
-schedules, in turns own, fused, k5, k5, fused, own, each turn from rest:
+(`bench.ROW_CASE`: one level, bf16, `domain_tile_snap`) and the same case
+without the snap (res 25: the 10.8M-cell level 232x216x216 of
+`chip_smoke.py` phases 6 and 13), each a finest K1 level by the card's
+rule where it fits the card, timed through `bench.time_runner` (the row's
+batch, graphed on a card) on three schedules, in turns own, fused, k5, k5,
+fused, own, each turn from rest:
 
   "own"    the batch runner's defaults: the card's rule (`ops.engine.
            card_engines`, the card's capacity), unfused: K1 -> K2 where the
@@ -20,9 +20,8 @@ schedules, in turns own, fused, k5, k5, fused, own, each turn from rest:
            for the large rows)
 
 Prints one JSON line per case: the level's dims, its engine by the card's
-rule and by the JAX package's, K5's layout on a card, and per turn the
-median ms per coarse step and ns per cell update.  `main` returns the
-lines.  `--device cpu` runs the plain PyTorch path at a small size (the
+rule, K5's layout on a card, and per turn the median ms per coarse step
+and ns per cell update.  `main` returns the lines.  `--device cpu` runs the plain PyTorch path at a small size (the
 tests).
 """
 
@@ -75,7 +74,7 @@ def probe(res: int, snap: bool, windows: int, batch: Optional[int], dev) -> Dict
     cells = level.n_cells
     batch = batch or int(np.clip(round(2e9 / cells), 10, 1200))
     out = {"res": res, "snap": snap, "dims": list(level.interior), "cells": cells,
-           "engine": static["engine"], "engine_ref": static["engine_ref"],
+           "engine": static["engine"],
            "batch": batch, "windows": windows, "build_s": time.time() - t0,
            "turns": []}
     if dev.type == "cuda":
@@ -102,10 +101,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
     card = bench.card(dev)
     lines = []
     for res in (int(r) for r in args.res.split(",")):
-        snapped = probe(res, True, args.windows, args.batch, dev)
-        cases = [snapped]
-        if snapped["engine_ref"] == "k1":  # a K3 row of the JAX package's
-            cases.append(probe(res, False, args.windows, args.batch, dev))
+        cases = [probe(res, snap, args.windows, args.batch, dev)
+                 for snap in (True, False)]
         for line in cases:
             line["device"] = card
             print(json.dumps(line), flush=True)

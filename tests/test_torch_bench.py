@@ -303,15 +303,15 @@ def test_cuda_without_a_card_raises(monkeypatch):
 
 
 def test_probe_sweep_rows_on_cpu():
-    """tools.probe_sweep_rows: a row the JAX package runs on its 1-D kernel,
-    snapped and unsnapped, each on the card's schedule (K1 unfused), on K3
+    """tools.probe_sweep_rows: a row, snapped and unsnapped, each a finest
+    K1 level by the card's rule, on the card's schedule (K1 unfused), on K3
     pairs and on K5, in turns."""
     from open_ludwig_torch.tools import probe_sweep_rows
 
     lines = probe_sweep_rows.main(["--device", "cpu", "--res", "5", "--windows", "1",
                                    "--batch", "2"])
-    assert [(ln["res"], ln["snap"], ln["engine"], ln["engine_ref"]) for ln in lines] == [
-        (5, True, "k1", "k1"), (5, False, "k1", "k1")]
+    assert [(ln["res"], ln["snap"], ln["engine"]) for ln in lines] == [
+        (5, True, "k1"), (5, False, "k1")]
     snapped, plain = lines
     assert snapped["dims"][2] % 128 == 0 and snapped["cells"] > plain["cells"]
     for ln in lines:

@@ -1,17 +1,17 @@
 """The card's kernel rule (`ops/engine.card_engines`) and the device-memory
 estimate it reads (`memory`), on the CPU.
 
-- On a level the JAX package runs in place (K5, its VMEM budgets: a plane
-  of 384x384 exceeds the 1-D window), the card runs K1 where the case's
-  estimate with that level stepping A -> B fits the capacity, and keeps K5
-  where it does not; flat (K4) and K1 levels keep their engine.  Synthetic
+- A level with interface faces runs K1; an interface-free one K4, or K1
+  where it is the finest; an interface-free level moves to K5 where the
+  case's estimate with it stepping A -> B exceeds the capacity, and the
+  reason says so, also where K5 does not make the case fit.  Synthetic
   levels: the rule reads only the levels' shapes and faces.
 - On an x mesh the capacity is per card: the slabs on one card add up, so
   a virtual mesh (every slab on one device) needs the whole level, two
   cards half each.
-- `build_patch_statics` / `shard_statics` record the card's choice and the
-  reference's; `engine_why` and `kernel_log_lines` name both rules, and
-  the log says why the finest level takes no K3 by default.
+- `build_patch_statics` / `shard_statics` record the card's choice and its
+  reason; `kernel_log_lines` gives the reason, and says why the finest
+  level takes no K3 by default.
 - The estimate: every level's second buffers add up (the graphed runner
   holds them all), the report's total is the rule's, and the graphed
   runner's first coarse step releases the caller's states as it replaces
@@ -43,10 +43,6 @@ torch.set_num_threads(2)
 
 DOMAIN = (BC_INLET, BC_OUTLET, BC_MIRROR_Y, BC_MIRROR_Y, BC_MIRROR_Z, BC_MIRROR_Z)
 ROW64 = (432, 384, 384)  # the 63.7M-cell sweep row's level (res 45, snapped)
-# a level the reference runs in place per storage type: the row in bf16; in
-# float32 no 2-D chunk of the row's plane fits (the reference falls back to
-# XLA there), a plane of 256x384 does
-K5_SHAPE = {"bfloat16": ROW64, "float32": (432, 256, 384)}
 
 
 def case_bytes(patches, engines, precision, devices=None):
@@ -56,13 +52,12 @@ def case_bytes(patches, engines, precision, devices=None):
     return memory.case_bytes(patches, engines, precision, None, devices, bounds)
 
 
-def card_engines(patches, precision, capacity, flat_coarse="auto", devices=None):
+def card_engines(patches, precision, capacity, devices=None):
     """The card's rule on `patches` with no plans, reading `case_bytes`'s
     most loaded card."""
     return engine.card_engines(
-        patches, precision, capacity,
-        lambda engs: max(case_bytes(patches, engs, precision, devices).values()),
-        flat_coarse, len(devices) if devices else 1)
+        patches, capacity,
+        lambda engs: max(case_bytes(patches, engs, precision, devices).values()))
 
 
 def _level(shape, face_bc=DOMAIN, level_id=1, fields=False):
@@ -77,9 +72,8 @@ def _level(shape, face_bc=DOMAIN, level_id=1, fields=False):
 
 @pytest.mark.parametrize("precision", ["bfloat16", "float32"])
 def test_card_rule_runs_k1_where_the_case_fits(precision):
-    row = _level(K5_SHAPE[precision])
+    row = _level(ROW64)
     bf16 = precision == "bfloat16"
-    assert engine.choose_engine("auto", row, True, bf16)[0] == "inplace"
     need = case_bytes([row], ["k1"], precision)["device"]
     k5 = case_bytes([row], ["inplace"], precision)["device"]
     fb = 2 if bf16 else 4
@@ -88,44 +82,42 @@ def test_card_rule_runs_k1_where_the_case_fits(precision):
     for cap in (80 * 10**9, need, None):
         (eng, why), = card_engines([row], precision, cap)
         assert eng == "k1", (cap, why)
-        assert f"the JAX package runs K5 here (plane {row.interior[1]}x384" in why
-        assert "the card runs K1: A->B" in why
+        assert why.startswith("interface-free finest level: K1 (") and "; A->B " in why
     assert "no memory limit" in card_engines([row], precision, None)[0][1]
 
 
 @pytest.mark.parametrize("precision", ["bfloat16", "float32"])
 def test_card_rule_keeps_k5_below_the_estimate(precision):
-    row = _level(K5_SHAPE[precision])
+    row = _level(ROW64)
     need = case_bytes([row], ["k1"], precision)["device"]
     (eng, why), = card_engines([row], precision, need - 1)
     assert eng == "inplace"
-    assert "the JAX package runs K5 here" in why and "the card keeps K5" in why
-    assert f"{need / 1e9:.1f} GB exceeds" in why
+    assert why.startswith("interface-free: K5 in place")
+    assert f"{need / 1e9:.1f} GB exceeds" in why and "still exceeds" not in why
 
 
 def test_card_rule_keeps_flat_and_k1_levels():
-    """Level 1 flat (K4), level 2 on the 1-D window (K1): both stay, even at
-    a capacity nothing fits; a level the reference runs in place below a
-    child takes K1 only if the whole case fits."""
+    """Level 1 interface-free below a child (K4), level 2 with interface
+    faces (K1); at a capacity nothing fits level 1 moves to K5, saying the
+    case still does not fit, and level 2 stays K1; a large level 1 takes
+    K4 only if the whole case fits."""
     l1 = _level((64, 56, 56))
     l2 = _level((46, 48, 104), (BC_INTERFACE,) * 6, level_id=2)
-    for cap in (1, None):
-        got = card_engines([l1, l2], "bfloat16", cap)
-        assert [e for e, _ in got] == ["flat", "k1"]
-        assert "the JAX package runs K4 here" in got[0][1]
-        assert "the card runs K4 too" in got[0][1]
-        assert "the JAX package runs K1 here" in got[1][1]
-        assert "the card runs K1 too" in got[1][1]
+    got = card_engines([l1, l2], "bfloat16", None)
+    assert [e for e, _ in got] == ["flat", "k1"]
+    assert "neither finest nor Bouzidi: K4" in got[0][1]
+    assert "no memory limit" in got[0][1]
+    assert got[1][1] == "interface faces: K1 reads the ghost planes"
+    got = card_engines([l1, l2], "bfloat16", 1)
+    assert [e for e, _ in got] == ["inplace", "k1"]
+    assert "K5 in place" in got[0][1] and "still exceeds it" in got[0][1]
+    assert got[1][1] == "interface faces: K1 reads the ghost planes"
     big = _level(ROW64)
     child = _level((40, 40, 40), (BC_INTERFACE,) * 6, level_id=2)
-    engs = [engine.choose_engine("off", p, i == 1, True)[0]
-            for i, p in enumerate([big, child])]
-    assert engs == ["inplace", "k1"]
-    both = case_bytes([big, child], ["k1", "k1"], "bfloat16")["device"]
-    assert [e for e, _ in card_engines([big, child], "bfloat16", both,
-                                              "off")] == ["k1", "k1"]
-    assert [e for e, _ in card_engines([big, child], "bfloat16", both - 1,
-                                              "off")] == ["inplace", "k1"]
+    both = case_bytes([big, child], ["flat", "k1"], "bfloat16")["device"]
+    assert [e for e, _ in card_engines([big, child], "bfloat16", both)] == ["flat", "k1"]
+    assert [e for e, _ in card_engines([big, child], "bfloat16", both - 1)] == \
+        ["inplace", "k1"]
 
 
 def test_card_rule_adds_up_the_slabs_of_a_card():
@@ -149,7 +141,7 @@ def test_card_rule_adds_up_the_slabs_of_a_card():
 @pytest.fixture(scope="module")
 def wide(tmp_path_factory):
     """A small sphere case's config (bf16) and one synthetic level of 8 x
-    384 x 384 cells with its fields: the reference runs it in place."""
+    384 x 384 cells with its fields."""
     d = str(tmp_path_factory.mktemp("wide"))
     make_case_sphere(d, "1M", surface_resolution=6, num_levels=1, steps=2,
                      ramp_steps=1, output_freq=100, diag_freq=100)
@@ -162,14 +154,15 @@ def test_statics_record_the_card_choice(wide):
     need = case_bytes([lvl], ["k1"], cfg.precision)["device"]
     for cap, want in ((None, "k1"), (10 * need, "k1"), (need // 2, "inplace")):
         st, = sd.build_patch_statics(cfg, [lvl], "cpu", capacity=cap)
-        assert (st["engine"], st["engine_ref"]) == (want, "inplace"), cap
-        assert "the JAX package runs K5 here" in st["engine_why"]
+        assert st["engine"] == want, cap
+        assert ("K5 in place" if want == "inplace" else "finest level: K1") \
+            in st["engine_why"]
     # on two CPU slabs (a virtual mesh): the card's rule for the slabs' sum
     xm = ps.make_x_mesh(2, "cpu")
     per = case_bytes([lvl], ["k1"], cfg.precision, xm.devices)["cpu"]
     for cap, want in ((per, "k1"), (per - 1, "inplace")):
         st, = sd.build_patch_statics(cfg, [lvl], x_mesh=xm, capacity=cap)
-        assert (st["engine"], st["engine_ref"]) == (want, "inplace"), cap
+        assert st["engine"] == want, cap
     report = sd.hbm_report_patches([lvl], [st], cfg.precision, "cpu", x_mesh=xm)
     assert "cpu: " in report and "(2 slab(s))" in report
 
@@ -190,7 +183,10 @@ def test_kernel_log_names_both_rules_and_why_no_k3(sphere2):
     cfg, _, levels = sphere2
     statics = sd.build_patch_statics(cfg, levels)
     lines = sd.kernel_log_lines(levels, statics, cfg.precision, "cpu")
-    assert all("the JAX package runs" in ln and "the card runs" in ln for ln in lines)
+    assert not any("the JAX package runs" in ln for ln in lines)
+    assert "K4 stream_collide_flat" in lines[0]
+    assert "neither finest nor Bouzidi: K4" in lines[0]
+    assert "interface faces: K1 reads the ghost planes" in lines[1]
     assert "K3 no: unfused by default on this card" in lines[-1]
     assert "0.063-0.066 ns a cell" in lines[-1] and "fuse2=True" in lines[-1]
     fused = sd.kernel_log_lines(levels, statics, cfg.precision, "cpu", fuse2=True)

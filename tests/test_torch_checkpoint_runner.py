@@ -422,23 +422,25 @@ def test_plan_on_cpu_prints_report(tmp_path, caplog):
 
 
 def test_capacity_formula_matches_report():
-    from open_ludwig_torch.memory import edge_bound_elems
-    from open_ludwig_torch.solver_dense import estimate_capacity, hbm_bytes_per_cell
+    """The capacity `plan_case` reports: the card's rule's capacity (the
+    card's memory less its reserve) over a level's bytes a cell."""
+    from open_ludwig_torch import memory
 
-    for precision, fb in (("float32", 4), ("bfloat16", 2)):
-        resident = hbm_bytes_per_cell(precision, transient=False)
-        assert resident == 27 * fb + 16 + 9
-        assert hbm_bytes_per_cell(precision) == resident + 27 * fb + 16
+    n = 2**30
+    for fb in (4, 2):
+        resident, second = memory.level_bytes(n, fb, "k1")
+        assert resident == (27 * fb + 16 + 9) * n and second == (27 * fb + 16) * n
+        assert memory.bytes_per_cell(fb, "k1") == 2 * 27 * fb + 32 + 9
         # K5: a second rho and vel, and its edge buffer's bound (18 entries a
         # cell of every 8-row (bf16) or 16-row (float32) tile boundary and
         # 8-plane run boundary)
         edge = {2: 18 * 2 * (1 / 8 + 1 / 8), 4: 18 * 4 * (1 / 16 + 1 / 8)}[fb]
-        assert edge_bound_elems(2**20, fb) * fb == edge * 2**20
-        assert hbm_bytes_per_cell(precision, engine="inplace") == resident + 16 + edge
-        assert estimate_capacity(80.0, precision) == int(80e9 / (resident + 27 * fb + 16))
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="without CUDA"):
-            estimate_capacity(precision="bfloat16")
+        assert memory.edge_bound_elems(2**20, fb) * fb == edge * 2**20
+        assert memory.bytes_per_cell(fb, "inplace") == 27 * fb + 25 + 16 + edge
+        per_card = 80 * 10**9 - memory.card_reserve(80 * 10**9)  # 4 GB reserved
+        assert memory.level_capacity(per_card, fb, "k1") == int(
+            76e9 / (2 * 27 * fb + 41))
+    assert memory.card_capacity("cpu") is None
 
 
 def test_profile_env_writes_trace(tmp_path, monkeypatch):

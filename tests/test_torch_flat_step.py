@@ -1,5 +1,5 @@
-"""K4 (the flat-(y,z) step of an interface-free level) and the per-level
-kernel choice of the PyTorch port against the JAX package.
+"""K4 (the flat-(y,z) step of an interface-free level) of the PyTorch port
+against the JAX package, and against K1.
 
 - K4's plain version (the CPU path of
   `open_ludwig_torch.ops.cuda_step.stream_collide_flat`) against
@@ -9,10 +9,8 @@ kernel choice of the PyTorch port against the JAX package.
   model, the sponge and inlet noise: float32 < 1e-5, bf16 g-storage < 2e-3
   (measured 8.9e-8 and 1.5e-5 on the stored values);
 - K4's plain version against the port's `dense_stream_collide`: equal;
-- `ops.engine` against the reference's dispatch on the N=25 three-level
-  sphere (the JAX builder run as on a TPU) and on shape-only levels of the
-  single-level sweep rows, in both dtypes, and its gates against the
-  reference's own functions;
+- at an x extent the TPU's flat gate refused (13 planes), the card's rule
+  runs level 1 on K4, and K4 equals K1 there;
 - a 2-level sphere with `flat_coarse: auto` (level 1, 40x40x40, runs K4)
   through the port and through the JAX package's Pallas path in interpret
   mode, 2 coarse steps, per level < 2e-5 (float32) and < 2e-3 (bf16);
@@ -25,7 +23,6 @@ kernel choice of the PyTorch port against the JAX package.
 
 import contextlib
 import dataclasses
-import logging
 
 import jax
 import jax.numpy as jnp
@@ -42,7 +39,6 @@ from open_ludwig_tpu.core.patch import (
 )
 from open_ludwig_tpu.core.patch import build_patches as build_patches_jax
 from open_ludwig_tpu.geometry import load_mesh
-from open_ludwig_tpu.ops import pallas_step as ps_jax
 from open_ludwig_tpu.ops.pallas_step import make_pallas_step_flat, prepare_pallas_statics
 from open_ludwig_tpu.scaling import compute_domain_params
 
@@ -165,16 +161,37 @@ def test_flat_plain_equals_dense_stream_collide(store_bf16):
             tp, face_bc=(BC_INTERFACE,) + DOMAIN[1:]), **KW)
 
 
-def _reference_engine(p, store_bf16):
-    """The JAX package's per-level choice (solver_dense.py:233-336, one
-    device, Pallas on) on one of its own levels."""
-    if p.flat_yz:
-        return "flat"
-    if sd_jax._pallas_fits(p, store_bf16):
-        return "k1"
-    if ps_jax.choose_2d_chunks(p, store_bf16, 1, alias_f=True) is not None:
-        return "inplace"
-    return "k1"
+@pytest.mark.parametrize("store_bf16", [False, True], ids=["f32", "bf16"])
+def test_flat_plain_equals_dense_at_an_x_extent_the_tpu_gate_refused(store_bf16):
+    """A level 1 of 13 x planes, which no flat PX of the TPU's divides (its
+    gate ran such a level on K1): the card's rule runs it on K4 below a
+    child, and K4 equals K1 there, through the wrappers and their plain
+    versions, with obstacle cells on the inlet and outlet planes."""
+    rng = np.random.default_rng(13)
+    X, Y, Z = 13, 6, 10
+    tp = convert.level_from_jax(_jax_level((X, Y, Z)))
+    tp.obstacle[0, 2:4, 3:5] = True
+    tp.obstacle[X - 1, 1:3, 6:8] = True
+    tp.sponge[9:] = 0.25
+    tp.wall_dist[6, 3, 4] = 1.2
+    child = dataclasses.replace(tp, level_id=2, face_bc=(BC_INTERFACE,) * 6)
+    assert [e for e, _ in engine.card_engines([tp, child], None, lambda e: 0)] == \
+        ["flat", "k1"]
+    f = torch.as_tensor((lat.W[:, None, None, None] * (1 + 0.05 * rng.standard_normal(
+        (27, X, Y, Z)))).astype(np.float32))
+    if store_bf16:
+        f = storage.encode_f(f, "bfloat16")
+    vel = torch.as_tensor((0.02 * rng.standard_normal((3, X, Y, Z))).astype(np.float32))
+    st = _port_static(tp)
+    got = stream_collide_flat(f, vel, 0.041, 6, st, tp, **KW)
+    want = stream_collide(f, vel, 0.041, 6, st, tp, **KW)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    fd = storage.decode_f(f)
+    plain = ds.stream_collide_flat_plain(fd, vel, 0.041, 6, st, tp, **KW)
+    dense = ds.dense_stream_collide(fd, vel, 0.041, 6, st, tp, **KW)
+    for a, b in zip(plain, dense):
+        assert torch.equal(a, b)
 
 
 def _sphere(tmp, **kw):
@@ -183,76 +200,6 @@ def _sphere(tmp, **kw):
     mesh = load_mesh(cfg.stl_path, scale=cfg.stl_scale)
     params = compute_domain_params(cfg, mesh.min_bounds, mesh.max_bounds)
     return cfg, mesh, params
-
-
-@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
-def test_engine_matches_reference_on_bench_sphere(tmp_path, precision):
-    """The bench case (N=25, 3 levels + wake): the JAX builder, run as on
-    a TPU, stores level 1 flat; the port picks K4 there and K1 below."""
-    cfg, mesh, params = _sphere(str(tmp_path), steps=2, ramp_steps=1,
-                                output_freq=100, diag_freq=100,
-                                wake_enabled=True, precision=precision)
-    with _backend_as_tpu():
-        ref = build_patches_jax(cfg, mesh, params)
-    port = build_patches(cfg, mesh, params)
-    bf16 = precision == "bfloat16"
-    want = [_reference_engine(p, bf16) for p in ref]
-    got = [e for e, _ in engine.level_engines(cfg, port)]
-    assert got == want == ["flat", "k1", "k1"], (got, want)
-    assert [engine.ref_padded(p) for p in port] == [r.padded for r in ref]
-    # the port's levels are (27, X, Y, Z) at their interior, never flat
-    assert all(p.padded == p.interior and not hasattr(p, "flat_yz") for p in port)
-    off = dataclasses.replace(cfg, flat_coarse="off")
-    assert [e for e, _ in engine.level_engines(off, port)] == ["k1"] * 3
-
-
-@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
-@pytest.mark.parametrize("interior,want", [
-    ((432, 384, 384), {"float32": "k1", "bfloat16": "inplace"}),
-    ((320, 304, 384), {"float32": "inplace", "bfloat16": "k1"}),
-    ((232, 216, 216), {"float32": "k1", "bfloat16": "k1"}),
-], ids=["63.7M", "37.4M", "10.8M"])
-def test_engine_matches_reference_on_sweep_shapes(interior, want, precision):
-    """Single-level sweep rows (res 45, 34, 25 with domain_tile_snap):
-    the reference takes the 2-D kernel where the 1-D window does not fit
-    and 2-D chunks do, and XLA where neither fits; the port runs K5 and K1
-    there."""
-    bf16 = precision == "bfloat16"
-    jp = _jax_level(interior, lo=(0, 0, 0), fields=False)
-    tp = convert.level_from_jax(_jax_level(interior, lo=(0, 0, 0), fields=False))
-    eng, why = engine.choose_engine("auto", tp, True, bf16)
-    assert eng == _reference_engine(jp, bf16) == want[precision], why
-    assert engine.pallas_fits(tp, bf16) == sd_jax._pallas_fits(jp, bf16)
-    assert engine.choose_2d_chunks(tp, bf16) == ps_jax.choose_2d_chunks(
-        jp, bf16, 1, alias_f=True)
-    if interior == (432, 384, 384) and bf16:
-        assert engine.choose_2d_chunks(tp, bf16) == (16, 8)
-
-
-def test_engine_gates_equal_reference_functions():
-    """choose_flat_px and the 2-D footprint over a grid of shapes."""
-    for XL in (8, 16, 24, 40, 56, 64, 112, 120, 432):
-        for M in (128, 1664, 3200, 11520, 147456):
-            for fb in (2, 4):
-                assert engine.choose_flat_px(XL, M, fb) == ps_jax.choose_flat_px(
-                    XL, M, fb), (XL, M, fb)
-    for PX, PY, ZS, fb, YS in ((16, 8, 384, 2, 384), (8, 16, 128, 4, 64),
-                               (4, 32, 256, 2, 96)):
-        for alias in (False, True):
-            assert engine.chunks_2d_vmem_est(PX, PY, ZS, fb, YS, alias) == \
-                ps_jax._chunks_2d_vmem_est(PX, PY, ZS, fb, YS, alias)
-
-
-def test_flat_coarse_on_warns_where_unavailable(caplog):
-    """flat_coarse: on with an x extent that no flat PX divides logs the
-    reference's warning and keeps the level on K1."""
-    tp = convert.level_from_jax(_jax_level((44, 40, 40), fields=False))
-    with caplog.at_level(logging.WARNING, logger="open_ludwig_torch"):
-        eng, why = engine.choose_engine("on", tp, False, True)
-    assert eng == "k1" and "flat PX" in why
-    assert "flat_coarse=on but the Pallas flat step is unavailable" in caplog.text
-    assert engine.choose_engine("on", convert.level_from_jax(_jax_level((40, 40, 40), fields=False)),
-                                False, True)[0] == "flat"
 
 
 @pytest.fixture(scope="module")
@@ -367,7 +314,8 @@ def test_kernel_log_names_k4(sphere_flat):
     statics = sd.build_patch_statics(cfg, levels_t)
     lines = sd.kernel_log_lines(levels_t, statics, cfg.precision, "cpu", fuse2=True)
     assert "K4 stream_collide_flat plain torch (CPU)" in lines[0]
-    assert "flat_coarse: auto" in lines[0] and "K3 no: parent of level 2" in lines[0]
+    assert "neither finest nor Bouzidi: K4" in lines[0]
+    assert "K3 no: parent of level 2" in lines[0]
     assert "K1 stream_collide" in lines[1] and "K3 fused_pair" in lines[1]
 
 

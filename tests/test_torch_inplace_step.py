@@ -36,7 +36,7 @@ from open_ludwig_tpu.ops.pallas_step import (
 )
 from open_ludwig_tpu.scaling import compute_domain_params
 
-from open_ludwig_torch import convert
+from open_ludwig_torch import convert, memory
 from open_ludwig_torch import solver_dense as sd
 from open_ludwig_torch.core.patch import build_patches
 from open_ludwig_torch.ops import cuda_step, engine, storage
@@ -253,15 +253,24 @@ def test_interface_free_engine_on_interface_level_raises(tmp_path, eng):
                          ids=["63.7M", "37.4M"])
 def test_reference_fused_pair_declines_k5_shapes(interior, store_bf16):
     """make_pallas_step_fused2 returns None at the sweep rows' shapes, so
-    the reference runs them unfused; the port's K5 levels take no K3."""
+    the reference runs them unfused; the card's rule runs them on K5 at a
+    capacity one byte under their A -> B estimate, and a K5 level takes no
+    K3, also under fuse2=True."""
     jp = _jax_level(interior, fields=False)
     kw = dict(KW, inlet_turbulence=0.0)
     assert make_pallas_step_fused2(jp, store_bf16=store_bf16, alias_f=True,
                                    **kw) is None
-    eng, _ = engine.choose_engine("auto", convert.level_from_jax(jp), True, store_bf16)
-    if eng == "inplace":
-        assert (interior, store_bf16) in (((432, 384, 384), True),
-                                          ((320, 304, 384), False))
+    tp = convert.level_from_jax(jp)
+    precision = "bfloat16" if store_bf16 else "float32"
+
+    def need(engs):
+        return memory.case_bytes([tp], engs, precision)["device"]
+
+    (eng, why), = engine.card_engines([tp], need(["k1"]) - 1, need)
+    assert eng == "inplace", why
+    st = {"engine": eng, "engine_why": why, "bouzidi": None, "iface_mm": None}
+    line, = sd.kernel_log_lines([tp], [st], precision, "cpu", fuse2=True)
+    assert "K3 no: K5 runs one sub-step per launch" in line
 
 
 def test_kernel_log_and_memory_report_name_k5(tmp_path):

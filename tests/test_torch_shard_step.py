@@ -11,18 +11,13 @@ neighbours' edge planes) in the PyTorch port, on the CPU.
   two of its 8 virtual CPU devices, on the setup of
   tests/test_patch_pallas.py:561-600, float32 < 1e-5 and bf16 < 2e-3 in
   decoded f (the port's tolerances against the JAX step);
-- the per-level kernel choice with the device count against the JAX
-  dispatch under a mesh (`solver_dense.py:231-322`: x padded to the count,
-  the flat gate's `choose_flat_px` on a device's slab, the 2-D gate's
-  `choose_2d_chunks(..., shard_nx)`), on the bench sphere at 2 and 3
-  devices (3 slabs of level 1's 64 planes pad to 66, 22 a slab, which no
-  flat PX divides: the level runs K1) and on the sweep shapes;
+- the card's kernel rule on the bench sphere at 1, 2 and 3 slabs: K4, K1,
+  K1 on each (the slab extents do not enter it);
 - the port's sharded batch runner on 2 CPU slabs against the JAX
   package's `make_batch_runner_sharded(use_pallas=False)` on 2 virtual
   devices, a 2-level sphere, 2 coarse steps, 2e-5 / 2e-3 (~15 s each).
 """
 
-import contextlib
 import dataclasses
 
 import jax
@@ -40,14 +35,14 @@ from open_ludwig_tpu.core.patch import (
 )
 from open_ludwig_tpu.core.patch import build_patches as build_patches_jax
 from open_ludwig_tpu.geometry import load_mesh
-from open_ludwig_tpu.ops import pallas_step as ps_jax
 from open_ludwig_tpu.ops.pallas_step import make_pallas_step, prepare_pallas_statics
 from open_ludwig_tpu.scaling import compute_domain_params
 
 from open_ludwig_torch import checks, convert
+from open_ludwig_torch import solver_dense as sd
 from open_ludwig_torch.core.patch import build_patches
-from open_ludwig_torch.ops import cuda_step, engine, storage
-from open_ludwig_torch.parallel.patch_shard import slab_bounds
+from open_ludwig_torch.ops import cuda_step, storage
+from open_ludwig_torch.parallel.patch_shard import make_x_mesh, slab_bounds
 
 torch.set_num_threads(1)
 
@@ -239,65 +234,21 @@ def test_two_slabs_match_jax_shard_map_step(store_bf16):
     assert np.abs(v_p.numpy() - np.asarray(vB)[:, :X, :Y, :Z]).max() < tol
 
 
-# ---- the kernel choice with the device count ----
+# ---- the kernel choice on slabs ----
 
-@contextlib.contextmanager
-def _backend_as_tpu():
-    """The JAX patch builder's flat gate asks jax.default_backend(); make it
-    answer as on a TPU while the reference builds its levels."""
-    real = jax.default_backend
-    jax.default_backend = lambda: "tpu"
-    try:
-        yield
-    finally:
-        jax.default_backend = real
-
-
-def _reference_engine(p, store_bf16, n):
-    """The JAX package's per-level choice under a mesh of n devices
-    (solver_dense.py:231-322, Pallas on) on one of its own levels."""
-    if p.flat_yz:
-        return "flat"
-    if sd_jax._pallas_fits(p, store_bf16) and p.padded[0] % n == 0:
-        return "k1"
-    if ps_jax.choose_2d_chunks(p, store_bf16, n, alias_f=True) is not None:
-        return "inplace"
-    return "k1"
-
-
-@pytest.mark.parametrize("n,want", [(1, ["flat", "k1", "k1"]),
-                                    (2, ["flat", "k1", "k1"]),
-                                    (3, ["k1", "k1", "k1"])])
-def test_engine_with_devices_matches_reference_on_bench_sphere(tmp_path, n, want):
-    make_case_sphere(str(tmp_path), "1M", steps=2, ramp_steps=1, output_freq=100,
-                     diag_freq=100, wake_enabled=True, precision="bfloat16")
-    cfg = dataclasses.replace(load_case_config(str(tmp_path)), devices=n)
-    mesh = load_mesh(cfg.stl_path, scale=cfg.stl_scale)
-    params = compute_domain_params(cfg, mesh.min_bounds, mesh.max_bounds)
-    with _backend_as_tpu():
-        ref = build_patches_jax(cfg, mesh, params)
-    port = build_patches(cfg, mesh, params)
-    got = [e for e, _ in engine.level_engines(cfg, port, n)]
-    assert got == [_reference_engine(p, True, n) for p in ref] == want
-    assert [engine.ref_padded(p, n) for p in port] == [r.padded for r in ref]
-
-
-@pytest.mark.parametrize("n", [2, 3, 4])
-@pytest.mark.parametrize("interior", [(432, 384, 384), (320, 304, 384),
-                                      (232, 216, 216), (100, 392, 384)],
-                         ids=["63.7M", "37.4M", "10.8M", "uneven"])
-def test_engine_with_devices_matches_reference_on_sweep_shapes(interior, n):
-    X, Y, Z = interior
-    padded = (-(-X // n) * n, -(-Y // 8) * 8, -(-Z // 128) * 128)
-    jp = PatchLevel(1, 0.1, 0.53, (0, 0, 0), interior, padded, DOMAIN,
-                    np.zeros((1, 1, 1), bool), np.zeros((1, 1, 1), np.float32),
-                    np.ones((1, 1, 1), np.float32))
-    tp = convert.level_from_jax(dataclasses.replace(jp, padded=interior))
-    for bf16 in (False, True):
-        eng, why = engine.choose_engine("auto", tp, True, bf16, n)
-        assert eng == _reference_engine(jp, bf16, n), why
-        assert engine.choose_2d_chunks(tp, bf16, shard_nx=n) == \
-            ps_jax.choose_2d_chunks(jp, bf16, n, alias_f=True)
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_engine_on_slabs_of_bench_sphere(tmp_path, n):
+    """The bench sphere (N=25, 3 levels + wake, bf16) on 1, 2 and 3 slabs:
+    K4, K1, K1 on each.  The TPU's flat gate ran level 1 on K1 on 3 slabs
+    (its 64 planes padded to 66, 22 a slab, which no flat PX divides); the
+    card's rule reads no slab extent."""
+    cfg, _, _, levels = checks.bench_case(str(tmp_path), steps=2, ramp_steps=1)
+    mesh = make_x_mesh(n, "cpu") if n > 1 else None
+    statics = sd.build_patch_statics(cfg, levels, "cpu", x_mesh=mesh)
+    assert [st["engine"] for st in statics] == ["flat", "k1", "k1"]
+    if mesh is not None:
+        assert [st["bounds"] for st in statics] == [
+            slab_bounds(p.interior[0], n) for p in levels]
 
 
 @pytest.mark.parametrize("precision", ["float32", "bfloat16"])
@@ -313,7 +264,6 @@ def test_sharded_runner_matches_jax_sharded_runner(tmp_path, precision):
     from open_ludwig_tpu.ops import storage as storage_jax
     from open_ludwig_tpu.parallel import patch_shard as psj
 
-    from open_ludwig_torch import solver_dense as sd
     from open_ludwig_torch.parallel import patch_shard as ps
 
     make_case_sphere(str(tmp_path), "1M", surface_resolution=8, num_levels=2,
