@@ -254,6 +254,18 @@ Phases, each raising on failure (nothing is caught):
      kernels' executed launches (`ghost_planes.executed_launches`) those
      of the steps and seedings (`ghost_launches`), and
      `cuda_step.LAUNCHES` with the keys it had.
+  16. a force sample as one graph replay and one read-back
+     (`ops.forces.ForceGraphs`) on the finest level of the benchmark's
+     `sphere_re10m.samples` program (`lbm_bench.harness.Program`) after
+     three calls of 10 coarse steps from its warm start: 50 evaluations on
+     the graph path against 50 of the eager, five-copy one (`eager_sums`),
+     Cd/Cl/Cs, the nine sums and both maps bit for bit, one capture and 49
+     replays, one blocking copy a sample against five, `graph.ops` /
+     `graph.steps` unmoved, the host ms a sample on each path (median of
+     50, the card drained before each) and the force graphs' pool; then a
+     call later (the replay reading the state where it lies) and on two
+     copies of the state (the second graph, then past the cap an eager
+     evaluation with one read-back), each bit-equal to the eager path.
 Every run's device-memory estimate (`solver_dense.hbm_total_patches`, the
 card's rule's) must be at or above its allocated peak, and with the card's
 reserve (`memory.card_reserve`) at or above what the run reserved (the
@@ -1275,6 +1287,94 @@ def phase_15(dev, smi, tmp):
     return out
 
 
+FORCE_SUMS16 = ("Cd", "Cl", "Cs", "Fx_pressure", "Fy_pressure", "Fz_pressure",
+                "Fx_viscous", "Fy_viscous", "Fz_viscous", "Mx", "My", "Mz")
+
+
+def phase_16(dev, smi) -> dict:
+    """Phase 16, a force sample as one graph replay (module docstring).
+    Returns its figures for the last JSON line."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from lbm_bench import harness
+    from open_ludwig_torch import spans
+    from open_ludwig_torch.ops import forces
+
+    t_phase = time.time()
+    files = harness.cell_files(harness.load_spec(), "sphere_re10m.samples")
+    prog = harness.Program(files["case_dir"], files["traffic"], dev, say=lambda m: None)
+    states, t = prog.warm(2 ** 31 + 16), prog.t0
+    for _ in range(3):  # eager, capture, replay: the runner's own buffers
+        states = prog.run(states, t, prog.n_call)
+        t += prog.n_call
+    torch.cuda.synchronize(dev)
+    ctx, fine = prog.ctx, states[-1]
+
+    def eager(st):
+        return forces.force_result(forces.eager_sums(st["rho"], st["vel"], ctx), ctx)
+
+    def same(a, b) -> bool:
+        return (all(np.float64(getattr(a, k)).tobytes() == np.float64(getattr(b, k)).tobytes()
+                    for k in FORCE_SUMS16)
+                and a.pressure_map.tobytes() == b.pressure_map.tobytes()
+                and a.shear_map.tobytes() == b.shear_map.tobytes())
+
+    def timed(fn, n=50):
+        """n evaluations, the card drained before each: (results, counters
+        added, median host ms)."""
+        before, out, ms = spans.snapshot(), [], []
+        for _ in range(n):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out.append(fn())
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return out, spans.since(before)["counts"], statistics.median(ms)
+
+    ref, eager_counts, eager_ms = timed(lambda: eager(fine))
+    got, counts, graph_ms = timed(lambda: forces.compute_aerodynamics(fine, ctx))
+    equal = all(same(r, ref[0]) for r in ref + got)
+    # a call later the replay reads the new state where it lies
+    states = prog.run(states, t, prog.n_call)
+    later = spans.snapshot()
+    after = forces.compute_aerodynamics(states[-1], ctx)
+    later = spans.since(later)["counts"]
+    moved = not same(after, ref[0])
+    equal_later = same(after, eager(states[-1]))
+    # two copies of the state: a second graph, then an eager evaluation past the cap
+    caps = []
+    for _ in range(2):
+        copy = {k: states[-1][k].clone() for k in ("rho", "vel")}
+        before = spans.snapshot()
+        r = forces.compute_aerodynamics(copy, ctx)
+        caps.append((spans.since(before)["counts"], same(r, after)))
+    want = {"sync.forces": 50, "forces.capture": 1, "forces.graph": 49}
+    want_caps = [{"sync.forces": 1, "forces.capture": 1}, {"sync.forces": 1, "forces.eager": 1}]
+    out = {"bit_equal": equal and equal_later and all(e for _, e in caps),
+           "forces.capture": counts.get("forces.capture", 0),
+           "forces.graph": counts.get("forces.graph", 0),
+           "syncs_per_sample": counts.get("sync.forces", 0) / 50,
+           "eager_syncs_per_sample": eager_counts.get("sync.forces", 0) / 50,
+           "host_ms_graph": round(graph_ms, 4), "host_ms_eager": round(eager_ms, 4),
+           "pool_bytes": ctx.graphs.pool_bytes, "n_tri": ctx.n_tri}
+    print(f"[16 forces] Re10M finest level {tuple(fine['rho'].shape)}, {ctx.n_tri} "
+          f"triangles: 50 graph evaluations against 50 eager ones bit-equal {equal} "
+          f"(Cd {ref[0].Cd:.6f}, Cl {ref[0].Cl:.6f}) | counters graph path {counts}, "
+          f"eager {eager_counts} | host ms a sample (median of 50, drained): graph "
+          f"{graph_ms:.4f}, eager {eager_ms:.4f} | force graphs' pool "
+          f"{ctx.graphs.pool_bytes / 1e6:.3f} MB | a call later: the forces moved {moved}, "
+          f"bit-equal {equal_later}, counters {later} | copies of the state: "
+          f"{caps} | phase {time.time() - t_phase:.1f} s | card: {smi}", flush=True)
+    require(out["bit_equal"] and moved and counts == want
+            and eager_counts == {"sync.forces": 250}
+            and later == {"sync.forces": 1, "forces.graph": 1}
+            and [c for c, _ in caps] == want_caps and ctx.graphs.pool_bytes > 0,
+            ("force graphs", out, counts, eager_counts, later, caps))
+    return out
+
+
 def phase_3e(dev, smi, kw, ref=None, print_ref=None) -> dict:
     """K1 at the level shapes of the benchmark's cells (`checks.K1_SHAPES`,
     each in its cell's storage type; children with six interface faces,
@@ -2233,6 +2333,9 @@ def main(argv=None) -> int:
         # ---- 15. the ghost planes' kernels ----
         k15 = phase_15(dev, smi, tmp)
 
+        # ---- 16. a force sample as one graph replay ----
+        f16 = phase_16(dev, smi)
+
     # every run's device-memory estimate (the card's rule reads it) at or
     # above its measured peak
     low = [tag for tag, m in mem_rows if m["estimate_gb"] < m["peak_gb"]]
@@ -2312,7 +2415,8 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()},
+        "forces_graph": f16}))
     return 0
 
 

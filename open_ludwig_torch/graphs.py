@@ -104,7 +104,7 @@ def no_host_sync():
         torch.cuda.set_sync_debug_mode(prev)
 
 
-def _pool_reserved(pool, device: torch.device):
+def pool_reserved(pool, device: torch.device):
     """Bytes the caching allocator holds in the graphs' pool `pool` on
     `device` (its segments in `torch.cuda.memory_snapshot`), or None where
     the snapshot does not name segments' pools."""
@@ -178,7 +178,7 @@ class GraphSet:
             ops = device_ops(node_types(graph.raw_cuda_graph()))
             graph.instantiate()
             torch.cuda.synchronize(device)
-            pool = _pool_reserved(self.pool, device)
+            pool = pool_reserved(self.pool, device)
             self.pool_bytes = (pool if pool is not None else self.pool_bytes
                                + max(torch.cuda.memory_reserved(device) - reserved, 0))
         launches = {k: cuda_step.CAPTURED[k] - before[k] for k in before

@@ -20,17 +20,31 @@ each evaluation gathers (rho, vel) at the mapped cells and integrates
 with symmetry doubling of Fx/Fz/My and zeroing of Fy/Mx/Mz for half
 models (reference: src/forces/surface.jl:282-366, :517-526).  A patch
 level's cell indices are flat in the port's unpadded (X, Y, Z) strides.
+
+On a card `compute_aerodynamics` runs the stress map as a CUDA graph
+(`ForceGraphs`, one per `ForceContext`): the same operations in the same
+order, whose last node packs the five results (Fp, Fv, M, p, tau_vec)
+into one float64 vector (`pack`), read back in one blocking copy and
+unpacked on the host (`unpack`; float32 -> float64 -> float32 is exact,
+so every sum and map is bit-equal to the eager evaluation).  A graph is
+keyed on the finest level's rho and vel as the code sees them (`graph_key`:
+device, address, shape, stride, dtype); it reads the caller's tensors at
+their addresses, never a copy.  A context holds at most `ForceGraphs.LIMIT`
+graphs; a caller that hands in new tensors past that is evaluated eagerly,
+still with one read-back.  On the CPU the map runs eagerly and its five
+results come back in five copies (`eager_sums`).
 """
 
 from __future__ import annotations
 
 import logging
-from dataclasses import dataclass
-from typing import Dict, Optional
+from dataclasses import dataclass, field
+from typing import Dict, Hashable, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import graphs
 from ..geometry import TriMesh
 from ..scaling import DomainParams
 from ..spans import count, span
@@ -271,6 +285,14 @@ class ForceContext:
     dn1: torch.Tensor
     dn2: torch.Tensor
     extrapolate: bool = False
+    # the stress map's graphs on a card; a new context (`dataclasses.replace`
+    # too) starts with none, as its constants lie at other addresses
+    graphs: "ForceGraphs" = field(default_factory=lambda: ForceGraphs(), init=False,
+                                  repr=False, compare=False)
+
+    @property
+    def n_tri(self) -> int:
+        return int(self.cell_idx.shape[0])
 
 
 @dataclass
@@ -400,43 +422,145 @@ def _fetch(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
+Sums = Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]
+
+
+def pack(p, tau_vec, Fp, Fv, M) -> torch.Tensor:
+    """The stress map's results as one float64 vector: Fp, Fv, M (3 each),
+    p (n_tri), tau_vec (3 x n_tri, row by row)."""
+    return torch.cat((Fp, Fv, M, p, tau_vec.reshape(-1))).double()
+
+
+def unpack(buf: np.ndarray, n_tri: int) -> Sums:
+    """`pack`'s vector on the host: (Fp, Fv, M) in float64, (p, tau_vec) in
+    float32 as the map computed them."""
+    maps = buf[9:].astype(np.float32)
+    return buf[0:3], buf[3:6], buf[6:9], maps[:n_tri], maps[n_tri:].reshape(3, n_tri)
+
+
+def _packed(rho, vel, ctx: ForceContext) -> torch.Tensor:
+    return pack(*_surface_stresses(rho.reshape(-1), vel.reshape(3, -1), ctx))
+
+
+def eager_sums(rho, vel, ctx: ForceContext) -> Sums:
+    """The stress map's launches (span `forces.map`) and its five results
+    copied to the host one by one (`forces.readback`): (Fp, Fv, M, p,
+    tau_vec), the path on the CPU."""
+    with span("forces.map"):
+        p, tau_vec, Fp, Fv, M = _surface_stresses(rho.reshape(-1), vel.reshape(3, -1), ctx)
+        Fp, Fv, M = Fp.double(), Fv.double(), M.double()
+    with span("forces.readback"):
+        return tuple(_fetch(t) for t in (Fp, Fv, M, p, tau_vec))
+
+
+def graph_key(rho: torch.Tensor, vel: torch.Tensor) -> Hashable:
+    """What a graph of the stress map depends on in its inputs: each
+    tensor's device, address, shape, stride and dtype."""
+    return tuple((t.device, t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+                 for t in (rho, vel))
+
+
+class ForceGraphs:
+    """The stress map of one `ForceContext` as CUDA graphs, by `graph_key`.
+
+    A key's first evaluation runs the map once on a side stream (the
+    warm-up before a capture: library loads, the allocator's blocks),
+    captures it under `graphs.no_host_sync` into a pool the context's
+    graphs share, and replays it (span `forces.capture`, counter
+    `forces.capture`); its later evaluations replay it (`forces.replay`,
+    `forces.graph`).  Past `LIMIT` keys the map runs eagerly (counter
+    `forces.eager`), so a caller that hands in new tensors each time pays
+    no capture a sample.  The replays count apart from the step graphs'
+    (`graphs.GraphSet`): nothing of `graph.ops` / `graph.steps`."""
+
+    LIMIT = 2
+
+    def __init__(self):
+        self.graphs: Dict[Hashable, Tuple[object, torch.Tensor]] = {}
+        self.pool = None
+        self.pool_bytes = 0  # the allocator's segments in the graphs' pool
+
+    def packed(self, rho: torch.Tensor, vel: torch.Tensor, ctx: ForceContext) -> torch.Tensor:
+        """`pack`'s vector of the map on rho and vel, on their device."""
+        key = graph_key(rho, vel)
+        g = self.graphs.get(key)
+        if g is not None:
+            with span("forces.replay"):
+                g[0].replay()
+            count("forces.graph")
+            return g[1]
+        if len(self.graphs) < self.LIMIT:
+            with span("forces.capture"):
+                g = self.graphs[key] = self._capture(rho, vel, ctx)
+                g[0].replay()
+            count("forces.capture")
+            return g[1]
+        count("forces.eager")
+        return _packed(rho, vel, ctx)
+
+    def _capture(self, rho, vel, ctx: ForceContext):
+        """(the captured graph, its output vector)."""
+        dev = rho.device
+        with torch.cuda.device(dev):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                _packed(rho, vel, ctx)
+            torch.cuda.current_stream().wait_stream(side)
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self.pool), graphs.no_host_sync():
+                out = _packed(rho, vel, ctx)
+            self.pool_bytes = graphs.pool_reserved(self.pool, dev) or 0
+        return graph, out
+
+
+def force_result(sums: Sums, ctx: ForceContext) -> ForceResult:
+    """The forces, moments, coefficients and maps of the map's results on
+    the host, with the half model's doubling."""
+    Fp, Fv, M, p, tau_vec = sums
+    if ctx.symmetric:
+        Fp = np.array([2 * Fp[0], 0.0, 2 * Fp[2]])
+        Fv = np.array([2 * Fv[0], 0.0, 2 * Fv[2]])
+        M = np.array([0.0, 2 * M[1], 0.0])
+    F = Fp + Fv
+    res = ForceResult(
+        Fx=F[0], Fy=F[1], Fz=F[2],
+        Fx_pressure=Fp[0], Fy_pressure=Fp[1], Fz_pressure=Fp[2],
+        Fx_viscous=Fv[0], Fy_viscous=Fv[1], Fz_viscous=Fv[2],
+        Mx=M[0], My=M[1], Mz=M[2],
+        pressure_map=p,
+        shear_map=tau_vec,
+    )
+    F_ref = ctx.q_inf * ctx.area_ref
+    M_ref = F_ref * ctx.chord_ref
+    if F_ref > 1e-10:
+        res.Cd = F[0] / F_ref
+        res.Cl = F[2] / F_ref
+        res.Cs = F[1] / F_ref
+    if M_ref > 1e-10:
+        res.Cmx = M[0] / M_ref
+        res.Cmy = M[1] / M_ref
+        res.Cmz = M[2] / M_ref
+    return res
+
+
 def compute_aerodynamics(state: Dict, ctx: ForceContext) -> ForceResult:
     """Map stresses and integrate forces/coefficients for the finest level
     state (reference: src/forces/surface.jl:592-600).  Span `forces`, with
-    `forces.map` (the launches) and `forces.readback` (five copies to the
-    host)."""
+    `forces.map` (the launches; on a card the graph's capture or replay
+    inside it, `ForceGraphs`) and `forces.readback` (the copies to the
+    host: one on a card, five on the CPU)."""
     with span("forces"):
+        rho, vel = state["rho"], state["vel"]
+        if not rho.is_cuda:
+            return force_result(eager_sums(rho, vel, ctx), ctx)
         with span("forces.map"):
-            p, tau_vec, Fp, Fv, M = _surface_stresses(
-                state["rho"].reshape(-1), state["vel"].reshape(3, -1), ctx
-            )
-            Fp, Fv, M = Fp.double(), Fv.double(), M.double()
+            out = ctx.graphs.packed(rho, vel, ctx)
         with span("forces.readback"):
-            Fp, Fv, M, p, tau_vec = (_fetch(t) for t in (Fp, Fv, M, p, tau_vec))
-        if ctx.symmetric:
-            Fp = np.array([2 * Fp[0], 0.0, 2 * Fp[2]])
-            Fv = np.array([2 * Fv[0], 0.0, 2 * Fv[2]])
-            M = np.array([0.0, 2 * M[1], 0.0])
-        F = Fp + Fv
-        res = ForceResult(
-            Fx=F[0], Fy=F[1], Fz=F[2],
-            Fx_pressure=Fp[0], Fy_pressure=Fp[1], Fz_pressure=Fp[2],
-            Fx_viscous=Fv[0], Fy_viscous=Fv[1], Fz_viscous=Fv[2],
-            Mx=M[0], My=M[1], Mz=M[2],
-            pressure_map=p,
-            shear_map=tau_vec,
-        )
-        F_ref = ctx.q_inf * ctx.area_ref
-        M_ref = F_ref * ctx.chord_ref
-        if F_ref > 1e-10:
-            res.Cd = F[0] / F_ref
-            res.Cl = F[2] / F_ref
-            res.Cs = F[1] / F_ref
-        if M_ref > 1e-10:
-            res.Cmx = M[0] / M_ref
-            res.Cmy = M[1] / M_ref
-            res.Cmz = M[2] / M_ref
-        return res
+            sums = unpack(_fetch(out), ctx.n_tri)
+        return force_result(sums, ctx)
 
 
 @dataclass

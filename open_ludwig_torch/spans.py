@@ -31,14 +31,19 @@ Spans (a dot names the parent):
     `graphs.GraphSet.run`: `run.eager`, `run.capture` (with the replay
     that follows it) or `run.replay`;
   - events: `forces` (`ops.forces.compute_aerodynamics` and
-    `compute_aerodynamics_mem`) with `forces.map` (the launches) and
-    `forces.readback` (the copies to the host); `stats`
-    (`diagnostics.compute_flow_stats`) with `stats.reduce` and
+    `compute_aerodynamics_mem`) with `forces.map` (the launches; on a card
+    the stress map's graph inside it, `ops.forces.ForceGraphs`:
+    `forces.capture`, its warm-up, capture and first replay, or
+    `forces.replay`) and `forces.readback` (the copies to the host);
+    `stats` (`diagnostics.compute_flow_stats`) with `stats.reduce` and
     `stats.readback`.
 Counters: `sync.forces` and `sync.stats`, each blocking copy to the host
 those events make (never captured in a graph, so every one is counted);
 `graph.ops` and `graph.steps`, the device operations and the coarse steps
-of each graph replay (`graphs.GraphSet`, nodes read at capture).
+of each graph replay of the batch runners (`graphs.GraphSet`, nodes read
+at capture); `forces.capture`, `forces.graph` and `forces.eager`, each
+stress map on a card by how it ran: captured (and replayed once),
+replayed, or eager past the context's graphs (on the CPU none counts).
 """
 
 from __future__ import annotations
