@@ -72,6 +72,16 @@ class PatchLevel:
         return int(np.prod(self.interior))
 
 
+def box_sponge(lo, interior, dx: float, domain_size, sponge_thickness: float,
+               symmetric: bool) -> np.ndarray:
+    """The (X, Y, Z) float32 sponge of the box of `interior` cells at `lo`.
+    The sponge is a max of 1-D profiles of x, y and z, so the cell centres
+    go in as three broadcastable axis vectors, not three whole-box grids."""
+    px, py, pz = np.ix_(*((lo[a] + np.arange(n) + 0.5) * dx
+                          for a, n in enumerate(interior)))
+    return sponge_for_cells(px, py, pz, domain_size, sponge_thickness, symmetric)
+
+
 def build_patches(
     cfg: CaseConfig, mesh: TriMesh, params: DomainParams
 ) -> List[PatchLevel]:
@@ -172,20 +182,8 @@ def _build_levels(
             obstacle = flood_fill_dense(obstacle, active, 0)
 
         with span("build.sponge"):
-            gx, gy, gz = np.meshgrid(
-                lo[0] + np.arange(interior[0]),
-                lo[1] + np.arange(interior[1]),
-                lo[2] + np.arange(interior[2]),
-                indexing="ij",
-            )
-            sponge = sponge_for_cells(
-                (gx + 0.5) * dx,
-                (gy + 0.5) * dx,
-                (gz + 0.5) * dx,
-                params.domain_size,
-                cfg.sponge_thickness,
-                cfg.symmetric_analysis,
-            )
+            sponge = box_sponge(lo, interior, dx, params.domain_size,
+                                cfg.sponge_thickness, cfg.symmetric_analysis)
         if cfg.wall_model_enabled:
             with span("build.wall_distance"):
                 wall = wall_distance_dense(obstacle, dx)

@@ -69,10 +69,11 @@ def compute_bouzidi(
 
         res = native_raycast(verts, dx, grid_dims)
         if res is not None:
-            qd, trid = res
-            qd = np.where(active_cells[..., None], qd, 0.0)
+            corner, qd, trid = res
+            box = tuple(slice(c, c + e) for c, e in zip(corner, qd.shape))
+            qd = np.where(active_cells[box][..., None], qd, 0.0)
             hit = (qd > 0).any(axis=-1)
-            cg = np.argwhere(hit)
+            cg = np.argwhere(hit) + np.asarray(corner)
             if len(cg) == 0:
                 return _empty()
             return BouzidiData(

@@ -1,8 +1,9 @@
 """ctypes bindings for the native preprocessing kernels, with auto-build.
 
-The port's own copy of `open_ludwig_tpu/native/__init__.py`.  The library
-is compiled from `preprocess.cpp` on first use with the reference's flags
-(g++ -O3 -march=native -shared -fPIC) into `build/native/` beside the
+The port's own copy of `open_ludwig_tpu/native/__init__.py`, with the
+Bouzidi maps returned over the geometry's reach, not the whole grid.  The
+library is compiled from `preprocess.cpp` on first use with the reference's
+flags (g++ -O3 -march=native -shared -fPIC) into `build/native/` beside the
 package (git-ignored); its name carries a hash of the source and the flags,
 so an edited source rebuilds.  Without a toolchain the callers fall back to
 the vectorized numpy implementations in domain/voxelize.py and
@@ -65,9 +66,15 @@ def _load() -> Optional[ctypes.CDLL]:
             ctypes.POINTER(ctypes.c_uint8),
         ]
         lib.voxelize_sat.restype = None
-        lib.bouzidi_raycast.argtypes = [
+        lib.bouzidi_box.argtypes = [
             ctypes.POINTER(ctypes.c_double), ctypes.c_int64, ctypes.c_double,
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int64),
+        ]
+        lib.bouzidi_box.restype = None
+        lib.bouzidi_raycast.argtypes = [
+            ctypes.POINTER(ctypes.c_double), ctypes.c_int64, ctypes.c_double,
+            ctypes.POINTER(ctypes.c_int64),
             ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int32),
         ]
         lib.bouzidi_raycast.restype = None
@@ -99,24 +106,31 @@ def voxelize_sat(verts: np.ndarray, dx: float, dims) -> Optional[np.ndarray]:
 
 def bouzidi_raycast(
     verts: np.ndarray, dx: float, dims
-) -> Optional[Tuple[np.ndarray, np.ndarray]]:
-    """Native Bouzidi q computation: returns dense (X, Y, Z, 27) float32 q and
-    int32 nearest-triangle maps, or None without the library."""
+) -> Optional[Tuple[Tuple[int, int, int], np.ndarray, np.ndarray]]:
+    """Native Bouzidi q over the geometry's reach, the union of the cells the
+    triangles' rays can reach clipped to the grid: returns the box's lower
+    corner and its (EX, EY, EZ, 27) float32 q and int32 nearest-triangle maps,
+    or None without the library."""
     lib = _load()
     if lib is None:
         return None
     v = np.ascontiguousarray(verts, np.float64)
-    n = int(np.prod(dims))
+    v_ptr = v.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+    box = np.zeros(6, np.int64)
+    box_ptr = box.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+    lib.bouzidi_box(
+        v_ptr, ctypes.c_int64(len(v)), ctypes.c_double(dx),
+        ctypes.c_int64(dims[0]), ctypes.c_int64(dims[1]), ctypes.c_int64(dims[2]),
+        box_ptr,
+    )
+    corner = tuple(int(c) for c in box[:3])
+    extent = tuple(int(e) for e in box[3:])
+    n = int(np.prod(extent))
     q = np.zeros(n * 27, np.float32)
     tri = np.full(n * 27, -1, np.int32)
     lib.bouzidi_raycast(
-        v.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
-        ctypes.c_int64(len(v)), ctypes.c_double(dx),
-        ctypes.c_int64(dims[0]), ctypes.c_int64(dims[1]), ctypes.c_int64(dims[2]),
+        v_ptr, ctypes.c_int64(len(v)), ctypes.c_double(dx), box_ptr,
         q.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
         tri.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
     )
-    return (
-        q.reshape(tuple(dims) + (27,)),
-        tri.reshape(tuple(dims) + (27,)),
-    )
+    return corner, q.reshape(extent + (27,)), tri.reshape(extent + (27,))

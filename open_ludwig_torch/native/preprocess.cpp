@@ -1,6 +1,8 @@
 // Native host preprocessing of open_ludwig_torch: the port's own copy of
 // open_ludwig_tpu/native/preprocess.cpp, built by native/__init__.py into
-// build/native/.
+// build/native/.  One difference: the Bouzidi ray cast writes its maps over
+// the geometry's reach only (bouzidi_box), not over the whole grid; every
+// value it writes is the same.
 //
 // The reference does its host-side preprocessing with Julia @threads loops
 // (reference: src/domain_generation.jl:81, src/bouzidi_setup.jl:100); here the
@@ -65,6 +67,24 @@ bool sat_overlap(const V3 t[3], double h) {
     return true;
 }
 
+// The cells a triangle's rays can reach: centers (g + 0.5) * dx within the
+// triangle's box widened by reach, clipped to [clip_lo, clip_hi].  The box
+// and the ray cast both take it from here, so they round alike.
+inline void reach_cells(const double *v, double dx, double reach,
+                        const int64_t clip_lo[3], const int64_t clip_hi[3],
+                        int64_t lo[3], int64_t hi[3]) {
+    for (int a = 0; a < 3; ++a) {
+        double mn = std::min({v[a], v[3 + a], v[6 + a]}) - reach;
+        double mx = std::max({v[a], v[3 + a], v[6 + a]}) + reach;
+        lo[a] = (int64_t)std::floor(mn / dx - 0.5) + 1;
+        hi[a] = (int64_t)std::floor(mx / dx - 0.5);
+        lo[a] = std::max<int64_t>(lo[a], clip_lo[a]);
+        hi[a] = std::min<int64_t>(hi[a], clip_hi[a]);
+    }
+}
+
+inline double bouzidi_reach(double dx) { return dx * std::sqrt(3.0) * 1.0000001; }
+
 }  // namespace
 
 extern "C" {
@@ -102,13 +122,42 @@ void voxelize_sat(const double *verts, int64_t n_tri, double dx,
     }
 }
 
-// Bouzidi ray cast.  verts as above; q_out: (X*Y*Z, 27) float32 initialized
-// to 0; tri_out: (X*Y*Z, 27) int32 initialized to -1.
+// The geometry's reach on an X x Y x Z grid: the union of the cells every
+// triangle's rays can reach.  box_out: lower corner (3) then extent (3); an
+// extent of 0 on every axis when no triangle reaches the grid.
+void bouzidi_box(const double *verts, int64_t n_tri, double dx,
+                 int64_t X, int64_t Y, int64_t Z, int64_t *box_out) {
+    const double reach = bouzidi_reach(dx);
+    const int64_t clip_lo[3] = {0, 0, 0}, clip_hi[3] = {X - 1, Y - 1, Z - 1};
+    int64_t blo[3] = {X, Y, Z}, bhi[3] = {-1, -1, -1};
+    for (int64_t t = 0; t < n_tri; ++t) {
+        int64_t lo[3], hi[3];
+        reach_cells(verts + t * 9, dx, reach, clip_lo, clip_hi, lo, hi);
+        if (lo[0] > hi[0] || lo[1] > hi[1] || lo[2] > hi[2]) continue;
+        for (int a = 0; a < 3; ++a) {
+            blo[a] = std::min(blo[a], lo[a]);
+            bhi[a] = std::max(bhi[a], hi[a]);
+        }
+    }
+    const bool empty = bhi[0] < 0;
+    for (int a = 0; a < 3; ++a) {
+        box_out[a] = empty ? 0 : blo[a];
+        box_out[3 + a] = empty ? 0 : bhi[a] - blo[a] + 1;
+    }
+}
+
+// Bouzidi ray cast over a box of the grid (lower corner box[0:3], extent
+// box[3:6], as bouzidi_box gives it).  verts as above; cell origins stay in
+// the grid's coordinates; q_out: (EX*EY*EZ, 27) float32 initialized to 0;
+// tri_out: (EX*EY*EZ, 27) int32 initialized to -1, both indexed in the box.
 void bouzidi_raycast(const double *verts, int64_t n_tri, double dx,
-                     int64_t X, int64_t Y, int64_t Z,
-                     float *q_out, int32_t *tri_out) {
+                     const int64_t *box, float *q_out, int32_t *tri_out) {
     const double eps = 1e-9;
-    const double reach = dx * std::sqrt(3.0) * 1.0000001;
+    const double reach = bouzidi_reach(dx);
+    const int64_t clip_lo[3] = {box[0], box[1], box[2]};
+    const int64_t clip_hi[3] = {box[0] + box[3] - 1, box[1] + box[4] - 1,
+                                box[2] + box[5] - 1};
+    const int64_t EY = box[4], EZ = box[5];
     // direction table, k = (cx+1) + 3(cy+1) + 9(cz+1)
     double dirs[27][3];
     double norms[27];
@@ -128,27 +177,15 @@ void bouzidi_raycast(const double *verts, int64_t n_tri, double dx,
         const double *v = verts + t * 9;
         V3 v0 = {v[0], v[1], v[2]}, v1 = {v[3], v[4], v[5]}, v2 = {v[6], v[7], v[8]};
         V3 e1 = sub(v1, v0), e2 = sub(v2, v0);
-        double mn[3], mx[3];
-        mn[0] = std::min({v0.x, v1.x, v2.x}) - reach;
-        mx[0] = std::max({v0.x, v1.x, v2.x}) + reach;
-        mn[1] = std::min({v0.y, v1.y, v2.y}) - reach;
-        mx[1] = std::max({v0.y, v1.y, v2.y}) + reach;
-        mn[2] = std::min({v0.z, v1.z, v2.z}) - reach;
-        mx[2] = std::max({v0.z, v1.z, v2.z}) + reach;
-        int64_t lo[3], hi[3], dims[3] = {X, Y, Z};
-        for (int a = 0; a < 3; ++a) {
-            lo[a] = (int64_t)std::floor(mn[a] / dx - 0.5) + 1;
-            hi[a] = (int64_t)std::floor(mx[a] / dx - 0.5);
-            lo[a] = std::max<int64_t>(lo[a], 0);
-            hi[a] = std::min<int64_t>(hi[a], dims[a] - 1);
-        }
+        int64_t lo[3], hi[3];
+        reach_cells(v, dx, reach, clip_lo, clip_hi, lo, hi);
         for (int64_t gx = lo[0]; gx <= hi[0]; ++gx)
             for (int64_t gy = lo[1]; gy <= hi[1]; ++gy)
                 for (int64_t gz = lo[2]; gz <= hi[2]; ++gz) {
                     V3 o = {(gx + 0.5) * dx, (gy + 0.5) * dx, (gz + 0.5) * dx};
                     V3 s = sub(o, v0);
                     V3 qv = cross(s, e1);
-                    int64_t cell = (gx * Y + gy) * Z + gz;
+                    int64_t cell = ((gx - box[0]) * EY + (gy - box[1])) * EZ + (gz - box[2]);
                     for (int k = 0; k < 27; ++k) {
                         if (k == 13) continue;
                         V3 d = {dirs[k][0], dirs[k][1], dirs[k][2]};

@@ -5,7 +5,10 @@ config, geometry, scaling, cases, native, domain, core.patch) so that it
 imports nothing of open_ludwig_tpu.  Each copy must give the reference's
 arrays: booleans, integers, boxes and config fields exactly, floats
 bit for bit.  The Bouzidi q of the port's freshly built native library
-equals the reference's committed one here (float16 q_map, exact).
+equals the reference's committed one here (float16 q_map, exact), also
+where the port's ray cast clips the geometry's reach to the grid; the
+port's per-axis sponge equals the reference's evaluation over whole
+coordinate grids.
 
 Native and numpy preprocessing differ in q by up to 2e-3
 (tests/test_native.py:50), so each domain builder is compared on one path
@@ -31,8 +34,9 @@ from open_ludwig_tpu.domain import builder as builder_jax
 from open_ludwig_tpu.domain import fields as fields_jax
 from open_ludwig_tpu.domain import voxelize as voxelize_jax
 
-from open_ludwig_torch import cases, config, geometry, lattice, native, scaling
-from open_ludwig_torch.core.patch import build_patches
+from open_ludwig_torch import cases, checks, config, geometry, lattice, native, scaling
+from open_ludwig_torch.core import patch as patch_mod
+from open_ludwig_torch.core.patch import box_sponge, build_patches
 from open_ludwig_torch.domain import bouzidi, fields, voxelize
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -195,20 +199,131 @@ def test_sponge_for_cells_equal(symmetric):
     assert np.array_equal(got, want)
 
 
-@pytest.mark.parametrize("use_native", [True, False], ids=["native", "numpy"])
-def test_compute_bouzidi_equal(sphere_grid, use_native):
+# boxes of a 128 x 64 x 64 tunnel (dx = 1/16 of an (8, 4, 4) domain) with a
+# non-zero lo and odd extents, and the sponges each one reaches
+SPONGE_BOXES = {
+    "inlet_lateral_floor": ((1, 1, 3), (17, 21, 13)),
+    "outlet_top_back": ((101, 41, 47), (27, 23, 17)),
+    "whole_tunnel": ((0, 0, 0), (128, 64, 64)),
+    "interior": ((41, 19, 23), (9, 11, 7)),
+}
+
+
+@pytest.mark.parametrize("symmetric", [False, True])
+@pytest.mark.parametrize("box", list(SPONGE_BOXES))
+def test_box_sponge_equals_meshgrid(box, symmetric):
+    """The per-axis sponge of a patch box against the reference's
+    evaluation over the box's whole (X, Y, Z) coordinate grids."""
+    lo, interior = SPONGE_BOXES[box]
+    dx, size = 1.0 / 16, (8.0, 4.0, 4.0)
+    gx, gy, gz = np.meshgrid(*(lo[a] + np.arange(n) for a, n in enumerate(interior)),
+                             indexing="ij")
+    want = fields_jax.sponge_for_cells((gx + 0.5) * dx, (gy + 0.5) * dx, (gz + 0.5) * dx,
+                                       size, 0.1, symmetric)
+    got = box_sponge(np.asarray(lo, np.int64), interior, dx, size, 0.1, symmetric)
+    assert got.shape == want.shape == interior and got.dtype == want.dtype == np.float32
+    assert got.flags.c_contiguous
+    assert np.array_equal(got, want)
+    assert (want > 0).any() == (box != "interior")
+
+
+def _shipped_bouzidi_inputs(root, name, symmetric):
+    """The finest level's compute_bouzidi arguments as the port's builder
+    passes them, for the shipped case CASES/`name` at surface resolution 8."""
+    d = checks.copy_case(name, os.path.join(root, name + ("_half" if symmetric else "")), {
+        "basic.surface_resolution": 8, "basic.num_levels": 2,
+        "advanced.refinement.symmetric_analysis": symmetric,
+        "advanced.high_re.min_coarse_blocks": 1})
+    cfg = config.load_case_config(d)
+    assert cfg.surface_resolution == 8 and cfg.symmetric_analysis == symmetric
+    calls = []
+
+    def spy(verts, dx, dims, active):
+        calls.append((verts, dx, tuple(dims), active))
+        return bouzidi._empty()
+
+    mesh = geometry.load_mesh(cfg.stl_path, scale=cfg.stl_scale)
+    params = scaling.compute_domain_params(cfg, mesh.min_bounds, mesh.max_bounds)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(patch_mod, "compute_bouzidi", spy)
+        build_patches(cfg, mesh, params)
+    return calls[-1]
+
+
+def _block_active(dims, seed):
+    """A partly false active mask by 8-cell blocks, as the blocks builder
+    passes it."""
+    nb = [-(-n // 8) for n in dims]
+    blocks = np.random.default_rng(seed).random(nb) < 0.6
+    full = blocks.repeat(8, 0).repeat(8, 1).repeat(8, 2)
+    return np.ascontiguousarray(full[:dims[0], :dims[1], :dims[2]])
+
+
+# (geometry, whether its reach is clipped by the grid)
+BOUZIDI_CASES = {"sphere": False, "sphere_across_faces": True, "half_model_y0": True,
+                 "sphere_block_active": False, "wing_5deg": None, "cube": None}
+
+
+@pytest.fixture(scope="module")
+def bouzidi_inputs(sphere_grid, tmp_path_factory):
     verts, dx, dims = sphere_grid
+    cache = {}
+
+    def get(name):
+        if name in cache:
+            return cache[name]
+        if name == "sphere":
+            active = np.ones(dims, bool)
+            active[:4] = False  # entries only in active cells
+            cache[name] = (verts, dx, dims, active)
+        elif name == "sphere_across_faces":  # through x = 0 and z = Z
+            moved = geometry.make_icosphere(0.5, center=(0.2, 1.25, 2.4), subdiv=3)
+            cache[name] = (moved, dx, dims, np.ones(dims, bool))
+        elif name == "sphere_block_active":
+            cache[name] = (verts, dx, dims, _block_active(dims, 3))
+        else:  # the shipped cases' finest level; the half model cut at y = 0
+            case = {"half_model_y0": ("sphere_re1m", True)}.get(name, (name, False))
+            cache[name] = _shipped_bouzidi_inputs(str(tmp_path_factory.mktemp("bz")), *case)
+        return cache[name]
+
+    return get
+
+
+@pytest.mark.parametrize("case", list(BOUZIDI_CASES))
+@pytest.mark.parametrize("use_native", [True, False], ids=["native", "numpy"])
+def test_compute_bouzidi_equal(bouzidi_inputs, case, use_native):
+    verts, dx, dims, active = bouzidi_inputs(case)
     if use_native:
         assert native.available() and native_jax.available()
-        assert native.bouzidi_raycast(verts, dx, dims) is not None
-    active = np.ones(dims, bool)
-    active[:4] = False  # entries only in active cells
+        corner, q, tri = native.bouzidi_raycast(verts, dx, dims)
+        ext = q.shape[:3]
+        assert q.shape == tri.shape == ext + (27,)
+        assert all(0 <= c and c + e <= n for c, e, n in zip(corner, ext, dims))
+        clipped = any(c == 0 or c + e == n for c, e, n in zip(corner, ext, dims))
+        if BOUZIDI_CASES[case] is not None:
+            assert clipped == BOUZIDI_CASES[case]
+        if case == "half_model_y0":
+            assert corner[1] == 0
     got = bouzidi.compute_bouzidi(verts, dx, dims, active, use_native=use_native)
     want = bouzidi_jax.compute_bouzidi(verts, dx, dims, active, use_native=use_native)
     assert got.n_boundary_cells == want.n_boundary_cells > 0
     for key in ("cell_gx", "cell_gy", "cell_gz", "q_map", "tri_map"):
         a, b = getattr(got, key), getattr(want, key)
         assert a.dtype == b.dtype and np.array_equal(a, b), key
+
+
+@pytest.mark.parametrize("use_native", [True, False], ids=["native", "numpy"])
+def test_compute_bouzidi_beyond_the_grid(use_native):
+    """A geometry whose reach misses the grid: an empty box, no cells."""
+    verts = geometry.make_icosphere(0.5, center=(1.25, 1.25, 4.0), subdiv=2)
+    dx, dims = 1.0 / 16, (40, 40, 40)
+    if use_native:
+        corner, q, tri = native.bouzidi_raycast(verts, dx, dims)
+        assert q.shape == tri.shape == (0, 0, 0, 27)
+    active = np.ones(dims, bool)
+    got = bouzidi.compute_bouzidi(verts, dx, dims, active, use_native=use_native)
+    want = bouzidi_jax.compute_bouzidi(verts, dx, dims, active, use_native=use_native)
+    assert got.n_boundary_cells == want.n_boundary_cells == 0
 
 
 @pytest.mark.parametrize("method,bouzidi_levels", [("bouzidi", 1), ("bouzidi", 2),
