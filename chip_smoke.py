@@ -76,10 +76,9 @@ Phases, each raising on failure (nothing is caught):
      g-storage) for 400 coarse steps, each level on the card's rule (K4,
      K1, K1), unfused by default: finite CSVs, rho_min in (0.5, 1.5),
      launch counts per coarse step K4 = 1 (level 1), K1 = 2 + 4 (levels 2
-     and 3), K2 = 4 (level 3), and the ghost planes' kernels' 3 + 3 (a
-     child build each of levels 2 and 3's: an extraction and a planes
-     launch) and 2 extractions that seed the carried slabs (the kernels
-     line's launches), the peak allocation beside the estimate the
+     and 3), K2 = 4 (level 3), and the fused ghost build's 3 (a child
+     build each of levels 2 and 3's sub-steps, one launch, no slab seeded;
+     the kernels line's launches), the peak allocation beside the estimate the
      card's rule reads (`[memory]`), and MLUPS-su /
      MLUPS-ref from CUDA events over the post-warm-up intervals; then 10
      coarse steps after 20 of warm-up, one batch-runner call each, timed
@@ -245,15 +244,20 @@ Phases, each raising on failure (nothing is caught):
      offset parent; float32 and bf16), temporal on and off: the endpoint
      slabs bit-equal, float32 planes < 2e-6, bf16 planes the kernel's
      float32 ones rounded and at most one bf16 ulp beyond the float32
-     planes' distance from the plain ones (`checks.bf16_ulps`); each
-     build's time (extraction and planes) from a CUDA graph beside its
-     byte bound and the plain build's, each kernel's and the carry's copy
-     beside theirs; then the Re10M batch runner graphed against
-     its eager loop (`GHOST_CALLS15`), both on the kernels: bit-equal, the
-     builds counted as "planes.kernel" and none as "planes.plain", the
+     planes' distance from the plain ones (`checks.bf16_ulps`), and the
+     fused build (`ghost_planes.build`, one launch from the parent's two
+     states) bit-equal to the two kernels' planes, float32 and in the
+     storage type; each two-kernel build's time (extraction and planes)
+     from a CUDA graph beside its byte bound and the plain build's, each
+     kernel's and the carry's copy beside theirs, and the fused build's
+     beside its own bound; then the Re10M batch runner graphed against
+     its eager loop (`GHOST_CALLS15`) with level 1 on K4 (every build
+     fused) and on K5 (a capacity of one byte: level 2 built by the two
+     kernels from carried slabs): bit-equal, the builds counted as
+     "planes.fused" or "planes.kernel" and none as "planes.plain", the
      kernels' executed launches (`ghost_planes.executed_launches`) those
-     of the steps and seedings (`ghost_launches`), and
-     `cuda_step.LAUNCHES` with the keys it had.
+     of the steps and seedings (`ghost_launches`), `cuda_step.LAUNCHES`
+     with the keys it had, and the K4 and K5 runs' states bit-equal.
   16. a force sample as one graph replay and one read-back
      (`ops.forces.ForceGraphs`) on the finest level of the benchmark's
      `sphere_re10m.samples` program (`lbm_bench.harness.Program`) after
@@ -1166,15 +1170,22 @@ def phase_14(smi, tmp, bench13, per_step, mem_row):
 GHOST_CALLS15 = ((1, 4), (5, 3))  # phase 15's batches of the Re10M runner
 
 
-def ghost_launches(n_levels: int, temporal: bool, steps: int, seeds: int = 1) -> dict:
+def ghost_launches(engines, temporal: bool, steps: int, seeds: int = 1) -> dict:
     """The ghost-plane kernels' launches (`ops.ghost_planes.LAUNCHES`) of
-    `steps` coarse steps of a case of `n_levels` levels whose carried slabs
-    are seeded `seeds` times: a child build a parent sub-step (2^(n-1) - 1
-    a coarse step), each one extraction and one planes launch, and with
-    the temporal blend one extraction a parent level at each seeding."""
-    builds = steps * (2 ** (n_levels - 1) - 1)
-    return {"ghost_extract": builds + (n_levels - 1) * seeds * bool(temporal),
-            "ghost_planes": builds}
+    `steps` coarse steps of a case whose levels run `engines`, its carried
+    slabs seeded `seeds` times: a child build a parent sub-step (2^(l-1)
+    a coarse step under level l), one fused launch under an A -> B parent,
+    and under a K5 parent one extraction and one planes launch, with the
+    temporal blend one more extraction at each seeding."""
+    out = {"ghost_extract": 0, "ghost_planes": 0, "ghost_build": 0}
+    for lvl, eng in enumerate(engines[:-1]):
+        builds = steps * 2 ** lvl
+        if eng == "inplace":
+            out["ghost_extract"] += builds + seeds * bool(temporal)
+            out["ghost_planes"] += builds
+        else:
+            out["ghost_build"] += builds
+    return out
 
 
 def phase_15(dev, smi, tmp):
@@ -1211,6 +1222,10 @@ def phase_15(dev, smi, tmp):
                 carry = ("" if r["carry"] is None else
                          f" | the carry's copy {r['carry']['ms']:.5f} ms, bound "
                          f"{r['carry']['bound_ms']:.5f} ms ({r['carry']['bytes'] / 1e6:.2f} MB)")
+                fz = r["fused"]
+                fused = (f" | the fused build (one launch) bit-equal {r['fused_equal']}, "
+                         f"{fz['ms']:.5f} ms, bound {fz['bound_ms']:.5f} ms "
+                         f"({fz['bytes'] / 1e6:.2f} MB), plain {fz['plain_ms']:.5f} ms")
                 print(f"[15 ghost] {label} L{child.level_id} {tuple(child.interior)} from "
                       f"L{parent.level_id} {'bf16' if bf16 else 'f32 '} "
                       f"{'temporal' if temporal else 'frozen  '}: {r['faces']} faces in "
@@ -1221,8 +1236,8 @@ def phase_15(dev, smi, tmp):
                       f"{r['plain_ms']:.5f} ms; the extraction {r['extract']['ms']:.5f} ms, "
                       f"bound {r['extract']['bound_ms']:.5f}; the planes "
                       f"{r['planes']['ms']:.5f} ms, bound {r['planes']['bound_ms']:.5f}"
-                      f"{carry} | card: {smi}", flush=True)
-                require(r["slabs_equal"] and r["max_abs_err"] < r["tol"]
+                      f"{carry}{fused} | card: {smi}", flush=True)
+                require(r["slabs_equal"] and r["max_abs_err"] < r["tol"] and r["fused_equal"]
                         and (not bf16 or (r["bf16_is_cast"] and r["max_ulps"] <= 1.0)),
                         ("ghost kernels", label, li, temporal, r))
     # the geometries no shipped case has (`checks.GHOST_GEOMS`: a group of
@@ -1235,14 +1250,15 @@ def phase_15(dev, smi, tmp):
             for temporal in (True, False):
                 r = checks.check_ghost_kernels(child, parent, plan, bf16, temporal,
                                                seed=97, device=dev, reps=1)
-                require(r["slabs_equal"] and r["max_abs_err"] < r["tol"]
+                require(r["slabs_equal"] and r["max_abs_err"] < r["tol"] and r["fused_equal"]
                         and (not bf16 or (r["bf16_is_cast"] and r["max_ulps"] <= 1.0)),
                         ("ghost kernels", name, bf16, temporal, r))
                 err = max(err, r["max_abs_err"])
                 ulps = max(ulps, r["max_ulps"] or 0.0)
     print(f"[15 ghost] {', '.join(checks.GHOST_GEOMS)} (f32 and bf16, temporal and "
           f"frozen): slabs bit-equal, f32 planes at most {err:.2e}, bf16 planes at most "
-          f"{ulps:.2f} ulp beyond the f32 planes'", flush=True)
+          f"{ulps:.2f} ulp beyond the f32 planes', the fused build's planes bit-equal",
+          flush=True)
     # the Re10M batch graphed against the eager loop, both on the kernels
     gen = torch.Generator(device=dev)
     w = torch.as_tensor(lat.W, dtype=torch.float32, device=dev).view(27, 1, 1, 1)
@@ -1256,35 +1272,53 @@ def phase_15(dev, smi, tmp):
                                            device=dev)}
                 for p in levels]
 
-    before = spans.snapshot()
-    ghost_planes.reset_launches()
-    finals, replays = [], 0
-    for graphs in (True, False):
-        run = make_batch_runner_dense(cfg, params, levels, statics, graphs=graphs)
-        states = start()
-        for t0, n in GHOST_CALLS15:
-            states = run(states, t0, n)
-        finals.append(states)
-        replays += run.graph_set.replays if run.graph_set is not None else 0
-    torch.cuda.synchronize(dev)
-    counts = spans.since(before)["counts"]
-    got = ghost_planes.executed_launches()
-    # both runners: each seeds its carried slabs once, then runs every step
-    want = ghost_launches(len(levels), cfg.temporal_interpolation,
-                          2 * sum(n for _, n in GHOST_CALLS15), 2)
-    equal = all(torch.equal(a[k], b[k]) for a, b in zip(*finals)
-                for k in ("f", "rho", "vel"))
-    builds = counts.get("planes.kernel", 0)
-    print(f"[15 ghost] Re10M batches {GHOST_CALLS15} graphed against the eager loop: "
-          f"bit-equal {equal}, {replays} replays | child builds issued on the kernels "
-          f"{builds}, plain {counts.get('planes.plain', 0)} | executed launches {got} "
-          f"(want {want}) | launch counters {sorted(cuda_step.LAUNCHES)} | phase "
-          f"{time.time() - t_phase:.1f} s", flush=True)
-    require(equal and replays > 0 and builds > 0 and "planes.plain" not in counts
-            and got == want and set(cuda_step.LAUNCHES) == keys,
-            ("ghost batches", equal, replays, counts, got, want,
-             sorted(cuda_step.LAUNCHES)))
-    return out
+    # level 1 on K4 (the card's rule), then on K5 (a capacity of one byte):
+    # the child of a K4 parent builds fused, of a K5 parent on two kernels
+    k5_statics = build_patch_statics(cfg, levels, dev, capacity=1)
+    finals, two_kernels = [], None
+    for label, sts, want_count in (("K4 parent", statics, "planes.fused"),
+                                   ("K5 parent", k5_statics, "planes.kernel")):
+        engines = [st["engine"] for st in sts]
+        before = spans.snapshot()
+        ghost_planes.reset_launches()
+        ends, replays = [], 0
+        for graphs in (True, False):
+            run = make_batch_runner_dense(cfg, params, levels, sts, graphs=graphs)
+            states = start()
+            for t0, n in GHOST_CALLS15:
+                states = run(states, t0, n)
+            ends.append(states)
+            replays += run.graph_set.replays if run.graph_set is not None else 0
+        torch.cuda.synchronize(dev)
+        counts = spans.since(before)["counts"]
+        got = ghost_planes.executed_launches()
+        # both runners: each seeds its carried slabs once, then runs every step
+        want = ghost_launches(engines, cfg.temporal_interpolation,
+                              2 * sum(n for _, n in GHOST_CALLS15), 2)
+        equal = all(torch.equal(a[k], b[k]) for a, b in zip(*ends)
+                    for k in ("f", "rho", "vel"))
+        builds = counts.get(want_count, 0)
+        finals.append(ends[0])
+        if label == "K5 parent":
+            two_kernels = got
+        print(f"[15 ghost] Re10M batches {GHOST_CALLS15}, engines {engines}, graphed "
+              f"against the eager loop: bit-equal {equal}, {replays} replays | child "
+              f"builds issued fused {counts.get('planes.fused', 0)}, on two kernels "
+              f"{counts.get('planes.kernel', 0)}, plain {counts.get('planes.plain', 0)} | "
+              f"executed launches {got} (want {want}) | launch counters "
+              f"{sorted(cuda_step.LAUNCHES)}", flush=True)
+        require(equal and replays > 0 and builds > 0 and "planes.plain" not in counts
+                and got == want and set(cuda_step.LAUNCHES) == keys
+                and engines[0] == ("inplace" if label == "K5 parent" else "flat"),
+                ("ghost batches", label, equal, replays, counts, got, want,
+                 sorted(cuda_step.LAUNCHES)))
+    # K5 steps as K4 does, bit for bit: the fused builds equal the two kernels'
+    same = all(torch.equal(a[k], b[k]) for a, b in zip(*finals) for k in ("f", "rho", "vel"))
+    print(f"[15 ghost] Re10M under a K4 parent (fused builds) and a K5 parent (two "
+          f"kernels under it): bit-equal {same} | phase {time.time() - t_phase:.1f} s",
+          flush=True)
+    require(same, ("fused against two-kernel builds", same))
+    return out, two_kernels
 
 
 FORCE_SUMS16 = ("Cd", "Cl", "Cs", "Fx_pressure", "Fy_pressure", "Fz_pressure",
@@ -1886,7 +1920,8 @@ def main(argv=None) -> int:
         mem_row("5 bench solve_case", bench.memory_fields(
             dev, base, hbm_total_patches(levels, statics, cfg.precision)))
         steps = cfg.steps
-        want_ghost = ghost_launches(len(levels), cfg.temporal_interpolation, steps)
+        want_ghost = ghost_launches([st["engine"] for st in statics],
+                                    cfg.temporal_interpolation, steps)
         print(f"[5 slice] launches {launches} and the ghost planes' {launches_ghost} "
               f"(want {want_ghost}) over {steps} coarse steps", flush=True)
         require(launches == {**none, **{k: v * steps for k, v in bench_step.items()}},
@@ -2331,7 +2366,7 @@ def main(argv=None) -> int:
         phase_14(smi, tmp, out13[("bench", "bfloat16")], bench_step, mem_row)
 
         # ---- 15. the ghost planes' kernels ----
-        k15 = phase_15(dev, smi, tmp)
+        k15, launches15 = phase_15(dev, smi, tmp)
 
         # ---- 16. a force sample as one graph replay ----
         f16 = phase_16(dev, smi)
@@ -2382,15 +2417,20 @@ def main(argv=None) -> int:
                     got8["bouzidi_ab"], k6[True],
                     max(r["max_abs_err"] for r in k6.values())),
         # no Pallas kernel: the XLA glue of extract_endpoint_slabs and
-        # interface_planes_pair_mm; launches from the slice (phase 5), times
-        # of the Re10M finest level's build
+        # interface_planes_pair_mm; the fused build's launches from the slice
+        # (phase 5), the two kernels' from phase 15's batches under a K5
+        # parent; times of the Re10M finest level's build
+        kernel_line("ghost_build", csrc + "ghost_planes.cu",
+                    "open_ludwig_tpu/ops/dense_step.py:577 + :630 (XLA)",
+                    launches_ghost["ghost_build"], k15[("Re10M", 3, True)]["fused"],
+                    max(r["max_abs_err"] for r in k15.values())),  # = the two kernels'
         kernel_line("ghost_extract", csrc + "ghost_planes.cu",
                     "open_ludwig_tpu/ops/dense_step.py:577 (XLA)",
-                    launches_ghost["ghost_extract"], k15[("Re10M", 3, True)]["extract"],
+                    launches15["ghost_extract"], k15[("Re10M", 3, True)]["extract"],
                     0.0),  # the slabs bit-equal (phase 15 requires it)
         kernel_line("ghost_planes", csrc + "ghost_planes.cu",
                     "open_ludwig_tpu/ops/dense_step.py:630 (XLA)",
-                    launches_ghost["ghost_planes"], k15[("Re10M", 3, True)]["planes"],
+                    launches15["ghost_planes"], k15[("Re10M", 3, True)]["planes"],
                     max(r["max_abs_err"] for r in k15.values())),
     ]
     # the sharded forms: launches from phase 10's runs (K1, K4 and K2 on the

@@ -527,18 +527,23 @@ def ghost_build_bytes(plan: Dict, store_bf16: bool, nw: int) -> Dict[str, int]:
     (old and new with the temporal blend, nw = 2) and the planes written,
     (nw, 27, A, B) a face in the storage type; "carry", with the blend the
     graphed runner's copy of the new slabs into the old (read and
-    written).  The build's bound is "extract" + "planes": the carry is a
-    cost of this schedule, which a fold into the kernels could spare, not
-    of the planes."""
+    written).  The two-kernel build's bound is "extract" + "planes": the
+    carry is a cost of that schedule, not of the planes.  "fused", the
+    one-launch build (`ops.ghost_planes.build`): the parent's two planes a
+    face read once from each state it reads (old and new with the blend,
+    the new alone without) and the planes written."""
     fb = 2 if store_bf16 else 4
-    out = {"extract": 0, "planes": 0, "carry": 0}
+    out = {"extract": 0, "planes": 0, "carry": 0, "fused": 0}
     for g in plan["groups"]:
         t0, t1 = [a for a in range(3) if a != g["axis"]]
         nf = len(g["faces"])
         slab = nf * 31 * g["sizes"][t0] * g["sizes"][t1] * 4
-        out["extract"] += 2 * nf * (27 * fb + 16) * g["sizes"][t0] * g["sizes"][t1] + slab
-        out["planes"] += nw * slab + nf * nw * 27 * g["A"] * g["B"] * fb
+        window = 2 * nf * (27 * fb + 16) * g["sizes"][t0] * g["sizes"][t1]
+        plane = nf * nw * 27 * g["A"] * g["B"] * fb
+        out["extract"] += window + slab
+        out["planes"] += nw * slab + plane
         out["carry"] += 2 * slab if nw == 2 else 0
+        out["fused"] += nw * window + plane
     return out
 
 
@@ -554,14 +559,17 @@ def check_ghost_kernels(child: PatchLevel, parent: PatchLevel, plan: Dict,
     ("bf16_is_cast"), and against the plain ones at most one bf16 ulp
     beyond the float32 planes' distance ("max_ulps", `bf16_ulps`), with the
     distance alone in ulps ("raw_ulps") and the share of bf16 values that
-    differ ("bf16_diff_frac"); None on float32.  Then, replayed from CUDA
-    graphs, each part of a child build as the scheduler runs it, with its
-    bytes (`ghost_build_bytes`) and bound: "build" the new state's
-    extraction and the planes from the carried old slabs (and "ms",
-    "bytes", "bound_ms" and "plain_ms", the plain versions' same build, at
-    the top level), "extract" and "planes" each kernel alone beside its
-    plain version, and with `use_temporal` "carry" the carry's one copy
-    (None without)."""
+    differ ("bf16_diff_frac"); None on float32.  The fused build
+    (`ghost_planes.build`) from the same two states: its float32 planes and
+    its planes in the storage type equal the two kernels' bit for bit
+    ("fused_equal").  Then, replayed from CUDA graphs, each part of a child
+    build as the scheduler runs it, with its bytes (`ghost_build_bytes`)
+    and bound: "build" the two-kernel build, the new state's extraction and
+    the planes from the carried old slabs (and "ms", "bytes", "bound_ms"
+    and "plain_ms", the plain versions' same build, at the top level),
+    "extract" and "planes" each kernel alone beside its plain version, with
+    `use_temporal` "carry" the carry's one copy (None without), and
+    "fused" the one-launch build from the two states."""
     from .ops import ghost_planes
     from .solver_dense import FixedBuffers
 
@@ -603,6 +611,15 @@ def check_ghost_kernels(child: PatchLevel, parent: PatchLevel, plan: Dict,
         frac = (sum(int((got[fc] != want[fc]).sum()) for fc in want)
                 / sum(want[fc].numel() for fc in want))
         cast = all(torch.equal(got[fc], got32[fc].to(dt)) for fc in want)
+    o_st = old if use_temporal else None
+
+    def fused(out_dtype):
+        return ghost_planes.build(plan, child, parent, o_st, new, use_temporal,
+                                  store_bf16, out_dtype)
+
+    fused_equal = all(torch.equal(a[fc], b[fc]) for a, b in (
+        (fused(torch.float32), got32),
+        (fused(dt), got32 if dt == torch.float32 else got)) for fc in want32)
 
     carried = ghost_planes.extract_slabs(plan, old)
     carried_p = extract_endpoint_slabs(plan, old)
@@ -627,10 +644,14 @@ def check_ghost_kernels(child: PatchLevel, parent: PatchLevel, plan: Dict,
                        nbytes["planes"]),
         "carry": (part(lambda: FixedBuffers.carry(carried, k_new), None, nbytes["carry"])
                   if use_temporal else None),
+        "fused": part(lambda: fused(dt),
+                      lambda: plain(extract_endpoint_slabs(plan, old) if use_temporal
+                                    else None, extract_endpoint_slabs(plan, new), dt),
+                      nbytes["fused"]),
     }
     return {"slabs_equal": equal, "max_abs_err": err, "tol": PLANE_TOL,
             "max_ulps": ulps, "raw_ulps": raw, "bf16_diff_frac": frac,
-            "bf16_is_cast": cast,
+            "bf16_is_cast": cast, "fused_equal": fused_equal,
             "faces": len(want32), "groups": len(plan["groups"]),
             **parts["build"], **parts}
 

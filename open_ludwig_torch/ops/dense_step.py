@@ -412,6 +412,53 @@ def iface_taps(grp: Dict) -> Dict[str, np.ndarray]:
     return out
 
 
+# The fused build's tiles (`ops/ghost_planes.build`), (rows along A,
+# columns along B) of a face's extended cells (`ext_taps`): three blocks a
+# tile, one a normal class of the directions, a thread a cell.  A face
+# takes 8 x 16 (for x and y faces 16 along the parent's rows of z); the z
+# faces, whose staged values cost a 32-byte sector each, take 16 x 16 in
+# two rounds (less halo a cell) where their 8 x 16 tiles alone number one
+# a SM of an H100 (132).
+BUILD_TILE, BUILD_TILE_Z = (8, 16), (16, 16)
+H100_SMS = 132
+
+
+def _tiles_of(g: Dict, tile: Tuple[int, int]) -> int:
+    return len(g["faces"]) * -(-(g["A"] + 2) // tile[0]) * -(-(g["B"] + 2) // tile[1])
+
+
+def build_blocks(groups, tiles) -> int:
+    """The blocks of a fused build of `groups` (a plan's) in `tiles`, one a
+    group: three a tile."""
+    return 3 * sum(_tiles_of(g, t) for g, t in zip(groups, tiles))
+
+
+def build_tiles(groups) -> List[Tuple[int, int]]:
+    """The fused build's tile of each of a plan's `groups` (see `BUILD_TILE`)."""
+    return [BUILD_TILE_Z if g["axis"] == 2 and _tiles_of(g, BUILD_TILE) >= H100_SMS
+            else BUILD_TILE for g in groups]
+
+
+def ext_taps(col: np.ndarray, w: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """A tap table (3, n, 2) (`iface_taps`) by extended row: (n + 2, 2) columns
+    and weights.  Row i of class c + 1 is row i + 1 - c of the 2x upsample
+    before the window shift (UA3 / UB3 are its rows [2 - (c + 1), ...)), so
+    the extended rows are class 2's n rows and class 0's last two."""
+    return (np.concatenate([col[2], col[0][-2:]]).astype(np.int32),
+            np.concatenate([w[2], w[0][-2:]]).astype(np.float32))
+
+
+def tile_windows(col: np.ndarray, rows: int) -> np.ndarray:
+    """Per tile of `rows` extended rows of a table `col` (n + 2, 2)
+    (`ext_taps`), the slab columns they read, clamp included: (tiles, 2)
+    int32, the first column and the count."""
+    out = []
+    for i in range(0, col.shape[0], rows):
+        c = col[i:i + rows]
+        out.append((int(c.min()), int(c.max()) - int(c.min()) + 1))
+    return np.asarray(out, np.int32).reshape(-1, 2)
+
+
 def _class_of(axis: int) -> np.ndarray:
     """Per direction k, the class c + 1 of its component along `axis`."""
     return np.asarray([(lat.C_X, lat.C_Y, lat.C_Z)[axis][k] + 1 for k in range(27)])
@@ -425,9 +472,18 @@ def iface_mm_plan_to(plan: Optional[Dict], device) -> Optional[Dict]:
                                       lerp, as parent indices along the normal
       "w_lo/w_hi"  float32 (nf,)      their weights
       "taps"       `iface_taps` as tensors, for the ghost planes' CUDA
-                                      kernel (`ops/ghost_planes.py`)
+                                      kernels (`ops/ghost_planes.py`)
+      "ext"        the tap tables by extended row (`ext_taps`), for the
+                                      fused build: "row_a" int32 and "w_a"
+                                      float32 (A + 2, 2), "row_b", "w_b"
+                                      (B + 2, 2)
+      "win_a/win_b" int32 (tiles, 2)  per tile of the fused build along A
+                                      and B, its staged window of slab
+                                      columns (`tile_windows`)
 
-    and, off a card (`iface_mm_matrices`: a card runs the kernel, and its
+    with each group's "tile" (`build_tiles`), the plan's "threads" (a
+    block's) and "tile_cells", the largest staged window's cells; and, off
+    a card (`iface_mm_matrices`: a card runs the kernel, and its
     checks add them where they run the plain version)
 
       "UA", "UBt"  float32 (27, A, wa), (27, wb, B): UA3 and UB3 transposed,
@@ -445,21 +501,33 @@ def iface_mm_plan_to(plan: Optional[Dict], device) -> Optional[Dict]:
             "cz": cv.view(3, 1, 1, 1, 1),
             "W": torch.as_tensor(lat.W, device=device).view(3, 3, 3, 1, 1)}
     groups = []
-    for grp in plan["groups"]:
+    tiles = build_tiles(plan["groups"])
+    cells = 0
+    for grp, (ta, tb) in zip(plan["groups"], tiles):
         ax = grp["axis"]
         idx = [st3[ax] + i for st3, (i0, i1, _) in zip(grp["starts"], grp["lerp_idx"])
                for i in (i0, i1)]
         wf = np.asarray([w for _, _, w in grp["lerp_idx"]], np.float32)
+        taps = iface_taps(grp)
+        row_a, w_a = ext_taps(taps["col_a"], taps["w_a"])
+        row_b, w_b = ext_taps(taps["col_b"], taps["w_b"])
+        win_a, win_b = tile_windows(row_a, ta), tile_windows(row_b, tb)
+        cells = max(cells, int(win_a[:, 1].max()) * int(win_b[:, 1].max()))
+        ext = {"row_a": row_a, "w_a": w_a, "row_b": row_b, "w_b": w_b}
         groups.append({
             **grp,
             "idx_list": tuple(int(i) for i in idx),
             "idx": torch.as_tensor(idx, dtype=torch.int64, device=device),
             "w_lo": torch.as_tensor(1.0 - wf, device=device),
             "w_hi": torch.as_tensor(wf, device=device),
-            "taps": {key: torch.as_tensor(v, device=device)
-                     for key, v in iface_taps(grp).items()},
+            "taps": {key: torch.as_tensor(v, device=device) for key, v in taps.items()},
+            "ext": {key: torch.as_tensor(v, device=device) for key, v in ext.items()},
+            "tile": (ta, tb),
+            "win_a": torch.as_tensor(win_a, device=device),
+            "win_b": torch.as_tensor(win_b, device=device),
         })
-    plan = {**plan, "groups": groups, **tail}
+    plan = {**plan, "groups": groups, "tile_cells": cells,
+            "threads": min(min(ta * tb for ta, tb in tiles), 128), **tail}
     return plan if torch.device(device).type == "cuda" else iface_mm_matrices(plan)
 
 

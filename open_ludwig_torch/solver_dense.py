@@ -34,15 +34,20 @@ finest "k1" level runs each pair of sub-steps as one K3 launch
 (`ops.cuda_step.fused_pair`: step A, A's Bouzidi correction, step B) and
 one K2 launch after it; a single-level case runs pairs of coarse steps so
 (`coarse_step.pair_step`), an odd batch taking one plain step first.
-A child build of the ghost planes is two CUDA kernels on the card
-(`ops.ghost_planes`: the endpoint slabs' extraction, then the planes; the
-graphed runner's carry adds one copy) and the plain versions on the CPU
-(`ghost_slabs`, `ghost_planes_of`).  States are {f: (27, X, Y, Z), rho,
-vel} in the storage dtype (float32 f or bf16 g = f - w) on every level, and a
-parent level's also "_ifsl", its carried slabs.  K1, K3 and K4 write
-fresh buffers (A -> B); a parent's pre-step state has no consumer after
-its launch (its old slabs are carried, or taken before the launch on an
-unseeded call, which a K5 parent, writing f in place, needs).
+A child build of the ghost planes on the card, where its parent steps A
+-> B (K1 or K4) on one card, is one CUDA kernel that reads the parent's
+state before and after the step (`ghost_build_of`, `ops.ghost_planes.
+build`): K1 and K4 write fresh buffers, so the pre-step state still lies
+in its own until the child's build has read it, and no endpoint slab is
+kept or carried.  Under a K5 parent (f updated in place), under the x mesh
+(slabs assembled from the x slabs) and on the CPU the parent's endpoint
+slabs are extracted after each step and carried under its state's "_ifsl"
+key as the next step's old ones, taken before the launch on an unseeded
+call: on the card two kernels (`ops.ghost_planes`: the extraction, then
+the planes; the graphed runner's carry adds one copy), on the CPU the
+plain versions (`ghost_slabs`, `ghost_planes_of`).  States are {f: (27, X,
+Y, Z), rho, vel} in the storage dtype (float32 f or bf16 g = f - w) on
+every level, and a carrying parent level's also "_ifsl".
 
 With `x_mesh` (`parallel.patch_shard.XMesh`) every level is cut along x
 over the mesh's devices, the JAX package's `mesh=` path: statics from
@@ -200,11 +205,15 @@ def kernel_log_lines(patches: List[PatchLevel], statics: List[Dict],
             shape = (f" ({c['threads']} threads a block, launch bounds for "
                      f"{c['min_blocks']} a SM)")
         mm = st["iface_mm"]
+        if dev.type != "cuda":
+            build = ", plain torch (CPU)"
+        elif statics[li - 1]["engine"] == "inplace":
+            build = ", 2 CUDA kernels a child build and the carry (a K5 parent)"
+        else:
+            build = ", 1 CUDA kernel a child build (the parent's two states)"
         ghost = (f" | ghost planes: einsum plan, {len(mm['groups'])} groups, "
                  + ("bf16 g-space" if store.startswith("bf16") else "f32 f-space")
-                 + (", 2 CUDA kernels a child build" if dev.type == "cuda"
-                    else ", plain torch (CPU)")
-                 if mm is not None else "")
+                 + build if mm is not None else "")
         lines.append(
             f"  [engine] level {p.level_id}: {'x'.join(map(str, p.interior))} "
             f"cells, {2 ** (p.level_id - 1)} sub-step(s)/coarse step | "
@@ -227,10 +236,11 @@ def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
     schedule; off by default) the sub-step pairs of a finest "k1" level are
     K3 launches instead.  `coarse_step.pair_step(
     states, t)` runs coarse steps t and t + 1 of such a single-level case
-    as one K3 + K2 (None otherwise).  `coarse_step.seed_slabs(states)`
-    stores each parent level's endpoint slabs under "_ifsl" (idempotent);
-    a parent state without them has its old slabs extracted before its
-    launch.  With `x_mesh` the states and statics are per slab, and the
+    as one K3 + K2 (None otherwise).  A child's build is fused where its
+    parent steps A -> B on one card (module docstring);
+    `coarse_step.seed_slabs(states)` stores each other parent level's
+    endpoint slabs under "_ifsl" (idempotent); such a parent state without
+    them has its old slabs extracted before its launch.  With `x_mesh` the states and statics are per slab, and the
     sub-step, the endpoint slabs and the child's planes are the slabs'
     (`parallel.patch_shard.slab_schedule`), fuse2 off as in the JAX
     package under a mesh; the schedule is the same.
@@ -239,8 +249,8 @@ def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
     kernel reads its inlet speed and seed from `fixed.record` (a
     `solver.StepRecord` at the coarse step's t, advanced by the step:
     by 1, by 2 in `pair_step`), writes into the partner buffers of its
-    inputs (`fixed.out_of`), and a parent's new endpoint slabs are copied
-    into its carried ones after its child's planes are built
+    inputs (`fixed.out_of`), and a carrying parent's new endpoint slabs are
+    copied into its carried ones after its child's planes are built
     (`fixed.carry`): the same launches on the same values at addresses that
     stay fixed from step to step."""
     n_levels = len(patches)
@@ -300,6 +310,13 @@ def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
             out_of=out_of)
         fuse2 = False
     fuse_last = bool(fuse2) and engs[last] == "k1"
+    # a parent stepping A -> B on one card keeps its pre-step state through
+    # the child's build: the build reads both states in one launch
+    ab_parent = [x_mesh is None and e != "inplace" for e in engs]
+
+    def builds_fused(lvl: int, st: Dict) -> bool:
+        """Whether the child of level `lvl` (state `st`) builds fused."""
+        return ab_parent[lvl] and on_card(st["f"])
 
     def fused(states: List[Dict], lvl: int, u, seeds, if_a, if_b) -> None:
         """Sub-steps A and B of level `lvl` as one K3, then B's K2."""
@@ -338,26 +355,34 @@ def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
             child's two sub-steps."""
             patch = patches[lvl]
             child = patches[lvl + 1] if lvl + 1 < n_levels else None
+            pre = states[lvl]
+            one_launch = child is not None and builds_fused(lvl, pre)
             old_sl = None
-            if child is not None and use_temporal:
-                old_sl = states[lvl].get("_ifsl")
+            if child is not None and use_temporal and not one_launch:
+                old_sl = pre.get("_ifsl")
                 if old_sl is None:
                     # an unseeded call: the old slabs before the launch
                     # (a K5 parent overwrites f)
-                    old_sl = endpoint_slabs(lvl, states[lvl])
-            # the pre-step state has no consumer after the launch
-            states[lvl] = level_step(states[lvl], lvl, *sub_step(t, lvl, k), iface)
+                    old_sl = endpoint_slabs(lvl, pre)
+            states[lvl] = level_step(pre, lvl, *sub_step(t, lvl, k), iface)
             if child is None:
                 return
-            new_sl = endpoint_slabs(lvl, states[lvl])
             # the child's planes in its storage type: bf16 g, or float32 f
             c_dtype = f_dtype(states[lvl + 1])
-            planes = ghost_planes_of(plans[lvl + 1], child, patch, old_sl, new_sl,
-                                     use_temporal, c_dtype)
-            if use_temporal:
-                # the planes have read the old slabs: the new ones are carried
-                states[lvl]["_ifsl"] = (new_sl if fixed is None
-                                        else fixed.carry(old_sl, new_sl))
+            if one_launch:
+                # the pre-step state, still in its buffer, is the old one
+                planes = ghost_build_of(plans[lvl + 1], child, patch,
+                                        pre if use_temporal else None, states[lvl],
+                                        use_temporal, c_dtype)
+            else:
+                new_sl = endpoint_slabs(lvl, states[lvl])
+                planes = ghost_planes_of(plans[lvl + 1], child, patch, old_sl, new_sl,
+                                         use_temporal, c_dtype)
+                if use_temporal:
+                    # the planes have read the old slabs: the new ones are carried
+                    states[lvl]["_ifsl"] = (new_sl if fixed is None
+                                            else fixed.carry(old_sl, new_sl))
+            del pre
             if_a, if_b = cut_planes(lvl + 1, planes)
             if fuse_last and lvl + 1 == last:
                 (ua, sa), (ub, sb) = (sub_step(t, last, 2 * k),
@@ -377,13 +402,14 @@ def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
         return list(states)
 
     def seed_slabs(states: List[Dict]) -> List[Dict]:
-        """The states with "_ifsl", the endpoint slabs of each parent level,
-        where it is missing (reference: solver_dense.py:573-590): the batch
-        runner and `runner.solve_case` run it on their first states."""
+        """The states with "_ifsl", the endpoint slabs of each parent level
+        that carries them, where it is missing (reference: solver_dense.py:
+        573-590): the batch runner and `runner.solve_case` run it on their
+        first states.  A parent whose child builds fused carries none."""
         states = list(states)
         if use_temporal:
             for lvl in range(n_levels - 1):
-                if "_ifsl" not in states[lvl]:
+                if "_ifsl" not in states[lvl] and not builds_fused(lvl, states[lvl]):
                     states[lvl] = {**states[lvl],
                                    "_ifsl": endpoint_slabs(lvl, states[lvl])}
         return states
@@ -412,14 +438,33 @@ def make_coarse_step_dense(cfg: CaseConfig, params: DomainParams,
     return coarse_step
 
 
+def on_card(t: torch.Tensor) -> bool:
+    """Whether the ghost planes of a parent tensor `t` take the card's
+    kernels (`ghost_slabs`, `ghost_planes_of`, the fused build)."""
+    return t.is_cuda
+
+
 def ghost_slabs(plan: Dict, state: Dict) -> List[Dict]:
     """A parent state's endpoint slabs for its child's planes: one launch of
     the extraction kernel on the card (`ghost_planes.extract_slabs`, the
     slabs views of one buffer), the plain `extract_endpoint_slabs` on the
     CPU."""
-    if state["f"].is_cuda:
+    if on_card(state["f"]):
         return ghost_planes.extract_slabs(plan, state)
     return extract_endpoint_slabs(plan, state)
+
+
+def ghost_build_of(plan: Dict, child: PatchLevel, parent: PatchLevel,
+                   old: Optional[Dict], new: Dict, use_temporal: bool,
+                   dtype: torch.dtype) -> Dict[int, torch.Tensor]:
+    """A child build on a card from the parent's states before (`old`, read
+    with the temporal blend only) and after (`new`) its step, in one launch
+    (`ghost_planes.build`): the planes `ghost_planes_of` makes from their
+    endpoint slabs, bit for bit, in the child's storage type `dtype`.
+    Counts the build as "planes.fused" (`spans.COUNTS`) at this call."""
+    count("planes.fused")
+    return ghost_planes.build(plan, child, parent, old, new, use_temporal,
+                              g_shifted=dtype == torch.bfloat16, out_dtype=dtype)
 
 
 def ghost_planes_of(plan: Dict, child: PatchLevel, parent: PatchLevel,
@@ -433,7 +478,7 @@ def ghost_planes_of(plan: Dict, child: PatchLevel, parent: PatchLevel,
     "planes.kernel" or "planes.plain" (`spans.COUNTS`) at this call, so a
     captured build counts once and its replays do not."""
     kw = dict(g_shifted=dtype == torch.bfloat16, out_dtype=dtype)
-    if new_sl[0]["f"].is_cuda:
+    if on_card(new_sl[0]["f"]):
         count("planes.kernel")
         return ghost_planes.planes(plan, child, parent, old_sl, new_sl, use_temporal,
                                    **kw)
